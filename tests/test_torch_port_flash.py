@@ -111,3 +111,12 @@ def test_flash_wrapper_checks():
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa.flash_attention(meta, meta, meta)
 
+
+
+@pytest.mark.parametrize("static_max", [True, False])
+def test_flash_d512_fp32_matches_jax(static_max):
+    """The VAE mid-block's case: one head, d = 512, fp32, a ragged 600 keys
+    (the JAX side's blocks as its ``_pick_blocks`` would shrink them)."""
+    got, want = _both(_qkv(14, 2, 600, 1, 512, torch.float32), torch.float32, static_max,
+                      jax_blocks=(256, 256, 256))
+    np.testing.assert_allclose(got, want, atol=TOL[torch.float32], rtol=0)

@@ -134,11 +134,71 @@ def test_state_dict_survives_jax_conversion_and_back(tiny):
 
 
 def test_unported_options_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="next kernel slice"):
-        SVDUNet(SVDUNetConfig(fused_groupnorm=True), device="meta")
     for kw in ({"solver": "heun"}, {"deepcache_interval": 2}):
         with pytest.raises(NotImplementedError):
             StableVideoUNet(SVDUNetConfig.tiny(), device="cpu", **kw)
+    # VDPP_GN_FUSED=1 is ported; a UNet built without it cannot run under it
     monkeypatch.setenv("VDPP_GN_FUSED", "1")
-    with pytest.raises(NotImplementedError, match="next kernel slice"):
-        StableVideoUNet(SVDUNetConfig.tiny(), device="cpu")
+    model = StableVideoUNet(SVDUNetConfig.tiny(), device="cpu")
+    assert model.config.fused_groupnorm
+    cond = make_conditioning(torch.zeros(1, 1, 48), torch.zeros(1, 3, 8, 8, 4), 3)
+    with pytest.raises(ValueError, match="fused_groupnorm"):
+        model.step(SVDUNet(SVDUNetConfig.tiny(), device="cpu"), torch.zeros(1, 3, 8, 8, 4), 0,
+                   cond)
+
+
+def test_kernel_switches_match_jax(tiny, monkeypatch):
+    """``VDPP_GN_FUSED=1`` and ``VDPP_TEMPORAL_ATTN=pallas`` on both sides:
+    the JAX package's fused GroupNorm and frame-attention kernels (interpret
+    mode, in a freshly traced model, so no jit cache pins the default forms)
+    against the port's routes (their plain versions on the CPU). Both sides
+    count their kernel-route calls: every GroupNorm+SiLU pair (4 per ResBlock
+    x 8 ResBlocks + the head) and every temporal attention (4) of a
+    ``tiny()`` forward at 16x32 (the flash route too). The wrappers, built
+    under the switches, give the UNet its config (the CFG Euler step around
+    the forward is held to JAX above)."""
+    import dataclasses
+
+    import vdpp_tpu.ops.norm_kernel as jnk
+    import vdpp_tpu.ops.temporal_attention_kernel as jtak
+
+    from vdpp_tpu_torch.ops import attention as tattn
+    from vdpp_tpu_torch.ops import normalization as tnorm
+
+    params, unet = tiny
+    calls = {"jax_gn": 0, "jax_frame": 0, "gn": 0, "frame": 0}
+
+    def spy(module, name, key):
+        real = getattr(module, name)
+
+        def counted(*args, **kwargs):
+            calls[key] += 1
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, counted)
+
+    spy(jnk, "group_norm_silu_fused", "jax_gn")
+    spy(jtak, "frame_attention", "jax_frame")
+    spy(tnorm, "group_norm_silu_fused", "gn")
+    spy(tattn, "frame_attention", "frame")
+    monkeypatch.setenv("VDPP_GN_FUSED", "1")
+    monkeypatch.setenv("VDPP_TEMPORAL_ATTN", "pallas")
+
+    jmodel = JaxSVD(JaxConfig.tiny(), num_steps=4)
+    model = StableVideoUNet(SVDUNetConfig.tiny(), num_steps=4, device="cpu")
+    assert jmodel.config.fused_groupnorm and model.config.fused_groupnorm
+    assert jmodel.config == dataclasses.replace(JaxConfig.tiny(), fused_groupnorm=True)
+    funet = SVDUNet(model.config, device="cpu")
+    funet.load_state_dict(unet.state_dict())
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((1, 3, 16, 32, 8)).astype(np.float32)
+    ctx = rng.standard_normal((1, 1, 48)).astype(np.float32)
+    ids = np.array([[5.0, 127.0, 0.02]], np.float32)
+    t = np.float32(0.25 * np.log(80.0))
+    want = jax.jit(JaxUNet(jmodel.config).apply)(params, jnp.asarray(x), t, jnp.asarray(ctx),
+                                                 jnp.asarray(ids))
+    with torch.inference_mode():
+        got = funet(torch.from_numpy(x), float(t), torch.from_numpy(ctx), torch.from_numpy(ids))
+    _assert_close(got, want)
+    assert calls == {"jax_gn": 33, "jax_frame": 4, "gn": 33, "frame": 4}

@@ -71,8 +71,11 @@ def test_group_norm(shape, groups):
 
 
 def test_group_norm_fused_raises():
-    with pytest.raises(NotImplementedError, match="next kernel slice"):
-        tnorm.group_norm_silu(torch.zeros(1, 4, 8), tnorm.Norm(8), 4, fused=True)
+    """The fused route refuses what the reference refuses: channels that
+    the groups do not divide (the fused kernel's own checks are in
+    tests/test_torch_port_norm_kernel.py)."""
+    with pytest.raises(ValueError, match="not divisible"):
+        tnorm.group_norm_silu(torch.zeros(1, 4, 8), tnorm.Norm(8), 3, fused=True)
 
 
 def test_layer_norm():
@@ -169,11 +172,36 @@ def test_temporal_self_attention(frames, l):
                                          heads, batch, frames))
 
 
+@pytest.mark.parametrize("frames,l", [(3, 16), (5, 40)])
+def test_temporal_self_attention_pallas(frames, l, monkeypatch):
+    """``VDPP_TEMPORAL_ATTN=pallas`` on both sides: the JAX package's frame
+    attention kernel (interpret mode) against the port's, which runs its
+    plain version on the CPU. The switch is read at call time."""
+    from vdpp_tpu_torch.ops import temporal_attention_kernel as tak
+
+    batch, c, heads = 2, 32, 4
+    x = _x(24, batch * frames, l, c)
+    attn = randomize(tattn.Attention(c), 25)
+    calls = []
+
+    def spy(q, k, v):
+        calls.append(tuple(q.shape))
+        return tak.frame_attention(q, k, v)
+
+    monkeypatch.setattr(tattn, "frame_attention", spy)
+    monkeypatch.setenv("VDPP_TEMPORAL_ATTN", "pallas")
+    got = tattn.temporal_self_attention(attn, torch.from_numpy(x), heads, batch, frames)
+    assert calls == [(batch, frames, l, heads, c // heads)]
+    _check(got, jattn.temporal_self_attention(jax_params(attn, _conv_attention), jnp.asarray(x),
+                                              heads, batch, frames))
+
+
 def test_unported_attention_switches_raise(monkeypatch):
     attn = tattn.Attention(16)
-    monkeypatch.setenv("VDPP_TEMPORAL_ATTN", "pallas")
-    with pytest.raises(NotImplementedError, match="next kernel slice"):
-        tattn.temporal_self_attention(attn, torch.zeros(2, 4, 16), 2, 1, 2)
+    for impl in ("einsum", "transpose"):
+        monkeypatch.setenv("VDPP_TEMPORAL_ATTN", impl)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tattn.temporal_self_attention(attn, torch.zeros(2, 4, 16), 2, 1, 2)
     for impl in ("xla", "naive"):
         monkeypatch.setenv("VDPP_ATTN_IMPL", impl)
         with pytest.raises(NotImplementedError):

@@ -1,14 +1,18 @@
 """Flagship SVD denoise benchmark of the port on one CUDA device.
 
     python -m vdpp_tpu_torch.bench [--preset full|tiny] [--steps N] [--frames F]
-                                   [--latent-hw H W] [--device cuda|cpu]
+                                   [--latent-hw H W] [--device cuda|cpu] [--decode]
 
 The counterpart of the root ``bench.py::measure_config``: random-init SVD-XT
 (weights made from a seed), ``make_dummy_conditioning`` and the Euler loop
 through ``run_reference_single_device``, with the same defaults (25 frames,
 72x128 latent, 30 steps, CFG ramp to 3, sequential CFG). Prints one JSON line
 on stdout, ``{"metric", "value", "unit", "vs_baseline"}``, whose metric names
-the device it ran on; progress goes to stderr.
+the device it ran on and the kernel switches that were set
+(``VDPP_GN_FUSED=1``, ``VDPP_TEMPORAL_ATTN=pallas``); progress goes to stderr.
+``--decode`` then decodes the last video's latent with the temporal VAE
+decoder (random weights from the seed, fp32, chunks of 4 frames, as the
+image->video app decodes) and reports its time on stderr.
 
 ``vs_baseline`` is the root bench's yardstick: the reference system's
 measured single-GPU 14-frame/25-step diffusion time (47.65 s, RTX A5000)
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -28,6 +33,7 @@ import torch
 
 from vdpp_tpu_torch.models.svd_unet import SVDUNetConfig
 from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet, make_dummy_conditioning
+from vdpp_tpu_torch.models.vae import TemporalVAEDecoder, VAEConfig
 from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
 from vdpp_tpu_torch.utils.device import resolve_device
 
@@ -60,6 +66,8 @@ def _sync(device: torch.device) -> None:
 # the first match wins, unmatched kernels count as "other".
 KERNEL_GROUPS = (
     ("flash attention (csrc/flash_attention.cu)", "flash_fwd"),
+    ("GroupNorm+SiLU (csrc/group_norm_silu.cu)", "gn_partials|gn_merge|gn_apply"),
+    ("frame attention (csrc/frame_attention.cu)", "frame_attn"),
     ("convolution (cuDNN)", "fprop|cudnn|conv"),
     ("matmul (cuBLAS)", "nvjet|gemm|cublas|cutlass"),
     ("elementwise, reduction, copy (PyTorch native)", "at::native"),
@@ -122,10 +130,11 @@ def measure_config(
     """Generate ``warmup + videos`` videos and time the last ``videos``.
 
     Returns ``{"sec_per_video", "sec_per_step", "times", "peak_mem_bytes",
-    "finite", "shape", "device", "profile"}``; ``peak_mem_bytes`` is the
-    CUDA allocator's peak over the timed videos (None on the CPU). Every
-    video ends in a device synchronise inside its timed region.
-    ``profile=True`` then traces one more denoise step (:func:`profile_step`).
+    "finite", "shape", "device", "profile", "latent"}``; ``peak_mem_bytes`` is
+    the CUDA allocator's peak over the timed videos (None on the CPU) and
+    ``latent`` the last video's final latent. Every video ends in a device
+    synchronise inside its timed region. ``profile=True`` then traces one
+    more denoise step (:func:`profile_step`).
     """
     dev = resolve_device(device)
     model = StableVideoUNet(config, num_steps=steps, cfg_mode=cfg_mode, device=dev)
@@ -180,7 +189,46 @@ def measure_config(
         "shape": tuple(out.shape),
         "device": device_name(dev),
         "profile": prof,
+        "latent": out,
     }
+
+
+def measure_decode(latent: torch.Tensor, *, warmup: int = 0, seed: int = 0,
+                   config: VAEConfig | None = None) -> dict:
+    """Decode ``latent / scaling_factor`` with a random-init temporal VAE
+    decoder (weights from ``seed``) on the latent's device through
+    ``decode_chunked`` (chunks of 4 frames); ``warmup`` untimed decodes
+    first.
+
+    Returns ``{"sec", "shape", "finite", "peak_mem_bytes"}``; the timed
+    decode ends in a device synchronise.
+    """
+    dev = latent.device
+    vae = TemporalVAEDecoder(config or VAEConfig.svd(), device=dev)
+    vae.init_weights(torch.Generator(device=dev).manual_seed(seed + 2))
+    lat = latent / vae.config.scaling_factor
+    for _ in range(warmup):
+        vae.decode_chunked(lat)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    video = vae.decode_chunked(lat)
+    _sync(dev)
+    sec = time.perf_counter() - t0
+    return {
+        "sec": sec,
+        "shape": tuple(video.shape),
+        "finite": bool(torch.isfinite(video).all()),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+    }
+
+
+def kernel_switches() -> str:
+    """The opt-in kernel switches that are set, as ``NAME=value`` words."""
+    on = [f"{k}={os.environ[k]}" for k in ("VDPP_GN_FUSED", "VDPP_TEMPORAL_ATTN")
+          if os.environ.get(k, "") not in ("", "0", "vpu")]
+    return " ".join(on)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -198,6 +246,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after the timed videos, trace one denoise step and print its "
                          "kernels by device time (stderr)")
+    ap.add_argument("--decode", action="store_true",
+                    help="decode the last video's latent with the temporal VAE decoder "
+                         "(fp32, chunks of 4 frames, one warm-up decode) and print its "
+                         "time (stderr)")
     args = ap.parse_args(argv)
 
     tiny = args.preset == "tiny"
@@ -208,8 +260,10 @@ def main(argv: list[str] | None = None) -> int:
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         log(f"card: {nvidia_smi_line()}")
+    switches = kernel_switches()
     log(f"{args.preset}: {frames}f latent {lat_h}x{lat_w}, {steps} steps, guidance "
-        f"{args.guidance}, cfg_mode {args.cfg_mode}, device {device_name(dev)}")
+        f"{args.guidance}, cfg_mode {args.cfg_mode}, device {device_name(dev)}, "
+        f"kernel switches: {switches or 'none'}")
     res = measure_config(
         config=config, frames=frames, lat_h=lat_h, lat_w=lat_w, steps=steps,
         guidance=args.guidance, cfg_mode=args.cfg_mode, videos=args.videos,
@@ -229,10 +283,20 @@ def main(argv: list[str] | None = None) -> int:
         log("top kernels:")
         for name, n, ms in p["kernels"]:
             log(f"  {ms:10.3f} ms {n:6d}x  {name[:150]}")
+    if args.decode:
+        vae_cfg = VAEConfig.tiny() if tiny else VAEConfig.svd()
+        dec = measure_decode(res["latent"], warmup=1, seed=args.seed, config=vae_cfg)
+        if not dec["finite"]:
+            log("non-finite decoded video")
+            return 1
+        mem = "" if dec["peak_mem_bytes"] is None else \
+            f", peak allocated {dec['peak_mem_bytes'] / 2**30:.2f} GiB"
+        log(f"decode: {dec['sec']:.3f} s for video {dec['shape']} (fp32, chunks of 4 "
+            f"frames){mem}")
     baseline = 0.0 if tiny else SECONDARY_BASELINE_SEC * frames * steps / (14 * 25)
     print(json.dumps({
         "metric": (f"sec/video single {res['device']} SVD {frames}f {lat_h}x{lat_w} latent, "
-                   f"{steps} steps, CFG {args.guidance}"),
+                   f"{steps} steps, CFG {args.guidance}" + (f", {switches}" if switches else "")),
         "value": round(res["sec_per_video"], 3),
         "unit": "s/video",
         "vs_baseline": round(baseline / res["sec_per_video"], 3) if baseline else 0.0,

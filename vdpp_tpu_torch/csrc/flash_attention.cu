@@ -31,6 +31,21 @@
 // fp32 inputs take a plain SIMT kernel (one query row per thread): the tensor
 // cores would round fp32 operands to TF32, and fp32 is off the UNet's path.
 //
+// Head dim 512, fp32 (the VAE decoder's mid-block attention: one head,
+// L = 72 * 128 = 9216, B = the frames of a decode chunk) takes its own SIMT
+// kernel, flash_fwd_f32_d512. One call at B = 4 is 4 * 4 * 9216^2 * 512 =
+// 696 GFLOP against 67 TFLOP/s fp32 outside the tensor cores, about 10.4 ms,
+// while its bytes (302 MB at 3.35 TB/s) take 0.09 ms: it is bound by fp32
+// FMA throughput. A 64-row x 512 fp32 accumulator would be 128 KB, so a block
+// owns only 32 query rows: 8 warps, 4 rows each, every lane holding a 4 x 16
+// slice of the accumulator (64 registers). Q (32 x 512), a K tile and a V
+// tile (32 keys each) sit in 198 KB of dynamic shared memory. In S = Q'K^T a
+// lane owns one key and its warp's 4 rows (Q rows read as broadcasts, K rows
+// padded to 516 floats so the lanes' float4 reads hit distinct banks); P goes
+// through a padded 32 x 36 shared tile, transposed so a warp reads its 4
+// rows' p for one key as one broadcast float4, and P.V reads each V row once
+// per warp as conflict-free float4s. No TF32: the check is 1e-5 x max|plain|.
+//
 // C interface (bound with ctypes, see vdpp_tpu_torch/ops/flash_attention.py):
 // returns cudaGetLastError() after the launch, launches on the given stream,
 // allocates nothing and does not synchronise.
@@ -327,20 +342,213 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+constexpr int D512 = 512;
+constexpr int BQ_512 = 32;             // query rows per block
+constexpr int BK_512 = 32;             // keys per tile (one per lane)
+constexpr int THREADS_512 = 256;       // 8 warps x 4 query rows
+constexpr int ROWS_PER_WARP = BQ_512 / (THREADS_512 / 32);
+constexpr int QK_ROW = D512 + 4;       // padded Q/K row: lanes' float4 reads hit distinct banks
+constexpr int P_ROW = BQ_512 + 4;      // padded transposed P row
+constexpr int COLS_PER_LANE = D512 / 32;  // 16 accumulator columns per lane, as 4 float4
+constexpr size_t SMEM_512 =
+    sizeof(float) * (2 * BQ_512 * QK_ROW + BK_512 * D512 + BK_512 * P_ROW);
+static_assert(ROWS_PER_WARP == 4, "P is moved as one float4 per key and warp");
+static_assert(BK_512 == 32, "one key per lane");
+
+template <bool STATIC_MAX>
+__global__ void __launch_bounds__(THREADS_512)
+flash_fwd_f32_d512(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, int H, int Lq, int Lk,
+                   float qscale) {
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                      // [BQ_512][QK_ROW]
+  float* Ks = Qs + BQ_512 * QK_ROW;      // [BK_512][QK_ROW]
+  float* Vs = Ks + BK_512 * QK_ROW;      // [BK_512][D512]
+  float* Ps = Vs + BK_512 * D512;        // [BK_512][P_ROW], P transposed: key-major
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const long rs = (long)H * D512;
+  const float* qb = q + ((long)b * Lq * H + h) * D512;
+  const float* kb = k + ((long)b * Lk * H + h) * D512;
+  const float* vb = v + ((long)b * Lk * H + h) * D512;
+  float* ob = o + ((long)b * Lq * H + h) * D512;
+  const int q0 = blockIdx.x * BQ_512;
+  const int row0 = warp * ROWS_PER_WARP;  // this warp's rows within the block
+
+  constexpr int F4_PER_ROW = D512 / 4;
+  constexpr int TILE_F4 = BQ_512 * F4_PER_ROW;
+#pragma unroll 4
+  for (int i = tid; i < TILE_F4; i += THREADS_512) {
+    const int row = i / F4_PER_ROW;
+    const int col = (i % F4_PER_ROW) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + row < Lq) {
+      x = *reinterpret_cast<const float4*>(qb + (q0 + row) * rs + col);
+      x.x *= qscale;
+      x.y *= qscale;
+      x.z *= qscale;
+      x.w *= qscale;
+    }
+    *reinterpret_cast<float4*>(Qs + row * QK_ROW + col) = x;
+  }
+
+  float acc[ROWS_PER_WARP][COLS_PER_LANE];
+#pragma unroll
+  for (int i = 0; i < ROWS_PER_WARP; ++i) {
+#pragma unroll
+    for (int c = 0; c < COLS_PER_LANE; ++c) acc[i][c] = 0.f;
+  }
+  float m[ROWS_PER_WARP];
+  float lpart[ROWS_PER_WARP];  // this lane's keys' share of l; summed over the warp at the end
+#pragma unroll
+  for (int i = 0; i < ROWS_PER_WARP; ++i) {
+    m[i] = MASK_VALUE;
+    lpart[i] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < Lk; k0 += BK_512) {
+    __syncthreads();  // Q is staged; every warp is done with the previous K/V tile
+#pragma unroll 4
+    for (int i = tid; i < BK_512 * F4_PER_ROW; i += THREADS_512) {
+      const int row = i / F4_PER_ROW;
+      const int col = (i % F4_PER_ROW) * 4;
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + row < Lk) {
+        kv = *reinterpret_cast<const float4*>(kb + (k0 + row) * rs + col);
+        vv = *reinterpret_cast<const float4*>(vb + (k0 + row) * rs + col);
+      }
+      *reinterpret_cast<float4*>(Ks + row * QK_ROW + col) = kv;
+      *reinterpret_cast<float4*>(Vs + row * D512 + col) = vv;
+    }
+    __syncthreads();
+
+    // s[i] = q'(row0 + i) . k(k0 + lane), log2 domain.
+    float s[ROWS_PER_WARP];
+#pragma unroll
+    for (int i = 0; i < ROWS_PER_WARP; ++i) s[i] = 0.f;
+    const float* kr = Ks + lane * QK_ROW;
+#pragma unroll 4
+    for (int d = 0; d < D512; d += 4) {
+      const float4 kk = *reinterpret_cast<const float4*>(kr + d);
+#pragma unroll
+      for (int i = 0; i < ROWS_PER_WARP; ++i) {
+        const float4 qq = *reinterpret_cast<const float4*>(Qs + (row0 + i) * QK_ROW + d);
+        s[i] = fmaf(qq.x, kk.x, s[i]);
+        s[i] = fmaf(qq.y, kk.y, s[i]);
+        s[i] = fmaf(qq.z, kk.z, s[i]);
+        s[i] = fmaf(qq.w, kk.w, s[i]);
+      }
+    }
+
+    const bool valid = k0 + lane < Lk;
+    float p[ROWS_PER_WARP];
+    if (STATIC_MAX) {
+#pragma unroll
+      for (int i = 0; i < ROWS_PER_WARP; ++i) {
+        p[i] = valid ? exp2f(fminf(fmaxf(s[i], S_CLAMP_LO), S_CLAMP)) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < ROWS_PER_WARP; ++i) {
+        float mt = valid ? s[i] : MASK_VALUE;  // a row's 32 keys are the warp's 32 lanes
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+        }
+        const float m_new = fmaxf(m[i], mt);
+        const float alpha = exp2f(m[i] - m_new);
+        m[i] = m_new;
+        lpart[i] *= alpha;
+#pragma unroll
+        for (int c = 0; c < COLS_PER_LANE; ++c) acc[i][c] *= alpha;
+        p[i] = valid ? exp2f(s[i] - m_new) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < ROWS_PER_WARP; ++i) lpart[i] += p[i];
+    *reinterpret_cast<float4*>(Ps + lane * P_ROW + row0) = make_float4(p[0], p[1], p[2], p[3]);
+    __syncwarp();  // a warp reads back only the P rows it wrote
+
+    // O += P V: lane's columns lane*4 + 128*c, c = 0..3.
+#pragma unroll 2
+    for (int j = 0; j < BK_512; ++j) {
+      const float4 pj = *reinterpret_cast<const float4*>(Ps + j * P_ROW + row0);
+      const float pr[ROWS_PER_WARP] = {pj.x, pj.y, pj.z, pj.w};
+#pragma unroll
+      for (int c = 0; c < COLS_PER_LANE / 4; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(Vs + j * D512 + c * 128 + lane * 4);
+#pragma unroll
+        for (int i = 0; i < ROWS_PER_WARP; ++i) {
+          acc[i][4 * c + 0] = fmaf(pr[i], vv.x, acc[i][4 * c + 0]);
+          acc[i][4 * c + 1] = fmaf(pr[i], vv.y, acc[i][4 * c + 1]);
+          acc[i][4 * c + 2] = fmaf(pr[i], vv.z, acc[i][4 * c + 2]);
+          acc[i][4 * c + 3] = fmaf(pr[i], vv.w, acc[i][4 * c + 3]);
+        }
+      }
+    }
+    __syncwarp();  // P is read before the next tile overwrites it
+  }
+
+#pragma unroll
+  for (int i = 0; i < ROWS_PER_WARP; ++i) {
+    float l = lpart[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    const float inv = l == 0.f ? 1.f : 1.f / l;
+    const int r = q0 + row0 + i;
+    if (r < Lq) {
+#pragma unroll
+      for (int c = 0; c < COLS_PER_LANE / 4; ++c) {
+        *reinterpret_cast<float4*>(ob + r * rs + c * 128 + lane * 4) =
+            make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv, acc[i][4 * c + 2] * inv,
+                        acc[i][4 * c + 3] * inv);
+      }
+    }
+  }
+}
+
+template <bool STATIC_MAX>
+cudaError_t launch_f32_d512(const float* q, const float* k, const float* v, float* o, int bh,
+                            int H, int Lq, int Lk, float qscale, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32_d512<STATIC_MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_512);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lq + BQ_512 - 1) / BQ_512, bh);
+  flash_fwd_f32_d512<STATIC_MAX>
+      <<<grid, THREADS_512, SMEM_512, st>>>(q, k, v, o, H, Lq, Lk, qscale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q, o: (batch, lq, heads, 64); k, v: (batch, lk, heads, 64); all contiguous,
-// all bf16 (is_bf16 = 1) or all fp32. qscale = log2(e) / sqrt(head_dim).
+// q, o: (batch, lq, heads, head_dim); k, v: (batch, lk, heads, head_dim); all
+// contiguous and 16-byte aligned. head_dim 64: all bf16 (is_bf16 = 1) or all
+// fp32; head_dim 512: fp32 only. qscale = log2(e) / sqrt(head_dim).
 extern "C" int vdpp_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                         int is_bf16, int batch, int heads, int lq, int lk,
                                         int head_dim, int static_max, float qscale,
                                         void* stream) {
-  if (head_dim != D || batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0 ||
-      (long)batch * heads > 65535) {
+  if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0 || (long)batch * heads > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
+  if (head_dim == D512 && !is_bf16) {
+    const auto* qp = static_cast<const float*>(q);
+    const auto* kp = static_cast<const float*>(k);
+    const auto* vp = static_cast<const float*>(v);
+    auto* op = static_cast<float*>(o);
+    return (int)(static_max
+                     ? launch_f32_d512<true>(qp, kp, vp, op, bh, heads, lq, lk, qscale, st)
+                     : launch_f32_d512<false>(qp, kp, vp, op, bh, heads, lq, lk, qscale, st));
+  }
+  if (head_dim != D) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     const dim3 grid((lq + BQ_MMA - 1) / BQ_MMA, bh);
     const auto* qp = static_cast<const __nv_bfloat16*>(q);

@@ -48,7 +48,8 @@ class SVDUNetConfig:
     transformer_eps: float = 1e-6
     out_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # The fused GroupNorm+SiLU kernel (VDPP_GN_FUSED) is not ported yet.
+    # Route GroupNorm->SiLU pairs through the fused GroupNorm+SiLU kernel
+    # (ops/norm_kernel.py); the wrapper sets it from VDPP_GN_FUSED=1.
     fused_groupnorm: bool = False
 
     @property
@@ -111,11 +112,13 @@ class SpatialResnet(nn.Module):
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         """x: (BF, H, W, C), emb: (BF, time_embed_dim)."""
         cfg = self.cfg
-        h = group_norm_silu(x, self.norm1, cfg.norm_num_groups, cfg.resnet_eps)
+        h = group_norm_silu(x, self.norm1, cfg.norm_num_groups, cfg.resnet_eps,
+                            fused=cfg.fused_groupnorm)
         h = conv2d(h, self.conv1)
         temb = self.time_emb_proj(F.silu(emb.float()).to(emb.dtype))
         h = h + temb[:, None, None, :]
-        h = group_norm_silu(h, self.norm2, cfg.norm_num_groups, cfg.resnet_eps)
+        h = group_norm_silu(h, self.norm2, cfg.norm_num_groups, cfg.resnet_eps,
+                            fused=cfg.fused_groupnorm)
         h = conv2d(h, self.conv2)
         shortcut = x if self.conv_shortcut is None else conv2d(x, self.conv_shortcut)
         return shortcut + h
@@ -134,11 +137,13 @@ class TemporalResnet(nn.Module):
     def forward(self, x: torch.Tensor, emb_bf: torch.Tensor) -> torch.Tensor:
         """x: (B, F, H, W, C), emb_bf: (B, F, time_embed_dim)."""
         cfg = self.cfg
-        h = group_norm_silu(x, self.norm1, cfg.norm_num_groups, cfg.resnet_eps)
+        h = group_norm_silu(x, self.norm1, cfg.norm_num_groups, cfg.resnet_eps,
+                            fused=cfg.fused_groupnorm)
         h = conv_temporal(h, self.conv1)
         temb = self.time_emb_proj(F.silu(emb_bf.float()).to(emb_bf.dtype))
         h = h + temb[:, :, None, None, :]
-        h = group_norm_silu(h, self.norm2, cfg.norm_num_groups, cfg.resnet_eps)
+        h = group_norm_silu(h, self.norm2, cfg.norm_num_groups, cfg.resnet_eps,
+                            fused=cfg.fused_groupnorm)
         h = conv_temporal(h, self.conv2)
         return x + h
 
@@ -285,11 +290,6 @@ class SVDUNet(nn.Module):
 
     def __init__(self, config: SVDUNetConfig, device: str | torch.device | None = None):
         super().__init__()
-        if config.fused_groupnorm:
-            raise NotImplementedError(
-                "fused_groupnorm (VDPP_GN_FUSED=1, the fused GroupNorm+SiLU kernel "
-                "vdpp_tpu/ops/norm_kernel.py) comes with the port's next kernel slice"
-            )
         self.config = cfg = config
         kw = dict(device=resolve_device(device), dtype=cfg.dtype)
         boc = cfg.block_out_channels
@@ -414,6 +414,7 @@ class SVDUNet(nn.Module):
             if hasattr(block, "upsamplers"):
                 x = conv2d(upsample_nearest_2x(x), block.upsamplers[0].conv)
 
-        x = group_norm_silu(x, self.conv_norm_out, cfg.norm_num_groups, cfg.out_norm_eps)
+        x = group_norm_silu(x, self.conv_norm_out, cfg.norm_num_groups, cfg.out_norm_eps,
+                            fused=cfg.fused_groupnorm)
         x = conv2d(x, self.conv_out)
         return x.reshape(b, f, hh, ww, cfg.out_channels)

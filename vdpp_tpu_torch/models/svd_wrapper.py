@@ -138,12 +138,10 @@ class StableVideoUNet:
         if deepcache_interval:
             raise NotImplementedError("deepcache comes with a later slice of the port")
         self.config = config or SVDUNetConfig.svd_xt()
+        # VDPP_GN_FUSED=1 routes GroupNorm->SiLU pairs through the fused
+        # kernel; read at construction, as the reference reads it.
         if os.environ.get("VDPP_GN_FUSED") == "1":
             self.config = dataclasses.replace(self.config, fused_groupnorm=True)
-        if self.config.fused_groupnorm:
-            raise NotImplementedError(
-                "fused_groupnorm (VDPP_GN_FUSED=1) comes with the port's next kernel slice"
-            )
         self.device = resolve_device(device)
         self.schedule = EulerKarrasSchedule.create(
             num_steps, sigma_min, sigma_max, pad_to_multiple_of=pad_steps_to,
@@ -169,7 +167,8 @@ class StableVideoUNet:
         return self.schedule.init_noise_sigma
 
     def init(self, generator: torch.Generator) -> SVDUNet:
-        """A randomly initialised UNet on this wrapper's device."""
+        """A randomly initialised UNet on this wrapper's device, built from
+        this wrapper's config (so ``VDPP_GN_FUSED`` reaches it)."""
         return SVDUNet(self.config, device=self.device).init_weights(generator)
 
     def noise_pred(self, params: SVDUNet, latent_scaled: torch.Tensor, timestep,
@@ -177,6 +176,13 @@ class StableVideoUNet:
         """UNet eval(s) incl. CFG on the pre-scaled latent; the guided blend
         is fp32."""
         md = self.config.dtype
+        if params.config.fused_groupnorm != self.config.fused_groupnorm:
+            raise ValueError(
+                "the UNet was built with fused_groupnorm="
+                f"{params.config.fused_groupnorm} but this wrapper's config (VDPP_GN_FUSED is "
+                f"read when the wrapper is built) says {self.config.fused_groupnorm}: build "
+                "the UNet from the wrapper's config (init() or SVDUNet(wrapper.config))"
+            )
 
         def unet_call(lat, image_latents, ctx, added_time_ids):
             x = torch.cat([lat.to(md), image_latents.to(md)], dim=-1)

@@ -9,6 +9,10 @@ Three regimes, chosen on shapes as in the reference:
   (:mod:`vdpp_tpu_torch.ops.flash_attention`);
 * otherwise plain dot-product attention with an fp32 softmax.
 
+``temporal_self_attention`` attends over the frame axis; with
+``VDPP_TEMPORAL_ATTN=pallas`` it takes the frame-attention kernel
+(:mod:`vdpp_tpu_torch.ops.temporal_attention_kernel`).
+
 Layouts follow the reference: ``(B, L, C)`` activations, ``(B, L, H, D)``
 heads.
 """
@@ -23,6 +27,7 @@ from torch import nn
 
 from vdpp_tpu_torch.ops.flash_attention import flash_attention
 from vdpp_tpu_torch.ops.linear import Linear
+from vdpp_tpu_torch.ops.temporal_attention_kernel import frame_attention
 
 FLASH_MIN_Q_LEN = 512
 
@@ -91,27 +96,28 @@ def attention(
 def temporal_self_attention(
     p: Attention, x: torch.Tensor, heads: int, batch: int, frames: int
 ) -> torch.Tensor:
-    """Self-attention over the FRAME axis of ``(B*F, L, C)``, in the
-    reference's default form (``VDPP_TEMPORAL_ATTN=vpu``): fp32 logits over
-    (frame, key-frame) pairs at each location and head, fp32 softmax over
-    the key frames, fp32 weighted sum of fp32 values, cast back at the end.
+    """Self-attention over the FRAME axis of ``(B*F, L, C)``.
 
-    The reference writes the contraction as a broadcast-multiply-reduce that
-    XLA fuses; written literally in eager PyTorch it would build a
-    ``(B, F, F, L, H, D)`` fp32 tensor (7.4 GB at the SVD-XT level-0 site), so
-    here it is the same fp32 contraction as batched matmuls over
-    ``(B, L, H)``.
+    ``VDPP_TEMPORAL_ATTN`` is read at call time, as in the reference:
+
+    * ``vpu`` (default): fp32 logits over (frame, key-frame) pairs at each
+      location and head, fp32 softmax over the key frames, fp32 weighted sum
+      of fp32 values, cast back at the end. The reference writes the
+      contraction as a broadcast-multiply-reduce that XLA fuses; written
+      literally in eager PyTorch it would build a ``(B, F, F, L, H, D)`` fp32
+      tensor (7.4 GB at the SVD-XT level-0 site), so here it is the same fp32
+      contraction as batched matmuls over ``(B, L, H)``;
+    * ``pallas``: the frame-attention kernel on the ``(B, F, L, H, D)``
+      projections as they are.
     """
     impl = os.environ.get("VDPP_TEMPORAL_ATTN", "vpu")
-    if impl == "pallas":
-        raise NotImplementedError(
-            "VDPP_TEMPORAL_ATTN=pallas (the frame-attention kernel, "
-            "vdpp_tpu/ops/temporal_attention_kernel.py) comes with the port's next kernel slice"
-        )
-    if impl != "vpu":
+    if impl not in ("vpu", "pallas"):
         raise NotImplementedError(f"VDPP_TEMPORAL_ATTN={impl!r} is not ported")
     bf, l, c = x.shape
     d = c // heads
+    if impl == "pallas":
+        q, k, v = (proj(x).reshape(batch, frames, l, heads, d) for proj in (p.to_q, p.to_k, p.to_v))
+        return p.to_out[0](frame_attention(q, k, v).reshape(bf, l, c))
 
     def frames_last(t: torch.Tensor) -> torch.Tensor:  # -> (B, L, H, F, D) fp32
         return t.reshape(batch, frames, l, heads, d).permute(0, 2, 3, 1, 4).float()

@@ -11,9 +11,10 @@ accumulation and ``l == 0 -> 1``.
 
 Two implementations of that arithmetic live here:
 
-* the CUDA kernel ``vdpp_tpu_torch/csrc/flash_attention.cu`` (bf16 on the
-  tensor cores, fp32 on the SIMT cores; head dim 64), which
-  :func:`flash_attention` launches for a CUDA tensor;
+* the CUDA kernel ``vdpp_tpu_torch/csrc/flash_attention.cu`` (head dim 64:
+  bf16 on the tensor cores, fp32 on the SIMT cores; head dim 512, the VAE
+  decoder's mid-block: fp32 on the SIMT cores), which :func:`flash_attention`
+  launches for a CUDA tensor;
 * :func:`flash_attention_plain`, plain PyTorch that processes the queries in
   chunks, which :func:`flash_attention` runs for a CPU tensor and which the
   tests and ``chip_smoke.py`` hold the kernel against.
@@ -35,7 +36,8 @@ from vdpp_tpu_torch.utils import kernels
 LOG2E = math.log2(math.e)
 S_CLAMP = 100.0
 S_CLAMP_LO = -100.0
-KERNEL_HEAD_DIM = 64
+# Head dims the CUDA kernel takes, with the dtypes it takes them in.
+KERNEL_HEAD_DIMS = {64: (torch.bfloat16, torch.float32), 512: (torch.float32,)}
 # fp32 scores the plain version holds at once (query chunk x all keys x B*H).
 _PLAIN_SCORE_ELEMS = 1 << 26
 
@@ -98,13 +100,15 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
     b, lq, h, d = q.shape
-    if d != KERNEL_HEAD_DIM:
+    if q.dtype not in KERNEL_HEAD_DIMS.get(d, ()):
         raise NotImplementedError(
-            f"the CUDA flash kernel takes head dim {KERNEL_HEAD_DIM}; d={d} comes with the "
-            "DiT (d=72) and VAE decode (d=512) slices of the port"
+            f"the CUDA flash kernel takes head dim 64 (bf16, fp32) and 512 (fp32); d={d} "
+            f"in {q.dtype} is not ported (d=72 comes with the DiT slice of the port)"
         )
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the CUDA flash kernel takes contiguous (B, L, H, D) tensors")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the CUDA flash kernel takes 16-byte aligned tensors")
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the kernel grid's 65535")
     lib = _kernel_lib()

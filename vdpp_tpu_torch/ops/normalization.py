@@ -4,13 +4,19 @@
 Statistics are two-pass (mean, then the mean of squared deviations), as in
 the reference: the one-pass E[x^2] - mean^2 form was measured there at about
 2e-4 of CFG-amplified error. Results are cast back to the input dtype.
+``group_norm_silu(fused=True)`` takes the fused GroupNorm+SiLU kernel
+(:mod:`vdpp_tpu_torch.ops.norm_kernel`) where the reference does.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vdpp_tpu_torch.ops.norm_kernel import _row_chunk, group_norm_silu_fused
 
 
 class Norm(nn.Module):
@@ -44,12 +50,16 @@ def group_norm_silu(
     x: torch.Tensor, norm: Norm, num_groups: int = 32, eps: float = 1e-6, fused: bool = False
 ) -> torch.Tensor:
     """``silu(group_norm(x))``, the norm rounded to ``x.dtype`` before the
-    fp32 SiLU as in the reference's unfused form."""
+    fp32 SiLU as in the reference's unfused form.
+
+    ``fused=True`` takes :func:`~vdpp_tpu_torch.ops.norm_kernel.group_norm_silu_fused`
+    under the reference's own shape rule: ``C % G == 0`` and a row extent
+    with an 8-aligned chunking (``_row_chunk``). Every other shape takes the
+    composition, as in the reference, so the two choose the same sites."""
     if fused:
-        raise NotImplementedError(
-            "fused GroupNorm+SiLU (VDPP_GN_FUSED, vdpp_tpu/ops/norm_kernel.py) comes with "
-            "the port's next kernel slice"
-        )
+        c = x.shape[-1]
+        if c % num_groups == 0 and _row_chunk(math.prod(x.shape[1:-1]), c):
+            return group_norm_silu_fused(x, norm, num_groups, eps, silu=True)
     h = group_norm(x, norm, num_groups, eps)
     return F.silu(h.float()).to(x.dtype)
 

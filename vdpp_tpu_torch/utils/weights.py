@@ -1,9 +1,12 @@
-"""Carry the JAX package's UNet parameters over to the port.
+"""Carry the JAX package's UNet and VAE-decoder parameters over to the port.
 
 ``from_jax_params`` is the inverse of ``vdpp_tpu/utils/weights.py::
 convert_unet_state_dict``: it takes the JAX UNet parameter tree (nested dicts
 and lists of numpy arrays) and returns a diffusers-named state dict that
-``SVDUNet.load_state_dict`` takes as it is. Layouts go back to PyTorch's:
+``SVDUNet.load_state_dict`` takes as it is. ``from_jax_vae_decoder_params``
+is the inverse of ``convert_vae_decoder_state_dict`` and gives the
+``decoder.*`` names that ``TemporalVAEDecoder.load_state_dict`` takes.
+Layouts go back to PyTorch's:
 
 * linear ``w (in, out)``           -> ``weight (out, in)``
 * conv2d ``w (kh, kw, I, O)``      -> ``weight (O, I, kh, kw)``
@@ -70,7 +73,8 @@ class _Out:
         s = prefix + ".spatial_res_block"
         self.norm(s + ".norm1", sp["norm1"])
         self.conv(s + ".conv1", sp["conv1"])
-        self.linear(s + ".time_emb_proj", sp["time_emb_proj"])
+        if "time_emb_proj" in sp:  # the UNet's; the VAE decoder's ResNets have none
+            self.linear(s + ".time_emb_proj", sp["time_emb_proj"])
         self.norm(s + ".norm2", sp["norm2"])
         self.conv(s + ".conv2", sp["conv2"])
         if "conv_shortcut" in sp:
@@ -78,7 +82,8 @@ class _Out:
         t = prefix + ".temporal_res_block"
         self.norm(t + ".norm1", tp["norm1"])
         self.conv(t + ".conv1", tp["conv1"])
-        self.linear(t + ".time_emb_proj", tp["time_emb_proj"])
+        if "time_emb_proj" in tp:
+            self.linear(t + ".time_emb_proj", tp["time_emb_proj"])
         self.norm(t + ".norm2", tp["norm2"])
         self.conv(t + ".conv2", tp["conv2"])
         self.mix(prefix, p["mix_factor"])
@@ -135,4 +140,26 @@ def from_jax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             out.conv(f"{base}.upsamplers.0.conv", block["upsample"])
     out.norm("conv_norm_out", params["conv_norm_out"])
     out.conv("conv_out", params["conv_out"])
+    return out.sd
+
+
+def from_jax_vae_decoder_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``TemporalVAEDecoder`` parameter tree (numpy leaves) -> the
+    diffusers ``decoder.*`` state dict of CPU tensors in the leaves' dtypes."""
+    out = _Out()
+    out.conv("decoder.conv_in", params["conv_in"])
+    mid = params["mid"]
+    out.resblock("decoder.mid_block.resnets.0", mid["resnet1"])
+    out.norm("decoder.mid_block.attentions.0.group_norm", mid["attn"]["norm"])
+    out.attention("decoder.mid_block.attentions.0", mid["attn"]["attn"])
+    out.resblock("decoder.mid_block.resnets.1", mid["resnet2"])
+    for i, block in enumerate(params["up_blocks"]):
+        base = f"decoder.up_blocks.{i}"
+        for j, res in enumerate(block["resnets"]):
+            out.resblock(f"{base}.resnets.{j}", res)
+        if "upsample" in block:
+            out.conv(f"{base}.upsamplers.0.conv", block["upsample"])
+    out.norm("decoder.conv_norm_out", params["norm_out"])
+    out.conv("decoder.conv_out", params["conv_out"])
+    out.conv("decoder.time_conv_out", params["time_conv_out"])
     return out.sd
