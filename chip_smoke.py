@@ -9,23 +9,32 @@ Phases (any failure exits non-zero and prints no result line):
 2. build: every kernel under ``vdpp_tpu_torch/csrc/`` compiled by nvcc for
    sm_90a (one nvcc per source, all at once), with ptxas' report;
 3. kernels: each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it, with times for the kernel, the plain
+   shapes the main paths give it, with times for the kernel, the plain
    version, a one-call PyTorch yardstick, and the bound: flash attention at
-   d = 64 bf16 (UNet) and d = 512 fp32 (VAE mid-block), fused GroupNorm+SiLU
-   and frame attention (bf16, the UNet's sites);
+   d = 64 bf16 (UNet), d = 512 fp32 (VAE mid-block) and d = 72 bf16 (DiT-XL's
+   joint3d and factorized sites, plus fp32), fused GroupNorm+SiLU, and frame
+   attention at d = 64 (the UNet's sites) and d = 72 (the factorized DiT's);
 4. agreement: a small UNet (head dim 64, so the flash kernel runs) and one
    CFG Euler step, on the card against the same weights on the CPU, first
    as it is, then with both kernel switches on (VDPP_GN_FUSED=1,
    VDPP_TEMPORAL_ATTN=pallas); then a small VAE decoder whose mid-block
-   attention takes the flash kernel at d = 512;
-5. main path: full-width SVD-XT (random weights from a seed), 25 frames at
+   attention takes the flash kernel at d = 512; then a small fp32 DiT with
+   head dim 72, joint3d and then factorized with VDPP_TEMPORAL_ATTN=pallas
+   (forward and one CFG Euler step), whose flash and frame-attention
+   launches are counted;
+5. main paths: full-width SVD-XT (random weights from a seed), 25 frames at
    72x128, CFG ramp to 3 in sequential mode, Euler steps through
    ``vdpp_tpu_torch.bench.measure_config``, first as it is, then with both
    kernel switches on; then ``bench.measure_decode`` decodes the switched
    run's latent with the full-width temporal VAE decoder (fp32, chunks of 4
-   frames) to (1, 25, 576, 1024, 3). For each of the three runs the launch
-   counts are set to 0 just before and read just after, and must show the
-   kernels on every site.
+   frames) to (1, 25, 576, 1024, 3). Then the text->video path at full
+   width (random weights from a seed): T5-v1.1-XXL encodes the app's default
+   prompt and is freed, DiT-XL denoises 8 frames at 40x64 (512x320) for 2
+   Euler steps with a CFG ramp to 6 through ``bench.measure_dit_config``,
+   joint3d and then factorized with VDPP_TEMPORAL_ATTN=pallas, and the fp32
+   decoder turns the factorized run's latent into (1, 8, 320, 512, 3). For
+   each run the launch counts are set to 0 just before and read just after,
+   and must show the kernels on every site.
 
 The last two lines are the ``nvidia-smi`` name/power-limit line and the
 contract line ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
@@ -35,6 +44,7 @@ comes before them.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -66,6 +76,17 @@ GN_SILU_PER_FORWARD = 4 * 22 + 1
 # 25 frames decoded in chunks of 4: 7 mid-block attentions at d = 512.
 FLASH_PER_DECODE = 7
 SWITCHES = {"VDPP_GN_FUSED": "1", "VDPP_TEMPORAL_ATTN": "pallas"}
+TEMPORAL_SWITCH = {"VDPP_TEMPORAL_ATTN": "pallas"}  # the only one the DiT reads
+# DiT-XL (28 blocks) at 8 frames of a 40x64 latent: 640 patch tokens a frame.
+# joint3d: all 28 blocks self-attend over 8 * 640 = 5120 tokens (flash);
+# factorized: 14 spatial blocks over 640 tokens (flash) and 14 temporal
+# blocks over the 8 frames (frame attention under VDPP_TEMPORAL_ATTN=pallas).
+DIT_FRAMES, DIT_LAT = 8, (40, 64)
+FLASH_PER_JOINT3D_FORWARD = 28
+FLASH_PER_FACTORIZED_FORWARD = 14
+FRAME_ATTN_PER_FACTORIZED_FORWARD = 14
+# 8 frames decoded in chunks of 4: 2 mid-block attentions at d = 512.
+FLASH_PER_DIT_DECODE = 2
 
 
 def fail(msg: str) -> None:
@@ -322,12 +343,110 @@ def check_frame_attention(torch, ta, F) -> dict:
     return {"max_abs_err": max_err, "shapes": shapes}
 
 
+def check_flash_72(torch, fa, F) -> dict:
+    """The flash kernel at DiT-XL's head dim 72, bf16: the joint3d site
+    (B = 1, L = 8 x 640 = 5120, 16 heads) and the factorized spatial site
+    (B = 8 frames, L = 640, 16 heads), both softmax modes; plus fp32 at a
+    ragged L = 600 (the small-config agreement runs fp32)."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def inputs(b, l, h, dtype):
+        return [torch.randn(b, l, h, 72, generator=g, device="cuda").to(dtype) for _ in range(3)]
+
+    print(f"flash d=72 tolerance: max|kernel - plain| <= {TOL['bf16']} x max|plain| in bf16, "
+          f"{TOL['fp32']} x max|plain| in fp32 (as at d = 64)")
+    max_err = 0.0
+    shapes = []
+    for site, b, l, h, dtype in (("joint3d", 1, 5120, 16, torch.bfloat16),
+                                 ("factorized spatial", 8, 640, 16, torch.bfloat16),
+                                 ("fp32 ragged", 2, 600, 3, torch.float32)):
+        q, k, v = inputs(b, l, h, dtype)
+        tol = TOL["bf16"] if dtype == torch.bfloat16 else TOL["fp32"]
+        row = {"site": site, "B": b, "L": l, "H": h}
+        for static in (True, False):
+            got = fa.flash_attention(q, k, v, static_max=static)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_plain(q, k, v, static_max=static).float()
+            torch.cuda.synchronize()
+            err = (got.float() - ref).abs().max().item()
+            ref_max = ref.abs().max().item()
+            mode = "static" if static else "running"
+            print(f"flash d=72 {site} {dtype} B={b} L={l} H={h} {mode}: max|diff| {err:.3g}, "
+                  f"max|plain| {ref_max:.3g}, limit {tol * ref_max:.3g}", flush=True)
+            if not math.isfinite(err) or err > tol * ref_max:
+                fail(f"flash d=72 {site} {mode}: max|diff| {err} > {tol} x {ref_max}")
+            row["err_static" if static else "err_running"] = err
+            row["ref_max"] = ref_max
+        if dtype != torch.bfloat16:
+            continue
+        max_err = max(max_err, row["err_static"], row["err_running"])
+        row["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, static_max=True))
+        row["running_ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, static_max=False))
+        row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, True),
+                                  iters=3, warmup=1)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # SDPA's (B, H, L, D)
+        row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        flops = 4 * b * h * l * l * 72
+        row["bound_ms"], row["bound_by"] = bound(flops, 4 * b * h * l * 72 * 2, H100_BF16_FLOPS)
+        row["tflops"] = flops / row["ms"] / 1e9
+        print(f"flash d=72 {site} bf16 B={b} L={l} H={h}: kernel_ms {row['ms']:.4f} (running "
+              f"{row['running_ms']:.4f}), plain_ms {row['plain_ms']:.3f}, library_ms (SDPA) "
+              f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}), "
+              f"{row['tflops']:.1f} TFLOP/s", flush=True)
+        shapes.append(row)
+    return {"max_abs_err": max_err, "shapes": shapes}
+
+
+def check_frame_attention_72(torch, ta, F) -> dict:
+    """Frame attention at the factorized DiT-XL's temporal sites: B = 1,
+    F = 8, L = 640, 16 heads, d = 72, bf16 and fp32."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    print("frame attention d=72 tolerance: bf16 one bf16 ulp at max|plain|, "
+          f"fp32 {TOL['fp32']} x max|plain| (as at d = 64)")
+    max_err = 0.0
+    shapes = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(1, 8, 640, 16, 72, generator=g, device="cuda").to(dtype)
+                   for _ in range(3))
+        before = ta.launches
+        got = ta.frame_attention(q, k, v)
+        torch.cuda.synchronize()
+        if ta.launches != before + 1:
+            fail("the frame-attention wrapper did not count its launch")
+        ref = ta.frame_attention_plain(q, k, v)
+        err = (got.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        tol = bf16_ulp(ref_max) if dtype == torch.bfloat16 else TOL["fp32"] * ref_max
+        print(f"frame_attention d=72 F=8 L=640 H=16 {dtype}: max|diff| {err:.3g}, max|plain| "
+              f"{ref_max:.3g}, limit {tol:.3g}", flush=True)
+        if not math.isfinite(err) or err > tol:
+            fail(f"frame_attention d=72 {dtype}: max|diff| {err} > {tol}")
+        if dtype != torch.bfloat16:
+            continue
+        max_err = err
+        row = {"L": 640, "H": 16, "F": 8, "ref_max": ref_max}
+        row["ms"] = time_ms(torch, lambda: ta.frame_attention(q, k, v))
+        row["plain_ms"] = time_ms(torch, lambda: ta.frame_attention_plain(q, k, v), iters=3,
+                                  warmup=1)
+        qt, kt, vt = (t.permute(0, 2, 3, 1, 4).reshape(640, 16, 8, 72).contiguous()
+                      for t in (q, k, v))
+        row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        row["bound_ms"], row["bound_by"] = bound(640 * 16 * 4 * 8 * 8 * 72,
+                                                 4 * 8 * 640 * 16 * 72 * 2, H100_FP32_FLOPS)
+        print(f"frame_attention d=72 F=8 L=640 H=16: kernel_ms {row['ms']:.4f}, plain_ms "
+              f"{row['plain_ms']:.3f}, library_ms (SDPA on a (L, H, F, D) copy) "
+              f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']})",
+              flush=True)
+        shapes.append(row)
+    return {"max_abs_err": max_err, "shapes": shapes}
+
+
 @contextlib.contextmanager
-def kernel_switches():
-    """Both opt-in kernel switches on (VDPP_GN_FUSED=1 is read when a
-    wrapper is built, VDPP_TEMPORAL_ATTN=pallas at every call)."""
-    saved = {k: os.environ.get(k) for k in SWITCHES}
-    os.environ.update(SWITCHES)
+def kernel_switches(switches: dict[str, str] = SWITCHES):
+    """Opt-in kernel switches on, by default both (VDPP_GN_FUSED=1 is read
+    when a wrapper is built, VDPP_TEMPORAL_ATTN=pallas at every call)."""
+    saved = {k: os.environ.get(k) for k in switches}
+    os.environ.update(switches)
     try:
         yield
     finally:
@@ -414,6 +533,75 @@ def check_vae_agreement(torch, fa) -> None:
         fail(f"card and CPU disagree on the small VAE decoder: {rel}, shape {tuple(got.shape)}")
 
 
+def check_dit_agreement(torch, fa, ta) -> None:
+    """A small fp32 DiT with DiT-XL's head dim (hidden 144 over 2 heads),
+    depth 2, 4 frames of a 32 x 64 latent (512 patch tokens a frame): its
+    forward and one CFG Euler step on the card against the same weights on
+    the CPU, joint3d (2 flash launches a forward, L = 2048) and then
+    factorized with VDPP_TEMPORAL_ATTN=pallas (1 flash launch, L = 512, and 1
+    frame-attention launch a forward)."""
+    from vdpp_tpu_torch.models.dit import DiTVideo, DiTVideoConfig, DiTVideoWrapper
+    from vdpp_tpu_torch.models.svd_wrapper import make_guidance_ramp
+    from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
+
+    g = torch.Generator().manual_seed(8)
+    lat = torch.randn(1, 4, 32, 64, 4, generator=g)
+    ctx = torch.randn(1, 7, 32, generator=g)
+    for mode, want in (("joint3d", (2, 0)), ("factorized", (1, 1))):
+        cfg = DiTVideoConfig(hidden_size=144, depth=2, num_heads=2, cross_attention_dim=32,
+                             attention_mode=mode, dtype=torch.float32)
+        models = {"cpu": DiTVideo(cfg, device="cpu").init_weights(torch.Generator().manual_seed(9))}
+        models["cuda"] = DiTVideo(cfg, device="cuda")
+        models["cuda"].load_state_dict(models["cpu"].state_dict())
+        outs, counts = {}, {}
+        with kernel_switches(TEMPORAL_SWITCH) if mode == "factorized" else \
+                contextlib.nullcontext():
+            for dev, model in models.items():
+                wrapper = DiTVideoWrapper(cfg, num_steps=4, device=dev)
+                bundle = (model, ctx.to(dev), make_guidance_ramp(6.0, 4, device=dev))
+                fa.launches = ta.launches = 0
+                with torch.inference_mode():
+                    fwd = model(lat.to(dev), 0.3, ctx.to(dev))
+                    step = run_reference_single_device(
+                        wrapper.pipeline_step_fn(), bundle,
+                        (lat * wrapper.init_noise_sigma).to(dev)[None], 1)
+                outs[dev] = (fwd.cpu(), step.cpu())
+                counts[dev] = (fa.launches, ta.launches)
+        what = "joint3d" if mode == "joint3d" else "factorized with VDPP_TEMPORAL_ATTN=pallas"
+        forwards = 3  # the forward, then the step's two CFG forwards
+        expect(f"flash in the small DiT {what} on the card", counts["cuda"][0],
+               want[0] * forwards)
+        expect(f"frame attention in the small DiT {what} on the card", counts["cuda"][1],
+               want[1] * forwards)
+        for name, i in (("forward", 0), ("CFG Euler step", 1)):
+            ref = outs["cpu"][i]
+            rel = ((outs["cuda"][i] - ref).abs().max() / ref.abs().max()).item()
+            print(f"agreement card vs CPU, small fp32 DiT d=72 {what} ({name}): "
+                  f"max|diff|/max|ref| {rel:.3g} (tolerance 1e-4: fp32 sums in other orders, "
+                  f"no TF32)")
+            if not math.isfinite(rel) or rel > 1e-4:
+                fail(f"card and CPU disagree on the small DiT {what} ({name}): {rel}")
+
+
+def run_dit_path(torch, bench, config, context, smi: str, what: str) -> dict:
+    """The full-width text->video denoise through ``bench.measure_dit_config``,
+    checked."""
+    res = bench.measure_dit_config(
+        config=config, context=context, frames=DIT_FRAMES, lat_h=DIT_LAT[0], lat_w=DIT_LAT[1],
+        steps=STEPS, guidance=6.0, videos=VIDEOS, warmup=1, device="cuda",
+    )
+    print(f"full width {what}: DiT-XL bf16, {DIT_FRAMES} frames at {DIT_LAT[0]}x{DIT_LAT[1]}, "
+          f"CFG ramp to 6, {STEPS} Euler steps: {res['sec_per_step']:.3f} s/step "
+          f"({res['sec_per_video']:.3f} s/video of {STEPS} steps), peak allocated "
+          f"{res['peak_mem_bytes'] / 2**30:.2f} GiB, output {res['shape']}, finite "
+          f"{res['finite']}, on {res['device']} ({smi})")
+    if not res["finite"]:
+        fail(f"the full-width DiT run {what} gave non-finite values")
+    if res["shape"] != (1, DIT_FRAMES, *DIT_LAT, 4):
+        fail(f"unexpected DiT output shape {res['shape']}")
+    return res
+
+
 def run_main_path(torch, bench, config, smi: str, what: str) -> dict:
     """The full-width denoise through ``bench.measure_config``, checked."""
     res = bench.measure_config(
@@ -447,7 +635,9 @@ def main() -> int:
         fail("torch.cuda.is_available() is false")
     try:
         from vdpp_tpu_torch import bench
+        from vdpp_tpu_torch.models.dit import DiTVideoConfig
         from vdpp_tpu_torch.models.svd_unet import SVDUNetConfig
+        from vdpp_tpu_torch.models.t5_encoder import T5EncoderConfig
         from vdpp_tpu_torch.ops import flash_attention as fa
         from vdpp_tpu_torch.ops import norm_kernel as nk
         from vdpp_tpu_torch.ops import temporal_attention_kernel as ta
@@ -456,6 +646,7 @@ def main() -> int:
     except ImportError as e:
         fail(f"the vdpp_tpu_torch package is not beside this script: {e}")
 
+    t_start = time.perf_counter()
     resolve_device("cuda")  # full-fp32 matmuls and convolutions, no TF32
     name = torch.cuda.get_device_name(0)
     smi = bench.nvidia_smi_line()
@@ -476,9 +667,12 @@ def main() -> int:
     flash512 = check_flash_512(torch, fa, F)
     gn = check_group_norm(torch, nk, F)
     frame = check_frame_attention(torch, ta, F)
+    flash72 = check_flash_72(torch, fa, F)
+    frame72 = check_frame_attention_72(torch, ta, F)
     check_agreement(torch, switches=False)
     check_agreement(torch, switches=True)
     check_vae_agreement(torch, fa)
+    check_dit_agreement(torch, fa, ta)
 
     forwards = 2 * STEPS * (VIDEOS + 1)
     fa.launches = nk.launches = ta.launches = 0
@@ -511,6 +705,45 @@ def main() -> int:
     if dec["shape"] != (1, 25, 576, 1024, 3) or not dec["finite"]:
         fail(f"decode gave shape {dec['shape']}, finite {dec['finite']}")
 
+    # The text->video path: T5-XXL encode (then freed), DiT-XL joint3d, then
+    # factorized with frame attention switched on, then the decode.
+    t5_cfg = T5EncoderConfig.xxl()
+    enc = bench.encode_prompt(t5_cfg, device="cuda")
+    ctx = enc["context"]
+    print(f"encode: T5-v1.1-XXL bf16, {enc['tokens']} tokens: {enc['sec']:.3f} s, context "
+          f"{tuple(ctx.shape)}, finite {bool(torch.isfinite(ctx).all())} ({smi})")
+    if tuple(ctx.shape) != (1, enc["tokens"], t5_cfg.d_model) or not torch.isfinite(ctx).all():
+        fail(f"the T5-XXL encode gave shape {tuple(ctx.shape)} or non-finite values")
+    dit_xl = dataclasses.replace(DiTVideoConfig.latte_xl(), cross_attention_dim=t5_cfg.d_model)
+    fa.launches = nk.launches = ta.launches = 0
+    run_dit_path(torch, bench, dataclasses.replace(dit_xl, attention_mode="joint3d"), ctx, smi,
+                 "joint3d")
+    joint = {"flash": fa.launches, "frame": ta.launches}
+    expect(f"flash at d = 72 on the joint3d path ({forwards} DiT forwards)", joint["flash"],
+           FLASH_PER_JOINT3D_FORWARD * forwards)
+    expect("frame attention on the joint3d path", joint["frame"], 0)
+    with kernel_switches(TEMPORAL_SWITCH):
+        fa.launches = nk.launches = ta.launches = 0
+        dit_res = run_dit_path(torch, bench, dataclasses.replace(dit_xl,
+                                                                 attention_mode="factorized"),
+                               ctx, smi, "factorized with VDPP_TEMPORAL_ATTN=pallas")
+        fact = {"flash": fa.launches, "frame": ta.launches}
+    expect(f"flash at d = 72 on the factorized path ({forwards} DiT forwards)", fact["flash"],
+           FLASH_PER_FACTORIZED_FORWARD * forwards)
+    expect("frame attention at d = 72 on the factorized path", fact["frame"],
+           FRAME_ATTN_PER_FACTORIZED_FORWARD * forwards)
+    expect("GroupNorm+SiLU on the DiT paths", nk.launches, 0)
+    fa.launches = 0
+    dit_dec = bench.measure_decode(dit_res["latent"])
+    dit_decode_flash = fa.launches
+    print(f"decode: temporal VAE decoder fp32, {DIT_FRAMES} frames in chunks of 4: "
+          f"{dit_dec['sec']:.3f} s, video {dit_dec['shape']}, finite {dit_dec['finite']}, peak "
+          f"allocated {dit_dec['peak_mem_bytes'] / 2**30:.2f} GiB ({smi})")
+    expect("flash at d = 512 in the text->video decode", dit_decode_flash, FLASH_PER_DIT_DECODE)
+    if dit_dec["shape"] != (1, DIT_FRAMES, 320, 512, 3) or not dit_dec["finite"]:
+        fail(f"the text->video decode gave shape {dit_dec['shape']}, finite "
+             f"{dit_dec['finite']}")
+
     def entry(name, source, replaces, launches, check, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": check["max_abs_err"], "ms": row["ms"],
@@ -518,18 +751,24 @@ def main() -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "shapes": check["shapes"]}
 
+    print(f"chip_smoke phases done in {time.perf_counter() - t_start:.1f} s")
     flash_src, flash_tpu = ("vdpp_tpu_torch/csrc/flash_attention.cu",
                             "vdpp_tpu/ops/flash_attention.py:233")
+    frame_src, frame_tpu = ("vdpp_tpu_torch/csrc/frame_attention.cu",
+                            "vdpp_tpu/ops/temporal_attention_kernel.py:80")
     print(json.dumps({"kernels": [
         entry("flash_attention", flash_src, flash_tpu, flash_launches, flash,
               flash["shapes"][0]),
-        entry("flash_attention_d512", flash_src, flash_tpu, decode_flash, flash512,
-              flash512["shapes"][0]),
+        entry("flash_attention_d512", flash_src, flash_tpu, decode_flash + dit_decode_flash,
+              flash512, flash512["shapes"][0]),
         entry("group_norm_silu", "vdpp_tpu_torch/csrc/group_norm_silu.cu",
               "vdpp_tpu/ops/norm_kernel.py:165", switched["gn"], gn, gn["shapes"][0]),
-        entry("frame_attention", "vdpp_tpu_torch/csrc/frame_attention.cu",
-              "vdpp_tpu/ops/temporal_attention_kernel.py:80", switched["frame"], frame,
+        entry("frame_attention", frame_src, frame_tpu, switched["frame"], frame,
               frame["shapes"][0]),
+        entry("flash_attention_d72", flash_src, flash_tpu, joint["flash"] + fact["flash"],
+              flash72, flash72["shapes"][0]),
+        entry("frame_attention_d72", frame_src, frame_tpu, fact["frame"], frame72,
+              frame72["shapes"][0]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -120,3 +120,14 @@ def test_flash_d512_fp32_matches_jax(static_max):
     got, want = _both(_qkv(14, 2, 600, 1, 512, torch.float32), torch.float32, static_max,
                       jax_blocks=(256, 256, 256))
     np.testing.assert_allclose(got, want, atol=TOL[torch.float32], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("static_max", [True, False])
+@pytest.mark.parametrize("l", [200, 600])
+def test_flash_d72_matches_jax(l, static_max, dtype):
+    """DiT-XL's head dim, 72, at ragged lengths (not multiples of the
+    kernel's 64-key tiles or the JAX side's 128-key blocks)."""
+    got, want = _both(_qkv(15, 1, l, 2, 72, dtype), dtype, static_max)
+    atol = TOL[dtype] * (np.abs(want).max() if dtype == torch.bfloat16 else 1.0)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)

@@ -26,10 +26,11 @@ JNP_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 5, 48, 2, 16), (1, 25, 40, 1, 64)])
+@pytest.mark.parametrize("shape", [(2, 5, 48, 2, 16), (1, 25, 40, 1, 64), (1, 8, 40, 2, 72)])
 def test_frame_attention_matches_jax(shape, dtype):
     """tile_l=32 forces the reference to pad L (48 and 40 are not multiples
-    of it); 25 frames at d = 64 is the SVD-XT case."""
+    of it); 25 frames at d = 64 is the SVD-XT case, 8 frames at d = 72 the
+    factorized DiT-XL's."""
     rng = np.random.default_rng(11)
     arrs = [rng.standard_normal(shape).astype(NP_DTYPE[dtype]).astype(np.float32)
             for _ in range(3)]

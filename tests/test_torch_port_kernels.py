@@ -67,8 +67,8 @@ def test_flash_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
 
 @pytest.mark.gpu
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 16, 1, 72, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="d=72"):
+    q = torch.zeros(1, 16, 1, 80, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="d=80"):
         fa.flash_attention(q, q, q)
     q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -154,8 +154,8 @@ def test_new_kernels_never_take_the_plain_version(cuda, monkeypatch):
 
 @pytest.mark.gpu
 def test_new_kernels_reject_what_they_do_not_take(cuda):
-    q = torch.zeros(1, 4, 8, 2, 72, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="d=72"):
+    q = torch.zeros(1, 4, 8, 2, 80, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="d=80"):
         tak.frame_attention(q, q, q)
     q = torch.zeros(1, 33, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="at most 32 frames"):
@@ -166,3 +166,36 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):
     x = torch.zeros(2, 24, 8192, device=cuda)
     with pytest.raises(ValueError, match="C <= 4096"):
         nk.group_norm_silu_fused(x, Norm(8192, device=cuda), 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("static_max", [True, False])
+@pytest.mark.parametrize("b,l,h", [(1, 600, 3), (8, 640, 16), (1, 5120, 16)])
+def test_flash_d72_kernel_matches_plain(cuda, b, l, h, static_max, dtype):
+    """DiT-XL's head dim: a ragged 600 keys, the factorized spatial site and
+    the joint3d site (8 frames x 640 tokens)."""
+    q, k, v = _qkv(cuda, b, l, h, 72, dtype, l + 72)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, static_max=static_max)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v, static_max).float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= TOL[dtype] * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 8, 640, 16, 72), (2, 3, 40, 2, 72)])
+def test_frame_attention_d72_kernel_matches_plain(cuda, shape, dtype):
+    """The factorized DiT-XL's temporal blocks: F = 8, L = 640, 16 heads."""
+    g = torch.Generator(device=cuda).manual_seed(shape[2] + 72)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
+    before = tak.launches
+    got = tak.frame_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tak.launches == before + 1
+    ref = tak.frame_attention_plain(q, k, v)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= _one_rounding_tol(ref), err

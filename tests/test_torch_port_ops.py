@@ -85,6 +85,26 @@ def test_layer_norm():
            jnorm.layer_norm(jnp.asarray(x), jax_params(norm, lambda sd, pf: sd.norm(pf))))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm(dtype):
+    """fp32 statistics, the scale applied in fp32, one rounding to the input
+    dtype: bf16 within one bf16 ulp of the largest output, fp32 1e-5."""
+    x = _x(7, 2, 5, 64, scale=3.0)
+    scale = 1.0 + 0.2 * _x(8, 64)
+    norm = tnorm.RMSNorm(64, dtype=dtype)
+    with torch.no_grad():
+        norm.weight.copy_(torch.from_numpy(scale))
+    xt = torch.from_numpy(x).to(dtype)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jnorm.rms_norm(jnp.asarray(xt.float().numpy(), jdt),
+                          {"scale": jnp.asarray(norm.weight.float().numpy(), jdt)}, 1e-6)
+    want = np.asarray(want.astype(jnp.float32))
+    got = tnorm.rms_norm(xt, norm, 1e-6)
+    assert got.dtype == dtype
+    atol = ATOL if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    _check(got.float(), want, atol=atol)
+
+
 def test_linear_and_geglu():
     x = _x(4, 2, 5, 16)
     lin = randomize(tlin.Linear(16, 24), 5)

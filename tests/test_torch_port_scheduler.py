@@ -1,7 +1,8 @@
-"""The port's schedule, Euler update and step assignment against the JAX
+"""The port's schedules, their updates and step assignment against the JAX
 package. Tables are compared exactly (bit for bit); the fp32 Euler update
 within 1e-6 relative (scalar rsqrt/log may differ by an ulp between the two
-frameworks); an identity-padded step must be a bitwise no-op."""
+frameworks), the flow-matching update exactly (one multiply-add in fp32 on
+both sides); an identity-padded step must be a bitwise no-op."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -78,3 +79,49 @@ def test_step_assignment_copy_matches(total, world):
     if world > 1 and total % (world + 1):
         with pytest.raises(ValueError):
             tsa.assign_steps(total, world + 1, 0)
+
+
+@pytest.mark.parametrize("n,shift", [(1, 3.0), (4, 3.0), (24, 3.0), (24, 1.0), (30, 7.5)])
+def test_flowmatch_tables_equal_bitwise(n, shift):
+    np.testing.assert_array_equal(tsched.flowmatch_sigmas(n, shift),
+                                  jsched.flowmatch_sigmas(n, shift))
+
+
+@pytest.mark.parametrize("n,pad", [(24, None), (24, 5), (7, 4), (3, 3)])
+def test_flowmatch_schedule_create_equal_bitwise(n, pad):
+    got = tsched.FlowMatchSchedule.create(n, shift=3.0, pad_to_multiple_of=pad)
+    want = jsched.FlowMatchSchedule.create(n, shift=3.0, pad_to_multiple_of=pad)
+    np.testing.assert_array_equal(got.sigmas, want.sigmas)
+    np.testing.assert_array_equal(got.timesteps, want.timesteps)
+    assert (got.num_steps, got.init_noise_sigma) == (want.num_steps, want.init_noise_sigma)
+    for k in (0, got.num_steps - 1):
+        assert got.sigma_at(k) == float(want.sigma_at(k))
+        assert got.timestep_at(k) == float(want.timestep_at(k))
+
+
+def test_flowmatch_schedule_rejects_bad_arguments():
+    with pytest.raises(ValueError):
+        tsched.flowmatch_sigmas(0)
+    with pytest.raises(ValueError):
+        tsched.flowmatch_sigmas(4, shift=0.0)
+
+
+@pytest.mark.parametrize("k", [0, 11, 23])
+def test_flowmatch_step_matches_jax(k):
+    sig = jsched.flowmatch_sigmas(24, 3.0)
+    rng = np.random.default_rng(100 + k)
+    x = rng.standard_normal((1, 3, 8, 8, 4)).astype(np.float32)
+    v = rng.standard_normal((1, 3, 8, 8, 4)).astype(np.float32)
+    want = np.asarray(jsched.flowmatch_step(jnp.asarray(x), jnp.asarray(v), sig[k], sig[k + 1]))
+    got = tsched.flowmatch_step(torch.from_numpy(x), torch.from_numpy(v), sig[k],
+                                sig[k + 1]).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_flowmatch_identity_padded_step_is_bitwise_noop():
+    sched = tsched.FlowMatchSchedule.create(24, pad_to_multiple_of=5)
+    assert sched.sigmas[0] == sched.sigmas[1]  # one leading identity step
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((1, 3, 8, 8, 4)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((1, 3, 8, 8, 4)).astype(np.float32))
+    assert torch.equal(sched.step(x, v, 0), x)

@@ -1,0 +1,246 @@
+"""Text -> video generation (T5-conditioned video DiT) on one CUDA device.
+
+    python -m vdpp_tpu_torch.apps.generate_video_text --prompt "a red panda" --random-weights
+    python -m vdpp_tpu_torch.apps.generate_video_text --random-weights --preset tiny --device cpu
+
+The port's counterpart of ``scripts/generate_video_text.py``: T5 text encoder
+-> cross-attended video DiT (``--attention-mode joint3d``, the default, or
+``factorized``) -> chunked temporal VAE decode -> video files. The T5 weights
+are freed after the encode. The ``xl`` preset is T5-v1.1-XXL, DiT-XL with
+4096-wide cross-attention, and the SVD temporal VAE decoder in fp32, at 8
+frames of 512x320 (a 40x64 latent) and 24 Euler steps with a per-frame CFG
+ramp to 6.
+
+Tokenization: real T5 tokenization needs the sentencepiece vocabulary that
+ships with a checkpoint. With ``--checkpoint`` pass ``--token-ids`` or
+``--token-ids-file``; otherwise a deterministic hash of the prompt's words
+stands in. ``--checkpoint`` is a directory of the JAX package's own
+``save_params`` files (``t5.npz``, ``dit.npz``, ``vae_decoder.npz``).
+
+The denoise runs every step on one device (``run_reference_single_device``);
+``--num-stages`` and ``--seq-parallel`` take only 1 until the multi-GPU
+slice of the port. Without a CUDA device the app fails unless ``--device
+cpu`` is asked for.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from vdpp_tpu_torch.models.dit import DiTVideo, DiTVideoConfig, DiTVideoWrapper
+from vdpp_tpu_torch.models.svd_wrapper import make_guidance_ramp
+from vdpp_tpu_torch.models.t5_encoder import T5EncoderConfig, T5TextEncoder, hash_tokenize
+from vdpp_tpu_torch.models.vae import TemporalVAEDecoder, VAEConfig
+from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
+from vdpp_tpu_torch.utils.device import resolve_device
+from vdpp_tpu_torch.utils.video_io import (
+    build_output_name,
+    frames_to_uint8,
+    save_video_gif,
+    save_video_mp4,
+)
+from vdpp_tpu_torch.utils.weights import (
+    from_jax_dit_params,
+    from_jax_t5_params,
+    from_jax_vae_decoder_params,
+    load_jax_npz,
+)
+
+LOGGER = logging.getLogger("vdpp_torch.generate_text")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--prompt", default="a video")
+    p.add_argument("--negative-prompt", default=None,
+                   help="condition the uncond CFG branch on this prompt's encoding instead "
+                        "of zeros (needs --guidance-scale > 1)")
+    p.add_argument("--negative-token-ids", default=None,
+                   help="comma-separated token ids for the negative prompt")
+    p.add_argument("--token-ids", default=None,
+                   help="comma-separated token ids (overrides --prompt hashing)")
+    p.add_argument("--token-ids-file", default=None, help=".npy int array of token ids")
+    p.add_argument("--max-tokens", type=int, default=64)
+    p.add_argument("--output-dir", default="outputs")
+    p.add_argument("--preset", default="xl", choices=["xl", "tiny"])
+    p.add_argument("--attention-mode", default="joint3d", choices=["factorized", "joint3d"])
+    p.add_argument("--checkpoint", default=None,
+                   help="directory of the JAX package's weight files (t5.npz, dit.npz, "
+                        "vae_decoder.npz)")
+    p.add_argument("--random-weights", action="store_true")
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--height", type=int, default=320)
+    p.add_argument("--num-frames", type=int, default=8)
+    p.add_argument("--steps", type=int, default=24)
+    p.add_argument("--solver", default="euler",
+                   choices=["euler", "euler_a", "heun", "dpmpp2m", "flowmatch"],
+                   help="euler (v-prediction over Karras sigmas) or flowmatch (rectified "
+                        "flow, shifted-linear schedule); the others are not ported yet")
+    p.add_argument("--flow-shift", type=float, default=3.0,
+                   help="flowmatch only: resolution shift of the sigma schedule")
+    p.add_argument("--num-stages", type=int, default=None)
+    p.add_argument("--seq-parallel", type=int, default=1)
+    p.add_argument("--num-samples", type=int, default=1)
+    p.add_argument("--guidance-scale", type=float, default=6.0)
+    p.add_argument("--fps", type=int, default=8)
+    p.add_argument("--decode-chunk-frames", type=int, default=4)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--log-level", default="INFO")
+    return p
+
+
+def _ids(text: str) -> np.ndarray:
+    return np.asarray([int(t) for t in text.split(",")], np.int64).reshape(1, -1)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=getattr(logging, args.log_level.upper(), logging.INFO),
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    t_start = time.perf_counter()
+    if not args.checkpoint and not args.random_weights:
+        LOGGER.error("provide --checkpoint or --random-weights")
+        return 1
+    if (args.negative_prompt is not None or args.negative_token_ids) and (
+            args.guidance_scale is None or args.guidance_scale <= 1.0):
+        LOGGER.error("--negative-prompt needs CFG: set --guidance-scale > 1.0 (got %s)",
+                     args.guidance_scale)
+        return 1
+    if (args.num_stages or 1) != 1 or args.seq_parallel != 1:
+        raise NotImplementedError("--num-stages and --seq-parallel above 1 come with the "
+                                  "multi-GPU slice of the port (ROADMAP A6, A13)")
+    dev = resolve_device(args.device)
+
+    if args.preset == "tiny":
+        t5_cfg = T5EncoderConfig.tiny()
+        dit_base = DiTVideoConfig.tiny()
+        vae_cfg = VAEConfig.tiny()
+        args.width, args.height = min(args.width, 64), min(args.height, 64)
+    else:
+        t5_cfg = T5EncoderConfig.xxl()
+        dit_base = DiTVideoConfig.latte_xl()
+        vae_cfg = VAEConfig.svd(torch.float32)
+    dit_cfg = dataclasses.replace(dit_base, cross_attention_dim=t5_cfg.d_model,
+                                  attention_mode=args.attention_mode)
+
+    spatial_down = 2 ** (len(vae_cfg.block_out_channels) - 1)
+    lat_h, lat_w = args.height // spatial_down, args.width // spatial_down
+    if lat_h % dit_cfg.patch_size or lat_w % dit_cfg.patch_size:
+        LOGGER.error("latent %dx%d not divisible by patch size", lat_h, lat_w)
+        return 1
+
+    # ---- token ids ----
+    if args.token_ids_file:
+        ids = np.load(args.token_ids_file).astype(np.int64).reshape(1, -1)
+    elif args.token_ids:
+        ids = _ids(args.token_ids)
+    else:
+        ids = np.asarray(hash_tokenize(args.prompt, t5_cfg.vocab_size, args.max_tokens),
+                         np.int64).reshape(1, -1)
+        if args.checkpoint:
+            LOGGER.warning("hash tokenizer with real weights: pass --token-ids for meaningful "
+                           "conditioning")
+    neg_ids = None
+    if args.negative_token_ids:
+        neg_ids = _ids(args.negative_token_ids)
+    elif args.negative_prompt is not None:
+        neg_ids = np.asarray(hash_tokenize(args.negative_prompt, t5_cfg.vocab_size,
+                                           args.max_tokens), np.int64).reshape(1, -1)
+    if neg_ids is not None:
+        # Equal token counts, as the reference pads them: right-pad the
+        # shorter list with the hash tokenizer's EOS (vocab_size - 1).
+        eos = t5_cfg.vocab_size - 1
+        want = max(ids.shape[1], neg_ids.shape[1])
+        ids = np.pad(ids, ((0, 0), (0, want - ids.shape[1])), constant_values=eos)
+        neg_ids = np.pad(neg_ids, ((0, 0), (0, want - neg_ids.shape[1])), constant_values=eos)
+
+    # ---- models ----
+    t0 = time.perf_counter()
+    t5 = T5TextEncoder(t5_cfg, device=dev)
+    wrapper = DiTVideoWrapper(dit_cfg, num_steps=args.steps, solver=args.solver,
+                              flow_shift=args.flow_shift, device=dev)
+    vae = TemporalVAEDecoder(vae_cfg, device=dev)
+    if args.checkpoint:
+        t5.load_state_dict(from_jax_t5_params(load_jax_npz(
+            os.path.join(args.checkpoint, "t5.npz"))))
+        dit = DiTVideo(dit_cfg, device=dev)
+        dit.load_state_dict(from_jax_dit_params(load_jax_npz(
+            os.path.join(args.checkpoint, "dit.npz"))))
+        vae.load_state_dict(from_jax_vae_decoder_params(load_jax_npz(
+            os.path.join(args.checkpoint, "vae_decoder.npz"))))
+    else:
+        t5.init_weights(torch.Generator(device=dev).manual_seed(args.seed))
+        dit = wrapper.init(torch.Generator(device=dev).manual_seed(args.seed + 1))
+        vae.init_weights(torch.Generator(device=dev).manual_seed(args.seed + 2))
+    _sync(dev)
+    t_load = time.perf_counter() - t0
+    LOGGER.info("models ready in %.1fs", t_load)
+
+    # ---- text encode, then free the tower ----
+    t0 = time.perf_counter()
+    ctx = t5(torch.as_tensor(ids, device=dev)).float()  # (1, M, D)
+    if neg_ids is not None:
+        ctx = (t5(torch.as_tensor(neg_ids, device=dev)).float(), ctx)  # negative-prompt CFG
+    del t5
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    guidance = make_guidance_ramp(args.guidance_scale, args.num_frames, device=dev)
+    _sync(dev)
+    t_encode = time.perf_counter() - t0
+    LOGGER.info("text encoded in %.1fs (%d tokens)", t_encode, ids.shape[1])
+
+    # ---- denoise, every step on this device ----
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    noise = torch.randn(args.num_samples, 1, args.num_frames, lat_h, lat_w,
+                        dit_cfg.in_channels, generator=g, device=dev)
+    noise = wrapper.pack_initial(noise * wrapper.init_noise_sigma)
+    latents = run_reference_single_device(wrapper.pipeline_step_fn(), (dit, ctx, guidance),
+                                          noise, args.steps)
+    latents = wrapper.unpack_final(latents)
+    _sync(dev)
+    t_diffusion = time.perf_counter() - t0
+    del dit
+    LOGGER.info("diffusion [single]: %.1fs (%d samples)", t_diffusion, args.num_samples)
+
+    # ---- decode + save ----
+    t0 = time.perf_counter()
+    os.makedirs(args.output_dir, exist_ok=True)
+    outputs = []
+    for i in range(args.num_samples):
+        video = vae.decode_chunked(latents[i] / vae_cfg.scaling_factor,
+                                   chunk_frames=args.decode_chunk_frames)
+        frames = frames_to_uint8(video[0].float().cpu().numpy())
+        name = build_output_name("dit_text", num_frames=args.num_frames, steps=args.steps,
+                                 stages=1, fps=args.fps, seed=args.seed + i, ext="mp4")
+        path = save_video_mp4(frames, os.path.join(args.output_dir, name), args.fps)
+        save_video_gif(frames, os.path.splitext(path)[0] + ".gif", args.fps)
+        outputs.append(path)
+    t_decode = time.perf_counter() - t0
+
+    total = time.perf_counter() - t_start
+    LOGGER.info("=" * 60)
+    LOGGER.info("TIMING  load %.1fs | encode %.1fs | diffusion %.1fs | decode+save %.1fs | "
+                "total %.1fs", t_load, t_encode, t_diffusion, t_decode, total)
+    for p in outputs:
+        LOGGER.info("output: %s", p)
+    LOGGER.info("=" * 60)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,9 @@
-"""Flagship SVD denoise benchmark of the port on one CUDA device.
+"""Denoise benchmarks of the port on one CUDA device: SVD image->video (the
+flagship) and the DiT text->video family.
 
     python -m vdpp_tpu_torch.bench [--preset full|tiny] [--steps N] [--frames F]
                                    [--latent-hw H W] [--device cuda|cpu] [--decode]
+    python -m vdpp_tpu_torch.bench --model dit3d_xl|dit_xl|dit3d_tiny [--profile]
 
 The counterpart of the root ``bench.py::measure_config``: random-init SVD-XT
 (weights made from a seed), ``make_dummy_conditioning`` and the Euler loop
@@ -17,11 +19,21 @@ image->video app decodes) and reports its time on stderr.
 ``vs_baseline`` is the root bench's yardstick: the reference system's
 measured single-GPU 14-frame/25-step diffusion time (47.65 s, RTX A5000)
 scaled by frames x steps, over the measured time (0 for the tiny preset).
+
+``--model dit3d_xl`` (DiT-XL, joint3d attention), ``dit_xl`` (factorized)
+and ``dit3d_tiny`` time the denoise of one text->video sample at the
+defaults of ``vdpp_tpu_torch.apps.generate_video_text``: T5-v1.1-XXL encodes
+the app's default prompt (random weights from the seed) and is freed, then
+8 frames of a 40x64 latent (512x320), 24 Euler steps, CFG ramp to 6 (two DiT
+forwards a step), bf16, through ``measure_dit_config``; the encode and the
+fp32 temporal VAE decode of the last latent are timed on stderr. Its JSON
+line has the same keys, ``vs_baseline`` 0 (the yardstick is SVD's).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -31,13 +43,22 @@ import time
 
 import torch
 
+from vdpp_tpu_torch.models.dit import DiTVideoConfig, DiTVideoWrapper
 from vdpp_tpu_torch.models.svd_unet import SVDUNetConfig
-from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet, make_dummy_conditioning
+from vdpp_tpu_torch.models.svd_wrapper import (
+    StableVideoUNet,
+    make_dummy_conditioning,
+    make_guidance_ramp,
+)
+from vdpp_tpu_torch.models.t5_encoder import T5EncoderConfig, T5TextEncoder, hash_tokenize
 from vdpp_tpu_torch.models.vae import TemporalVAEDecoder, VAEConfig
 from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
 from vdpp_tpu_torch.utils.device import resolve_device
 
 SECONDARY_BASELINE_SEC = 47.65
+# --model: (preset, attention mode) of the DiT text->video configurations.
+DIT_MODELS = {"dit3d_xl": ("xl", "joint3d"), "dit_xl": ("xl", "factorized"),
+              "dit3d_tiny": ("tiny", "joint3d")}
 
 
 def log(msg: str) -> None:
@@ -112,6 +133,44 @@ def profile_step(fn, device: torch.device, top: int = 25) -> dict:
             "groups": groups, "kernels": kernels[:top]}
 
 
+def _time_videos(generate, steps: int, videos: int, warmup: int, dev: torch.device,
+                 profile_one_step=None) -> dict:
+    """Run ``generate(i)`` for ``warmup`` untimed and ``videos`` timed videos,
+    each timed one ending in a device synchronise; the allocator's peak is
+    taken over the timed videos (None on the CPU). ``profile_one_step`` then
+    runs under :func:`profile_step`."""
+    finite = True
+    for i in range(warmup):
+        t0 = time.perf_counter()
+        out = generate(i)
+        finite &= bool(torch.isfinite(out).all())
+        log(f"warm-up video {i}: {time.perf_counter() - t0:.3f} s")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(videos):
+        t0 = time.perf_counter()
+        out = generate(warmup + i)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+        finite &= bool(torch.isfinite(out).all())
+        log(f"video {i}: {times[-1]:.3f} s")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    prof = profile_step(profile_one_step, dev) if profile_one_step is not None else None
+    sec = sum(times) / len(times)
+    return {
+        "sec_per_video": sec,
+        "sec_per_step": sec / steps,
+        "times": times,
+        "peak_mem_bytes": peak,
+        "finite": finite,
+        "shape": tuple(out.shape),
+        "device": device_name(dev),
+        "profile": prof,
+        "latent": out,
+    }
+
+
 def measure_config(
     *,
     config: SVDUNetConfig,
@@ -157,40 +216,77 @@ def measure_config(
         out = run_reference_single_device(step_fn, (params, cond), initial(i), steps)[0]
         return model.unpack_final(out)
 
-    finite = True
-    for i in range(warmup):
-        t0 = time.perf_counter()
-        out = generate(i)
-        finite &= bool(torch.isfinite(out).all())
-        log(f"warm-up video {i}: {time.perf_counter() - t0:.3f} s")
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    times = []
-    for i in range(videos):
-        t0 = time.perf_counter()
-        out = generate(warmup + i)
-        _sync(dev)
-        times.append(time.perf_counter() - t0)
-        finite &= bool(torch.isfinite(out).all())
-        log(f"video {i}: {times[-1]:.3f} s")
-    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-    prof = None
+    one_step = None
     if profile:
         x = initial(warmup + videos)
-        prof = profile_step(
-            lambda: run_reference_single_device(step_fn, (params, cond), x, 1), dev)
-    sec = sum(times) / len(times)
-    return {
-        "sec_per_video": sec,
-        "sec_per_step": sec / steps,
-        "times": times,
-        "peak_mem_bytes": peak,
-        "finite": finite,
-        "shape": tuple(out.shape),
-        "device": device_name(dev),
-        "profile": prof,
-        "latent": out,
-    }
+        one_step = lambda: run_reference_single_device(step_fn, (params, cond), x, 1)  # noqa: E731
+    return _time_videos(generate, steps, videos, warmup, dev, one_step)
+
+
+def encode_prompt(config: T5EncoderConfig, prompt: str = "a video", max_tokens: int = 64,
+                  seed: int = 0, device: str | torch.device | None = None) -> dict:
+    """Encode ``prompt`` (hash-tokenized, as the app does with random weights)
+    with a T5 encoder whose random weights come from ``seed``, then free the
+    encoder. Returns ``{"context", "sec", "tokens"}``: the fp32 ``(1, M,
+    d_model)`` tokens and the encode's time, ending in a device synchronise."""
+    dev = resolve_device(device)
+    t5 = T5TextEncoder(config, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed))
+    ids = torch.tensor([hash_tokenize(prompt, config.vocab_size, max_tokens)], device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    ctx = t5(ids).float()
+    _sync(dev)
+    sec = time.perf_counter() - t0
+    del t5
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"context": ctx, "sec": sec, "tokens": ids.shape[1]}
+
+
+def measure_dit_config(
+    *,
+    config: DiTVideoConfig,
+    context: torch.Tensor,
+    frames: int,
+    lat_h: int,
+    lat_w: int,
+    steps: int,
+    guidance: float,
+    solver: str = "euler",
+    videos: int = 2,
+    warmup: int = 1,
+    seed: int = 0,
+    device: str | torch.device | None = None,
+    profile: bool = False,
+) -> dict:
+    """The text->video counterpart of :func:`measure_config`: a random-init
+    DiT (weights from ``seed``) denoises ``warmup + videos`` latents of
+    ``frames x lat_h x lat_w`` conditioned on ``context`` (from
+    :func:`encode_prompt`), CFG ramp to ``guidance``; returns the same keys."""
+    dev = resolve_device(device)
+    wrapper = DiTVideoWrapper(config, num_steps=steps, solver=solver, device=dev)
+    t0 = time.perf_counter()
+    dit = wrapper.init(torch.Generator(device=dev).manual_seed(seed + 1))
+    bundle = (dit, context.to(dev), make_guidance_ramp(guidance, frames, device=dev))
+    _sync(dev)
+    log(f"init: {time.perf_counter() - t0:.2f} s")
+    step_fn = wrapper.pipeline_step_fn()
+
+    def initial(i: int) -> torch.Tensor:
+        g = torch.Generator(device=dev).manual_seed(seed + 100 + i)
+        noise = torch.randn(1, frames, lat_h, lat_w, config.in_channels, generator=g, device=dev)
+        return wrapper.pack_initial(noise * wrapper.init_noise_sigma)[None]
+
+    def generate(i: int) -> torch.Tensor:
+        return wrapper.unpack_final(
+            run_reference_single_device(step_fn, bundle, initial(i), steps)[0])
+
+    one_step = None
+    if profile:
+        x = initial(warmup + videos)
+        one_step = lambda: run_reference_single_device(step_fn, bundle, x, 1)  # noqa: E731
+    return _time_videos(generate, steps, videos, warmup, dev, one_step)
 
 
 def measure_decode(latent: torch.Tensor, *, warmup: int = 0, seed: int = 0,
@@ -231,13 +327,39 @@ def kernel_switches() -> str:
     return " ".join(on)
 
 
+def _log_profile(p: dict) -> None:
+    log(f"profiled step: wall {p['wall_ms']:.3f} ms, kernels {p['kernel_ms']:.3f} ms, "
+        f"device busy share {p['busy_share']:.4f}")
+    for label, (n, ms) in p["groups"].items():
+        log(f"  {ms:10.3f} ms {n:6d}x  {label} ({ms / p['kernel_ms']:.4f} of kernel time)")
+    log("top kernels:")
+    for name, n, ms in p["kernels"]:
+        log(f"  {ms:10.3f} ms {n:6d}x  {name[:150]}")
+
+
+def _decode(latent: torch.Tensor, seed: int, config: VAEConfig) -> bool:
+    """Time the decode of ``latent`` on stderr; False if it is not finite."""
+    dec = measure_decode(latent, warmup=1, seed=seed, config=config)
+    if not dec["finite"]:
+        log("non-finite decoded video")
+        return False
+    mem = "" if dec["peak_mem_bytes"] is None else \
+        f", peak allocated {dec['peak_mem_bytes'] / 2**30:.2f} GiB"
+    log(f"decode: {dec['sec']:.3f} s for video {dec['shape']} (fp32, chunks of 4 "
+        f"frames){mem}")
+    return True
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--preset", choices=["full", "tiny"], default="full")
+    ap.add_argument("--model", choices=["svd", *DIT_MODELS], default="svd",
+                    help="svd (image->video, the flagship) or a DiT text->video config")
+    ap.add_argument("--preset", choices=["full", "tiny"], default="full",
+                    help="svd only: svd_xt (full) or tiny")
     ap.add_argument("--steps", type=int)
     ap.add_argument("--frames", type=int)
     ap.add_argument("--latent-hw", type=int, nargs=2, metavar=("H", "W"))
-    ap.add_argument("--guidance", type=float, default=3.0)
+    ap.add_argument("--guidance", type=float, help="CFG scale (default 3 for svd, 6 for DiT)")
     ap.add_argument("--cfg-mode", choices=["sequential", "batched"], default="sequential")
     ap.add_argument("--videos", type=int, default=2)
     ap.add_argument("--warmup", type=int, default=1)
@@ -247,56 +369,67 @@ def main(argv: list[str] | None = None) -> int:
                     help="after the timed videos, trace one denoise step and print its "
                          "kernels by device time (stderr)")
     ap.add_argument("--decode", action="store_true",
-                    help="decode the last video's latent with the temporal VAE decoder "
+                    help="svd: decode the last video's latent with the temporal VAE decoder "
                          "(fp32, chunks of 4 frames, one warm-up decode) and print its "
-                         "time (stderr)")
+                         "time (stderr); DiT configs always decode")
     args = ap.parse_args(argv)
 
-    tiny = args.preset == "tiny"
-    config = SVDUNetConfig.tiny() if tiny else SVDUNetConfig.svd_xt()
-    frames = args.frames or (3 if tiny else 25)
-    lat_h, lat_w = args.latent_hw or ((16, 16) if tiny else (72, 128))
-    steps = args.steps or (4 if tiny else 30)
+    dit = args.model in DIT_MODELS
+    tiny = DIT_MODELS[args.model][0] == "tiny" if dit else args.preset == "tiny"
+    if dit:
+        frames = args.frames or (4 if tiny else 8)
+        lat_h, lat_w = args.latent_hw or ((16, 16) if tiny else (40, 64))
+        steps = args.steps or (4 if tiny else 24)
+        guidance = 6.0 if args.guidance is None else args.guidance
+    else:
+        config = SVDUNetConfig.tiny() if tiny else SVDUNetConfig.svd_xt()
+        frames = args.frames or (3 if tiny else 25)
+        lat_h, lat_w = args.latent_hw or ((16, 16) if tiny else (72, 128))
+        steps = args.steps or (4 if tiny else 30)
+        guidance = 3.0 if args.guidance is None else args.guidance
+    vae_cfg = VAEConfig.tiny() if tiny else VAEConfig.svd()
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         log(f"card: {nvidia_smi_line()}")
     switches = kernel_switches()
-    log(f"{args.preset}: {frames}f latent {lat_h}x{lat_w}, {steps} steps, guidance "
-        f"{args.guidance}, cfg_mode {args.cfg_mode}, device {device_name(dev)}, "
+    log(f"{args.model} {'tiny' if tiny else 'full'}: {frames}f latent {lat_h}x{lat_w}, {steps} "
+        f"steps, guidance {guidance}, cfg_mode {args.cfg_mode}, device {device_name(dev)}, "
         f"kernel switches: {switches or 'none'}")
-    res = measure_config(
-        config=config, frames=frames, lat_h=lat_h, lat_w=lat_w, steps=steps,
-        guidance=args.guidance, cfg_mode=args.cfg_mode, videos=args.videos,
-        warmup=args.warmup, seed=args.seed, device=dev, profile=args.profile,
-    )
+    if dit:
+        mode = DIT_MODELS[args.model][1]
+        t5_cfg = T5EncoderConfig.tiny() if tiny else T5EncoderConfig.xxl()
+        enc = encode_prompt(t5_cfg, seed=args.seed, device=dev)
+        log(f"encode: {enc['sec']:.3f} s for {enc['tokens']} tokens "
+            f"(T5 {'tiny' if tiny else 'v1.1-XXL'}, then freed)")
+        base = DiTVideoConfig.tiny() if tiny else DiTVideoConfig.latte_xl()
+        config = dataclasses.replace(base, cross_attention_dim=t5_cfg.d_model,
+                                     attention_mode=mode)
+        res = measure_dit_config(
+            config=config, context=enc["context"], frames=frames, lat_h=lat_h, lat_w=lat_w,
+            steps=steps, guidance=guidance, videos=args.videos, warmup=args.warmup,
+            seed=args.seed, device=dev, profile=args.profile,
+        )
+        what = f"DiT-{'tiny' if tiny else 'XL'} {mode} text->video"
+    else:
+        res = measure_config(
+            config=config, frames=frames, lat_h=lat_h, lat_w=lat_w, steps=steps,
+            guidance=guidance, cfg_mode=args.cfg_mode, videos=args.videos,
+            warmup=args.warmup, seed=args.seed, device=dev, profile=args.profile,
+        )
+        what = "SVD"
     if not res["finite"]:
         log("non-finite output")
         return 1
     if res["peak_mem_bytes"] is not None:
         log(f"peak allocated: {res['peak_mem_bytes'] / 2**30:.2f} GiB")
     if res["profile"] is not None:
-        p = res["profile"]
-        log(f"profiled step: wall {p['wall_ms']:.3f} ms, kernels {p['kernel_ms']:.3f} ms, "
-            f"device busy share {p['busy_share']:.4f}")
-        for label, (n, ms) in p["groups"].items():
-            log(f"  {ms:10.3f} ms {n:6d}x  {label} ({ms / p['kernel_ms']:.4f} of kernel time)")
-        log("top kernels:")
-        for name, n, ms in p["kernels"]:
-            log(f"  {ms:10.3f} ms {n:6d}x  {name[:150]}")
-    if args.decode:
-        vae_cfg = VAEConfig.tiny() if tiny else VAEConfig.svd()
-        dec = measure_decode(res["latent"], warmup=1, seed=args.seed, config=vae_cfg)
-        if not dec["finite"]:
-            log("non-finite decoded video")
-            return 1
-        mem = "" if dec["peak_mem_bytes"] is None else \
-            f", peak allocated {dec['peak_mem_bytes'] / 2**30:.2f} GiB"
-        log(f"decode: {dec['sec']:.3f} s for video {dec['shape']} (fp32, chunks of 4 "
-            f"frames){mem}")
-    baseline = 0.0 if tiny else SECONDARY_BASELINE_SEC * frames * steps / (14 * 25)
+        _log_profile(res["profile"])
+    if (dit or args.decode) and not _decode(res["latent"], args.seed, vae_cfg):
+        return 1
+    baseline = 0.0 if tiny or dit else SECONDARY_BASELINE_SEC * frames * steps / (14 * 25)
     print(json.dumps({
-        "metric": (f"sec/video single {res['device']} SVD {frames}f {lat_h}x{lat_w} latent, "
-                   f"{steps} steps, CFG {args.guidance}" + (f", {switches}" if switches else "")),
+        "metric": (f"sec/video single {res['device']} {what} {frames}f {lat_h}x{lat_w} latent, "
+                   f"{steps} steps, CFG {guidance}" + (f", {switches}" if switches else "")),
         "value": round(res["sec_per_video"], 3),
         "unit": "s/video",
         "vs_baseline": round(baseline / res["sec_per_video"], 3) if baseline else 0.0,

@@ -31,6 +31,17 @@
 // fp32 inputs take a plain SIMT kernel (one query row per thread): the tensor
 // cores would round fp32 operands to TF32, and fp32 is off the UNet's path.
 //
+// Head dim 72 (DiT-XL: hidden 1152 over 16 heads) runs the same two kernels:
+// the head dim is a template parameter. 72 = 4 * 16 + 8, so S = Q'K^T takes
+// four m16n8k16 steps and one m16n8k8 step for columns 64-71; nothing past
+// column 71 of Q, K or V is read, so no unset shared memory enters a product.
+// P.V has 72 / 8 = 9 n-tiles (36 fp32 accumulators a thread). The padded
+// shared row is 88 bf16 (44 words): the eight row groups g of a fragment load
+// then start at banks 12g mod 32, all distinct (80 would give 8g mod 32, a
+// 2-way conflict). At the joint3d site (B = 1, L = 8 * 640 = 5120, 16 heads)
+// one call is 4 * 16 * 5120^2 * 72 = 121 GFLOP, 0.12 ms at 989 TFLOP/s, against
+// 4 * 5120 * 16 * 72 * 2 B = 47 MB of q, k, v, o (0.014 ms): operations again.
+//
 // Head dim 512, fp32 (the VAE decoder's mid-block attention: one head,
 // L = 72 * 128 = 9216, B = the frames of a decode chunk) takes its own SIMT
 // kernel, flash_fwd_f32_d512. One call at B = 4 is 4 * 4 * 9216^2 * 512 =
@@ -56,12 +67,18 @@
 
 namespace {
 
-constexpr int D = 64;           // head dim supported by both kernels
 constexpr int BK = 64;          // keys per shared-memory tile
 constexpr int THREADS = 128;    // 4 warps
 constexpr int BQ_MMA = 64;      // query rows per block, bf16 kernel (16 per warp)
 constexpr int BQ_F32 = THREADS; // query rows per block, fp32 kernel (1 per thread)
-constexpr int SROW = D + 8;     // padded smem row (bf16): conflict-free fragment loads
+
+// Padded shared row of a bf16 K/V tile, in elements. Lane (g, t) of a fragment
+// load reads word g * SROW / 2 + t, so the eight g hit distinct banks when
+// SROW / 2 is 4 mod 8: 72 (36 words) at D = 64, 88 (44 words) at D = 72.
+template <int D>
+__host__ __device__ constexpr int srow() {
+  return ((D + 8) / 2) % 8 == 4 ? D + 8 : D + 16;
+}
 
 constexpr float S_CLAMP = 100.f;
 constexpr float S_CLAMP_LO = -100.f;
@@ -74,6 +91,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// D(16x8, fp32) += A(16x8, bf16, row) * B(8x8, bf16, col); fragments as the
+// first half of m16n8k16's: A {(g, 2t..2t+1), (g+8, 2t..)}, B (k 2t..2t+1, n g).
+__device__ __forceinline__ void mma_1688(float c[4], const uint32_t a[2], uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
 }
 
 // D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
@@ -92,11 +119,16 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint3
 //   C: c0,c1 = (g, 2t..2t+1), c2,c3 = (g+8, 2t..2t+1)
 // so the C fragments of two neighbouring 8-key tiles of S are, element for
 // element, the A fragment of one 16-key step of P.V (no shuffles needed).
-template <bool STATIC_MAX>
+template <int D, bool STATIC_MAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H,
                int Lq, int Lk, float qscale) {
+  static_assert(D % 8 == 0, "whole 8-column tiles");
+  constexpr int SROW = srow<D>();
+  constexpr int KS = D / 16;           // m16n8k16 steps of S = Q'K^T
+  constexpr bool TAIL = D % 16 != 0;   // and one m16n8k8 step for the last 8 columns
+  constexpr int ROW_CHUNKS = D / 8;    // 16-byte chunks of a row
   __shared__ __align__(16) __nv_bfloat16 Ks[BK * SROW];
   __shared__ __align__(16) __nv_bfloat16 Vs[BK * SROW];
 
@@ -115,9 +147,10 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   __nv_bfloat16* ob = o + ((long)b * Lq * H + h) * D;
   const int r0 = blockIdx.x * BQ_MMA + warp * 16 + g;  // this thread's rows: r0, r0 + 8
 
-  uint32_t qa[D / 16][4];
+  uint32_t qa[KS][4];
+  uint32_t qt[2];  // the k8 tail step's A fragment (unused when D % 16 == 0)
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = r0 + (i & 1) * 8;
@@ -128,6 +161,16 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
       }
       qa[ks][i] = pack_bf16(f.x * qscale, f.y * qscale);
     }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + i * 8;
+    float2 f = make_float2(0.f, 0.f);
+    if (TAIL && r < Lq) {
+      const __nv_bfloat16* qp = qb + r * rs + KS * 16 + 2 * t;
+      f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qp));
+    }
+    qt[i] = pack_bf16(f.x * qscale, f.y * qscale);
   }
 
   float acc[D / 8][4];
@@ -143,10 +186,11 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   for (int k0 = 0; k0 < Lk; k0 += BK) {
     __syncthreads();  // every warp is done with the previous tile
 #pragma unroll
-    for (int i = 0; i < (BK * D / 8) / THREADS; ++i) {
+    for (int i = 0; i < (BK * ROW_CHUNKS + THREADS - 1) / THREADS; ++i) {
       const int c = tid + i * THREADS;
-      const int row = c >> 3;
-      const int col = (c & 7) * 8;
+      if ((BK * ROW_CHUNKS) % THREADS != 0 && c >= BK * ROW_CHUNKS) break;  // D = 72: 4.5 rounds
+      const int row = c / ROW_CHUNKS;
+      const int col = (c % ROW_CHUNKS) * 8;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u);
       uint4 vv = make_uint4(0u, 0u, 0u, 0u);
       if (k0 + row < Lk) {
@@ -165,11 +209,15 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
+      for (int ks = 0; ks < KS; ++ks) {
         const __nv_bfloat16* kp = Ks + (nt * 8 + g) * SROW + ks * 16 + 2 * t;
         const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp);
         const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + 8);
         mma_16816(s[nt], qa[ks], b0, b1);
+      }
+      if (TAIL) {
+        const __nv_bfloat16* kp = Ks + (nt * 8 + g) * SROW + KS * 16 + 2 * t;
+        mma_1688(s[nt], qt, *reinterpret_cast<const uint32_t*>(kp));
       }
     }
 
@@ -261,7 +309,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   }
 }
 
-template <bool STATIC_MAX>
+template <int D, bool STATIC_MAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int H, int Lq, int Lk,
@@ -292,11 +340,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = 0; k0 < Lk; k0 += BK) {
     __syncthreads();
+    static_assert((BK * D / 4) % THREADS == 0, "whole float4 rounds");
 #pragma unroll
     for (int i = 0; i < (BK * D / 4) / THREADS; ++i) {
       const int c = tid + i * THREADS;
-      const int row = c >> 4;
-      const int col = (c & 15) * 4;
+      const int row = c / (D / 4);
+      const int col = (c % (D / 4)) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
       if (k0 + row < Lk) {
@@ -525,11 +574,40 @@ cudaError_t launch_f32_d512(const float* q, const float* k, const float* v, floa
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int is_bf16, int bh,
+                     int H, int Lq, int Lk, int static_max, float qscale, cudaStream_t st) {
+  if (is_bf16) {
+    const dim3 grid((Lq + BQ_MMA - 1) / BQ_MMA, bh);
+    const auto* qp = static_cast<const __nv_bfloat16*>(q);
+    const auto* kp = static_cast<const __nv_bfloat16*>(k);
+    const auto* vp = static_cast<const __nv_bfloat16*>(v);
+    auto* op = static_cast<__nv_bfloat16*>(o);
+    if (static_max) {
+      flash_fwd_bf16<D, true><<<grid, THREADS, 0, st>>>(qp, kp, vp, op, H, Lq, Lk, qscale);
+    } else {
+      flash_fwd_bf16<D, false><<<grid, THREADS, 0, st>>>(qp, kp, vp, op, H, Lq, Lk, qscale);
+    }
+  } else {
+    const dim3 grid((Lq + BQ_F32 - 1) / BQ_F32, bh);
+    const auto* qp = static_cast<const float*>(q);
+    const auto* kp = static_cast<const float*>(k);
+    const auto* vp = static_cast<const float*>(v);
+    auto* op = static_cast<float*>(o);
+    if (static_max) {
+      flash_fwd_f32<D, true><<<grid, THREADS, 0, st>>>(qp, kp, vp, op, H, Lq, Lk, qscale);
+    } else {
+      flash_fwd_f32<D, false><<<grid, THREADS, 0, st>>>(qp, kp, vp, op, H, Lq, Lk, qscale);
+    }
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, o: (batch, lq, heads, head_dim); k, v: (batch, lk, heads, head_dim); all
-// contiguous and 16-byte aligned. head_dim 64: all bf16 (is_bf16 = 1) or all
-// fp32; head_dim 512: fp32 only. qscale = log2(e) / sqrt(head_dim).
+// contiguous and 16-byte aligned. head_dim 64 and 72: all bf16 (is_bf16 = 1) or
+// all fp32; head_dim 512: fp32 only. qscale = log2(e) / sqrt(head_dim).
 extern "C" int vdpp_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                         int is_bf16, int batch, int heads, int lq, int lk,
                                         int head_dim, int static_max, float qscale,
@@ -548,29 +626,11 @@ extern "C" int vdpp_flash_attention_fwd(const void* q, const void* k, const void
                      ? launch_f32_d512<true>(qp, kp, vp, op, bh, heads, lq, lk, qscale, st)
                      : launch_f32_d512<false>(qp, kp, vp, op, bh, heads, lq, lk, qscale, st));
   }
-  if (head_dim != D) return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
-    const dim3 grid((lq + BQ_MMA - 1) / BQ_MMA, bh);
-    const auto* qp = static_cast<const __nv_bfloat16*>(q);
-    const auto* kp = static_cast<const __nv_bfloat16*>(k);
-    const auto* vp = static_cast<const __nv_bfloat16*>(v);
-    auto* op = static_cast<__nv_bfloat16*>(o);
-    if (static_max) {
-      flash_fwd_bf16<true><<<grid, THREADS, 0, st>>>(qp, kp, vp, op, heads, lq, lk, qscale);
-    } else {
-      flash_fwd_bf16<false><<<grid, THREADS, 0, st>>>(qp, kp, vp, op, heads, lq, lk, qscale);
-    }
-  } else {
-    const dim3 grid((lq + BQ_F32 - 1) / BQ_F32, bh);
-    const auto* qp = static_cast<const float*>(q);
-    const auto* kp = static_cast<const float*>(k);
-    const auto* vp = static_cast<const float*>(v);
-    auto* op = static_cast<float*>(o);
-    if (static_max) {
-      flash_fwd_f32<true><<<grid, THREADS, 0, st>>>(qp, kp, vp, op, heads, lq, lk, qscale);
-    } else {
-      flash_fwd_f32<false><<<grid, THREADS, 0, st>>>(qp, kp, vp, op, heads, lq, lk, qscale);
-    }
+  if (head_dim == 64) {
+    return (int)launch_d<64>(q, k, v, o, is_bf16, bh, heads, lq, lk, static_max, qscale, st);
   }
-  return (int)cudaGetLastError();
+  if (head_dim == 72) {
+    return (int)launch_d<72>(q, k, v, o, is_bf16, bh, heads, lq, lk, static_max, qscale, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

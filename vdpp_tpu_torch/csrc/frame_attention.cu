@@ -22,6 +22,13 @@
 // and v rows as broadcasts. The output goes back through shared memory so the
 // stores are whole rows.
 //
+// Head dim 72 (the factorized DiT-XL's temporal blocks: F = 8, L = 640,
+// H = 16) runs the same kernel, templated on D: a lane keeps its query frame's
+// 72 scaled q values and 72 outputs in registers, and a 144-byte (bf16) or
+// 288-byte (fp32) row is still a whole number of 16-byte loads. Its first
+// limit: a warp gives one lane to each frame, so at F = 8 only 8 of 32 lanes
+// compute.
+//
 // C interface (bound with ctypes, see
 // vdpp_tpu_torch/ops/temporal_attention_kernel.py): returns cudaGetLastError()
 // after the launch, launches on the given stream, allocates nothing and does
@@ -34,7 +41,6 @@
 
 namespace {
 
-constexpr int D = 64;         // head dim
 constexpr int FMAX = 32;      // frames: one per lane
 constexpr int WARPS = 4;      // (b, l, h) items per block, one per warp
 constexpr int PAD = 16;       // bytes of padding per staged q row (lanes' reads: distinct banks)
@@ -47,21 +53,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
-template <typename T>
+template <typename T, int D>
 __host__ __device__ constexpr int q_row() { return D + PAD / (int)sizeof(T); }  // elements
 
-template <typename T>
+template <typename T, int D>
 __host__ __device__ constexpr size_t warp_smem(int frames) {
-  return sizeof(T) * (size_t)frames * (q_row<T>() + 2 * D);
+  return sizeof(T) * (size_t)frames * (q_row<T, D>() + 2 * D);
 }
 
 // Copy F rows of D elements (row f at src + f * fstride) into dst rows of
 // dst_row elements, 16 bytes per lane and step.
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void load_rows(T* dst, int dst_row, const T* src, long fstride, int F,
                                           int lane) {
   constexpr int V = 16 / sizeof(T);
   constexpr int PER_ROW = D / V;
+  static_assert(D % V == 0, "rows of whole 16-byte vectors");
   for (int i = lane; i < F * PER_ROW; i += 32) {
     const int f = i / PER_ROW;
     const int c = (i - f * PER_ROW) * V;
@@ -70,7 +77,7 @@ __device__ __forceinline__ void load_rows(T* dst, int dst_row, const T* src, lon
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(WARPS * 32)
 frame_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            T* __restrict__ o, long items, int F, int L, int H, float scale) {
@@ -80,8 +87,9 @@ frame_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const long item = (long)blockIdx.x * WARPS + warp;
   if (item >= items) return;  // whole warps only: no block-wide barrier below
 
-  T* qs = reinterpret_cast<T*>(smem_raw + warp * warp_smem<T>(F));
-  T* ks = qs + F * q_row<T>();
+  constexpr int QROW = q_row<T, D>();
+  T* qs = reinterpret_cast<T*>(smem_raw + warp * warp_smem<T, D>(F));
+  T* ks = qs + F * QROW;
   T* vs = ks + F * D;
 
   const long lh = (long)L * H;
@@ -89,9 +97,9 @@ frame_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const long rem = item - b * lh;  // = l * H + h
   const long base = (b * F * lh + rem) * D;
   const long fstride = lh * D;
-  load_rows(qs, q_row<T>(), q + base, fstride, F, lane);
-  load_rows(ks, D, k + base, fstride, F, lane);
-  load_rows(vs, D, v + base, fstride, F, lane);
+  load_rows<T, D>(qs, QROW, q + base, fstride, F, lane);
+  load_rows<T, D>(ks, D, k + base, fstride, F, lane);
+  load_rows<T, D>(vs, D, v + base, fstride, F, lane);
   __syncwarp();
 
   // Shared rows are read 16 bytes at a time (V elements): k and v rows as
@@ -101,7 +109,7 @@ frame_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   float qf[D];
 #pragma unroll
   for (int j = 0; j < D / V; ++j) {
-    const uint4 raw = reinterpret_cast<const uint4*>(qs + f * q_row<T>())[j];
+    const uint4 raw = reinterpret_cast<const uint4*>(qs + f * QROW)[j];
     const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int t = 0; t < V; ++t) qf[j * V + t] = to_f(e[t]) * scale;
@@ -149,7 +157,7 @@ frame_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   __syncwarp();  // every lane has read its q row before the rows are overwritten
   if (lane < F) {
 #pragma unroll
-    for (int d = 0; d < D; ++d) qs[lane * q_row<T>() + d] = from_f<T>(acc[d] / denom);
+    for (int d = 0; d < D; ++d) qs[lane * QROW + d] = from_f<T>(acc[d] / denom);
   }
   __syncwarp();
   constexpr int PER_ROW = D / V;
@@ -157,19 +165,19 @@ frame_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const int fr = i / PER_ROW;
     const int c = (i - fr * PER_ROW) * V;
     *reinterpret_cast<uint4*>(o + base + fr * fstride + c) =
-        *reinterpret_cast<const uint4*>(qs + fr * q_row<T>() + c);
+        *reinterpret_cast<const uint4*>(qs + fr * QROW + c);
   }
 }
 
-template <typename T>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, long items, int F, int L, int H,
            float scale, cudaStream_t st) {
-  const size_t smem = WARPS * warp_smem<T>(F);
+  const size_t smem = WARPS * warp_smem<T, D>(F);
   const cudaError_t err = cudaFuncSetAttribute(
-      frame_attn<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      frame_attn<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long blocks = (items + WARPS - 1) / WARPS;
-  frame_attn<T><<<(unsigned)blocks, WARPS * 32, smem, st>>>(
+  frame_attn<T, D><<<(unsigned)blocks, WARPS * 32, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), items, F, L, H, scale);
   return (int)cudaGetLastError();
@@ -178,17 +186,21 @@ int launch(const void* q, const void* k, const void* v, void* o, long items, int
 }  // namespace
 
 // q, k, v, o: (batch, frames, L, heads, head_dim) contiguous, 16-byte aligned,
-// all bf16 (is_bf16 = 1) or all fp32; head_dim 64, 1 <= frames <= 32.
+// all bf16 (is_bf16 = 1) or all fp32; head_dim 64 or 72, 1 <= frames <= 32.
 // scale = 1 / sqrt(head_dim).
 extern "C" int vdpp_frame_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                         int is_bf16, int batch, int frames, int L, int heads,
                                         int head_dim, float scale, void* stream) {
   const long items = (long)batch * L * heads;
-  if (head_dim != D || frames < 1 || frames > FMAX || batch <= 0 || L <= 0 || heads <= 0 ||
-      (items + WARPS - 1) / WARPS > 0x7fffffffL) {
+  if ((head_dim != 64 && head_dim != 72) || frames < 1 || frames > FMAX || batch <= 0 ||
+      L <= 0 || heads <= 0 || (items + WARPS - 1) / WARPS > 0x7fffffffL) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch<__nv_bfloat16>(q, k, v, o, items, frames, L, heads, scale, st);
-  return launch<float>(q, k, v, o, items, frames, L, heads, scale, st);
+  if (head_dim == 72) {
+    return is_bf16 ? launch<__nv_bfloat16, 72>(q, k, v, o, items, frames, L, heads, scale, st)
+                   : launch<float, 72>(q, k, v, o, items, frames, L, heads, scale, st);
+  }
+  return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, items, frames, L, heads, scale, st)
+                 : launch<float, 64>(q, k, v, o, items, frames, L, heads, scale, st);
 }

@@ -1,12 +1,16 @@
-"""EulerDiscrete/Karras v-prediction schedule for SVD, in numpy and PyTorch.
+"""Diffusion schedules and their fp32 updates, in numpy and PyTorch.
 
-Port of ``vdpp_tpu/diffusion/scheduler.py``. The tables (Karras rho=7 sigmas
-with a trailing 0, continuous timesteps ``0.25 * ln(sigma)``) are built in
+Port of ``vdpp_tpu/diffusion/scheduler.py``: the EulerDiscrete/Karras
+v-prediction schedule (SVD and the DiT's ``euler`` solver) and the
+flow-matching schedule (the DiT's ``flowmatch`` solver). The tables (Karras
+rho=7 sigmas with a trailing 0, continuous timesteps ``0.25 * ln(sigma)``;
+shifted-linear flow-matching sigmas, timesteps ``sigma * 1000``) are built in
 numpy exactly as the reference builds them, so they match it bit for bit.
-The per-step update runs in fp32 on tensors:
+The per-step updates run in fp32 on tensors:
 
     x0_hat = eps * (-sigma / sqrt(sigma^2+1)) + x / (sigma^2 + 1)
-    x     <- x + (x - x0_hat) / sigma * (sigma_next - sigma)
+    x     <- x + (x - x0_hat) / sigma * (sigma_next - sigma)      (Euler)
+    x     <- x + (sigma_next - sigma) * v                          (flow match)
 """
 
 from __future__ import annotations
@@ -138,4 +142,79 @@ class EulerKarrasSchedule:
         """One Euler update using table sigmas at ``step_idx``/``step_idx+1``."""
         return euler_step_v_prediction(
             latent, noise_pred, self.sigmas[step_idx], self.sigmas[step_idx + 1]
+        )
+
+
+def flowmatch_sigmas(num_steps: int, shift: float = 3.0) -> np.ndarray:
+    """Shifted-linear flow-matching sigma table, descending, trailing 0:
+    ``t = 1, (N-1)/N, ..., 1/N`` warped by ``shift * t / (1 + (shift - 1) t)``,
+    float32 of shape ``(num_steps + 1,)``."""
+    if num_steps < 1:
+        raise ValueError("num_steps must be >= 1")
+    if shift <= 0.0:
+        raise ValueError("shift must be > 0")
+    t = np.linspace(1.0, 1.0 / num_steps, num_steps, dtype=np.float64)
+    sig = shift * t / (1.0 + (shift - 1.0) * t)
+    return np.concatenate([sig, [0.0]]).astype(np.float32)
+
+
+def flowmatch_step(
+    latent: torch.Tensor,
+    velocity_pred: torch.Tensor,
+    sigma,
+    sigma_next,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """fp32 flow-matching Euler update ``x + (sigma_next - sigma) * v``;
+    ``sigma_next == sigma`` (an identity-padded step) returns the latent bit
+    for bit."""
+    out_dtype = out_dtype or latent.dtype
+    x = latent.float()
+    v = velocity_pred.float()
+    return (x + (_f32(sigma_next, x) - _f32(sigma, x)) * v).to(out_dtype)
+
+
+@dataclass(frozen=True)
+class FlowMatchSchedule:
+    """Precomputed flow-matching schedule with :class:`EulerKarrasSchedule`'s
+    surface: ``timesteps`` are ``sigma * 1000``, ``init_noise_sigma`` is 1,
+    and ``pad_to_multiple_of`` prepends copies of the first sigma (bitwise
+    no-op steps)."""
+
+    sigmas: np.ndarray
+    timesteps: np.ndarray
+    init_noise_sigma: float
+    num_steps: int = field(default=0)
+
+    @classmethod
+    def create(
+        cls,
+        num_steps: int,
+        shift: float = 3.0,
+        pad_to_multiple_of: int | None = None,
+    ) -> FlowMatchSchedule:
+        sig = flowmatch_sigmas(num_steps, shift)
+        if pad_to_multiple_of:
+            pad = (-num_steps) % pad_to_multiple_of
+            if pad:
+                sig = np.concatenate([np.full(pad, sig[0], np.float32), sig])
+                num_steps += pad
+        return cls(
+            sigmas=sig,
+            timesteps=(sig[:-1] * 1000.0).astype(np.float32),
+            init_noise_sigma=1.0,
+            num_steps=num_steps,
+        )
+
+    def sigma_at(self, step: int) -> float:
+        return float(self.sigmas[step])
+
+    def timestep_at(self, step: int) -> float:
+        return float(self.timesteps[step])
+
+    def step(self, latent: torch.Tensor, velocity_pred: torch.Tensor,
+             step_idx: int) -> torch.Tensor:
+        """One flow-match update using table sigmas at ``step_idx``/``step_idx+1``."""
+        return flowmatch_step(
+            latent, velocity_pred, self.sigmas[step_idx], self.sigmas[step_idx + 1]
         )

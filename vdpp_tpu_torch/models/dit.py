@@ -1,0 +1,343 @@
+"""Latte/CogVideoX-style video Diffusion Transformer (DiT) in PyTorch.
+
+Port of ``vdpp_tpu/models/dit.py`` (``DiTVideo.apply`` and
+``DiTVideoWrapper``) without the sequence-, CFG- and expert-parallel
+arguments and without MoE feed-forwards:
+
+* a 2x2 spatial patchify of the ``(B, F, H, W, C)`` latent into per-frame
+  tokens, fp32 sinusoidal spatial and temporal position embeddings;
+* ``factorized`` attention (Latte): blocks alternate SPATIAL self-attention
+  over a frame's tokens and TEMPORAL self-attention over the frames at each
+  token, or ``joint3d`` (CogVideoX): every block attends over all F * N
+  tokens at once;
+* adaLN modulation (shift, scale, gate) from the timestep embedding,
+  qkv-bias attention, cross-attention on T5 tokens, tanh-GELU MLPs;
+* a final adaLN + linear head and the unpatchify.
+
+Self-attention goes through :func:`vdpp_tpu_torch.ops.attention.attention`,
+so every site with L >= 512 takes the flash kernel at head dim 72 (DiT-XL:
+1152 / 16): 28 launches per joint3d forward (L = 8 * 640 = 5120 at the
+app's 512x320, 8 frames), 14 per factorized forward (the spatial blocks,
+L = 640). Under ``VDPP_TEMPORAL_ATTN=pallas`` the factorized temporal blocks
+take the frame-attention kernel (14 per forward). Cross-attention over the
+text tokens stays plain, as in the reference.
+
+Module names follow the reference's parameter tree (``patch_embed``,
+``t_embed.linear_1``, ``blocks.{i}.attn.to_q``, ``blocks.{i}.ada``, ...);
+:func:`vdpp_tpu_torch.utils.weights.from_jax_dit_params` maps that tree onto
+them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vdpp_tpu_torch.diffusion.scheduler import (
+    EulerKarrasSchedule,
+    FlowMatchSchedule,
+    euler_step_v_prediction,
+    flowmatch_step,
+)
+from vdpp_tpu_torch.ops.attention import Attention, attention, temporal_self_attention
+from vdpp_tpu_torch.ops.embeddings import TimestepEmbedding, sinusoidal_embedding
+from vdpp_tpu_torch.ops.linear import Linear
+from vdpp_tpu_torch.ops.normalization import Norm, layer_norm
+from vdpp_tpu_torch.utils.device import resolve_device
+
+
+@dataclass(frozen=True)
+class DiTVideoConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    patch_size: int = 2
+    hidden_size: int = 1152
+    depth: int = 28               # alternating spatial/temporal blocks when factorized
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    cross_attention_dim: int | None = 1024
+    attention_mode: str = "factorized"  # "factorized" | "joint3d"
+    num_experts: int = 0          # > 0: MoE feed-forward, not ported
+    moe_every: int = 2
+    dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if self.attention_mode not in ("factorized", "joint3d"):
+            raise ValueError(f"unknown attention_mode {self.attention_mode!r}")
+        if self.num_experts < 0 or (self.num_experts and self.moe_every < 1):
+            raise ValueError("num_experts must be >= 0, moe_every >= 1")
+
+    @classmethod
+    def latte_xl(cls, dtype: torch.dtype = torch.bfloat16) -> DiTVideoConfig:
+        return cls(dtype=dtype)
+
+    @classmethod
+    def joint3d_xl(cls, dtype: torch.dtype = torch.bfloat16) -> DiTVideoConfig:
+        """CogVideoX-style joint spatio-temporal attention at DiT-XL width."""
+        return cls(attention_mode="joint3d", dtype=dtype)
+
+    @classmethod
+    def tiny(cls, dtype: torch.dtype = torch.float32) -> DiTVideoConfig:
+        return cls(hidden_size=32, depth=4, num_heads=2, cross_attention_dim=16, dtype=dtype)
+
+    @classmethod
+    def joint3d_tiny(cls, dtype: torch.dtype = torch.float32) -> DiTVideoConfig:
+        return cls(hidden_size=32, depth=4, num_heads=2, cross_attention_dim=16,
+                   attention_mode="joint3d", dtype=dtype)
+
+
+class _Ada(Linear):
+    """adaLN projection ``(D -> n * D)``: N(0, 1) x ``init_std`` weights
+    (0.02 in the blocks, so an untrained model is not the identity; 0 in the
+    final head), zero bias, as the reference's ``init``."""
+
+    def __init__(self, in_dim: int, out_dim: int, init_std: float, **kw):
+        super().__init__(in_dim, out_dim, **kw)
+        self.init_std = init_std
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        w = torch.randn(self.weight.shape, generator=generator, device=self.weight.device)
+        self.weight.copy_(w * self.init_std)
+        self.bias.zero_()
+
+
+class DiTBlock(nn.Module):
+    """One transformer block; spatial, joint3d or temporal by how it is
+    called (a temporal block has no cross-attention)."""
+
+    def __init__(self, cfg: DiTVideoConfig, cross: bool, **kw):
+        super().__init__()
+        d = cfg.hidden_size
+        mlp = int(d * cfg.mlp_ratio)
+        self.norm1 = Norm(d, **kw)
+        self.attn = Attention(d, qkv_bias=True, **kw)
+        self.norm2 = Norm(d, **kw)
+        self.mlp_in = Linear(d, mlp, **kw)
+        self.mlp_out = Linear(mlp, d, **kw)
+        self.ada = _Ada(d, 6 * d, 0.02, **kw)
+        if cross and cfg.cross_attention_dim:
+            self.norm_cross = Norm(d, **kw)
+            self.cross_attn = Attention(d, cfg.cross_attention_dim, qkv_bias=True, **kw)
+
+    def _ada_chunks(self, c_emb: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        return self.ada(F.silu(c_emb.float()).to(c_emb.dtype)).chunk(6, dim=-1)
+
+    def _mlp(self, x: torch.Tensor, h: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+        h = F.gelu(self.mlp_in(h).float(), approximate="tanh").to(x.dtype)
+        return x + gate[:, None, :] * self.mlp_out(h)
+
+    def forward(self, x: torch.Tensor, c_emb: torch.Tensor, ctx: torch.Tensor | None,
+                heads: int) -> torch.Tensor:
+        """x ``(B', L, D)``; c_emb ``(B', D)``; ctx ``(B', M, Dc)`` or None."""
+        sh1, sc1, g1, sh2, sc2, g2 = self._ada_chunks(c_emb)
+        h = _modulate(layer_norm(x, self.norm1), sh1, sc1)
+        x = x + g1[:, None, :] * attention(h, self.attn, heads)
+        if hasattr(self, "cross_attn") and ctx is not None:
+            h = layer_norm(x, self.norm_cross)
+            x = x + attention(h, self.cross_attn, heads, context=ctx)
+        return self._mlp(x, _modulate(layer_norm(x, self.norm2), sh2, sc2), g2)
+
+    def temporal(self, x: torch.Tensor, c_emb: torch.Tensor, heads: int, batch: int,
+                 frames: int) -> torch.Tensor:
+        """The temporal block in the resident ``(B*F, N, D)`` layout: the
+        modulation is per batch element (repeated over the frames) and the
+        frame mixing happens inside ``temporal_self_attention``."""
+        sh1, sc1, g1, sh2, sc2, g2 = (t.repeat_interleave(frames, dim=0)
+                                      for t in self._ada_chunks(c_emb))
+        h = _modulate(layer_norm(x, self.norm1), sh1, sc1)
+        x = x + g1[:, None, :] * temporal_self_attention(self.attn, h, heads, batch, frames)
+        return self._mlp(x, _modulate(layer_norm(x, self.norm2), sh2, sc2), g2)
+
+
+def _modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+
+
+class DiTVideo(nn.Module):
+    """The video DiT. ``forward`` is the counterpart of the reference's
+    ``DiTVideo.apply``. Parameters are allocated on ``device`` (``None``
+    means CUDA, which must exist) and left unset: load a state dict or call
+    :meth:`init_weights`."""
+
+    def __init__(self, config: DiTVideoConfig, device: str | torch.device | None = None):
+        super().__init__()
+        if config.num_experts:
+            raise NotImplementedError("MoE feed-forwards (num_experts > 0, ops/moe.py) are not "
+                                      "ported yet (ROADMAP A15)")
+        self.config = cfg = config
+        kw = dict(device=resolve_device(device), dtype=cfg.dtype)
+        d = cfg.hidden_size
+        p2 = cfg.patch_size ** 2
+        self.patch_embed = Linear(cfg.in_channels * p2, d, **kw)
+        self.t_embed = TimestepEmbedding(256, d, **kw)
+        joint = cfg.attention_mode == "joint3d"
+        self.blocks = nn.ModuleList(
+            [DiTBlock(cfg, cross=joint or i % 2 == 0, **kw) for i in range(cfg.depth)])
+        self.final_norm = Norm(d, **kw)
+        self.final_ada = _Ada(d, 2 * d, 0.0, **kw)
+        self.final_proj = Linear(d, cfg.out_channels * p2, **kw)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> DiTVideo:
+        """Random init as the reference's ``init``: LeCun-normal linears,
+        zero biases, unit norm scales, 0.02-scaled block adaLN, a zero final
+        adaLN."""
+        for module in self.modules():
+            if hasattr(module, "reset_parameters"):
+                module.reset_parameters(generator)
+        return self
+
+    def _final_head(self, x: torch.Tensor, c_rows: torch.Tensor) -> torch.Tensor:
+        ada = self.final_ada(F.silu(c_rows.float()).to(c_rows.dtype))
+        shift, scale = ada.chunk(2, dim=-1)
+        return self.final_proj(_modulate(layer_norm(x, self.final_norm), shift, scale))
+
+    def forward(self, latent: torch.Tensor, timestep, context: torch.Tensor | None = None,
+                seq_axis: str | None = None, expert_axis: str | None = None,
+                moe_dispatch: str = "dense") -> torch.Tensor:
+        """latent ``(B, F, H, W, C)`` -> ``(B, F, H, W, C_out)``; context:
+        optional ``(B, M, cross_dim)`` conditioning tokens."""
+        if seq_axis is not None or expert_axis is not None or moe_dispatch != "dense":
+            raise NotImplementedError("sequence and expert parallelism and MoE dispatch are "
+                                      "not ported yet (ROADMAP A13, A15)")
+        cfg = self.config
+        b, f, hh, ww, cch = latent.shape
+        p = cfg.patch_size
+        gh, gw = hh // p, ww // p
+        n = gh * gw
+        d = cfg.hidden_size
+        heads = cfg.num_heads
+        dev = self.patch_embed.weight.device
+
+        x = latent.to(dev, cfg.dtype).reshape(b * f, gh, p, gw, p, cch)
+        x = self.patch_embed(x.permute(0, 1, 3, 2, 4, 5).reshape(b * f, n, p * p * cch))
+        pos_s = sinusoidal_embedding(torch.arange(n, dtype=torch.float32, device=dev), d)
+        pos_t = sinusoidal_embedding(torch.arange(f, dtype=torch.float32, device=dev), d)
+        x = x + pos_s[None].to(x.dtype)
+
+        t = torch.as_tensor(timestep, dtype=torch.float32, device=dev).reshape(-1).expand(b)
+        c_emb = self.t_embed(sinusoidal_embedding(t, 256).to(cfg.dtype))  # (B, D)
+        ctx = None if context is None else context.to(dev, cfg.dtype)
+
+        if cfg.attention_mode == "joint3d":
+            # One set of F * N tokens, the temporal position added up front.
+            x = (x.reshape(b, f, n, d) + pos_t[None, :, None, :].to(x.dtype)).reshape(b, f * n, d)
+            for blk in self.blocks:
+                x = blk(x, c_emb, ctx, heads)
+            x = self._final_head(x, c_emb).reshape(b * f, n, -1)
+        else:
+            c_f = c_emb.repeat_interleave(f, dim=0)  # (B*F, D)
+            ctx_f = None if ctx is None else ctx.repeat_interleave(f, dim=0)
+            for i, blk in enumerate(self.blocks):
+                if i % 2 == 0:
+                    x = blk(x, c_f, ctx_f, heads)
+                else:
+                    if i == 1:  # the temporal position, before the first temporal block
+                        x = (x.reshape(b, f, n, d) + pos_t[None, :, None, :].to(x.dtype)
+                             ).reshape(b * f, n, d)
+                    x = blk.temporal(x, c_emb, heads, b, f)
+            x = self._final_head(x, c_f)
+
+        x = x.reshape(b * f, gh, gw, p, p, cfg.out_channels)
+        return x.permute(0, 1, 3, 2, 4, 5).reshape(b, f, hh, ww, cfg.out_channels)
+
+
+class DiTVideoWrapper:
+    """Schedule + CFG wrapper with the pipeline's ``step_fn(bundle, latent,
+    step)`` contract; ``bundle = (dit, context, guidance)``.
+
+    ``solver="euler"``: Karras sigmas, input scaled by ``rsqrt(sigma^2 + 1)``,
+    timestep ``0.25 * log(sigma)``, fp32 v-prediction Euler update.
+    ``solver="flowmatch"``: shifted-linear flow-matching sigmas, no input
+    scaling, timestep ``sigma * 1000``, fp32 velocity update. CFG blends in
+    fp32 with per-frame ``guidance``; the uncond branch gets zeros, or the
+    negative prompt's tokens when ``context`` is a ``(neg_ctx, pos_ctx)``
+    tuple.
+    """
+
+    def __init__(
+        self,
+        config: DiTVideoConfig | None = None,
+        num_steps: int = 25,
+        sigma_min: float = 0.002,
+        sigma_max: float = 700.0,
+        solver: str = "euler",
+        flow_shift: float = 3.0,
+        device: str | torch.device | None = None,
+    ):
+        if solver not in ("euler", "euler_a", "heun", "dpmpp2m", "flowmatch"):
+            raise ValueError("solver must be 'euler', 'euler_a', 'heun', 'dpmpp2m' or "
+                             "'flowmatch'")
+        if solver not in ("euler", "flowmatch"):
+            raise NotImplementedError(f"solver {solver!r} is not ported yet (ROADMAP A12)")
+        self.solver = solver
+        self.config = config or DiTVideoConfig.latte_xl()
+        self.device = resolve_device(device)
+        if solver == "flowmatch":
+            self.schedule: EulerKarrasSchedule | FlowMatchSchedule = (
+                FlowMatchSchedule.create(num_steps, shift=flow_shift))
+        else:
+            self.schedule = EulerKarrasSchedule.create(num_steps, sigma_min, sigma_max)
+
+    @property
+    def init_noise_sigma(self) -> float:
+        return self.schedule.init_noise_sigma
+
+    # euler and flowmatch carry no cross-step state: the payload is the latent.
+    def pack_initial(self, latent: torch.Tensor) -> torch.Tensor:
+        return latent
+
+    def unpack_final(self, latent: torch.Tensor) -> torch.Tensor:
+        return latent
+
+    def init(self, generator: torch.Generator) -> DiTVideo:
+        """A randomly initialised DiT on this wrapper's device."""
+        return DiTVideo(self.config, device=self.device).init_weights(generator)
+
+    def _eps(self, params: DiTVideo, scaled: torch.Tensor, timestep, context, neg_context,
+             guidance) -> torch.Tensor:
+        """The model output at one point, CFG-blended in fp32 when guided."""
+        if guidance is None or context is None:
+            return params(scaled, timestep, context)
+        uncond = params(scaled, timestep,
+                        torch.zeros_like(context) if neg_context is None else neg_context)
+        cond = params(scaled, timestep, context).float()
+        uncond = uncond.float()
+        return uncond + guidance.float() * (cond - uncond)
+
+    def step(self, params: DiTVideo, latent: torch.Tensor, step_idx: int, context=None,
+             guidance: torch.Tensor | None = None, cfg_axis: str | None = None) -> torch.Tensor:
+        """One denoising step; ``context`` may be a ``(neg_ctx, pos_ctx)``
+        tuple for negative-prompt CFG."""
+        if cfg_axis is not None:
+            raise NotImplementedError("CFG parallelism is not ported yet (ROADMAP A13)")
+        neg_context = None
+        if isinstance(context, tuple):
+            neg_context, context = context
+        sigma = self.schedule.sigmas[step_idx]
+        sigma_next = self.schedule.sigmas[step_idx + 1]
+        lat32 = latent.float()
+        s = torch.as_tensor(sigma, dtype=torch.float32, device=latent.device)
+        if self.solver == "flowmatch":
+            v = self._eps(params, lat32, s * 1000.0, context, neg_context, guidance)
+            return flowmatch_step(lat32, v, sigma, sigma_next, latent.dtype)
+        scaled = lat32 * torch.rsqrt(s * s + 1.0)
+        eps = self._eps(params, scaled, 0.25 * torch.log(s), context, neg_context, guidance)
+        return euler_step_v_prediction(lat32, eps, sigma, sigma_next, latent.dtype)
+
+    def pipeline_step_fn(self, seq_axis: str | None = None, cfg_axis: str | None = None,
+                         expert_axis: str | None = None):
+        """``step_fn(bundle, latent, step)`` with ``bundle = (dit, context,
+        guidance)``."""
+        if seq_axis is not None or cfg_axis is not None or expert_axis is not None:
+            raise NotImplementedError("sequence, CFG and expert parallelism are not ported yet "
+                                      "(ROADMAP A13, A15)")
+
+        def step_fn(bundle, latent: torch.Tensor, step_idx: int) -> torch.Tensor:
+            params, context, guidance = bundle
+            return self.step(params, latent, step_idx, context, guidance)
+
+        return step_fn

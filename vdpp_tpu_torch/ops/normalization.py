@@ -71,3 +71,23 @@ def layer_norm(x: torch.Tensor, norm: Norm, eps: float = 1e-5) -> torch.Tensor:
     var = xc.square().mean(dim=-1, keepdim=True)
     xn = xc * torch.rsqrt(var + eps)
     return (xn * norm.weight.float() + norm.bias.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """``weight`` (scale) of an RMSNorm (HF T5's ``T5LayerNorm``)."""
+
+    def __init__(self, channels: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels, device=device, dtype=dtype),
+                                   requires_grad=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+
+
+def rms_norm(x: torch.Tensor, norm: RMSNorm, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the trailing axis (no mean subtraction, no bias), fp32
+    statistics: ``x * rsqrt(mean(x^2) + eps) * scale``, cast back."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * norm.weight.float()).to(x.dtype)

@@ -11,9 +11,9 @@ weighted, into the output, ``out / denom``, one rounding to the dtype.
 Two implementations of that arithmetic live here:
 
 * the CUDA kernel ``vdpp_tpu_torch/csrc/frame_attention.cu`` (bf16 and fp32,
-  head dim 64, F <= 32), which :func:`frame_attention` launches for a CUDA
-  tensor; it reads q, k and v in the layout the projections produce, with no
-  transpose or padding copy;
+  head dims 64 (SVD UNet) and 72 (DiT-XL), F <= 32), which
+  :func:`frame_attention` launches for a CUDA tensor; it reads q, k and v in
+  the layout the projections produce, with no transpose or padding copy;
 * :func:`frame_attention_plain`, plain PyTorch, which :func:`frame_attention`
   runs for a CPU tensor and which the tests and ``chip_smoke.py`` hold the
   kernel against.
@@ -31,11 +31,11 @@ import torch
 
 from vdpp_tpu_torch.utils import kernels
 
-KERNEL_HEAD_DIM = 64
+KERNEL_HEAD_DIMS = (64, 72)
 KERNEL_MAX_FRAMES = 32
 
 # Kernel launches since the count was last set to 0 (chip_smoke.py reads it to
-# show that the UNet's temporal attention went through the kernel).
+# show that the models' temporal attention went through the kernel).
 launches = 0
 
 _lib: ctypes.CDLL | None = None
@@ -69,9 +69,9 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if q.device.type != "cuda":
         raise ValueError(f"frame_attention runs on cuda or cpu tensors, not {q.device}")
     b, f, l, h, d = q.shape
-    if d != KERNEL_HEAD_DIM:
-        raise NotImplementedError(f"the CUDA frame-attention kernel takes head dim "
-                                  f"{KERNEL_HEAD_DIM}, got d={d}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(f"the CUDA frame-attention kernel takes head dims "
+                                  f"{KERNEL_HEAD_DIMS}, got d={d}")
     if f > KERNEL_MAX_FRAMES:
         raise ValueError(f"the CUDA frame-attention kernel takes at most "
                          f"{KERNEL_MAX_FRAMES} frames, got {f}")

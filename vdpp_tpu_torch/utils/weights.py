@@ -1,4 +1,4 @@
-"""Carry the JAX package's UNet and VAE-decoder parameters over to the port.
+"""Carry the JAX package's parameters over to the port.
 
 ``from_jax_params`` is the inverse of ``vdpp_tpu/utils/weights.py::
 convert_unet_state_dict``: it takes the JAX UNet parameter tree (nested dicts
@@ -6,7 +6,12 @@ and lists of numpy arrays) and returns a diffusers-named state dict that
 ``SVDUNet.load_state_dict`` takes as it is. ``from_jax_vae_decoder_params``
 is the inverse of ``convert_vae_decoder_state_dict`` and gives the
 ``decoder.*`` names that ``TemporalVAEDecoder.load_state_dict`` takes.
-Layouts go back to PyTorch's:
+``from_jax_t5_params`` is the inverse of ``convert_t5_encoder_state_dict``
+(transformers ``T5EncoderModel`` names), and ``from_jax_dit_params`` maps the
+DiT's tree onto ``DiTVideo``'s names, which follow that tree.
+``load_jax_npz`` reads the JAX package's own ``save_params`` files
+(``dit.npz``, ``t5.npz``, ``vae_decoder.npz`` of a ``--checkpoint`` directory)
+with numpy alone. Layouts go back to PyTorch's:
 
 * linear ``w (in, out)``           -> ``weight (out, in)``
 * conv2d ``w (kh, kw, I, O)``      -> ``weight (O, I, kh, kw)``
@@ -17,20 +22,59 @@ Layouts go back to PyTorch's:
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 from typing import Any
 
 import numpy as np
 import torch
 
+_SEP = "//"  # the JAX package's flattened-key separator (utils/weights.py)
+_BF16 = "__bf16__"  # its prefix for bf16 leaves, stored as uint16 views
+
 
 def _t(a) -> torch.Tensor:
-    """A contiguous CPU copy of ``a``; bfloat16 leaves (numpy's extension
-    type, which torch cannot read) go through fp32, which holds them exactly."""
+    """A contiguous CPU copy of ``a`` (a tensor or an array); bfloat16 arrays
+    (numpy's extension type, which torch cannot read) go through fp32, which
+    holds them exactly."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu").contiguous().clone()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
     return torch.tensor(a)
+
+
+def _listify(node):
+    """``{'0': .., '1': ..}`` dicts back into lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(re.fullmatch(r"\d+", k) for k in node):
+        idx = sorted(node, key=int)
+        if [int(i) for i in idx] == list(range(len(idx))):
+            return [node[i] for i in idx]
+    return node
+
+
+def load_jax_npz(path: str) -> dict:
+    """A parameter tree saved by the JAX package's ``save_params``: flat
+    ``"a//0//w"`` keys back into nested dicts and lists. Leaves are numpy
+    arrays, and bf16 leaves (stored as ``__bf16__``-prefixed uint16 views)
+    come back as bf16 CPU tensors, since numpy has no bf16 of its own."""
+    root: dict = {}
+    with np.load(path) as loaded:
+        for key in loaded.files:
+            arr = loaded[key]
+            if key.startswith(_BF16):
+                key = key[len(_BF16):]
+                arr = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+            parts = key.split(_SEP)
+            node = root
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = arr
+    return _listify(root)
 
 
 class _Out:
@@ -38,14 +82,14 @@ class _Out:
         self.sd: dict[str, torch.Tensor] = {}
 
     def linear(self, prefix: str, p: Mapping) -> None:
-        self.sd[prefix + ".weight"] = _t(np.asarray(p["w"]).T)
+        self.sd[prefix + ".weight"] = _t(p["w"]).T.contiguous()
         if "b" in p:
             self.sd[prefix + ".bias"] = _t(p["b"])
 
     def conv(self, prefix: str, p: Mapping) -> None:
-        w = np.asarray(p["w"])
+        w = _t(p["w"])
         perm = (3, 2, 0, 1) if w.ndim == 4 else (4, 3, 0, 1, 2)  # HWIO / DHWIO -> OI...
-        self.sd[prefix + ".weight"] = _t(w.transpose(perm))
+        self.sd[prefix + ".weight"] = w.permute(perm).contiguous()
         self.sd[prefix + ".bias"] = _t(p["b"])
 
     def norm(self, prefix: str, p: Mapping) -> None:
@@ -53,7 +97,7 @@ class _Out:
         self.sd[prefix + ".bias"] = _t(p["bias"])
 
     def mix(self, prefix: str, value) -> None:
-        self.sd[prefix + ".time_mixer.mix_factor"] = _t(np.asarray(value).reshape(1))
+        self.sd[prefix + ".time_mixer.mix_factor"] = _t(value).reshape(1)
 
     def attention(self, prefix: str, p: Mapping) -> None:
         for name in ("to_q", "to_k", "to_v"):
@@ -162,4 +206,54 @@ def from_jax_vae_decoder_params(params: Mapping[str, Any]) -> dict[str, torch.Te
     out.norm("decoder.conv_norm_out", params["norm_out"])
     out.conv("decoder.conv_out", params["conv_out"])
     out.conv("decoder.time_conv_out", params["time_conv_out"])
+    return out.sd
+
+
+def from_jax_t5_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``T5TextEncoder`` parameter tree -> the transformers
+    ``T5EncoderModel`` state dict that ``vdpp_tpu_torch.models.t5_encoder.
+    T5TextEncoder.load_state_dict`` takes (gated or ReLU feed-forward, as the
+    tree holds)."""
+    out = _Out()
+    out.sd["shared.weight"] = _t(params["embed"])
+    out.sd["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = _t(
+        params["rel_bias"])
+    for i, blk in enumerate(params["blocks"]):
+        a = f"encoder.block.{i}.layer.0"
+        ff = f"encoder.block.{i}.layer.1"
+        out.sd[a + ".layer_norm.weight"] = _t(blk["ln1"]["scale"])
+        for name in ("q", "k", "v", "o"):
+            out.linear(f"{a}.SelfAttention.{name}", blk[name])
+        out.sd[ff + ".layer_norm.weight"] = _t(blk["ln2"]["scale"])
+        if "wi0" in blk:
+            out.linear(ff + ".DenseReluDense.wi_0", blk["wi0"])
+            out.linear(ff + ".DenseReluDense.wi_1", blk["wi1"])
+        else:
+            out.linear(ff + ".DenseReluDense.wi", blk["wi"])
+        out.linear(ff + ".DenseReluDense.wo", blk["wo"])
+    out.sd["encoder.final_layer_norm.weight"] = _t(params["final_ln"]["scale"])
+    return out.sd
+
+
+def from_jax_dit_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``DiTVideo`` parameter tree (dense feed-forwards) -> the state dict
+    that ``vdpp_tpu_torch.models.dit.DiTVideo.load_state_dict`` takes."""
+    out = _Out()
+    out.linear("patch_embed", params["patch_embed"])
+    out.mlp("t_embed", params["t_embed"])
+    for i, blk in enumerate(params["blocks"]):
+        if "moe" in blk:
+            raise NotImplementedError("MoE feed-forwards are not ported yet (ROADMAP A15)")
+        b = f"blocks.{i}"
+        for name in ("norm1", "norm2", "norm_cross"):
+            if name in blk:
+                out.norm(f"{b}.{name}", blk[name])
+        out.attention(b + ".attn", blk["attn"])
+        if "cross_attn" in blk:
+            out.attention(b + ".cross_attn", blk["cross_attn"])
+        for name in ("mlp_in", "mlp_out", "ada"):
+            out.linear(f"{b}.{name}", blk[name])
+    out.norm("final_norm", params["final_norm"])
+    out.linear("final_ada", params["final_ada"])
+    out.linear("final_proj", params["final_proj"])
     return out.sd
