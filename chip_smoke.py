@@ -7,13 +7,16 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. device: the card's name and power limit;
 2. build: every kernel under ``vdpp_tpu_torch/csrc/`` compiled by nvcc for
-   sm_90a (one nvcc per source, all at once), with ptxas' report;
+   sm_90a (one nvcc per source, all at once), with ptxas' report (registers,
+   spills, shared memory per CTA of each flash kernel);
 3. kernels: each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it, with times for the kernel, the plain
-   version, a one-call PyTorch yardstick, and the bound: flash attention at
-   d = 64 bf16 (UNet), d = 512 fp32 (VAE mid-block) and d = 72 bf16 (DiT-XL's
-   joint3d and factorized sites, plus fp32), fused GroupNorm+SiLU, and frame
-   attention at d = 64 (the UNet's sites) and d = 72 (the factorized DiT's);
+   version, a one-call PyTorch yardstick, and the bound (and for flash the
+   TFLOP/s, the share of the bound and the ratio to SDPA): flash attention
+   at d = 64 bf16 (UNet; the wgmma + TMA kernel), d = 512 fp32 and bf16 (VAE
+   mid-block) and d = 72 bf16 (DiT-XL's joint3d and factorized sites, plus
+   ragged bf16 lengths and fp32), fused GroupNorm+SiLU, and frame attention
+   at d = 64 (the UNet's sites) and d = 72 (the factorized DiT's);
 4. agreement: a small UNet (head dim 64, so the flash kernel runs) and one
    CFG Euler step, on the card against the same weights on the CPU, first
    as it is, then with both kernel switches on (VDPP_GN_FUSED=1,
@@ -27,7 +30,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``vdpp_tpu_torch.bench.measure_config``, first as it is, then with both
    kernel switches on; then ``bench.measure_decode`` decodes the switched
    run's latent with the full-width temporal VAE decoder (fp32, chunks of 4
-   frames) to (1, 25, 576, 1024, 3). Then the text->video path at full
+   frames) to (1, 25, 576, 1024, 3), and again with the bf16 decoder
+   (``VAEConfig.svd(torch.bfloat16)``, 7 flash launches at d = 512 in bf16).
+   Then the text->video path at full
    width (random weights from a seed): T5-v1.1-XXL encodes the app's default
    prompt and is freed, DiT-XL denoises 8 frames at 40x64 (512x320) for 2
    Euler steps with a CFG ramp to 6 through ``bench.measure_dit_config``,
@@ -48,6 +53,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import sys
 import time
 
@@ -157,19 +163,62 @@ def check_flash(torch, fa, F) -> dict:
         row["bound_ms"] = max(flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES) * 1e3
         row["bound_by"] = "operations" if flops / H100_BF16_FLOPS > nbytes / H100_HBM_BYTES \
             else "bytes"
-        row["tflops"] = flops / row["ms"] / 1e9
+        add_rates(row, flops)
         print(f"flash bf16 L={l} B*H={b * h}: kernel_ms {row['ms']:.4f} (running "
               f"{row['running_ms']:.4f}), plain_ms {row['plain_ms']:.3f}, library_ms (SDPA) "
-              f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}), "
-              f"{row['tflops']:.1f} TFLOP/s", flush=True)
+              f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
+              f"{rates_text(row)}", flush=True)
         shapes.append(row)
-    for dtype, tol in ((torch.bfloat16, TOL["bf16"]), (torch.float32, TOL["fp32"])):
-        q, k, v = inputs(2, 600, 3, dtype)  # 600 keys: a ragged last tile
+    for dtype, tol, l in ((torch.bfloat16, TOL["bf16"], 600), (torch.bfloat16, TOL["bf16"], 201),
+                          (torch.float32, TOL["fp32"], 600)):
+        q, k, v = inputs(2, l, 3, dtype)  # ragged: the last query and key tiles part-filled
         for static in (True, False):
-            err, _ = compare(f"{dtype} L=600", q, k, v, static, tol)
+            err, _ = compare(f"{dtype} L={l}", q, k, v, static, tol)
             if dtype == torch.bfloat16:
                 max_err = max(max_err, err)
     return {"max_abs_err": max_err, "shapes": shapes}
+
+
+def add_rates(row: dict, flops: float) -> None:
+    """TFLOP/s, the share of the bound and the ratio to the library call,
+    from the row's times."""
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["vs_library"] = row["ms"] / row["library_ms"]
+
+
+def rates_text(row: dict) -> str:
+    return (f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} of the bound, "
+            f"{row['vs_library']:.3f}x SDPA's time")
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Registers, spills and static shared memory of each flash kernel in
+    ptxas' ``-v`` log, by a readable name such as ``flash_fwd_bf16<64, static>``."""
+    out: dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*?\d+(flash_fwd_\w+?)I(\w+?)EEv", line)
+        if m:
+            args = m.group(2)
+            args = re.sub(r"Li(\d+)E", r"\1, ", args).replace("13__nv_bfloat16", "bf16, ")
+            args = args.replace("Lb1E", "static").replace("Lb0E", "running")
+            args = re.sub(r"^f(?=static|running)", "f32, ", args)
+            name = f"{m.group(1)}<{args}>"
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and "spill_stores" not in out[name]:
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(sm.group(1)) if sm else 0
+            name = None
+    return out
 
 
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
@@ -183,37 +232,41 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
 
 
-def check_flash_512(torch, fa, F) -> dict:
-    """The flash kernel at the VAE mid-block's shape: d = 512, fp32, one head,
+def check_flash_512(torch, fa, F, dtype) -> dict:
+    """The flash kernel at the VAE mid-block's shape: d = 512, one head,
     L = 9216 (72 x 128 latent positions), B = 4 frames of a decode chunk;
-    both softmax modes, plus a ragged length."""
-    g = torch.Generator(device="cuda").manual_seed(1)
+    both softmax modes, plus a ragged length. fp32 is the decoder's default;
+    bf16 is ``VAEConfig.svd(torch.bfloat16)`` (the same SIMT kernel, fp32
+    inside, the reference's bf16 rounding points)."""
+    g = torch.Generator(device="cuda").manual_seed(1 if dtype == torch.float32 else 9)
+    name = "fp32" if dtype == torch.float32 else "bf16"
 
     def inputs(b, l):
-        return [torch.randn(b, l, 1, 512, generator=g, device="cuda") for _ in range(3)]
+        return [torch.randn(b, l, 1, 512, generator=g, device="cuda").to(dtype) for _ in range(3)]
 
-    tol = TOL["fp32"]
-    print(f"flash d=512 tolerance: max|kernel - plain| <= {tol} x max|plain| (fp32 both sides, "
-          f"sums in other orders, no TF32)")
+    tol = TOL[name]
+    print(f"flash d=512 {name} tolerance: max|kernel - plain| <= {tol} x max|plain| "
+          + ("(fp32 both sides, sums in other orders, no TF32)" if name == "fp32"
+             else "(as at d = 64: q', P and o rounded to bf16 on both sides)"))
     max_err = 0.0
     row = {}
     for b, l in ((4, 9216), (2, 600)):
         q, k, v = inputs(b, l)
         for static in (True, False):
-            got = fa.flash_attention(q, k, v, static_max=static)
+            got = fa.flash_attention(q, k, v, static_max=static).float()
             torch.cuda.synchronize()
-            ref = fa.flash_attention_plain(q, k, v, static_max=static)
+            ref = fa.flash_attention_plain(q, k, v, static_max=static).float()
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
             ref_max = ref.abs().max().item()
             mode = "static" if static else "running"
-            print(f"flash fp32 d=512 B={b} L={l} {mode}: max|diff| {err:.3g}, max|plain| "
+            print(f"flash {name} d=512 B={b} L={l} {mode}: max|diff| {err:.3g}, max|plain| "
                   f"{ref_max:.3g}, limit {tol * ref_max:.3g}", flush=True)
             if not math.isfinite(err) or err > tol * ref_max:
-                fail(f"flash d=512 B={b} L={l} {mode}: max|diff| {err} > {tol} x {ref_max}")
+                fail(f"flash {name} d=512 B={b} L={l} {mode}: max|diff| {err} > {tol} x {ref_max}")
             max_err = max(max_err, err)
         if l == 9216:
-            row = {"L": l, "B": b, "ref_max": ref_max}
+            row = {"L": l, "B": b, "dtype": name, "ref_max": ref_max}
             row["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, static_max=True),
                                 iters=5, warmup=1)
             row["running_ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, False),
@@ -224,12 +277,16 @@ def check_flash_512(torch, fa, F) -> dict:
             row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh),
                                         iters=5, warmup=1)
             flops = 4 * b * l * l * 512
-            row["bound_ms"], row["bound_by"] = bound(flops, 4 * b * l * 512 * 4, H100_FP32_FLOPS)
-            row["tflops"] = flops / row["ms"] / 1e9
-            print(f"flash fp32 d=512 B={b} L={l}: kernel_ms {row['ms']:.3f} (running "
+            # fp32: the SIMT rate (the tensor cores would round to TF32); bf16:
+            # the tensor cores' bf16 rate, the card's peak for the inputs' type.
+            peak = H100_FP32_FLOPS if name == "fp32" else H100_BF16_FLOPS
+            row["bound_ms"], row["bound_by"] = bound(flops, 4 * b * l * 512 * q.element_size(),
+                                                     peak)
+            add_rates(row, flops)
+            print(f"flash {name} d=512 B={b} L={l}: kernel_ms {row['ms']:.3f} (running "
                   f"{row['running_ms']:.3f}), plain_ms {row['plain_ms']:.3f}, library_ms (SDPA "
-                  f"fp32) {row['library_ms']:.3f}, bound_ms {row['bound_ms']:.3f} "
-                  f"({row['bound_by']}, fp32 67 TFLOP/s), {row['tflops']:.1f} TFLOP/s",
+                  f"{name}) {row['library_ms']:.3f}, bound_ms {row['bound_ms']:.3f} "
+                  f"({row['bound_by']}, {peak / 1e12:.0f} TFLOP/s); {rates_text(row)}",
                   flush=True)
     return {"max_abs_err": max_err, "shapes": [row]}
 
@@ -359,6 +416,8 @@ def check_flash_72(torch, fa, F) -> dict:
     shapes = []
     for site, b, l, h, dtype in (("joint3d", 1, 5120, 16, torch.bfloat16),
                                  ("factorized spatial", 8, 640, 16, torch.bfloat16),
+                                 ("bf16 ragged", 2, 600, 3, torch.bfloat16),
+                                 ("bf16 ragged, under two tiles", 2, 201, 3, torch.bfloat16),
                                  ("fp32 ragged", 2, 600, 3, torch.float32)):
         q, k, v = inputs(b, l, h, dtype)
         tol = TOL["bf16"] if dtype == torch.bfloat16 else TOL["fp32"]
@@ -380,6 +439,8 @@ def check_flash_72(torch, fa, F) -> dict:
         if dtype != torch.bfloat16:
             continue
         max_err = max(max_err, row["err_static"], row["err_running"])
+        if "ragged" in site:
+            continue
         row["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, static_max=True))
         row["running_ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, static_max=False))
         row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, True),
@@ -388,11 +449,11 @@ def check_flash_72(torch, fa, F) -> dict:
         row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
         flops = 4 * b * h * l * l * 72
         row["bound_ms"], row["bound_by"] = bound(flops, 4 * b * h * l * 72 * 2, H100_BF16_FLOPS)
-        row["tflops"] = flops / row["ms"] / 1e9
+        add_rates(row, flops)
         print(f"flash d=72 {site} bf16 B={b} L={l} H={h}: kernel_ms {row['ms']:.4f} (running "
               f"{row['running_ms']:.4f}), plain_ms {row['plain_ms']:.3f}, library_ms (SDPA) "
-              f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}), "
-              f"{row['tflops']:.1f} TFLOP/s", flush=True)
+              f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
+              f"{rates_text(row)}", flush=True)
         shapes.append(row)
     return {"max_abs_err": max_err, "shapes": shapes}
 
@@ -638,6 +699,7 @@ def main() -> int:
         from vdpp_tpu_torch.models.dit import DiTVideoConfig
         from vdpp_tpu_torch.models.svd_unet import SVDUNetConfig
         from vdpp_tpu_torch.models.t5_encoder import T5EncoderConfig
+        from vdpp_tpu_torch.models.vae import VAEConfig
         from vdpp_tpu_torch.ops import flash_attention as fa
         from vdpp_tpu_torch.ops import norm_kernel as nk
         from vdpp_tpu_torch.ops import temporal_attention_kernel as ta
@@ -662,9 +724,22 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
+    ptxas = ptxas_report(built["flash_attention"]["log"])
+    lib = fa._kernel_lib()
+    for kname, r in ptxas.items():
+        d = re.match(r"flash_fwd_bf16<(\d+)", kname)
+        r["dynamic_smem"] = lib.vdpp_flash_attention_bf16_smem(int(d.group(1))) if d else None
+        print(f"ptxas {kname}: {r.get('registers')} registers"
+              + (" at launch (setmaxnreg: consumer warpgroups 240, producer 24)" if d else "")
+              + f", {r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B spill loads, "
+              f"{r.get('static_smem')} B static shared memory"
+              + (f", {r['dynamic_smem']} B dynamic shared memory per CTA" if d else ""))
+    if not ptxas:
+        print("ptxas: no report (the flash library was built before this run)")
 
     flash = check_flash(torch, fa, F)
-    flash512 = check_flash_512(torch, fa, F)
+    flash512 = check_flash_512(torch, fa, F, torch.float32)
+    flash512_bf16 = check_flash_512(torch, fa, F, torch.bfloat16)
     gn = check_group_norm(torch, nk, F)
     frame = check_frame_attention(torch, ta, F)
     flash72 = check_flash_72(torch, fa, F)
@@ -705,6 +780,19 @@ def main() -> int:
     if dec["shape"] != (1, 25, 576, 1024, 3) or not dec["finite"]:
         fail(f"decode gave shape {dec['shape']}, finite {dec['finite']}")
 
+    # The same latent through the bf16 decoder (VAEConfig.svd(torch.bfloat16),
+    # the JAX scripts' --vae-dtype bfloat16): its mid-block attention takes the
+    # flash kernel at d = 512 in bf16.
+    fa.launches = nk.launches = ta.launches = 0
+    dec16 = bench.measure_decode(res["latent"], config=VAEConfig.svd(torch.bfloat16))
+    decode16_flash = fa.launches
+    print(f"decode: temporal VAE decoder bf16, 25 frames in chunks of 4: {dec16['sec']:.3f} s, "
+          f"video {dec16['shape']}, finite {dec16['finite']}, peak allocated "
+          f"{dec16['peak_mem_bytes'] / 2**30:.2f} GiB ({smi})")
+    expect("flash at d = 512 in bf16 in the bf16 decode", decode16_flash, FLASH_PER_DECODE)
+    if dec16["shape"] != (1, 25, 576, 1024, 3) or not dec16["finite"]:
+        fail(f"the bf16 decode gave shape {dec16['shape']}, finite {dec16['finite']}")
+
     # The text->video path: T5-XXL encode (then freed), DiT-XL joint3d, then
     # factorized with frame attention switched on, then the decode.
     t5_cfg = T5EncoderConfig.xxl()
@@ -744,12 +832,12 @@ def main() -> int:
         fail(f"the text->video decode gave shape {dit_dec['shape']}, finite "
              f"{dit_dec['finite']}")
 
-    def entry(name, source, replaces, launches, check, row):
+    def entry(name, source, replaces, launches, check, row, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": check["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "shapes": check["shapes"]}
+                "shapes": check["shapes"], **extra}
 
     print(f"chip_smoke phases done in {time.perf_counter() - t_start:.1f} s")
     flash_src, flash_tpu = ("vdpp_tpu_torch/csrc/flash_attention.cu",
@@ -758,9 +846,11 @@ def main() -> int:
                             "vdpp_tpu/ops/temporal_attention_kernel.py:80")
     print(json.dumps({"kernels": [
         entry("flash_attention", flash_src, flash_tpu, flash_launches, flash,
-              flash["shapes"][0]),
+              flash["shapes"][0], ptxas=ptxas),
         entry("flash_attention_d512", flash_src, flash_tpu, decode_flash + dit_decode_flash,
               flash512, flash512["shapes"][0]),
+        entry("flash_attention_d512_bf16", flash_src, flash_tpu, decode16_flash, flash512_bf16,
+              flash512_bf16["shapes"][0]),
         entry("group_norm_silu", "vdpp_tpu_torch/csrc/group_norm_silu.cu",
               "vdpp_tpu/ops/norm_kernel.py:165", switched["gn"], gn, gn["shapes"][0]),
         entry("frame_attention", frame_src, frame_tpu, switched["frame"], frame,

@@ -113,13 +113,17 @@ def test_flash_wrapper_checks():
 
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("static_max", [True, False])
-def test_flash_d512_fp32_matches_jax(static_max):
-    """The VAE mid-block's case: one head, d = 512, fp32, a ragged 600 keys
-    (the JAX side's blocks as its ``_pick_blocks`` would shrink them)."""
-    got, want = _both(_qkv(14, 2, 600, 1, 512, torch.float32), torch.float32, static_max,
+def test_flash_d512_fp32_matches_jax(static_max, dtype):
+    """The VAE mid-block's case: one head, d = 512, a ragged 600 keys (the
+    JAX side's blocks as its ``_pick_blocks`` would shrink them); fp32 as the
+    decoder runs by default, bf16 as ``VAEConfig.svd(torch.bfloat16)`` runs
+    it (``--vae-dtype bfloat16`` in the JAX scripts)."""
+    got, want = _both(_qkv(14, 2, 600, 1, 512, dtype), dtype, static_max,
                       jax_blocks=(256, 256, 256))
-    np.testing.assert_allclose(got, want, atol=TOL[torch.float32], rtol=0)
+    atol = TOL[dtype] * (np.abs(want).max() if dtype == torch.bfloat16 else 1.0)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -84,17 +84,19 @@ def _one_rounding_tol(ref: torch.Tensor) -> float:
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("static_max", [True, False])
 @pytest.mark.parametrize("b,l", [(2, 600), (1, 2048)])
-def test_flash_d512_kernel_matches_plain(cuda, b, l, static_max):
-    q, k, v = _qkv(cuda, b, l, 1, 512, torch.float32, l + 1)
+def test_flash_d512_kernel_matches_plain(cuda, b, l, static_max, dtype):
+    """The VAE mid-block's head dim, fp32 and bf16 (``VAEConfig.svd(torch.bfloat16)``)."""
+    q, k, v = _qkv(cuda, b, l, 1, 512, dtype, l + 1)
     before = fa.launches
     got = fa.flash_attention(q, k, v, static_max=static_max)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
-    ref = fa.flash_attention_plain(q, k, v, static_max)
-    err = (got - ref).abs().max().item()
-    assert err <= TOL[torch.float32] * ref.abs().max().item(), (err, ref.abs().max().item())
+    ref = fa.flash_attention_plain(q, k, v, static_max).float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= TOL[dtype] * ref.abs().max().item(), (err, ref.abs().max().item())
 
 
 @pytest.mark.gpu
@@ -160,8 +162,8 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros(1, 33, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="at most 32 frames"):
         tak.frame_attention(q, q, q)
-    q = torch.zeros(1, 16, 1, 512, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="d=512"):
+    q = torch.zeros(1, 16, 1, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="d=128"):
         fa.flash_attention(q, q, q)
     x = torch.zeros(2, 24, 8192, device=cuda)
     with pytest.raises(ValueError, match="C <= 4096"):
@@ -199,3 +201,55 @@ def test_frame_attention_d72_kernel_matches_plain(cuda, shape, dtype):
     ref = tak.frame_attention_plain(q, k, v)
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= _one_rounding_tol(ref), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 72])
+@pytest.mark.parametrize("static_max", [True, False])
+@pytest.mark.parametrize("b,lq,lk,h", [
+    (1, 600, 600, 2),    # neither length a multiple of the 128-row/128-key tiles
+    (2, 201, 201, 3),    # one key past a tile
+    (1, 50, 50, 2),      # under one tile
+    (2, 1000, 70, 2),    # L_q != L_k, the keys under one tile
+    (1, 64, 1000, 2),    # L_q != L_k, many key tiles for one short query tile
+    (4, 256, 256, 100),  # 800 CTAs: several waves of the card's 132 SMs
+])
+def test_flash_wgmma_kernel_matches_plain(cuda, d, static_max, b, lq, lk, h):
+    """The bf16 wgmma + TMA kernel (head dims 64 and 72) at ragged, short and
+    unequal lengths and at a grid of several waves."""
+    g = torch.Generator(device=cuda).manual_seed(lq + lk + d)
+    q = torch.randn(b, lq, h, d, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(b, lk, h, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, static_max=static_max)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v, static_max).float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= TOL[torch.bfloat16] * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 72])
+def test_flash_wgmma_kernel_large_logits(cuda, d):
+    """As tests/test_ops.py's static-max cases: with queries x 8 (log2-logits
+    up to about 40) both modes match their plain versions and each other;
+    with queries x 64 the static clip engages, so the two modes differ, each
+    still matching its own plain version and finite."""
+    q, k, v = _qkv(cuda, 1, 512, 2, d, torch.bfloat16, d)
+    for scale in (8.0, 64.0):
+        qs = (q.float() * scale).bfloat16()
+        outs = {}
+        for static_max in (True, False):
+            got = fa.flash_attention(qs, k, v, static_max=static_max).float()
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_plain(qs, k, v, static_max).float()
+            top = ref.abs().max().item()
+            assert torch.isfinite(got).all()
+            assert (got - ref).abs().max().item() <= TOL[torch.bfloat16] * top, (scale, static_max)
+            outs[static_max] = got
+        apart = (outs[True] - outs[False]).abs().max().item()
+        if scale == 8.0:
+            assert apart <= TOL[torch.bfloat16] * top, apart
+        else:
+            assert apart > 0.1 * top, apart

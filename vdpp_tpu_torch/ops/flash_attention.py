@@ -12,9 +12,10 @@ accumulation and ``l == 0 -> 1``.
 Two implementations of that arithmetic live here:
 
 * the CUDA kernel ``vdpp_tpu_torch/csrc/flash_attention.cu`` (head dims 64,
-  the SVD UNet's, and 72, DiT-XL's: bf16 on the tensor cores, fp32 on the
-  SIMT cores; head dim 512, the VAE decoder's mid-block: fp32 on the SIMT
-  cores), which :func:`flash_attention` launches for a CUDA tensor;
+  the SVD UNet's, and 72, DiT-XL's: bf16 on the tensor cores through wgmma
+  with TMA loads, fp32 on the SIMT cores; head dim 512, the VAE decoder's
+  mid-block: fp32 or bf16 on the SIMT cores), which :func:`flash_attention`
+  launches for a CUDA tensor;
 * :func:`flash_attention_plain`, plain PyTorch that processes the queries in
   chunks, which :func:`flash_attention` runs for a CPU tensor and which the
   tests and ``chip_smoke.py`` hold the kernel against.
@@ -40,7 +41,7 @@ S_CLAMP_LO = -100.0
 KERNEL_HEAD_DIMS = {
     64: (torch.bfloat16, torch.float32),
     72: (torch.bfloat16, torch.float32),
-    512: (torch.float32,),
+    512: (torch.bfloat16, torch.float32),
 }
 # fp32 scores the plain version holds at once (query chunk x all keys x B*H).
 _PLAIN_SCORE_ELEMS = 1 << 26
@@ -106,7 +107,7 @@ def flash_attention(
     b, lq, h, d = q.shape
     if q.dtype not in KERNEL_HEAD_DIMS.get(d, ()):
         raise NotImplementedError(
-            f"the CUDA flash kernel takes head dims 64 and 72 (bf16, fp32) and 512 (fp32); "
+            f"the CUDA flash kernel takes head dims 64, 72 and 512 in bf16 or fp32; "
             f"d={d} in {q.dtype} is not ported"
         )
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
