@@ -13,10 +13,13 @@ Phases (any failure exits non-zero and prints no result line):
    shapes the main paths give it, with times for the kernel, the plain
    version, a one-call PyTorch yardstick, and the bound (and for flash the
    TFLOP/s, the share of the bound and the ratio to SDPA): flash attention
-   at d = 64 bf16 (UNet; the wgmma + TMA kernel), d = 512 fp32 and bf16 (VAE
-   mid-block) and d = 72 bf16 (DiT-XL's joint3d and factorized sites, plus
-   ragged bf16 lengths and fp32), fused GroupNorm+SiLU, and frame attention
-   at d = 64 (the UNet's sites) and d = 72 (the factorized DiT's);
+   at d = 64 bf16 (UNet; the wgmma + TMA kernel, plus the fp32 SIMT kernel
+   timed at a ragged length), d = 512 fp32 (the register-tiled SIMT kernel)
+   and bf16 (the wgmma + TMA kernel) at the VAE mid-block's shapes (B = 4
+   and 1 at L = 9216, B = 4 at L = 2560, ragged 600 and 201), and d = 72
+   bf16 (DiT-XL's joint3d and factorized sites, plus ragged bf16 lengths and
+   fp32), fused GroupNorm+SiLU, and frame attention at d = 64 (the UNet's
+   sites) and d = 72 (the factorized DiT's);
 4. agreement: a small UNet (head dim 64, so the flash kernel runs) and one
    CFG Euler step, on the card against the same weights on the CPU, first
    as it is, then with both kernel switches on (VDPP_GN_FUSED=1,
@@ -176,7 +179,32 @@ def check_flash(torch, fa, F) -> dict:
             err, _ = compare(f"{dtype} L={l}", q, k, v, static, tol)
             if dtype == torch.bfloat16:
                 max_err = max(max_err, err)
-    return {"max_abs_err": max_err, "shapes": shapes}
+        if dtype == torch.float32:
+            fp32_row = time_flash_fp32(torch, fa, F, q, k, v, "d=64 ragged")
+    return {"max_abs_err": max_err, "shapes": shapes, "fp32": fp32_row}
+
+
+def time_flash_fp32(torch, fa, F, q, k, v, what: str) -> dict:
+    """The fp32 SIMT kernel at d = 64/72 (off the models' paths; the small
+    agreement configs use it) timed beside its plain version and SDPA in
+    fp32, with its bound: fp32 FMA at 67 TFLOP/s or the bytes."""
+    b, l, h, d = q.shape
+    row = {"site": what, "B": b, "L": l, "H": h, "D": d}
+    row["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, static_max=True))
+    row["running_ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, static_max=False))
+    row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, True), iters=3,
+                              warmup=1)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    flops = 4 * b * h * l * l * d
+    row["bound_ms"], row["bound_by"] = bound(flops, 4 * b * h * l * d * 4, H100_FP32_FLOPS)
+    add_rates(row, flops)
+    print(f"flash fp32 {what} B={b} L={l} H={h}: kernel_ms {row['ms']:.4f} (running "
+          f"{row['running_ms']:.4f}), plain_ms {row['plain_ms']:.3f}, library_ms (SDPA fp32) "
+          f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.5f} ({row['bound_by']}, 67 "
+          f"TFLOP/s fp32); {row['tflops']:.2f} TFLOP/s, {row['bound_share']:.3f} of the bound, "
+          f"{row['vs_library']:.3f}x SDPA's time", flush=True)
+    return row
 
 
 def add_rates(row: dict, flops: float) -> None:
@@ -233,11 +261,13 @@ def bf16_ulp(x: float) -> float:
 
 
 def check_flash_512(torch, fa, F, dtype) -> dict:
-    """The flash kernel at the VAE mid-block's shape: d = 512, one head,
-    L = 9216 (72 x 128 latent positions), B = 4 frames of a decode chunk;
-    both softmax modes, plus a ragged length. fp32 is the decoder's default;
-    bf16 is ``VAEConfig.svd(torch.bfloat16)`` (the same SIMT kernel, fp32
-    inside, the reference's bf16 rounding points)."""
+    """The flash kernel at the VAE mid-block's shapes: d = 512, one head,
+    B = 4 frames of a decode chunk at L = 9216 (72 x 128 latent positions),
+    the last chunk of 25 frames (B = 1) and the DiT decode's L = 2560 (40 x
+    64), both softmax modes, plus ragged lengths (600, 201) whose last query
+    and key tiles are part-filled. fp32 is the decoder's default and runs on
+    the register-tiled SIMT kernel; bf16 is ``VAEConfig.svd(torch.bfloat16)``
+    and runs on the wgmma + TMA kernel. The three path shapes are timed."""
     g = torch.Generator(device="cuda").manual_seed(1 if dtype == torch.float32 else 9)
     name = "fp32" if dtype == torch.float32 else "bf16"
 
@@ -249,8 +279,8 @@ def check_flash_512(torch, fa, F, dtype) -> dict:
           + ("(fp32 both sides, sums in other orders, no TF32)" if name == "fp32"
              else "(as at d = 64: q', P and o rounded to bf16 on both sides)"))
     max_err = 0.0
-    row = {}
-    for b, l in ((4, 9216), (2, 600)):
+    shapes = []
+    for b, l in ((4, 9216), (1, 9216), (4, 2560), (2, 600), (2, 201)):
         q, k, v = inputs(b, l)
         for static in (True, False):
             got = fa.flash_attention(q, k, v, static_max=static).float()
@@ -265,30 +295,30 @@ def check_flash_512(torch, fa, F, dtype) -> dict:
             if not math.isfinite(err) or err > tol * ref_max:
                 fail(f"flash {name} d=512 B={b} L={l} {mode}: max|diff| {err} > {tol} x {ref_max}")
             max_err = max(max_err, err)
-        if l == 9216:
-            row = {"L": l, "B": b, "dtype": name, "ref_max": ref_max}
-            row["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, static_max=True),
-                                iters=5, warmup=1)
-            row["running_ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, False),
-                                        iters=5, warmup=1)
-            row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, True),
-                                      iters=3, warmup=1)
-            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh),
-                                        iters=5, warmup=1)
-            flops = 4 * b * l * l * 512
-            # fp32: the SIMT rate (the tensor cores would round to TF32); bf16:
-            # the tensor cores' bf16 rate, the card's peak for the inputs' type.
-            peak = H100_FP32_FLOPS if name == "fp32" else H100_BF16_FLOPS
-            row["bound_ms"], row["bound_by"] = bound(flops, 4 * b * l * 512 * q.element_size(),
-                                                     peak)
-            add_rates(row, flops)
-            print(f"flash {name} d=512 B={b} L={l}: kernel_ms {row['ms']:.3f} (running "
-                  f"{row['running_ms']:.3f}), plain_ms {row['plain_ms']:.3f}, library_ms (SDPA "
-                  f"{name}) {row['library_ms']:.3f}, bound_ms {row['bound_ms']:.3f} "
-                  f"({row['bound_by']}, {peak / 1e12:.0f} TFLOP/s); {rates_text(row)}",
-                  flush=True)
-    return {"max_abs_err": max_err, "shapes": [row]}
+        if l not in (9216, 2560):
+            continue
+        row = {"L": l, "B": b, "dtype": name, "ref_max": ref_max}
+        row["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, static_max=True),
+                            iters=5, warmup=1)
+        row["running_ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, False),
+                                    iters=5, warmup=1)
+        row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, True),
+                                  iters=3, warmup=1)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                                    iters=5, warmup=1)
+        flops = 4 * b * l * l * 512
+        # fp32: the SIMT rate (the tensor cores would round to TF32); bf16:
+        # the tensor cores' bf16 rate, the card's peak for the inputs' type.
+        peak = H100_FP32_FLOPS if name == "fp32" else H100_BF16_FLOPS
+        row["bound_ms"], row["bound_by"] = bound(flops, 4 * b * l * 512 * q.element_size(), peak)
+        add_rates(row, flops)
+        print(f"flash {name} d=512 B={b} L={l}: kernel_ms {row['ms']:.4f} (running "
+              f"{row['running_ms']:.4f}), plain_ms {row['plain_ms']:.3f}, library_ms (SDPA "
+              f"{name}) {row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} "
+              f"({row['bound_by']}, {peak / 1e12:.0f} TFLOP/s); {rates_text(row)}", flush=True)
+        shapes.append(row)
+    return {"max_abs_err": max_err, "shapes": shapes}
 
 
 def check_group_norm(torch, nk, F) -> dict:
@@ -437,6 +467,7 @@ def check_flash_72(torch, fa, F) -> dict:
             row["err_static" if static else "err_running"] = err
             row["ref_max"] = ref_max
         if dtype != torch.bfloat16:
+            fp32_row = time_flash_fp32(torch, fa, F, q, k, v, "d=72 ragged")
             continue
         max_err = max(max_err, row["err_static"], row["err_running"])
         if "ragged" in site:
@@ -455,7 +486,7 @@ def check_flash_72(torch, fa, F) -> dict:
               f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
               f"{rates_text(row)}", flush=True)
         shapes.append(row)
-    return {"max_abs_err": max_err, "shapes": shapes}
+    return {"max_abs_err": max_err, "shapes": shapes, "fp32": fp32_row}
 
 
 def check_frame_attention_72(torch, ta, F) -> dict:
@@ -728,12 +759,17 @@ def main() -> int:
     lib = fa._kernel_lib()
     for kname, r in ptxas.items():
         d = re.match(r"flash_fwd_bf16<(\d+)", kname)
-        r["dynamic_smem"] = lib.vdpp_flash_attention_bf16_smem(int(d.group(1))) if d else None
+        dims = {"flash_fwd_d512_bf16": (512, 1), "flash_fwd_d512_f32": (512, 0)}
+        d_bf16 = (int(d.group(1)), 1) if d else dims.get(kname.split("<")[0])
+        r["dynamic_smem"] = lib.vdpp_flash_attention_smem(*d_bf16) if d_bf16 else None
         print(f"ptxas {kname}: {r.get('registers')} registers"
               + (" at launch (setmaxnreg: consumer warpgroups 240, producer 24)" if d else "")
               + f", {r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B spill loads, "
               f"{r.get('static_smem')} B static shared memory"
-              + (f", {r['dynamic_smem']} B dynamic shared memory per CTA" if d else ""))
+              + (f", {r['dynamic_smem']} B dynamic shared memory per CTA" if d_bf16 else ""))
+    for new in ("flash_fwd_d512_bf16", "flash_fwd_d512_f32"):
+        if built["flash_attention"]["seconds"] and not any(k.startswith(new) for k in ptxas):
+            fail(f"no ptxas report for {new}")
     if not ptxas:
         print("ptxas: no report (the flash library was built before this run)")
 
@@ -846,7 +882,8 @@ def main() -> int:
                             "vdpp_tpu/ops/temporal_attention_kernel.py:80")
     print(json.dumps({"kernels": [
         entry("flash_attention", flash_src, flash_tpu, flash_launches, flash,
-              flash["shapes"][0], ptxas=ptxas),
+              flash["shapes"][0], ptxas=ptxas,
+              fp32_d64_d72=[flash["fp32"], flash72["fp32"]]),
         entry("flash_attention_d512", flash_src, flash_tpu, decode_flash + dit_decode_flash,
               flash512, flash512["shapes"][0]),
         entry("flash_attention_d512_bf16", flash_src, flash_tpu, decode16_flash, flash512_bf16,

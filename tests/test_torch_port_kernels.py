@@ -86,16 +86,51 @@ def _one_rounding_tol(ref: torch.Tensor) -> float:
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("static_max", [True, False])
-@pytest.mark.parametrize("b,l", [(2, 600), (1, 2048)])
-def test_flash_d512_kernel_matches_plain(cuda, b, l, static_max, dtype):
-    """The VAE mid-block's head dim, fp32 and bf16 (``VAEConfig.svd(torch.bfloat16)``)."""
-    q, k, v = _qkv(cuda, b, l, 1, 512, dtype, l + 1)
+@pytest.mark.parametrize("b,lq,lk", [
+    (2, 600, 600),      # ragged: the last query and key tiles part-filled
+    (1, 2048, 2048),
+    (2, 201, 201),      # ragged, nine keys past the last full tile
+    (1, 9216, 9216),    # the last chunk of a 25-frame SVD decode
+    (4, 2560, 2560),    # the DiT decode's chunks (40 x 64 latent positions)
+    (1, 1000, 70),      # L_q != L_k, the keys in two tiles, the second part-filled
+    (1, 64, 1000),      # L_q != L_k, one query tile over many key tiles
+    (4, 9216, 9216),    # the SVD decode's chunks: several waves of the 132 SMs
+])
+def test_flash_d512_kernel_matches_plain(cuda, b, lq, lk, static_max, dtype):
+    """The VAE mid-block's head dim: fp32 (the register-tiled SIMT kernel)
+    and bf16 (``VAEConfig.svd(torch.bfloat16)``, the wgmma + TMA kernel)."""
+    g = torch.Generator(device=cuda).manual_seed(lq + lk + 1)
+    q = torch.randn(b, lq, 1, 512, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(b, lk, 1, 512, generator=g, device=cuda).to(dtype) for _ in range(2))
     before = fa.launches
     got = fa.flash_attention(q, k, v, static_max=static_max)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
     ref = fa.flash_attention_plain(q, k, v, static_max).float()
     err = (got.float() - ref).abs().max().item()
+    assert err <= TOL[dtype] * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("static_max", [True, False])
+def test_flash_d512_kernel_leaves_rows_past_lq_alone(cuda, static_max, dtype):
+    """The d = 512 kernels store no query row past L_q: called through the C
+    entry into a buffer 70 rows longer than L_q = 201, they leave those rows
+    as they were and write rows 0 .. 200 as the plain version does."""
+    lq, extra = 201, 70
+    q, k, v = _qkv(cuda, 1, lq, 1, 512, dtype, 512)
+    buf = torch.full((1, lq + extra, 1, 512), 7.0, device=cuda, dtype=dtype)
+    lib = fa._kernel_lib()
+    rc = lib.vdpp_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), int(dtype == torch.bfloat16),
+        1, 1, lq, lq, 512, int(static_max), fa.LOG2E / math.sqrt(512),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert (buf[:, lq:] == 7.0).all()
+    ref = fa.flash_attention_plain(q, k, v, static_max).float()
+    err = (buf[:, :lq].float() - ref).abs().max().item()
     assert err <= TOL[dtype] * ref.abs().max().item(), (err, ref.abs().max().item())
 
 

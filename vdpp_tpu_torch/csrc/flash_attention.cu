@@ -98,25 +98,85 @@
 // the models' paths (the small agreement configs use it).
 //
 // Head dim 512 (the VAE decoder's mid-block attention: one head, L = 72 * 128 =
-// 9216, B = the frames of a decode chunk), fp32 or bf16, takes its own SIMT
-// kernel, flash_fwd_d512<T>. One call at B = 4 is 4 * 4 * 9216^2 * 512 = 696
-// GFLOP against 67 TFLOP/s fp32 outside the tensor cores, about 10.4 ms, while
-// its bytes (302 MB at 3.35 TB/s in fp32) take 0.09 ms: it is bound by fp32 FMA
-// throughput. A 64-row x 512 fp32 accumulator would be 128 KB, so a block owns
-// only 32 query rows: 8 warps, 4 rows each, every lane holding a 4 x 16 slice
-// of the accumulator (64 registers). Q (32 x 512), a K tile and a V tile (32
-// keys each) sit in 198 KB of dynamic shared memory as fp32; bf16 inputs are
-// converted as they are staged, q' is rounded to bf16, P is rounded to bf16
-// before P.V and summed into l as rounded, and the output is rounded to bf16:
-// the reference's rounding points. In S = Q'K^T a lane owns one key and its
-// warp's 4 rows (Q rows read as broadcasts, K rows padded to 516 floats so the
-// lanes' float4 reads hit distinct banks); P goes through a padded 32 x 36
-// shared tile, transposed so a warp reads its 4 rows' p for one key as one
-// broadcast float4, and P.V reads each V row once per warp as conflict-free
-// float4s. No TF32: the fp32 check is 1e-5 x max|plain|. In bf16 the same
-// work could run on the tensor cores (0.70 ms at B = 4); this simple kernel
-// does not, and takes about as long as in fp32 (its rework is queued).
+// 9216 for SVD and 40 * 64 = 2560 for DiT, B = the frames of a decode chunk,
+// 4, or 1 for the last chunk of 25 frames) has a kernel for each dtype.
 //
+// bf16: flash_fwd_d512_bf16<STATIC_MAX>. One call at B = 4, L = 9216 is
+// 4 * 4 * 9216^2 * 512 = 696 GFLOP, 0.70 ms at 989 TFLOP/s, against 0.05 ms
+// of bytes: bound by operations, so both products run on wgmma, with the
+// parts of flash_fwd_bf16 (4-D tensor maps, mbarriers with TMA byte counts,
+// B128 descriptors, the in-place q' scale behind fence.proxy.async, P from
+// S's accumulators by the FA3 layout identity). What is new is the budget:
+//   * registers: a 64-row x 512 fp32 O is 256 registers a thread for one
+//     warpgroup, and wgmma's N is at most 256. So two warpgroups own the same
+//     64 query rows and split d: warpgroup wg holds O(:, 256wg ... 256wg +
+//     255), 128 fp32 registers a thread, and P V is m64n256k16 with B = the
+//     V tile's 4 boxes of its columns (N-major, LBO = 8 KB from box to box,
+//     SBO = 1 KB from one 8-key group to the next). With S (64 x 64: 32
+//     registers) and P (16) that is more than 168, and ptxas caps a thread at
+//     168 whenever one of the SM's four register-file quarters holds three
+//     warps, as it does with a producer warp or warpgroup beside the two,
+//     setmaxnreg or not (it then spilled O and serialised every wgmma). So
+//     the CTA is the two warpgroups alone, 8 warps, 255 registers a thread
+//     (ptxas: 208 in static-max mode, 211 in running-max, no spills), and
+//     thread 0 issues the TMA loads between its own work;
+//   * S: each warpgroup computes the partial S over its own 256 columns of d
+//     (16 k16 steps of m64n64k16, A = Q', B = K, both K-major from shared
+//     memory), writes it to shared memory, and after one named barrier of
+//     both warpgroups adds the other's partial to its own. fp32 addition is
+//     commutative, so both hold a bitwise-equal S, run the same softmax and
+//     get the same P and l with no further exchange; in running-max mode
+//     each rescales its own half of O. The two 16 KB exchange buffers swap
+//     roles each tile, so one barrier a tile suffices;
+//   * shared memory (230,432 B of the 232,448 a CTA may have): Q' 64 x 512
+//     bf16 = 64 KB as 8 TMA boxes of 64 columns (one 128-byte swizzle row
+//     each), a K tile of 64 keys = 64 KB and a V tile = 64 KB (8 boxes each),
+//     the exchange 2 x 16 KB, 4 mbarriers and 1 KB of alignment slack. That
+//     leaves room for one K and one V tile, each with its own barrier: thread
+//     0 loads K(j + 1) right after the exchange barrier of tile j (both S(j)
+//     are done with K), under the softmax and P V(j), and V(j + 1) once both
+//     warpgroups' P V(j) have arrived on the V-empty barrier, under S(j + 1)
+//     and its softmax;
+//   * a tile runs S(j), the exchange and softmax, then P V(j): the products
+//     do not overlap the softmax. Issuing S(j + 1) beside P V(j), as
+//     flash_fwd_bf16 does, needs O, S and P live at once and measured slower
+//     here (PERF.md);
+//   * what bounds it in practice: a CTA of 64 rows streams all of K and V
+//     from L2 (64 FLOP a byte, 10.9 GB of L2 reads at B = 4, L = 9216), and
+//     576 CTAs are 4.36 waves of 132 SMs (144 CTAs at B = 1, 1.09 waves).
+//
+// fp32: flash_fwd_d512_f32<STATIC_MAX>, exact fp32 on the SIMT cores (the
+// tensor cores would round to TF32; the check is 1e-5 x max|plain|): the same
+// 696 GFLOP take 10.4 ms at 67 TFLOP/s, against 0.09 ms of bytes. The SM
+// issues 4 warp FMAs a clock against one 128-byte shared-memory wavefront, so
+// the design reads operands so that every wavefront feeds at least 4 warp
+// FMAs (the SGEMM layout). A CTA owns 48 query rows with 256 threads:
+//   * S = Q'K^T (48 x 64 a tile): warp w owns rows 6w ... 6w + 5, each lane a
+//     3 x 4 micro-tile (rows 6w + sy + 2r, keys sx + 16c). A step of 4
+//     columns reads 3 Q' float4s (two rows a warp instruction, 1 wavefront
+//     each) and 4 K float4s (16 keys, 2 wavefronts each) for 48 FMAs: 4.4
+//     FMAs a wavefront. Q' rows are padded to 516 floats and K rows to 132, so
+//     rows 1 apart start 4 banks apart and those reads do not conflict;
+//   * O += P V: warp w owns columns 64w ... 64w + 63, each lane a 6 x 16
+//     micro-tile (rows 4oy + r and 32 + 2oy + r, columns 64w + 4ox + 16c + e),
+//     96 fp32 registers. A key reads a P float4 and a P float2 (from P^T,
+//     key-major: 1 wavefront each) and 4 V float4s (4 columns: 1 wavefront
+//     each) for 96 FMAs: 16 FMAs a wavefront;
+//   * softmax in the S layout (a row's 64 keys are the 16 lanes of equal sy:
+//     shuffles), P written transposed to shared memory; running max passes
+//     the rescale factors, and at the end l, to the O layout through shared
+//     memory;
+//   * shared memory (180,352 B): Q' 48 x 516 fp32 (99 KB, loaded and scaled
+//     once), two chunk buffers of 33 KB through which a key tile streams as 4
+//     chunks of K (64 keys x 128 columns) and then 4 of V (16 keys x 512
+//     columns), each loaded by cp.async while the one before is used (keys
+//     past L_k zero-filled), P^T 64 x 52, and 2 x 48 floats of row factors;
+//   * why 48 rows: one CTA an SM (ptxas: 246 registers static, 254 running,
+//     no spills), and the grid is what fills the card. 64-row CTAs (128
+//     accumulators) were 4.36 waves of 132 SMs at B = 4, L = 9216 (576 CTAs)
+//     and 1.09 at B = 1; 48-row CTAs are 5.82 and 1.45, and measured faster
+//     at all three path shapes (PERF.md).
+
 // C interface (bound with ctypes, see vdpp_tpu_torch/ops/flash_attention.py):
 // returns a cudaError_t after the launch, launches on the given stream,
 // allocates nothing and does not synchronise.
@@ -137,10 +197,6 @@ constexpr float MASK_VALUE = -0.7f * 3.40282346638528859812e+38f;
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // ---------------------------------------------------------------------------
@@ -420,19 +476,19 @@ __device__ __forceinline__ float ex2(float x) {
 // Running max: the new row max goes into m and the factor l and O are to be
 // rescaled by into alpha (l is rescaled here, O by the caller once the P V in
 // flight has landed). Keys >= Lk get p = 0 and stay out of the max.
-template <bool STATIC_MAX, bool MASKED>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&lp)[4],
+template <bool STATIC_MAX, bool MASKED, int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2], float (&lp)[4],
                                              float (&alpha)[2], int k0, int Lk, int t) {
   float mr[2] = {0.f, 0.f};  // the row max subtracted (running max only)
   if (!STATIC_MAX) {
     float mt[2] = {MASK_VALUE, MASK_VALUE};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < NS; ++i) {
       const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
       if (!MASKED || key < Lk) mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], s[i]);
     }
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {  // a row's 128 keys are spread over the 4 threads of a quad
+    for (int j = 0; j < 2; ++j) {  // a row's keys are spread over the 4 threads of a quad
       mt[j] = fmaxf(mt[j], __shfl_xor_sync(0xffffffffu, mt[j], 1));
       mt[j] = fmaxf(mt[j], __shfl_xor_sync(0xffffffffu, mt[j], 2));
       const float m_new = fmaxf(m[j], mt[j]);
@@ -444,7 +500,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     }
   }
 #pragma unroll
-  for (int u = 0; u < 32; ++u) {
+  for (int u = 0; u < NS / 2; ++u) {
     float e[2];
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
@@ -459,20 +515,23 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   }
 }
 
-template <bool STATIC_MAX>
-__device__ __forceinline__ void softmax(float (&s)[64], float (&m)[2], float (&lp)[4],
+// A tile of 2 * NS keys (NS accumulators of S a thread: 128 keys at d = 64/72,
+// 64 at d = 512).
+template <bool STATIC_MAX, int NS>
+__device__ __forceinline__ void softmax(float (&s)[NS], float (&m)[2], float (&lp)[4],
                                         float (&alpha)[2], int k0, int Lk, int t) {
-  if (k0 + WG_BK <= Lk) {
+  if (k0 + 2 * NS <= Lk) {
     softmax_tile<STATIC_MAX, false>(s, m, lp, alpha, k0, Lk, t);
   } else {
     softmax_tile<STATIC_MAX, true>(s, m, lp, alpha, k0, Lk, t);
   }
 }
 
-// P V's A operand from the packed words softmax left in s[0..31].
-__device__ __forceinline__ void take_p(uint32_t (&p)[32], const float (&s)[64]) {
+// P V's A operand from the packed words softmax left in s[0 .. NS/2 - 1].
+template <int NS>
+__device__ __forceinline__ void take_p(uint32_t (&p)[NS / 2], const float (&s)[NS]) {
 #pragma unroll
-  for (int u = 0; u < 32; ++u) p[u] = __float_as_uint(s[u]);
+  for (int u = 0; u < NS / 2; ++u) p[u] = __float_as_uint(s[u]);
 }
 
 // q' = bf16(q * qscale) for 8 bf16 values.
@@ -803,48 +862,431 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// d = 512, fp32 or bf16: SIMT, 32 query rows a block.
+// d = 512, bf16: TMA + wgmma, the head dim split over two warpgroups.
+// (The design and its budgets are in the note at the top of the file.)
 
-constexpr int D512 = 512;
-constexpr int BQ_512 = 32;             // query rows per block
-constexpr int BK_512 = 32;             // keys per tile (one per lane)
-constexpr int THREADS_512 = 256;       // 8 warps x 4 query rows
-constexpr int ROWS_PER_WARP = BQ_512 / (THREADS_512 / 32);
-constexpr int QK_ROW = D512 + 4;       // padded Q/K row: lanes' float4 reads hit distinct banks
-constexpr int P_ROW = BQ_512 + 4;      // padded transposed P row
-constexpr int COLS_PER_LANE = D512 / 32;  // 16 accumulator columns per lane, as 4 float4
-constexpr size_t SMEM_512 =
-    sizeof(float) * (2 * BQ_512 * QK_ROW + BK_512 * D512 + BK_512 * P_ROW);
-static_assert(ROWS_PER_WARP == 4, "P is moved as one float4 per key and warp");
-static_assert(BK_512 == 32, "one key per lane");
+constexpr int X_D = 512;
+constexpr int X_BQ = 64;                  // query rows a CTA, shared by both warpgroups
+constexpr int X_BK = 64;                  // keys a K or V tile
+constexpr int X_BOX = 64 * MAIN_ROW;      // a 64-row box of 64 columns: 8 KB
+constexpr int X_BOXES = X_D / MAIN_COLS;  // 8 boxes a 64-row tile
+constexpr int X_TILE = X_BOXES * X_BOX;   // 64 KB
+constexpr int X_HALF = X_TILE / 2;        // a warpgroup's 256 columns: boxes 4wg .. 4wg + 3
+constexpr int X_Q = 0;
+constexpr int X_K = X_TILE;
+constexpr int X_V = 2 * X_TILE;
+constexpr int X_XCH = 3 * X_TILE;         // two 64 x 64 fp32 buffers of partial S
+constexpr int X_XCH_BYTES = X_BQ * X_BK * 4;
+constexpr int X_BARS = X_XCH + 2 * X_XCH_BYTES;  // full K, full V, empty V, Q
+constexpr int X_SMEM = X_BARS + 8 * 4 + 1024;   // + alignment slack
+// Two warpgroups and no producer warp: each of the SM's four register-file
+// quarters then holds two warps, so a thread may have 255 registers. With a
+// ninth warp (or a producer warpgroup) one quarter holds three and ptxas caps
+// every thread at 168, setmaxnreg or not; O, S and P do not fit in 168.
+constexpr int X_THREADS = 128 * WG_NC;
+static_assert(X_SMEM <= 232448, "one CTA's dynamic shared memory on an H100");
+static_assert(X_BQ == 64 && X_BK == 64, "S is one m64n64 product a k16 step");
 
-// 4 consecutive elements as fp32 (8- or 16-byte aligned), and back.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void store4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+__device__ __forceinline__ uint64_t wg_desc_lbo(uint32_t saddr, uint32_t lbo, uint32_t sbo,
+                                                uint64_t layout) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
 }
 
-// T = float or __nv_bfloat16 in global memory; fp32 in shared memory and in
-// every product. For bf16, q' and P are rounded to bf16 as the reference does.
-template <typename T, bool STATIC_MAX>
-__global__ void __launch_bounds__(THREADS_512)
-flash_fwd_d512(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ o, int H, int Lq, int Lk, float qscale) {
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                      // [BQ_512][QK_ROW]
-  float* Ks = Qs + BQ_512 * QK_ROW;      // [BK_512][QK_ROW]
-  float* Vs = Ks + BK_512 * QK_ROW;      // [BK_512][D512]
-  float* Ps = Vs + BK_512 * D512;        // [BK_512][P_ROW], P transposed: key-major
+// S(64 x 64, fp32) = A(64 x 16, bf16, shared) * B(64 x 16, bf16, shared)^T, both K-major:
+// the first k16 step, which writes the accumulators without reading them.
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+        "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// S(64 x 64, fp32) += A(64 x 16) * B(64 x 16)^T, the later k16 steps.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// O(64 x 256, fp32) += P(64 x 16, bf16, registers) * V(16 x 256, bf16, shared, N-major).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// This warpgroup's partial S over its 256 columns of d: 16 k16 steps, four
+// in each of its Q and K boxes (+32 B a step inside a box, +8 KB a box).
+__device__ __forceinline__ void issue_s512(float (&s)[32], uint64_t dq, uint64_t dk) {
+#pragma unroll
+  for (int kk = 0; kk < X_D / 2 / 16; ++kk) {
+    const uint64_t off = (kk >> 2) * (X_BOX >> 4) + (kk & 3) * 2;
+    if (kk == 0) {
+      wgmma_ss_n64_first(s, dq, dk);
+    } else {
+      wgmma_ss_n64(s, dq + off, dk + off);
+    }
+  }
+}
+
+// O(:, this warpgroup's 256 columns) += P V: 4 k16 steps of 16 keys (+2 KB).
+__device__ __forceinline__ void issue_pv512(float (&o)[128], const uint32_t (&p)[16],
+                                            uint64_t dv) {
+#pragma unroll
+  for (int kk = 0; kk < X_BK / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    wgmma_rs_n256(o, a, dv + kk * (2048 >> 4));
+  }
+}
+
+// S = (the other warpgroup's partial) + (this one's), through shared memory.
+// Both warpgroups hold the same elements in the same registers, and fp32
+// addition is commutative, so both end with a bitwise-equal S. Tile j's
+// buffers swap each tile: a warpgroup writes the buffer it read the tile
+// before, which no one else reads, so one barrier a tile suffices.
+__device__ __forceinline__ void exchange_s(float (&s)[32], uint8_t* xch, int wg, int j, int tw) {
+  float4* mine = reinterpret_cast<float4*>(xch + ((wg + j) & 1) * X_XCH_BYTES);
+  const float4* other = reinterpret_cast<const float4*>(xch + ((wg + j + 1) & 1) * X_XCH_BYTES);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mine[i * 128 + tw] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+  }
+  asm volatile("bar.sync 3, 256;" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 x = other[i * 128 + tw];
+    s[4 * i] += x.x;
+    s[4 * i + 1] += x.y;
+    s[4 * i + 2] += x.z;
+    s[4 * i + 3] += x.w;
+  }
+}
+
+// The TMA loads of a 64-row tile (rows `row` ... row + 63 of batch b, head h)
+// into `dst`, 8 boxes of 64 columns, completing on `bar`; issued by thread 0.
+__device__ __forceinline__ void load_tile512(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                             int h, int row, int b) {
+  mbar_expect_tx(bar, X_TILE);
+  for (int c = 0; c < X_BOXES; ++c) {
+    tma_load_4d(dst + c * X_BOX, map, bar, c * MAIN_COLS, h, row, b);
+  }
+}
+
+template <bool STATIC_MAX>
+__global__ void __launch_bounds__(X_THREADS, 1)
+flash_fwd_d512_bf16(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
+                    int H, int Lq, int Lk, float qscale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms sit on 1024-byte boundaries
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t full_k = base + X_BARS;
+  const uint32_t full_v = full_k + 8;
+  const uint32_t empty_v = full_k + 16;
+  const uint32_t qbar = full_k + 24;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * X_BQ;
+  const int nk = (Lk + X_BK - 1) / X_BK;
+  const bool leader = threadIdx.x == 0;  // issues every TMA load
+
+  if (leader) {
+    mbar_init(full_k, 1);  // the leader's arrive, plus the TMA bytes
+    mbar_init(full_v, 1);
+    mbar_init(empty_v, 4 * WG_NC);  // one arrive per warp
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (leader) {
+    load_tile512(base + X_Q, &q_map, qbar, h, q0, b);
+    load_tile512(base + X_K, &k_map, full_k, h, 0, b);
+    load_tile512(base + X_V, &v_map, full_v, h, 0, b);
+  }
+
+  // Warpgroup wg: all 64 query rows, columns 256 * wg ... + 255 of d.
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);  // warp-uniform descriptors
+  const int tw = threadIdx.x & 127;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  uint8_t* xch = smem + X_XCH;
+
+  mbar_wait(qbar, 0);
+  {
+    uint4* qm = reinterpret_cast<uint4*>(smem + X_Q + wg * X_HALF);
+#pragma unroll
+    for (int i = 0; i < X_HALF / 16 / 128; ++i) scale_q8(qm[tw + 128 * i], qscale);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // before wgmma reads Q'
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+  }
+  const uint64_t dq = wg_desc(base + X_Q + wg * X_HALF, 1024, SW128);
+  const uint64_t dk = wg_desc(base + X_K + wg * X_HALF, 1024, SW128);
+  // V as stored is (keys x d), d contiguous: the N-major B of P V. Its 256
+  // columns span 4 boxes, LBO = 8 KB apart; 8-key groups SBO = 1 KB apart.
+  const uint64_t dv = wg_desc_lbo(base + X_V + wg * X_HALF, X_BOX, 1024, SW128);
+
+  float s[32];
+  uint32_t p[16];
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float m[2] = {MASK_VALUE, MASK_VALUE};
+  float lp[4] = {0.f, 0.f, 0.f, 0.f};
+  float alpha[2];
+
+  // Tile j: S(j), the exchange and the softmax, then P V(j). K(j + 1) loads
+  // from the exchange's barrier on (both warpgroups' S(j) are done with K)
+  // through the softmax and P V(j); V(j + 1) from the end of both P V(j)
+  // through S(j + 1) and its softmax.
+  for (int j = 0; j < nk; ++j) {
+    mbar_wait(full_k, j & 1);
+    fence_regs(acc);
+    wg_fence();
+    issue_s512(s, dq, dk);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    exchange_s(s, xch, wg, j, tw);
+    if (leader && j + 1 < nk) load_tile512(base + X_K, &k_map, full_k, h, (j + 1) * X_BK, b);
+    softmax<STATIC_MAX>(s, m, lp, alpha, j * X_BK, Lk, t);
+    if (!STATIC_MAX) {
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+    take_p(p, s);
+    mbar_wait(full_v, j & 1);
+    fence_regs(p);
+    fence_regs(acc);
+    wg_fence();
+    issue_pv512(acc, p, dv);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(p);
+    if (lane == 0) mbar_arrive(empty_v);
+    if (leader && j + 1 < nk) {
+      mbar_wait(empty_v, j & 1);  // both warpgroups' P V(j) are done with V
+      load_tile512(base + X_V, &v_map, full_v, h, (j + 1) * X_BK, b);
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float l = lp[j] + lp[j + 2];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[j] = l == 0.f ? 1.f : 1.f / l;
+  }
+  const long rs = (long)H * X_D;
+  const int r0 = q0 + (warp & 3) * 16 + g;  // this thread's rows: r0, r0 + 8
+  __nv_bfloat16* ob = o + ((long)b * Lq * H + h) * X_D + wg * (X_D / 2);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (r0 < Lq) {
+      *reinterpret_cast<uint32_t*>(ob + r0 * rs + c) =
+          pack_bf16(acc[4 * j] * inv[0], acc[4 * j + 1] * inv[0]);
+    }
+    if (r0 + 8 < Lq) {
+      *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * rs + c) =
+          pack_bf16(acc[4 * j + 2] * inv[1], acc[4 * j + 3] * inv[1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// d = 512, fp32: register-tiled SIMT (the SGEMM layout), 48 query rows a CTA.
+// (The design is in the note at the top of the file.)
+
+constexpr int F_BQ = 48;               // query rows a CTA (6 waves of 132 SMs at B = 4)
+constexpr int F_BK = 64;               // keys a tile
+constexpr int F_THREADS = 256;         // 8 warps
+constexpr int F_QROW = X_D + 4;        // padded Q' row: rows 1 apart start 4 banks apart
+constexpr int F_DC = 128;              // columns of d a K chunk
+constexpr int F_KROW = F_DC + 4;       // padded K chunk row: keys 1 apart start 4 banks apart
+constexpr int F_VKEYS = 16;            // keys a V chunk (all 512 columns)
+constexpr int F_PROW = F_BQ + 4;       // P^T row (one key, the query rows), padded
+constexpr int F_CHUNKS = X_D / F_DC + F_BK / F_VKEYS;  // chunks a tile: 4 of K, then 4 of V
+constexpr int F_BUF = F_BK * F_KROW;   // floats a chunk buffer holds
+constexpr int F_NBUF = 2;              // chunk buffers: one loads while the other is read
+constexpr int F_Q = 0;                 // shared-memory offsets, in floats
+constexpr int F_B0 = F_Q + F_BQ * F_QROW;
+constexpr int F_PT = F_B0 + F_NBUF * F_BUF;
+constexpr int F_ALPHA = F_PT + F_BK * F_PROW;
+constexpr int F_L = F_ALPHA + F_BQ;
+constexpr size_t F_SMEM = sizeof(float) * (F_L + F_BQ);
+static_assert(F_VKEYS * X_D <= F_BUF, "a V chunk fits a chunk buffer");
+static_assert(F_SMEM <= 232448, "one CTA's dynamic shared memory on an H100");
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Returns once at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Chunk n of key tile `tile` into `buf`: n < X_D / F_DC is K(keys, columns
+// F_DC * n ... + F_DC - 1) as [key][F_KROW]; the later ones are V(F_VKEYS keys,
+// all columns) as [key][512]. Keys past Lk are filled with zeros (their rows
+// are not read from memory). 16-byte copies, the same number a thread.
+constexpr int F_K_COPIES = F_BK * F_DC / 4 / F_THREADS;
+constexpr int F_V_COPIES = F_VKEYS * X_D / 4 / F_THREADS;
+static_assert(F_K_COPIES * 4 * F_THREADS == F_BK * F_DC, "whole rounds of K copies");
+static_assert(F_V_COPIES * 4 * F_THREADS == F_VKEYS * X_D, "whole rounds of V copies");
+
+__device__ __forceinline__ void load_chunk(float* buf, const float* kb, const float* vb, long rs,
+                                           int tile, int n, int Lk, int tid) {
+  const int k0 = tile * F_BK;
+  if (n < X_D / F_DC) {
+#pragma unroll
+    for (int i = 0; i < F_K_COPIES; ++i) {
+      const int idx = tid + F_THREADS * i;
+      const int key = idx / (F_DC / 4);
+      const int c4 = (idx % (F_DC / 4)) * 4;
+      const bool ok = k0 + key < Lk;
+      cp_async16(buf + key * F_KROW + c4, kb + (ok ? (long)(k0 + key) * rs : 0) + n * F_DC + c4,
+                 ok);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < F_V_COPIES; ++i) {
+      const int idx = tid + F_THREADS * i;
+      const int key = idx / (X_D / 4);
+      const int c4 = (idx % (X_D / 4)) * 4;
+      const int row = k0 + (n - X_D / F_DC) * F_VKEYS + key;
+      const bool ok = row < Lk;
+      cp_async16(buf + key * X_D + c4, vb + (ok ? (long)row * rs : 0) + c4, ok);
+    }
+  }
+}
+
+// Waits for chunk `step` and starts the load of chunk step + F_NBUF - 1 into
+// the buffer that chunk step - 1 used, which every thread is done with once
+// all have passed the barrier.
+__device__ __forceinline__ void next_chunk(float* fsm, const float* kb, const float* vb, long rs,
+                                           int step, int total, int Lk, int tid) {
+  cp_async_wait<F_NBUF - 2>();
+  __syncthreads();
+  const int c = step + F_NBUF - 1;
+  if (c < total) {
+    load_chunk(fsm + F_B0 + (c % F_NBUF) * F_BUF, kb, vb, rs, c / F_CHUNKS, c % F_CHUNKS, Lk,
+               tid);
+  }
+  cp_async_commit();  // empty past the last chunk, so the group count stays one a step
+}
+
+constexpr int F_RA = 4;          // rows of O a lane holds among the first 32
+constexpr int F_RB = 2;          // and among the last 16
+constexpr int F_SR = F_BQ / 16;  // rows of S a lane holds
+constexpr int F_SC = F_BK / 16;  // keys of S a lane holds
+static_assert(F_BQ == 32 + 8 * F_RB, "the O layout covers the CTA's rows");
+
+// One row of O: 16 columns of a lane, divided by the row's l (l == 0 -> 1).
+__device__ __forceinline__ void store_row(float* ob, long rs, int q0, int Lq, int row, int ocol,
+                                          const float* l_s, const float (&a)[4][4]) {
+  const float l = l_s[row];
+  const float inv = l == 0.f ? 1.f : 1.f / l;
+  if (q0 + row >= Lq) return;
+  float* orow = ob + (q0 + row) * rs + ocol;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    *reinterpret_cast<float4*>(orow + 16 * c) =
+        make_float4(a[c][0] * inv, a[c][1] * inv, a[c][2] * inv, a[c][3] * inv);
+  }
+}
+
+template <bool STATIC_MAX>
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_fwd_d512_f32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, int H, int Lq, int Lk,
+                   float qscale) {
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm + F_Q;
+  float* PT = fsm + F_PT;
+  float* alpha_s = fsm + F_ALPHA;
+  float* l_s = fsm + F_L;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -852,161 +1294,211 @@ flash_fwd_d512(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const long rs = (long)H * D512;
-  const T* qb = q + ((long)b * Lq * H + h) * D512;
-  const T* kb = k + ((long)b * Lk * H + h) * D512;
-  const T* vb = v + ((long)b * Lk * H + h) * D512;
-  T* ob = o + ((long)b * Lq * H + h) * D512;
-  const int q0 = blockIdx.x * BQ_512;
-  const int row0 = warp * ROWS_PER_WARP;  // this warp's rows within the block
+  const long rs = (long)H * X_D;
+  const float* qb = q + ((long)b * Lq * H + h) * X_D;
+  const float* kb = k + ((long)b * Lk * H + h) * X_D;
+  const float* vb = v + ((long)b * Lk * H + h) * X_D;
+  float* ob = o + ((long)b * Lq * H + h) * X_D;
+  const int q0 = blockIdx.x * F_BQ;
+  const int nk = (Lk + F_BK - 1) / F_BK;
+  const int total = nk * F_CHUNKS;
 
-  constexpr int F4_PER_ROW = D512 / 4;
-  constexpr int TILE_F4 = BQ_512 * F4_PER_ROW;
-#pragma unroll 4
-  for (int i = tid; i < TILE_F4; i += THREADS_512) {
-    const int row = i / F4_PER_ROW;
-    const int col = (i % F4_PER_ROW) * 4;
+  for (int c = 0; c < F_NBUF - 1; ++c) {  // chunks 0 .. F_NBUF - 2 in flight
+    if (c < total) {
+      load_chunk(fsm + F_B0 + c * F_BUF, kb, vb, rs, c / F_CHUNKS, c % F_CHUNKS, Lk, tid);
+    }
+    cp_async_commit();
+  }
+  // Q' = q * qscale in fp32; rows past Lq are zeros.
+  for (int i = tid; i < F_BQ * X_D / 4; i += F_THREADS) {
+    const int row = i >> 7;
+    const int c4 = (i & 127) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + row < Lq) {
-      x = load4(qb + (q0 + row) * rs + col);
-      x.x *= qscale;
-      x.y *= qscale;
-      x.z *= qscale;
-      x.w *= qscale;
-      if (BF16) x = make_float4(round_bf16(x.x), round_bf16(x.y), round_bf16(x.z), round_bf16(x.w));
+      x = *reinterpret_cast<const float4*>(qb + (q0 + row) * rs + c4);
+      x = make_float4(x.x * qscale, x.y * qscale, x.z * qscale, x.w * qscale);
     }
-    *reinterpret_cast<float4*>(Qs + row * QK_ROW + col) = x;
+    *reinterpret_cast<float4*>(Qs + row * F_QROW + c4) = x;
   }
 
-  float acc[ROWS_PER_WARP][COLS_PER_LANE];
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-#pragma unroll
-    for (int c = 0; c < COLS_PER_LANE; ++c) acc[i][c] = 0.f;
-  }
-  float m[ROWS_PER_WARP];
-  float lpart[ROWS_PER_WARP];  // this lane's keys' share of l; summed over the warp at the end
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    m[i] = MASK_VALUE;
-    lpart[i] = 0.f;
-  }
+  // S layout: warp w owns rows 6w ... 6w + 5; lane (sy, sx) = (lane & 1,
+  // lane >> 1) rows 6w + sy + 2r (r < 3), keys sx + 16c (c < 4): a 3 x 4
+  // micro-tile.
+  const int sy = lane & 1;
+  const int sx = lane >> 1;
+  const int srow = (F_BQ / 8) * warp + sy;
+  // O layout: warp w owns columns 64w ... 64w + 63; lane (oy, ox) = (lane >> 2,
+  // lane & 3) rows 4oy + r (r < 4) and 32 + 2oy + r (r < 2), columns 64w + 4ox +
+  // 16c + e (c, e < 4): a 6 x 16 micro-tile, 96 accumulators.
+  const int oy = lane >> 2;
+  const int ox = lane & 3;
+  const int ocol = 64 * warp + 4 * ox;
 
-  for (int k0 = 0; k0 < Lk; k0 += BK_512) {
-    __syncthreads();  // Q is staged; every warp is done with the previous K/V tile
-#pragma unroll 4
-    for (int i = tid; i < BK_512 * F4_PER_ROW; i += THREADS_512) {
-      const int row = i / F4_PER_ROW;
-      const int col = (i % F4_PER_ROW) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + row < Lk) {
-        kv = load4(kb + (k0 + row) * rs + col);
-        vv = load4(vb + (k0 + row) * rs + col);
-      }
-      *reinterpret_cast<float4*>(Ks + row * QK_ROW + col) = kv;
-      *reinterpret_cast<float4*>(Vs + row * D512 + col) = vv;
+  float acc_a[F_RA][4][4];
+  float acc_b[F_RB][4][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int r = 0; r < F_RA; ++r) acc_a[r][c][e] = 0.f;
+#pragma unroll
+      for (int r = 0; r < F_RB; ++r) acc_b[r][c][e] = 0.f;
     }
-    __syncthreads();
+  float m[F_SR], lpart[F_SR];
+#pragma unroll
+  for (int r = 0; r < F_SR; ++r) {
+    m[r] = MASK_VALUE;
+    lpart[r] = 0.f;
+  }
 
-    // s[i] = q'(row0 + i) . k(k0 + lane), log2 domain.
-    float s[ROWS_PER_WARP];
+  int step = 0;  // chunks consumed so far; chunk `step` lies in buffer step % F_NBUF
+  for (int tile = 0; tile < nk; ++tile) {
+    // S = Q' K^T over X_D / F_DC chunks of columns.
+    float s[F_SR][F_SC];
 #pragma unroll
-    for (int i = 0; i < ROWS_PER_WARP; ++i) s[i] = 0.f;
-    const float* kr = Ks + lane * QK_ROW;
-#pragma unroll 4
-    for (int d = 0; d < D512; d += 4) {
-      const float4 kk = *reinterpret_cast<const float4*>(kr + d);
+    for (int r = 0; r < F_SR; ++r)
 #pragma unroll
-      for (int i = 0; i < ROWS_PER_WARP; ++i) {
-        const float4 qq = *reinterpret_cast<const float4*>(Qs + (row0 + i) * QK_ROW + d);
-        s[i] = fmaf(qq.x, kk.x, s[i]);
-        s[i] = fmaf(qq.y, kk.y, s[i]);
-        s[i] = fmaf(qq.z, kk.z, s[i]);
-        s[i] = fmaf(qq.w, kk.w, s[i]);
+      for (int c = 0; c < F_SC; ++c) s[r][c] = 0.f;
+    for (int n = 0; n < X_D / F_DC; ++n, ++step) {
+      next_chunk(fsm, kb, vb, rs, step, total, Lk, tid);
+      const float* kc = fsm + F_B0 + (step % F_NBUF) * F_BUF;
+      const float* qc = Qs + srow * F_QROW + n * F_DC;
+#pragma unroll
+      for (int d = 0; d < F_DC; d += 4) {
+        float4 qv[F_SR], kv[F_SC];
+#pragma unroll
+        for (int r = 0; r < F_SR; ++r) {
+          qv[r] = *reinterpret_cast<const float4*>(qc + 2 * r * F_QROW + d);
+        }
+#pragma unroll
+        for (int c = 0; c < F_SC; ++c) {
+          kv[c] = *reinterpret_cast<const float4*>(kc + (sx + 16 * c) * F_KROW + d);
+        }
+#pragma unroll
+        for (int r = 0; r < F_SR; ++r) {
+#pragma unroll
+          for (int c = 0; c < F_SC; ++c) {
+            s[r][c] = fmaf(qv[r].x, kv[c].x, s[r][c]);
+            s[r][c] = fmaf(qv[r].y, kv[c].y, s[r][c]);
+            s[r][c] = fmaf(qv[r].z, kv[c].z, s[r][c]);
+            s[r][c] = fmaf(qv[r].w, kv[c].w, s[r][c]);
+          }
+        }
       }
     }
 
-    const bool valid = k0 + lane < Lk;
-    float p[ROWS_PER_WARP];
-    if (STATIC_MAX) {
+    // Softmax in the S layout; a row's 64 keys are the 16 lanes of equal sy.
+    const int k0 = tile * F_BK;
 #pragma unroll
-      for (int i = 0; i < ROWS_PER_WARP; ++i) {
-        p[i] = valid ? exp2f(fminf(fmaxf(s[i], S_CLAMP_LO), S_CLAMP)) : 0.f;
-      }
-    } else {
+    for (int r = 0; r < F_SR; ++r) {
+      float mr = 0.f;
+      if (!STATIC_MAX) {
+        float mt = MASK_VALUE;
 #pragma unroll
-      for (int i = 0; i < ROWS_PER_WARP; ++i) {
-        float mt = valid ? s[i] : MASK_VALUE;  // a row's 32 keys are the warp's 32 lanes
+        for (int c = 0; c < F_SC; ++c) {
+          if (k0 + sx + 16 * c < Lk) mt = fmaxf(mt, s[r][c]);
+        }
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
+        for (int off = 2; off < 32; off <<= 1) {
           mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
         }
-        const float m_new = fmaxf(m[i], mt);
-        const float alpha = exp2f(m[i] - m_new);
-        m[i] = m_new;
-        lpart[i] *= alpha;
+        const float m_new = fmaxf(m[r], mt);
+        const float a = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        mr = m_new;
+        lpart[r] *= a;
+        if (sx == 0) alpha_s[srow + 2 * r] = a;
+      }
 #pragma unroll
-        for (int c = 0; c < COLS_PER_LANE; ++c) acc[i][c] *= alpha;
-        p[i] = valid ? exp2f(s[i] - m_new) : 0.f;
+      for (int c = 0; c < F_SC; ++c) {
+        const int key = sx + 16 * c;
+        float pv = STATIC_MAX ? exp2f(fminf(fmaxf(s[r][c], S_CLAMP_LO), S_CLAMP))
+                              : exp2f(s[r][c] - mr);
+        if (k0 + key >= Lk) pv = 0.f;
+        lpart[r] += pv;
+        PT[key * F_PROW + srow + 2 * r] = pv;
       }
     }
-#pragma unroll
-    for (int i = 0; i < ROWS_PER_WARP; ++i) {
-      if (BF16) p[i] = round_bf16(p[i]);
-      lpart[i] += p[i];
-    }
-    *reinterpret_cast<float4*>(Ps + lane * P_ROW + row0) = make_float4(p[0], p[1], p[2], p[3]);
-    __syncwarp();  // a warp reads back only the P rows it wrote
 
-    // O += P V: lane's columns lane*4 + 128*c, c = 0..3.
-#pragma unroll 2
-    for (int j = 0; j < BK_512; ++j) {
-      const float4 pj = *reinterpret_cast<const float4*>(Ps + j * P_ROW + row0);
-      const float pr[ROWS_PER_WARP] = {pj.x, pj.y, pj.z, pj.w};
+    // O += P V over F_BK / F_VKEYS chunks of keys; the barrier of the first also
+    // makes P^T and the rescale factors visible.
+    for (int n = 0; n < F_BK / F_VKEYS; ++n, ++step) {
+      next_chunk(fsm, kb, vb, rs, step, total, Lk, tid);
+      if (!STATIC_MAX && n == 0) {
+        const float4 a = *reinterpret_cast<const float4*>(alpha_s + 4 * oy);
+        const float ar[4] = {a.x, a.y, a.z, a.w};
+        const float2 b2 = *reinterpret_cast<const float2*>(alpha_s + 32 + F_RB * oy);
+        const float br[F_RB] = {b2.x, b2.y};
 #pragma unroll
-      for (int c = 0; c < COLS_PER_LANE / 4; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(Vs + j * D512 + c * 128 + lane * 4);
+        for (int c = 0; c < 4; ++c)
 #pragma unroll
-        for (int i = 0; i < ROWS_PER_WARP; ++i) {
-          acc[i][4 * c + 0] = fmaf(pr[i], vv.x, acc[i][4 * c + 0]);
-          acc[i][4 * c + 1] = fmaf(pr[i], vv.y, acc[i][4 * c + 1]);
-          acc[i][4 * c + 2] = fmaf(pr[i], vv.z, acc[i][4 * c + 2]);
-          acc[i][4 * c + 3] = fmaf(pr[i], vv.w, acc[i][4 * c + 3]);
+          for (int e = 0; e < 4; ++e) {
+#pragma unroll
+            for (int r = 0; r < F_RA; ++r) acc_a[r][c][e] *= ar[r];
+#pragma unroll
+            for (int r = 0; r < F_RB; ++r) acc_b[r][c][e] *= br[r];
+          }
+      }
+      const float* vc = fsm + F_B0 + (step % F_NBUF) * F_BUF + ocol;
+      const float* pc = PT + n * F_VKEYS * F_PROW;
+#pragma unroll
+      for (int kk = 0; kk < F_VKEYS; ++kk) {
+        const float4 pa4 = *reinterpret_cast<const float4*>(pc + kk * F_PROW + 4 * oy);
+        const float pa[4] = {pa4.x, pa4.y, pa4.z, pa4.w};
+        const float2 pb2 = *reinterpret_cast<const float2*>(pc + kk * F_PROW + 32 + F_RB * oy);
+        const float pb[F_RB] = {pb2.x, pb2.y};
+        float4 vv[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          vv[c] = *reinterpret_cast<const float4*>(vc + kk * X_D + 16 * c);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+#pragma unroll
+          for (int r = 0; r < F_RA; ++r) {
+            acc_a[r][c][0] = fmaf(pa[r], vv[c].x, acc_a[r][c][0]);
+            acc_a[r][c][1] = fmaf(pa[r], vv[c].y, acc_a[r][c][1]);
+            acc_a[r][c][2] = fmaf(pa[r], vv[c].z, acc_a[r][c][2]);
+            acc_a[r][c][3] = fmaf(pa[r], vv[c].w, acc_a[r][c][3]);
+          }
+#pragma unroll
+          for (int r = 0; r < F_RB; ++r) {
+            acc_b[r][c][0] = fmaf(pb[r], vv[c].x, acc_b[r][c][0]);
+            acc_b[r][c][1] = fmaf(pb[r], vv[c].y, acc_b[r][c][1]);
+            acc_b[r][c][2] = fmaf(pb[r], vv[c].z, acc_b[r][c][2]);
+            acc_b[r][c][3] = fmaf(pb[r], vv[c].w, acc_b[r][c][3]);
+          }
         }
       }
     }
-    __syncwarp();  // P is read before the next tile overwrites it
   }
 
+  // l per row from the S layout's partial sums, to the O layout through l_s.
 #pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    float l = lpart[i];
+  for (int r = 0; r < F_SR; ++r) {
+    float l = lpart[r];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-    const float inv = l == 0.f ? 1.f : 1.f / l;
-    const int r = q0 + row0 + i;
-    if (r < Lq) {
-#pragma unroll
-      for (int c = 0; c < COLS_PER_LANE / 4; ++c) {
-        store4(ob + r * rs + c * 128 + lane * 4,
-               make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv, acc[i][4 * c + 2] * inv,
-                           acc[i][4 * c + 3] * inv));
-      }
-    }
+    for (int off = 2; off < 32; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (sx == 0) l_s[srow + 2 * r] = l;
   }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < F_RA; ++r) store_row(ob, rs, q0, Lq, 4 * oy + r, ocol, l_s, acc_a[r]);
+#pragma unroll
+  for (int r = 0; r < F_RB; ++r) store_row(ob, rs, q0, Lq, 32 + F_RB * oy + r, ocol, l_s, acc_b[r]);
 }
 
-template <typename T, bool STATIC_MAX>
-cudaError_t launch_d512(const void* q, const void* k, const void* v, void* o, int bh, int H,
-                        int Lq, int Lk, float qscale, cudaStream_t st) {
+template <bool STATIC_MAX>
+cudaError_t launch_d512_f32(const void* q, const void* k, const void* v, void* o, int bh, int H,
+                            int Lq, int Lk, float qscale, cudaStream_t st) {
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_d512<T, STATIC_MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_512);
+      flash_fwd_d512_f32<STATIC_MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + BQ_512 - 1) / BQ_512, bh);
-  flash_fwd_d512<T, STATIC_MAX><<<grid, THREADS_512, SMEM_512, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Lq, Lk, qscale);
+  const dim3 grid((Lq + F_BQ - 1) / F_BQ, bh);
+  flash_fwd_d512_f32<STATIC_MAX><<<grid, F_THREADS, F_SMEM, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), H, Lq, Lk, qscale);
   return cudaGetLastError();
 }
 
@@ -1109,6 +1601,38 @@ cudaError_t launch_d_bf16(const void* q, const void* k, const void* v, void* o, 
                     : launch_bf16<D, false>(maps, o, bh, H, Lq, Lk, qscale, st);
 }
 
+template <bool STATIC_MAX>
+cudaError_t launch_d512_bf16_maps(const CUtensorMap (&maps)[3], void* o, int bh, int H, int Lq,
+                                  int Lk, float qscale, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_d512_bf16<STATIC_MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, X_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lq + X_BQ - 1) / X_BQ, bh);
+  flash_fwd_d512_bf16<STATIC_MAX><<<grid, X_THREADS, X_SMEM, st>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), H, Lq, Lk, qscale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_d512_bf16(const void* q, const void* k, const void* v, void* o, int batch,
+                             int H, int Lq, int Lk, int static_max, float qscale,
+                             cudaStream_t st) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  // q, k, v as boxes of 64 columns x 64 rows (X_BQ = X_BK = 64), 128-byte swizzle.
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const int lens[3] = {Lq, Lk, Lk};
+  for (int i = 0; i < 3; ++i) {
+    if (!tensor_map(encode, &maps[i], ptrs[i], X_D, H, lens[i], batch, MAIN_COLS, 64,
+                    CU_TENSOR_MAP_SWIZZLE_128B)) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const int bh = batch * H;
+  return static_max ? launch_d512_bf16_maps<true>(maps, o, bh, H, Lq, Lk, qscale, st)
+                    : launch_d512_bf16_maps<false>(maps, o, bh, H, Lq, Lk, qscale, st);
+}
+
 }  // namespace
 
 // q, o: (batch, lq, heads, head_dim); k, v: (batch, lk, heads, head_dim); all
@@ -1123,15 +1647,12 @@ extern "C" int vdpp_flash_attention_fwd(const void* q, const void* k, const void
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
-  if (head_dim == D512) {
+  if (head_dim == X_D) {
     if (is_bf16) {
-      return (int)(static_max
-                       ? launch_d512<__nv_bfloat16, true>(q, k, v, o, bh, heads, lq, lk, qscale, st)
-                       : launch_d512<__nv_bfloat16, false>(q, k, v, o, bh, heads, lq, lk, qscale,
-                                                           st));
+      return (int)launch_d512_bf16(q, k, v, o, batch, heads, lq, lk, static_max, qscale, st);
     }
-    return (int)(static_max ? launch_d512<float, true>(q, k, v, o, bh, heads, lq, lk, qscale, st)
-                            : launch_d512<float, false>(q, k, v, o, bh, heads, lq, lk, qscale, st));
+    return (int)(static_max ? launch_d512_f32<true>(q, k, v, o, bh, heads, lq, lk, qscale, st)
+                            : launch_d512_f32<false>(q, k, v, o, bh, heads, lq, lk, qscale, st));
   }
   if (head_dim == 64) {
     return (int)(is_bf16 ? launch_d_bf16<64>(q, k, v, o, batch, heads, lq, lk, static_max, qscale,
@@ -1146,8 +1667,11 @@ extern "C" int vdpp_flash_attention_fwd(const void* q, const void* k, const void
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of one CTA of the bf16 kernel at head_dim 64 or 72
-// (0 for other head dims), for reports.
-extern "C" int vdpp_flash_attention_bf16_smem(int head_dim) {
+// Dynamic shared memory of one CTA of the kernel that takes head_dim in bf16
+// (is_bf16 = 1) or fp32, for reports: 0 for the fp32 kernel at d = 64/72,
+// which has only static shared memory, and for head dims no kernel takes.
+extern "C" int vdpp_flash_attention_smem(int head_dim, int is_bf16) {
+  if (head_dim == X_D) return is_bf16 ? X_SMEM : (int)F_SMEM;
+  if (!is_bf16) return 0;
   return head_dim == 64 ? WgLayout<64>::SMEM : head_dim == 72 ? WgLayout<72>::SMEM : 0;
 }

@@ -14,8 +14,9 @@ Two implementations of that arithmetic live here:
 * the CUDA kernel ``vdpp_tpu_torch/csrc/flash_attention.cu`` (head dims 64,
   the SVD UNet's, and 72, DiT-XL's: bf16 on the tensor cores through wgmma
   with TMA loads, fp32 on the SIMT cores; head dim 512, the VAE decoder's
-  mid-block: fp32 or bf16 on the SIMT cores), which :func:`flash_attention`
-  launches for a CUDA tensor;
+  mid-block: bf16 on wgmma with the head dim split over two warpgroups, fp32
+  on a register-tiled SIMT kernel), which :func:`flash_attention` launches
+  for a CUDA tensor;
 * :func:`flash_attention_plain`, plain PyTorch that processes the queries in
   chunks, which :func:`flash_attention` runs for a CPU tensor and which the
   tests and ``chip_smoke.py`` hold the kernel against.
