@@ -8,18 +8,20 @@ Phases (any failure exits non-zero and prints no result line):
 1. device: the card's name and power limit;
 2. build: every kernel under ``vdpp_tpu_torch/csrc/`` compiled by nvcc for
    sm_90a (one nvcc per source, all at once), with ptxas' report (registers,
-   spills, shared memory per CTA of each flash kernel);
+   spills, shared memory per CTA of each kernel of the three sources);
 3. kernels: each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it, with times for the kernel, the plain
-   version, a one-call PyTorch yardstick, and the bound (and for flash the
-   TFLOP/s, the share of the bound and the ratio to SDPA): flash attention
-   at d = 64 bf16 (UNet; the wgmma + TMA kernel, plus the fp32 SIMT kernel
-   timed at a ragged length), d = 512 fp32 (the register-tiled SIMT kernel)
+   version, a one-call PyTorch yardstick and the bound, the share of the
+   bound and the ratio to the yardstick (and for flash the TFLOP/s): flash
+   attention at d = 64 bf16 (UNet; the wgmma + TMA kernel, plus the fp32
+   SIMT kernel timed at a ragged length), d = 512 fp32 (the register-tiled
+   SIMT kernel)
    and bf16 (the wgmma + TMA kernel) at the VAE mid-block's shapes (B = 4
    and 1 at L = 9216, B = 4 at L = 2560, ragged 600 and 201), and d = 72
    bf16 (DiT-XL's joint3d and factorized sites, plus ragged bf16 lengths and
-   fp32), fused GroupNorm+SiLU, and frame attention at d = 64 (the UNet's
-   sites) and d = 72 (the factorized DiT's);
+   fp32), fused GroupNorm+SiLU (two launches, bf16 weights as the UNet
+   stores them), and frame attention at d = 64 (the UNet's sites) and d = 72
+   (the factorized DiT's; bf16 on the TMA + mma.sync kernel);
 4. agreement: a small UNet (head dim 64, so the flash kernel runs) and one
    CFG Euler step, on the card against the same weights on the CPU, first
    as it is, then with both kernel switches on (VDPP_GN_FUSED=1,
@@ -211,28 +213,56 @@ def add_rates(row: dict, flops: float) -> None:
     """TFLOP/s, the share of the bound and the ratio to the library call,
     from the row's times."""
     row["tflops"] = flops / row["ms"] / 1e9
+    add_shares(row)
+
+
+def add_shares(row: dict) -> None:
+    """The share of the bound and the ratio to the library call."""
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["vs_library"] = row["ms"] / row["library_ms"]
 
 
+def shares_text(row: dict, library: str) -> str:
+    return (f"{row['bound_share']:.3f} of the bound, {row['vs_library']:.3f}x {library}'s "
+            f"time")
+
+
 def rates_text(row: dict) -> str:
-    return (f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} of the bound, "
-            f"{row['vs_library']:.3f}x SDPA's time")
+    return f"{row['tflops']:.1f} TFLOP/s, {shares_text(row, 'SDPA')}"
 
 
-def ptxas_report(log: str) -> dict[str, dict]:
-    """Registers, spills and static shared memory of each flash kernel in
-    ptxas' ``-v`` log, by a readable name such as ``flash_fwd_bf16<64, static>``."""
+# Kernel templates of each source, as ptxas names them, and the words for
+# their bool arguments.
+KERNEL_NAMES = {"flash_attention": (r"flash_fwd_\w+?", ("running", "static")),
+                "frame_attention": (r"frame_attn\w*?", ("false", "true")),
+                "group_norm_silu": (r"gn_\w+?", ("false", "true"))}
+
+
+def template_args(mangled: str, flags: tuple[str, str]) -> str:
+    """``Li64ELb1E`` -> ``64, static``: the template arguments of a mangled
+    kernel name (ints, bools, ``float`` and ``__nv_bfloat16``)."""
+    out = []
+    for m in re.finditer(r"Li(\d+)E|Lb([01])E|13__nv_bfloat16|f", mangled):
+        if m.group(1):
+            out.append(m.group(1))
+        elif m.group(2):
+            out.append(flags[int(m.group(2))])
+        else:
+            out.append("f32" if m.group(0) == "f" else "bf16")
+    return ", ".join(out)
+
+
+def ptxas_report(log: str, source: str = "flash_attention") -> dict[str, dict]:
+    """Registers, spills and static shared memory of each kernel of
+    ``csrc/<source>.cu`` in ptxas' ``-v`` log, by a readable name such as
+    ``flash_fwd_bf16<64, static>``."""
+    names, flags = KERNEL_NAMES[source]
     out: dict[str, dict] = {}
     name = None
     for line in log.splitlines():
-        m = re.search(r"Function properties for \S*?\d+(flash_fwd_\w+?)I(\w+?)EEv", line)
+        m = re.search(rf"Function properties for \S*?\d+({names})I(\w+?)EEv", line)
         if m:
-            args = m.group(2)
-            args = re.sub(r"Li(\d+)E", r"\1, ", args).replace("13__nv_bfloat16", "bf16, ")
-            args = args.replace("Lb1E", "static").replace("Lb0E", "running")
-            args = re.sub(r"^f(?=static|running)", "f32, ", args)
-            name = f"{m.group(1)}<{args}>"
+            name = f"{m.group(1)}<{template_args(m.group(2), flags)}>"
             out[name] = {}
             continue
         if name is None:
@@ -373,10 +403,11 @@ def check_group_norm(torch, nk, F) -> dict:
         row["library_ms"] = time_ms(torch, lambda: F.silu(F.group_norm(xc, groups, w, b, 1e-6)))
         elems = n * rows * c
         row["bound_ms"], row["bound_by"] = bound(8 * elems, 2 * elems * 2, H100_FP32_FLOPS)
+        add_shares(row)
         print(f"gn_silu {what}: kernel_ms {row['ms']:.4f}, plain_ms {row['plain_ms']:.3f}, "
               f"library_ms (two calls: F.group_norm + F.silu, channels-first) "
-              f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']})",
-              flush=True)
+              f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
+              f"{shares_text(row, 'the library')}", flush=True)
         shapes.append(row)
     return {"max_abs_err": max_err, "shapes": shapes}
 
@@ -422,10 +453,11 @@ def check_frame_attention(torch, ta, F) -> dict:
         row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         row["bound_ms"], row["bound_by"] = bound(l * h * 4 * f * f * 64, 4 * f * l * h * 64 * 2,
                                                  H100_FP32_FLOPS)
+        add_shares(row)
         print(f"frame_attention L={l} H={h}: kernel_ms {row['ms']:.4f}, plain_ms "
               f"{row['plain_ms']:.3f}, library_ms (SDPA on a (L, H, F, D) copy) "
-              f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']})",
-              flush=True)
+              f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
+              f"{shares_text(row, 'SDPA')}", flush=True)
         shapes.append(row)
     return {"max_abs_err": max_err, "shapes": shapes}
 
@@ -525,10 +557,11 @@ def check_frame_attention_72(torch, ta, F) -> dict:
         row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         row["bound_ms"], row["bound_by"] = bound(640 * 16 * 4 * 8 * 8 * 72,
                                                  4 * 8 * 640 * 16 * 72 * 2, H100_FP32_FLOPS)
+        add_shares(row)
         print(f"frame_attention d=72 F=8 L=640 H=16: kernel_ms {row['ms']:.4f}, plain_ms "
               f"{row['plain_ms']:.3f}, library_ms (SDPA on a (L, H, F, D) copy) "
-              f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']})",
-              flush=True)
+              f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
+              f"{shares_text(row, 'SDPA')}", flush=True)
         shapes.append(row)
     return {"max_abs_err": max_err, "shapes": shapes}
 
@@ -772,6 +805,19 @@ def main() -> int:
             fail(f"no ptxas report for {new}")
     if not ptxas:
         print("ptxas: no report (the flash library was built before this run)")
+    frame_lib = ta._kernel_lib()
+    other_ptxas = {src: ptxas_report(built[src]["log"], src)
+                   for src in ("frame_attention", "group_norm_silu")}
+    for src, report in other_ptxas.items():
+        for kname, r in report.items():
+            d = re.match(r"frame_attn_tma<(\d+)", kname)
+            r["dynamic_smem"] = frame_lib.vdpp_frame_attention_smem(int(d.group(1))) if d else None
+            print(f"ptxas {kname}: {r.get('registers')} registers, {r.get('spill_stores')} B "
+                  f"spill stores, {r.get('spill_loads')} B spill loads, {r.get('static_smem')} B "
+                  f"static shared memory"
+                  + (f", {r['dynamic_smem']} B dynamic shared memory per CTA" if d else ""))
+        if built[src]["seconds"] and not report:
+            fail(f"no ptxas report for {src}.cu")
 
     flash = check_flash(torch, fa, F)
     flash512 = check_flash_512(torch, fa, F, torch.float32)
@@ -889,9 +935,10 @@ def main() -> int:
         entry("flash_attention_d512_bf16", flash_src, flash_tpu, decode16_flash, flash512_bf16,
               flash512_bf16["shapes"][0]),
         entry("group_norm_silu", "vdpp_tpu_torch/csrc/group_norm_silu.cu",
-              "vdpp_tpu/ops/norm_kernel.py:165", switched["gn"], gn, gn["shapes"][0]),
+              "vdpp_tpu/ops/norm_kernel.py:165", switched["gn"], gn, gn["shapes"][0],
+              ptxas=other_ptxas["group_norm_silu"]),
         entry("frame_attention", frame_src, frame_tpu, switched["frame"], frame,
-              frame["shapes"][0]),
+              frame["shapes"][0], ptxas=other_ptxas["frame_attention"]),
         entry("flash_attention_d72", flash_src, flash_tpu, joint["flash"] + fact["flash"],
               flash72, flash72["shapes"][0]),
         entry("frame_attention_d72", frame_src, frame_tpu, fact["frame"], frame72,

@@ -135,14 +135,19 @@ def test_flash_d512_kernel_leaves_rows_past_lq_alone(cuda, static_max, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape,groups", [((25, 576, 320), 32), ((1, 1800, 640), 32),
-                                          ((4, 48, 2560), 32), ((2, 200, 90), 6)])
-def test_group_norm_kernel_matches_plain(cuda, shape, groups, dtype):
-    """(2, 200, 90): channels that no 16-byte vector divides."""
+                                          ((4, 48, 2560), 32), ((2, 200, 90), 6),
+                                          ((3, 1000, 320), 32), ((25, 144, 2560), 32)])
+def test_group_norm_kernel_matches_plain(cuda, shape, groups, dtype, wdtype):
+    """(2, 200, 90): channels that no 16-byte vector divides; (3, 1000, 320):
+    rows that are no whole number of the kernel's chunks; (25, 144, 2560): the
+    UNet's level-3 skip concatenation, 25 frames. ``wdtype``: the norm's
+    weight and bias as stored (the UNet's are bf16), read without a cast."""
     g = torch.Generator(device=cuda).manual_seed(shape[-1])
     c = shape[-1]
-    norm = Norm(c, device=cuda, dtype=dtype)
+    norm = Norm(c, device=cuda, dtype=wdtype)
     norm.weight.copy_(1.0 + 0.2 * torch.randn(c, generator=g, device=cuda))
     norm.bias.copy_(0.1 * torch.randn(c, generator=g, device=cuda))
     x = (3.0 * torch.randn(shape, generator=g, device=cuda) + 1.0).to(dtype)
@@ -157,11 +162,36 @@ def test_group_norm_kernel_matches_plain(cuda, shape, groups, dtype):
 
 
 @pytest.mark.gpu
+def test_group_norm_kernel_repeats_its_bits(cuda):
+    """The merge order of the statistics depends on the shape alone (no float
+    atomics): two calls on one input give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    norm = Norm(320, device=cuda, dtype=torch.bfloat16)
+    norm.weight.copy_(1.0 + 0.2 * torch.randn(320, generator=g, device=cuda))
+    norm.bias.copy_(0.1 * torch.randn(320, generator=g, device=cuda))
+    x = (3.0 * torch.randn(1, 25 * 576, 320, generator=g, device=cuda)).to(torch.bfloat16)
+    first = nk.group_norm_silu_fused(x, norm, 32, 1e-6)
+    second = nk.group_norm_silu_fused(x, norm, 32, 1e-6)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+# (shape, input scale). The kernel's tile is 4 items at F > 16 and 8 at
+# F <= 16: L*H = 21, 39 and 33 leave a ragged last tile; B = 2 makes the
+# frame map cross a batch boundary; F = 1, 16, 25 and 32; inputs scaled by
+# 10 give logits of about a hundred, which overflow exp unless the row max is
+# taken over exactly the right keys.
+FRAME_CASES = [((1, 25, 576, 20, 64), 1.0), ((2, 3, 40, 2, 64), 1.0), ((1, 32, 9, 1, 64), 1.0),
+               ((1, 25, 7, 3, 64), 1.0), ((1, 16, 13, 3, 64), 1.0), ((1, 1, 24, 2, 64), 1.0),
+               ((2, 25, 11, 3, 64), 1.0), ((2, 25, 11, 3, 64), 10.0)]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(1, 25, 576, 20, 64), (2, 3, 40, 2, 64), (1, 32, 9, 1, 64)])
-def test_frame_attention_kernel_matches_plain(cuda, shape, dtype):
+@pytest.mark.parametrize("shape,scale", FRAME_CASES)
+def test_frame_attention_kernel_matches_plain(cuda, shape, scale, dtype):
     g = torch.Generator(device=cuda).manual_seed(shape[2])
-    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
+    q, k, v = ((scale * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+               for _ in range(3))
     before = tak.launches
     got = tak.frame_attention(q, k, v)
     torch.cuda.synchronize()
@@ -224,11 +254,15 @@ def test_flash_d72_kernel_matches_plain(cuda, b, l, h, static_max, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(1, 8, 640, 16, 72), (2, 3, 40, 2, 72)])
-def test_frame_attention_d72_kernel_matches_plain(cuda, shape, dtype):
-    """The factorized DiT-XL's temporal blocks: F = 8, L = 640, 16 heads."""
+@pytest.mark.parametrize("shape,scale", [((1, 8, 640, 16, 72), 1.0), ((2, 3, 40, 2, 72), 1.0),
+                                         ((1, 25, 7, 3, 72), 1.0), ((1, 1, 24, 2, 72), 1.0),
+                                         ((2, 32, 5, 3, 72), 1.0), ((2, 8, 13, 3, 72), 10.0)])
+def test_frame_attention_d72_kernel_matches_plain(cuda, shape, scale, dtype):
+    """The factorized DiT-XL's temporal blocks: F = 8, L = 640, 16 heads;
+    then ragged tiles, F = 1, 25 and 32, B = 2 and large logits as at d = 64."""
     g = torch.Generator(device=cuda).manual_seed(shape[2] + 72)
-    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
+    q, k, v = ((scale * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+               for _ in range(3))
     before = tak.launches
     got = tak.frame_attention(q, k, v)
     torch.cuda.synchronize()

@@ -84,6 +84,23 @@ def test_fused_gn_bare_matches_jax(dtype):
            jnk.group_norm_silu_fused(jx, jp, 32, 1e-6, silu=False), dtype)
 
 
+def test_fused_gn_bf16_weights_match_jax():
+    """``weight`` and ``bias`` stored in bf16, as the SVD-XT UNet holds its
+    norms: both sides widen them to fp32 inside (the CUDA kernel reads them
+    as stored, with no cast)."""
+    x, jx, _, _ = _case((2, 24, 320), torch.bfloat16, seed=6)
+    rng = np.random.default_rng(7)
+    scale = (1.0 + 0.2 * rng.standard_normal(320)).astype(ml_dtypes.bfloat16)
+    bias = (0.1 * rng.standard_normal(320)).astype(ml_dtypes.bfloat16)
+    norm = tnorm.Norm(320, dtype=torch.bfloat16)
+    norm.weight.copy_(torch.from_numpy(scale.astype(np.float32)))
+    norm.bias.copy_(torch.from_numpy(bias.astype(np.float32)))
+    jp = {"scale": jnp.asarray(scale, jnp.bfloat16), "bias": jnp.asarray(bias, jnp.bfloat16)}
+    got = nk.group_norm_silu_fused(x, norm, 32, 1e-6)
+    assert got.dtype == torch.bfloat16
+    _check(got, jnk.group_norm_silu_fused(jx, jp, 32, 1e-6), torch.bfloat16)
+
+
 def test_fused_gn_plain_matches_jax_with_large_offset():
     """Statistics hold up under a large common-mode offset, where the
     one-pass E[x^2] - mean^2 shortcut fails. Both sides fold the affine into

@@ -87,7 +87,7 @@ def _sync(device: torch.device) -> None:
 # the first match wins, unmatched kernels count as "other".
 KERNEL_GROUPS = (
     ("flash attention (csrc/flash_attention.cu)", "flash_fwd"),
-    ("GroupNorm+SiLU (csrc/group_norm_silu.cu)", "gn_partials|gn_merge|gn_apply"),
+    ("GroupNorm+SiLU (csrc/group_norm_silu.cu)", "gn_stats|gn_apply"),
     ("frame attention (csrc/frame_attention.cu)", "frame_attn"),
     ("convolution (cuDNN)", "fprop|cudnn|conv"),
     ("matmul (cuBLAS)", "nvjet|gemm|cublas|cutlass"),

@@ -7,26 +7,49 @@
 //   * fp32 statistics from chunks of rows, merged with the parallel (Chan)
 //     formula -- never the one-pass E[x^2] - mean^2 shortcut;
 //   * the affine folded into one multiply-add, y = x * a + b with
-//     a = rsqrt(var + eps) * weight and b = bias - mean * a;
+//     a = rsqrt(var + eps) * weight and b = bias - mean * a, weight and bias
+//     read in their stored dtype (bf16 or fp32) and widened to fp32 here, as
+//     the reference widens them;
 //   * SiLU applied to the fp32 y before the one rounding to the output dtype.
 //
-// What bounds it on an H100: a few operations per element against 2 reads
-// and 1 write of x (at the SVD-XT level-0 temporal site, 230,400 x 320 bf16:
-// 442 MB at 3.35 TB/s, 0.13 ms), so bytes. The TPU kernel walks its chunks in
-// order on one core, carrying the running statistics in scratch; here the
-// temporal sites have N = 1 and only 32 (n, group) pairs, so the rows are
-// split over many blocks instead. Three launches:
-//   1. gn_partials: each block stages a chunk of rows (<= 24 KB) in shared
-//      memory, takes per-group (mean, M2) of the chunk in two exact passes
-//      over it, and writes them out;
-//   2. gn_merge: one block per (n, group) merges the chunk partials with
-//      Chan's formula and writes (mean, rstd);
-//   3. gn_apply: folds the statistics and the affine into per-channel (a, b)
-//      in shared memory and streams x once more, 16 bytes per thread.
-// x is read twice from device memory (passes 1 and 3) and y written once.
+// What bounds it on an H100: bytes. A few operations per element against
+// x read twice and y written once (at the SVD-XT level-0 temporal site,
+// 230,400 x 320 bf16: 442 MB, 0.13 ms at 3.35 TB/s; the bound counts x once,
+// 0.088 ms). The TPU kernel walks its chunks in order on one core, carrying
+// the running statistics in scratch; here the rows are cut into one
+// contiguous range per block, N * bx blocks in all, at most two an SM so that
+// they run in one wave, and a call is two launches:
+//   1. gn_stats: a thread owns up to 8 channels (one 16-byte vector of them,
+//      or single elements when C is not a whole number of vectors) in one of
+//      `rs` row lanes, and walks the block's range in chunks of rs x 2 rows
+//      (bf16; 1 row in fp32). It holds its rows of a chunk in registers, the
+//      next chunk's loads issued before this one is used, takes their exact
+//      two-pass (mean, M2) per channel and merges them into its running
+//      statistics (Chan). The block merges its row lanes per channel (Chan,
+//      in order), then its channels per group: all of them count the block's
+//      rows, so that is Chan's formula for equal parts, the mean of the
+//      channel means and the channels' M2 plus rows x their squared distance
+//      to it, each summed by a team of lanes with xor shuffles. It writes one
+//      (mean, M2) per group to the scratch.
+//   2. gn_apply: each block first merges the bx partials of every group of
+//      its batch row (Chan: each lane of a team over blocks in index order,
+//      then a shuffle tree in a fixed order), so all blocks of a row get the
+//      same (mean, rstd) bits, and repeated calls too; there are no atomics.
+//      It keeps gn_stats' blocks and thread mapping, so a thread holds its
+//      columns' (a, b) in registers (no shared memory, no channel arithmetic
+//      per element), and streams its range once more in chunks, the next
+//      one's loads in flight, from the LAST chunk to the first: the end of
+//      every range, read last by gn_stats, is what L2 (50 MB) still holds,
+//      so it is read first.
+//      The merge costs every block of a row the same partials: at N = 1
+//      (253 blocks, all reading one 8,096-partial table) it was as slow as
+//      the serial merge by the last gn_stats block that it replaced, and
+//      faster at N = 25; both measured on an H100, 700 W.
+// Registers: gn_stats is capped at 64 a thread (two blocks of up to 512
+// threads an SM); ptxas' counts are printed by chip_smoke.py (PERF.md).
 //
 // C interface (bound with ctypes, see vdpp_tpu_torch/ops/norm_kernel.py):
-// returns the first CUDA error of the three launches, launches on the given
+// returns the first CUDA error of the two launches, launches on the given
 // stream, allocates nothing (the caller passes the fp32 scratch) and does not
 // synchronise.
 
@@ -34,10 +57,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TILE_BYTES = 24 * 1024;  // a stats block's staged rows
+constexpr int MAX_THREADS = 512;
+constexpr int BLOCKS_PER_SM = 2;
+constexpr int CH = 8;            // channels a thread owns, at most
+constexpr int MERGE_UNROLL = 8;  // partials a merging thread loads at once
 constexpr int MAX_C = 4096;
 constexpr int MAX_G = 256;
 
@@ -49,72 +76,60 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
-// Per (n, chunk of rows_blk rows): per-group (mean, M2) of the chunk, as
-// part[((n * nblk + blk) * G + g) * 2 + {0, 1}].
+// How a call is cut; the same for both launches.
+struct Plan {
+  int vec;       // elements of a column: a 16-byte vector, or 1
+  int cols;      // C / vec
+  int cw;        // column threads; thread column j owns columns j, j + cw, ...
+  int cpt;       // columns a thread: ceil(cols / cw) <= CH / vec
+  int rs;        // row lanes
+  int threads;   // rs * cw, rounded up to whole warps
+  int rows_blk;  // rows a block (a multiple of rs * RPT, but the last block's)
+  int bx;        // blocks per n
+};
+
+// Rows a thread holds per chunk: 32 bytes of each of its columns (2 rows of
+// a bf16 vector). 64 bytes measured slower in both kernels on an H100
+// (register pressure: gn_stats spilled under its 64-register cap).
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gn_partials(const T* __restrict__ x, float* __restrict__ part, int S, int C, int G,
-            int rows_blk) {
-  __shared__ __align__(16) unsigned char tile_raw[TILE_BYTES];
-  __shared__ float chan[MAX_C];
-  __shared__ float gmean[MAX_G];
-  T* tile = reinterpret_cast<T*>(tile_raw);
+__host__ __device__ constexpr int chunk_rows() {
+  return 4 / (int)sizeof(T);
+}
 
-  const int tid = threadIdx.x;
-  const int blk = blockIdx.x;
-  const int nblk = gridDim.x;
-  const int n = blockIdx.y;
-  const int r0 = blk * rows_blk;
-  const int nr = min(rows_blk, S - r0);
-  const int gsize = C / G;
-  const long count = (long)nr * C;
-  const T* src = x + ((long)n * S + r0) * C;
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return 0;
+  }
+  return sms;
+}
 
-  constexpr int VEC = 16 / sizeof(T);
-  if (count % VEC == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* t4 = reinterpret_cast<uint4*>(tile);
-    for (long i = tid; i < count / VEC; i += THREADS) t4[i] = s4[i];
-  } else {
-    for (long i = tid; i < count; i += THREADS) tile[i] = src[i];
-  }
-  __syncthreads();
+// Upper bound of bx for any plan of this shape: N * bx blocks fill the SMs
+// in one wave.
+int max_blocks_per_n(int N, int S, int sms) {
+  const int bx = BLOCKS_PER_SM * sms / N;
+  return bx < 1 ? 1 : bx < S ? bx : S;
+}
 
-  for (int c = tid; c < C; c += THREADS) {  // pass A: channel sums
-    float s = 0.f;
-    for (int r = 0; r < nr; ++r) s += to_f(tile[r * C + c]);
-    chan[c] = s;
-  }
-  __syncthreads();
-  const float n_chunk = (float)nr * (float)gsize;
-  for (int g = tid; g < G; g += THREADS) {
-    float s = 0.f;
-    for (int j = 0; j < gsize; ++j) s += chan[g * gsize + j];
-    gmean[g] = s / n_chunk;
-  }
-  __syncthreads();
-  for (int c = tid; c < C; c += THREADS) {  // pass B: squared deviations from the chunk mean
-    const float mu = gmean[c / gsize];
-    float s = 0.f;
-    for (int r = 0; r < nr; ++r) {
-      const float d = to_f(tile[r * C + c]) - mu;
-      s = fmaf(d, d, s);
-    }
-    chan[c] = s;
-  }
-  __syncthreads();
-  for (int g = tid; g < G; g += THREADS) {
-    float s = 0.f;
-    for (int j = 0; j < gsize; ++j) s += chan[g * gsize + j];
-    float* out = part + (((long)n * nblk + blk) * G + g) * 2;
-    out[0] = gmean[g];
-    out[1] = s;
-  }
+Plan make_plan(int N, int S, int C, int elem, bool vectors, int sms) {
+  Plan p;
+  p.vec = vectors && C % (16 / elem) == 0 ? 16 / elem : 1;
+  p.cols = C / p.vec;
+  p.cpt = (p.cols + MAX_THREADS - 1) / MAX_THREADS;
+  p.cw = (p.cols + p.cpt - 1) / p.cpt;
+  p.rs = MAX_THREADS / p.cw > 1 ? MAX_THREADS / p.cw : 1;
+  p.threads = (p.rs * p.cw + 31) / 32 * 32;
+  const int chunk = p.rs * (4 / elem);  // rows of a chunk: rs x chunk_rows
+  const int bx = max_blocks_per_n(N, S, sms);
+  const int rows = (S + bx - 1) / bx;
+  p.rows_blk = (rows + chunk - 1) / chunk * chunk;
+  p.bx = (S + p.rows_blk - 1) / p.rows_blk;
+  return p;
 }
 
 // (na, ma, qa) <- (na, ma, qa) merged with (nb, mb, qb): Chan's parallel
-// formula for (count, mean, M2), the merge the TPU kernel applies chunk by
-// chunk.
+// formula for (count, mean, M2).
 __device__ __forceinline__ void chan_merge(float& na, float& ma, float& qa, float nb, float mb,
                                            float qb) {
   if (nb == 0.f) return;
@@ -131,156 +146,362 @@ __device__ __forceinline__ void chan_merge(float& na, float& ma, float& qa, floa
   na = tot;
 }
 
-// One block per (g, n): merge the nblk chunk partials, write (mean, rstd).
-__global__ void __launch_bounds__(THREADS)
-gn_merge(const float* __restrict__ part, float* __restrict__ stats, int S, int G, int gsize,
-         int rows_blk, int nblk, float eps) {
-  __shared__ float sn[THREADS];
-  __shared__ float sm[THREADS];
-  __shared__ float sq[THREADS];
-  const int tid = threadIdx.x;
-  const int g = blockIdx.x;
-  const int n = blockIdx.y;
-  float na = 0.f, ma = 0.f, qa = 0.f;
-  for (int blk = tid; blk < nblk; blk += THREADS) {
-    const float* p = part + (((long)n * nblk + blk) * G + g) * 2;
-    const float nb = (float)min(rows_blk, S - blk * rows_blk) * (float)gsize;
-    chan_merge(na, ma, qa, nb, p[0], p[1]);
-  }
-  sn[tid] = na;
-  sm[tid] = ma;
-  sq[tid] = qa;
-  __syncthreads();
-  for (int stride = THREADS / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-      chan_merge(na, ma, qa, sn[tid + stride], sm[tid + stride], sq[tid + stride]);
-      sn[tid] = na;
-      sm[tid] = ma;
-      sq[tid] = qa;
+// Raw 16-byte (or single-element) loads of a thread's RPT rows of a chunk, so
+// that they are in flight while the previous chunk is used.
+template <typename T, int VEC, int ROWS>
+struct Chunk {
+  static constexpr int RPT = ROWS;
+  static constexpr int CPT = CH / VEC;
+  using Raw = typename std::conditional<VEC * sizeof(T) == 16, uint4, T>::type;
+  Raw v[RPT][CPT];
+};
+
+// Rows row0, row0 + rs, ... (below r_end) of the thread's columns.
+template <typename T, int VEC, int ROWS>
+__device__ __forceinline__ void load_chunk(Chunk<T, VEC, ROWS>& c, const T* xn, int row0,
+                                           int r_end, const Plan& p, int col0, int C) {
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int row = row0 + r * p.rs;
+#pragma unroll
+    for (int q = 0; q < Chunk<T, VEC, ROWS>::CPT; ++q) {
+      const int col = col0 + q * p.cw;
+      if (row < r_end && q < p.cpt && col < p.cols) {
+        c.v[r][q] = *reinterpret_cast<const typename Chunk<T, VEC, ROWS>::Raw*>(
+            xn + (long)row * C + col * VEC);
+      }
     }
-    __syncthreads();
   }
-  if (tid == 0) {
-    stats[((long)n * G + g) * 2] = ma;
-    stats[((long)n * G + g) * 2 + 1] = 1.f / sqrtf(qa / na + eps);
+}
+
+template <typename T, int VEC, int ROWS>
+__device__ __forceinline__ float elem(const Chunk<T, VEC, ROWS>& c, int r, int q, int i) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    return to_f(reinterpret_cast<const T*>(&c.v[r][q])[i]);
+  } else {
+    return to_f(c.v[r][q]);
+  }
+}
+
+// Statistics: per block a (mean, M2) per group of its rows. Shared memory:
+// rs x C means, rs x C M2s and rs counts.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(MAX_THREADS, BLOCKS_PER_SM)
+gn_stats(const T* __restrict__ x, float* __restrict__ part, int S, int C, int G, Plan p) {
+  using Ck = Chunk<T, VEC, chunk_rows<T>()>;
+  constexpr int RPT = Ck::RPT;
+  constexpr int CPT = Ck::CPT;
+  extern __shared__ float red[];
+  float* rmean = red;
+  float* rm2 = red + p.rs * C;
+  float* rcnt = red + 2 * p.rs * C;
+
+  const int tid = threadIdx.x;
+  const int n = blockIdx.y;
+  const int blk = blockIdx.x;
+  const int rl = tid / p.cw;
+  const int col0 = tid - rl * p.cw;
+  const int r_begin = blk * p.rows_blk;
+  const int r_end = min(S, r_begin + p.rows_blk);
+  const T* xn = x + (long)n * S * C;
+
+  if (rl < p.rs) {
+    float cnt = 0.f;
+    float mean[CPT][VEC], m2[CPT][VEC];
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) mean[q][i] = m2[q][i] = 0.f;
+    }
+    const int step = p.rs * RPT;
+    Ck cur, nxt;
+    load_chunk(cur, xn, r_begin + rl, r_end, p, col0, C);
+    for (int r0 = r_begin; r0 < r_end; r0 += step) {
+      if (r0 + step < r_end) {
+        load_chunk(nxt, xn, r0 + step + rl, r_end, p, col0, C);
+      }
+      // Rows of this chunk the thread holds: rl, rl + rs, ... below r_end.
+      const int left = r_end - (r0 + rl);
+      const int nr = left <= 0 ? 0 : min(RPT, (left + p.rs - 1) / p.rs);
+      if (nr > 0) {
+        const float fn = (float)nr;
+        const float inv = 1.f / fn;
+        const float tot = cnt + fn;
+        const float f_new = fn / tot;
+        const float w = cnt * fn / tot;
+#pragma unroll
+        for (int q = 0; q < CPT; ++q) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            float s = 0.f;
+#pragma unroll
+            for (int r = 0; r < RPT; ++r) {
+              if (r < nr) s += elem(cur, r, q, i);
+            }
+            const float mu = s * inv;
+            float d2 = 0.f;
+#pragma unroll
+            for (int r = 0; r < RPT; ++r) {
+              if (r < nr) {
+                const float d = elem(cur, r, q, i) - mu;
+                d2 = fmaf(d, d, d2);
+              }
+            }
+            const float delta = mu - mean[q][i];  // Chan: the chunk into the running stats
+            mean[q][i] += delta * f_new;
+            m2[q][i] += d2 + delta * delta * w;
+          }
+        }
+        cnt = tot;
+      }
+      cur = nxt;
+    }
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) {
+      const int col = col0 + q * p.cw;
+      if (q < p.cpt && col < p.cols) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          rmean[rl * C + col * VEC + i] = mean[q][i];
+          rm2[rl * C + col * VEC + i] = m2[q][i];
+        }
+      }
+    }
+    if (col0 == 0) rcnt[rl] = cnt;
+  }
+  __syncthreads();
+
+  // Row lanes per channel, in index order.
+  for (int c = tid; c < C; c += blockDim.x) {
+    float na = 0.f, ma = 0.f, qa = 0.f;
+    for (int r = 0; r < p.rs; ++r) {
+      chan_merge(na, ma, qa, rcnt[r], rmean[r * C + c], rm2[r * C + c]);
+    }
+    rmean[c] = ma;
+    rm2[c] = qa;
+  }
+  __syncthreads();
+  // Every channel of the block has the same count (its rows), so a group's
+  // (mean, M2) is Chan's formula for equal parts: the mean of the channel
+  // means, and the channels' M2 plus rows x their squared distances to it.
+  // A team of lanes sums each, with xor shuffles that give every lane the
+  // same bits.
+  const int gsize = C / G;
+  const float rows = (float)(r_end - r_begin);
+  int gteam = 1;
+  while (gteam < 32 && gteam * 2 * G <= (int)blockDim.x) gteam *= 2;
+  const int gteams = blockDim.x / gteam;
+  for (int g0 = 0; g0 < G; g0 += gteams) {
+    const int g = g0 + tid / gteam;
+    const int tl = tid % gteam;
+    const bool ok = g < G;
+    float sm = 0.f;
+    for (int j = tl; ok && j < gsize; j += gteam) sm += rmean[g * gsize + j];
+    for (int off = 1; off < gteam; off <<= 1) {
+      sm += __shfl_xor_sync(0xffffffffu, sm, off, gteam);
+    }
+    const float mean = sm / (float)gsize;
+    float sq = 0.f;
+    for (int j = tl; ok && j < gsize; j += gteam) {
+      const float d = rmean[g * gsize + j] - mean;
+      sq += rm2[g * gsize + j] + rows * d * d;
+    }
+    for (int off = 1; off < gteam; off <<= 1) {
+      sq += __shfl_xor_sync(0xffffffffu, sq, off, gteam);
+    }
+    if (ok && tl == 0) {
+      float* out = part + (((long)n * p.bx + blk) * G + g) * 2;
+      out[0] = mean;
+      out[1] = sq;
+    }
   }
 }
 
 // x * a + b in fp32, then SiLU on that fp32 value: y * sigmoid(y).
-template <bool SILU, typename T>
-__device__ __forceinline__ float norm_act(T x, float a, float b) {
-  const float v = fmaf(to_f(x), a, b);
+template <bool SILU>
+__device__ __forceinline__ float norm_act(float x, float a, float b) {
+  const float v = fmaf(x, a, b);
   return SILU ? v / (1.f + expf(-v)) : v;
 }
 
-// y = x * a + b (+ SiLU) over rows [blockIdx.x * rows_blk, ...) of batch n.
-template <typename T, int VEC, bool SILU>
-__global__ void __launch_bounds__(THREADS)
-gn_apply(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ stats,
-         const float* __restrict__ weight, const float* __restrict__ bias, int S, int C, int G,
-         int rows_blk) {
-  __shared__ float a_s[MAX_C];
-  __shared__ float b_s[MAX_C];
+// y = x * a + b (+ SiLU) over the block's rows of batch n, chunk by chunk
+// from the last. A thread owns the same columns as in gn_stats and keeps their
+// (a, b) in registers.
+template <typename T, int VEC, typename WT, bool SILU>
+__global__ void __launch_bounds__(MAX_THREADS, BLOCKS_PER_SM)
+gn_apply(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ part,
+         const WT* __restrict__ weight, const WT* __restrict__ bias, int S, int C, int G,
+         Plan p, float eps) {
+  using Ck = Chunk<T, VEC, chunk_rows<T>()>;
+  constexpr int RPT = Ck::RPT;
+  constexpr int CPT = Ck::CPT;
+  __shared__ float g_mean[MAX_G];
+  __shared__ float g_rstd[MAX_G];
   const int tid = threadIdx.x;
   const int n = blockIdx.y;
   const int gsize = C / G;
-  for (int c = tid; c < C; c += THREADS) {
-    const int g = c / gsize;
-    const float mean = stats[((long)n * G + g) * 2];
-    const float rstd = stats[((long)n * G + g) * 2 + 1];
-    const float a = rstd * weight[c];
-    a_s[c] = a;
-    b_s[c] = bias[c] - mean * a;
+
+  // Merge the bx partials of each group of batch row n (Chan: each lane of a
+  // team over blocks in index order, then a shuffle tree in a fixed order).
+  // Every block of row n does the same merge and gets the same bits.
+  int team = 1;
+  while (team < 32 && team * 2 * G <= (int)blockDim.x) team *= 2;
+  const int teams = blockDim.x / team;
+  const int tl = tid % team;
+  for (int g0 = 0; g0 < G; g0 += teams) {
+    const int g = g0 + tid / team;
+    float na = 0.f, ma = 0.f, qa = 0.f;
+    for (int b0 = tl; g < G && b0 < p.bx; b0 += MERGE_UNROLL * team) {  // loads in flight together
+      float nb[MERGE_UNROLL], mb[MERGE_UNROLL], qb[MERGE_UNROLL];
+#pragma unroll
+      for (int u = 0; u < MERGE_UNROLL; ++u) {
+        const int b = b0 + u * team;
+        nb[u] = 0.f;
+        if (b < p.bx) {
+          const float* in = part + (((long)n * p.bx + b) * G + g) * 2;
+          nb[u] = (float)(min(S, (b + 1) * p.rows_blk) - b * p.rows_blk) * (float)gsize;
+          mb[u] = in[0];
+          qb[u] = in[1];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < MERGE_UNROLL; ++u) chan_merge(na, ma, qa, nb[u], mb[u], qb[u]);
+    }
+    for (int off = team / 2; off > 0; off >>= 1) {
+      const float nb = __shfl_down_sync(0xffffffffu, na, off, team);
+      const float mb = __shfl_down_sync(0xffffffffu, ma, off, team);
+      const float qb = __shfl_down_sync(0xffffffffu, qa, off, team);
+      if (tl < off) chan_merge(na, ma, qa, nb, mb, qb);
+    }
+    if (g < G && tl == 0) {
+      g_mean[g] = ma;
+      g_rstd[g] = 1.f / sqrtf(qa / na + eps);
+    }
   }
   __syncthreads();
-  const int r0 = blockIdx.x * rows_blk;
-  const int nr = min(rows_blk, S - r0);
-  const int cv = C / VEC;
-  const long base = ((long)n * S + r0) * C;
-  for (int i = tid; i < nr * cv; i += THREADS) {
-    const int r = i / cv;
-    const int c0 = (i - r * cv) * VEC;
-    const long off = base + (long)r * C + c0;
-    if constexpr (VEC * sizeof(T) == 16) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(x + off);
-      uint4 res;
-      const T* in = reinterpret_cast<const T*>(&raw);
-      T* out = reinterpret_cast<T*>(&res);
+
+  const int rl = tid / p.cw;
+  const int col0 = tid - rl * p.cw;
+  if (rl >= p.rs) return;
+  float a[CPT][VEC], b[CPT][VEC];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        out[e] = from_f<T>(norm_act<SILU>(in[e], a_s[c0 + e], b_s[c0 + e]));
-      }
-      *reinterpret_cast<uint4*>(y + off) = res;
-    } else {
+  for (int q = 0; q < CPT; ++q) {
+    const int col = col0 + q * p.cw;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        y[off + e] = from_f<T>(norm_act<SILU>(x[off + e], a_s[c0 + e], b_s[c0 + e]));
+    for (int i = 0; i < VEC; ++i) {
+      a[q][i] = b[q][i] = 0.f;
+      if (q < p.cpt && col < p.cols) {
+        const int c = col * VEC + i;
+        a[q][i] = g_rstd[c / gsize] * to_f(weight[c]);
+        b[q][i] = to_f(bias[c]) - g_mean[c / gsize] * a[q][i];
       }
     }
   }
-}
-
-template <typename T, int VEC>
-void launch_apply(const T* x, T* y, const float* stats, const float* w, const float* b, int N,
-                  int S, int C, int G, int silu, cudaStream_t st) {
-  // ~8K elements a block: enough blocks to fill the card at every UNet site.
-  const int rows = max(1, min(S, 8192 / C));
-  const dim3 grid((S + rows - 1) / rows, N);
-  if (silu) {
-    gn_apply<T, VEC, true><<<grid, THREADS, 0, st>>>(x, y, stats, w, b, S, C, G, rows);
-  } else {
-    gn_apply<T, VEC, false><<<grid, THREADS, 0, st>>>(x, y, stats, w, b, S, C, G, rows);
+  const int r_begin = blockIdx.x * p.rows_blk;
+  const int r_end = min(S, r_begin + p.rows_blk);
+  const int step = p.rs * RPT;
+  const long base = (long)n * S * C;
+  const T* xn = x + base;
+  T* yn = y + base;
+  int r0 = r_begin + (r_end - 1 - r_begin) / step * step;  // the last chunk
+  Ck cur, nxt;
+  load_chunk(cur, xn, r0 + rl, r_end, p, col0, C);
+  for (; r0 >= r_begin; r0 -= step) {
+    if (r0 > r_begin) load_chunk(nxt, xn, r0 - step + rl, r_end, p, col0, C);
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int row = r0 + rl + r * p.rs;
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) {
+        const int col = col0 + q * p.cw;
+        if (row >= r_end || q >= p.cpt || col >= p.cols) continue;
+        T* out = yn + (long)row * C + col * VEC;
+        if constexpr (VEC * sizeof(T) == 16) {
+          uint4 res;
+          T* e = reinterpret_cast<T*>(&res);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            e[i] = from_f<T>(norm_act<SILU>(elem(cur, r, q, i), a[q][i], b[q][i]));
+          }
+          *reinterpret_cast<uint4*>(out) = res;
+        } else {
+          *out = from_f<T>(norm_act<SILU>(elem(cur, r, q, 0), a[q][0], b[q][0]));
+        }
+      }
+    }
+    cur = nxt;
   }
 }
 
-template <typename T>
-int run(const T* x, T* y, const float* w, const float* b, float* part, float* stats, int N,
-        int S, int C, int G, int rows_blk, float eps, int silu, cudaStream_t st) {
-  const int nblk = (S + rows_blk - 1) / rows_blk;
-  gn_partials<T><<<dim3(nblk, N), THREADS, 0, st>>>(x, part, S, C, G, rows_blk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gn_merge<<<dim3(G, N), THREADS, 0, st>>>(part, stats, S, G, C / G, rows_blk, nblk, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  constexpr int VEC = 16 / sizeof(T);
-  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
-                       (reinterpret_cast<uintptr_t>(y) & 15) == 0;
-  if (C % VEC == 0 && aligned) {
-    launch_apply<T, VEC>(x, y, stats, w, b, N, S, C, G, silu, st);
+template <typename T, int VEC, typename WT>
+int launch_apply(const T* x, T* y, const float* part, const void* w, const void* b, int N, int S,
+                 int C, int G, const Plan& p, float eps, int silu, cudaStream_t st) {
+  const dim3 grid(p.bx, N);
+  const WT* wt = static_cast<const WT*>(w);
+  const WT* bt = static_cast<const WT*>(b);
+  if (silu) {
+    gn_apply<T, VEC, WT, true><<<grid, p.threads, 0, st>>>(x, y, part, wt, bt, S, C, G, p, eps);
   } else {
-    launch_apply<T, 1>(x, y, stats, w, b, N, S, C, G, silu, st);
+    gn_apply<T, VEC, WT, false><<<grid, p.threads, 0, st>>>(x, y, part, wt, bt, S, C, G, p, eps);
   }
   return (int)cudaGetLastError();
 }
 
+template <typename T, int VEC>
+int run(const T* x, T* y, const void* w, const void* b, int w_is_bf16, float* part, int N, int S,
+        int C, int G, const Plan& p, float eps, int silu, cudaStream_t st) {
+  const int smem = (2 * p.rs * C + p.rs) * (int)sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(gn_stats<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  gn_stats<T, VEC><<<dim3(p.bx, N), p.threads, smem, st>>>(x, part, S, C, G, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return w_is_bf16
+             ? launch_apply<T, VEC, __nv_bfloat16>(x, y, part, w, b, N, S, C, G, p, eps, silu, st)
+             : launch_apply<T, VEC, float>(x, y, part, w, b, N, S, C, G, p, eps, silu, st);
+}
+
+template <typename T>
+int dispatch(const void* x, void* y, const void* w, const void* b, int w_is_bf16, float* part,
+             int N, int S, int C, int G, float eps, int silu, int sms, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(x) & 15) == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+  const Plan p = make_plan(N, S, C, (int)sizeof(T), aligned, sms);
+  if ((long)p.rows_blk * C > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  return p.vec == V ? run<T, V>(xt, yt, w, b, w_is_bf16, part, N, S, C, G, p, eps, silu, st)
+                    : run<T, 1>(xt, yt, w, b, w_is_bf16, part, N, S, C, G, p, eps, silu, st);
+}
+
 }  // namespace
 
-// Rows a stats block takes for C channels of elem_bytes each (the caller sizes
-// the partials scratch, N * ceil(S / rows) * G * 2 floats, from it).
-extern "C" int vdpp_gn_rows_per_block(int C, int elem_bytes) {
-  return C <= 0 ? 0 : TILE_BYTES / (C * elem_bytes);
+// fp32 scratch the caller passes for this shape on the current device: a
+// (mean, M2) per (n, block, group).
+extern "C" long vdpp_gn_scratch_floats(int N, int S, int C, int G) {
+  const int sms = sm_count();
+  if (N <= 0 || S <= 0 || C <= 0 || G <= 0 || sms <= 0) return 0;
+  return (long)N * G * 2 * max_blocks_per_n(N, S, sms);
 }
 
 // x, y: (N, S, C) contiguous, both bf16 (is_bf16 = 1) or both fp32; weight,
-// bias: (C,) fp32; part: N * ceil(S / rows_blk) * G * 2 fp32; stats: N * G * 2
-// fp32 (written: mean, rstd). C % G == 0, C <= 4096, G <= 256.
-extern "C" int vdpp_group_norm_silu_fwd(const void* x, void* y, const float* weight,
-                                        const float* bias, float* part, float* stats,
+// bias: (C,), both bf16 (w_is_bf16 = 1) or both fp32; scratch:
+// vdpp_gn_scratch_floats(N, S, C, G) fp32. C % G == 0, C <= 4096, G <= 256.
+extern "C" int vdpp_group_norm_silu_fwd(const void* x, void* y, const void* weight,
+                                        const void* bias, int w_is_bf16, float* scratch,
                                         int is_bf16, int N, int S, int C, int G, float eps,
                                         int silu, void* stream) {
   if (N <= 0 || S <= 0 || C <= 0 || G <= 0 || C % G != 0 || C > MAX_C || G > MAX_G ||
-      N > 65535 || G > 65535) {
+      N > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const int rows_blk = vdpp_gn_rows_per_block(C, is_bf16 ? 2 : 4);
-  if (rows_blk < 1) return (int)cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return run<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x),
-                              static_cast<__nv_bfloat16*>(y), weight, bias, part, stats, N, S,
-                              C, G, rows_blk, eps, silu, st);
-  }
-  return run<float>(static_cast<const float*>(x), static_cast<float*>(y), weight, bias, part,
-                    stats, N, S, C, G, rows_blk, eps, silu, st);
+  return is_bf16 ? dispatch<__nv_bfloat16>(x, y, weight, bias, w_is_bf16, scratch, N, S, C, G,
+                                           eps, silu, sms, st)
+                 : dispatch<float>(x, y, weight, bias, w_is_bf16, scratch, N, S, C, G, eps,
+                                   silu, sms, st);
 }

@@ -3,17 +3,20 @@ package's Pallas kernel ``vdpp_tpu/ops/norm_kernel.py::_gn_silu_kernel``.
 
 The composed form (``normalization.group_norm`` then SiLU) makes several
 fp32 passes over the activation; the fused form reads it twice (statistics,
-then normalize) and writes it once. Same arithmetic as the reference: fp32
-statistics per (batch row, group) over all middle axes, merged from chunks
-with the parallel (Chan) formula -- never the one-pass E[x^2] - mean^2 form --,
-the affine folded into ``y = x * a + b``, and SiLU applied to the fp32 ``y``
-before the one rounding to the output dtype. It may differ from the composed
-form by one ulp of the output dtype, which rounds the norm before the SiLU.
+then normalize) and writes it once, and reads ``weight`` and ``bias`` in the
+dtype they are stored in (bf16 in the SVD-XT UNet), with no cast. Same
+arithmetic as the reference: fp32 statistics per (batch row, group) over all
+middle axes, merged from chunks with the parallel (Chan) formula -- never the
+one-pass E[x^2] - mean^2 form --, the affine folded into ``y = x * a + b``,
+and SiLU applied to the fp32 ``y`` before the one rounding to the output
+dtype. It may differ from the composed form by one ulp of the output dtype,
+which rounds the norm before the SiLU.
 
 Two implementations of that arithmetic live here:
 
-* the CUDA kernel ``vdpp_tpu_torch/csrc/group_norm_silu.cu`` (bf16 and fp32),
-  which :func:`group_norm_silu_fused` launches for a CUDA tensor;
+* the CUDA kernel ``vdpp_tpu_torch/csrc/group_norm_silu.cu`` (bf16 and fp32,
+  two launches a call), which :func:`group_norm_silu_fused` launches for a
+  CUDA tensor;
 * :func:`group_norm_silu_fused_plain`, plain PyTorch, which
   :func:`group_norm_silu_fused` runs for a CPU tensor and which the tests and
   ``chip_smoke.py`` hold the kernel against.
@@ -46,14 +49,32 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = kernels.load("group_norm_silu")
-        lib.vdpp_gn_rows_per_block.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.vdpp_gn_rows_per_block.restype = ctypes.c_int
+        lib.vdpp_gn_scratch_floats.argtypes = [ctypes.c_int] * 4
+        lib.vdpp_gn_scratch_floats.restype = ctypes.c_long
         fn = lib.vdpp_group_norm_silu_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(device: int, n: int, rows: int, c: int, groups: int) -> int:
+    """fp32 scratch the kernel needs for this shape on ``device`` (its plan
+    depends on the device's SM count)."""
+    with torch.cuda.device(device):
+        return int(_kernel_lib().vdpp_gn_scratch_floats(n, rows, c, groups))
+
+
+def _weight(t: torch.Tensor, what: str, x: torch.Tensor) -> torch.Tensor:
+    """``norm.weight`` or ``norm.bias`` as the kernel reads it: as stored."""
+    t = t.detach()
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA GroupNorm kernel reads a bf16 or fp32 {what}, got {t.dtype}")
+    if t.device != x.device or not t.is_contiguous():
+        raise ValueError(f"the CUDA GroupNorm kernel reads a contiguous {what} on {x.device}")
+    return t
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,20 +127,23 @@ def group_norm_silu_fused(
                          f"G <= {KERNEL_MAX_GROUPS}, N <= 65535; got {n, c, num_groups}")
     if not x.is_contiguous():
         raise ValueError("the CUDA GroupNorm kernel takes a contiguous tensor")
+    weight = _weight(norm.weight, "weight", x)
+    bias = _weight(norm.bias, "bias", x)
+    if weight.dtype != bias.dtype or weight.shape != (c,) or bias.shape != (c,):
+        raise ValueError(f"the CUDA GroupNorm kernel takes weight and bias of shape ({c},) and "
+                         f"one dtype, got {weight.dtype}{tuple(weight.shape)}, "
+                         f"{bias.dtype}{tuple(bias.shape)}")
     lib = _kernel_lib()
-    is_bf16 = x.dtype == torch.bfloat16
-    per_block = lib.vdpp_gn_rows_per_block(c, 2 if is_bf16 else 4)
-    nblk = -(-rows // per_block)
-    weight = norm.weight.detach().to(x.device, torch.float32).contiguous()
-    bias = norm.bias.detach().to(x.device, torch.float32).contiguous()
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
     out = torch.empty_like(x)
-    part = torch.empty(n * nblk * num_groups * 2, dtype=torch.float32, device=x.device)
-    stats = torch.empty(n * num_groups * 2, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(_scratch_floats(dev, n, rows, c, num_groups), dtype=torch.float32,
+                          device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.vdpp_group_norm_silu_fwd(
-            x.data_ptr(), out.data_ptr(), weight.data_ptr(), bias.data_ptr(), part.data_ptr(),
-            stats.data_ptr(), int(is_bf16), n, rows, c, num_groups, eps, int(silu), stream,
+            x.data_ptr(), out.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            int(weight.dtype == torch.bfloat16), scratch.data_ptr(),
+            int(x.dtype == torch.bfloat16), n, rows, c, num_groups, eps, int(silu), stream,
         )
     if rc != 0:
         raise RuntimeError(f"GroupNorm+SiLU kernel launch failed: CUDA error {rc}")

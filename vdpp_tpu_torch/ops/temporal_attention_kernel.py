@@ -10,8 +10,9 @@ weighted, into the output, ``out / denom``, one rounding to the dtype.
 
 Two implementations of that arithmetic live here:
 
-* the CUDA kernel ``vdpp_tpu_torch/csrc/frame_attention.cu`` (bf16 and fp32,
-  head dims 64 (SVD UNet) and 72 (DiT-XL), F <= 32), which
+* the CUDA kernel ``vdpp_tpu_torch/csrc/frame_attention.cu`` (head dims 64
+  (SVD UNet) and 72 (DiT-XL), F <= 32; bf16 on the tensor cores, fed by TMA
+  through a ring of shared-memory tiles, fp32 on the SIMT cores), which
   :func:`frame_attention` launches for a CUDA tensor; it reads q, k and v in
   the layout the projections produce, with no transpose or padding copy;
 * :func:`frame_attention_plain`, plain PyTorch, which :func:`frame_attention`
