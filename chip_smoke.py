@@ -13,11 +13,11 @@ Phases (any failure exits non-zero and prints no result line):
    shapes the main paths give it, with times for the kernel, the plain
    version, a one-call PyTorch yardstick and the bound, the share of the
    bound and the ratio to the yardstick (and for flash the TFLOP/s): flash
-   attention at d = 64 bf16 (UNet; the wgmma + TMA kernel, plus the fp32
-   SIMT kernel timed at a ragged length), d = 512 fp32 (the register-tiled
-   SIMT kernel)
-   and bf16 (the wgmma + TMA kernel) at the VAE mid-block's shapes (B = 4
-   and 1 at L = 9216, B = 4 at L = 2560, ragged 600 and 201), and d = 72
+   attention at d = 64 bf16 (UNet, at 25 frames and at the image->video
+   app's 14; the wgmma + TMA kernel, plus the fp32 SIMT kernel timed at a
+   ragged length), d = 512 fp32 (the register-tiled SIMT kernel) and bf16
+   (the wgmma + TMA kernel) at the VAE mid-block's shapes (B = 4, 1 and 2
+   at L = 9216, B = 4 at L = 2560, ragged 600 and 201), and d = 72
    bf16 (DiT-XL's joint3d and factorized sites, plus ragged bf16 lengths and
    fp32), fused GroupNorm+SiLU (two launches, bf16 weights as the UNet
    stores them), and frame attention at d = 64 (the UNet's sites) and d = 72
@@ -29,7 +29,9 @@ Phases (any failure exits non-zero and prints no result line):
    attention takes the flash kernel at d = 512; then a small fp32 DiT with
    head dim 72, joint3d and then factorized with VDPP_TEMPORAL_ATTN=pallas
    (forward and one CFG Euler step), whose flash and frame-attention
-   launches are counted;
+   launches are counted; then the image->video app's encoders, small and
+   fp32: a CLIP tower at head dim 80 and 257 tokens (no flash launch) and a
+   VAE encoder whose mid-block attention takes flash at d = 512 once;
 5. main paths: full-width SVD-XT (random weights from a seed), 25 frames at
    72x128, CFG ramp to 3 in sequential mode, Euler steps through
    ``vdpp_tpu_torch.bench.measure_config``, first as it is, then with both
@@ -42,9 +44,17 @@ Phases (any failure exits non-zero and prints no result line):
    prompt and is freed, DiT-XL denoises 8 frames at 40x64 (512x320) for 2
    Euler steps with a CFG ramp to 6 through ``bench.measure_dit_config``,
    joint3d and then factorized with VDPP_TEMPORAL_ATTN=pallas, and the fp32
-   decoder turns the factorized run's latent into (1, 8, 320, 512, 3). For
-   each run the launch counts are set to 0 just before and read just after,
-   and must show the kernels on every site.
+   decoder turns the factorized run's latent into (1, 8, 320, 512, 3). Last,
+   the image->video app through its entry point
+   (``vdpp_tpu_torch.apps.generate_video.main``, random weights from a seed):
+   CLIP ViT-H/14 and the SVD VAE encoder (fp32) encode the synthetic card at
+   1024x576, SVD-XT denoises 14 frames for 2 Euler steps, the fp32 decoder
+   decodes them and the app writes MP4 (or Y4M) and GIF, which must hold 14
+   frames of 1024x576; 60 flash launches at d = 64 and 5 at d = 512 (1 in the
+   encoder, 4 in the decode); its TIMING split, the CLIP and VAE-encode
+   seconds and the peak memory are printed. For each run the launch counts
+   are set to 0 just before and read just after, and must show the kernels
+   on every site.
 
 The last two lines are the ``nvidia-smi`` name/power-limit line and the
 contract line ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
@@ -98,6 +108,13 @@ FLASH_PER_FACTORIZED_FORWARD = 14
 FRAME_ATTN_PER_FACTORIZED_FORWARD = 14
 # 8 frames decoded in chunks of 4: 2 mid-block attentions at d = 512.
 FLASH_PER_DIT_DECODE = 2
+# The image->video app at its defaults (SVD-XT, 14 frames of 1024x576) for
+# APP_STEPS Euler steps, sequential CFG: 15 flash launches at d = 64 per UNet
+# forward, two forwards a step; at d = 512, one in the VAE encoder (its mid
+# block over the 72 x 128 latent of the one image) and one per chunk of 4
+# frames in the decode. CLIP (head dim 80, L = 257) never takes flash.
+APP_FRAMES, APP_W, APP_H, APP_STEPS = 14, 1024, 576, 2
+FLASH_PER_APP = {64: FLASH_PER_FORWARD * 2 * APP_STEPS, 512: 1 + -(-APP_FRAMES // 4)}
 
 
 def fail(msg: str) -> None:
@@ -122,8 +139,9 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
 def check_flash(torch, fa, F) -> dict:
     """The flash kernel against its plain version at the UNet's three
     self-attention shapes (d = 64, bf16, full B*H: the plain version chunks
-    its queries, so no reduction is needed), both softmax modes, plus a
-    ragged length and fp32."""
+    its queries, so no reduction is needed) at the denoise's 25 frames and
+    the image->video app's 14, both softmax modes, plus a ragged length and
+    fp32. Every UNet shape is timed."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def inputs(b, l, h, dtype):
@@ -148,10 +166,12 @@ def check_flash(torch, fa, F) -> dict:
           f"{TOL['fp32']} x max|plain| in fp32")
     max_err = 0.0
     shapes = []
-    # (frames*batch, L, heads): UNet levels 0, 1, 2 at 25 frames, 72x128.
-    for b, l, h in ((25, 9216, 5), (25, 2304, 10), (25, 576, 20)):
+    # (frames*batch, L, heads): UNet levels 0, 1, 2 at 72x128, at 25 frames
+    # (the denoise) and at APP_FRAMES (the image->video app).
+    for b, l, h in [(f, l, h) for f in (25, APP_FRAMES)
+                    for l, h in ((9216, 5), (2304, 10), (576, 20))]:
         q, k, v = inputs(b, l, h, torch.bfloat16)
-        row = {"L": l, "BH": b * h}
+        row = {"frames": b, "L": l, "BH": b * h}
         for static in (True, False):
             err, ref_max = compare(f"bf16 L={l} B*H={b * h}", q, k, v, static, TOL["bf16"])
             max_err = max(max_err, err)
@@ -169,7 +189,7 @@ def check_flash(torch, fa, F) -> dict:
         row["bound_by"] = "operations" if flops / H100_BF16_FLOPS > nbytes / H100_HBM_BYTES \
             else "bytes"
         add_rates(row, flops)
-        print(f"flash bf16 L={l} B*H={b * h}: kernel_ms {row['ms']:.4f} (running "
+        print(f"flash bf16 frames={b} L={l} B*H={b * h}: kernel_ms {row['ms']:.4f} (running "
               f"{row['running_ms']:.4f}), plain_ms {row['plain_ms']:.3f}, library_ms (SDPA) "
               f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
               f"{rates_text(row)}", flush=True)
@@ -293,11 +313,13 @@ def bf16_ulp(x: float) -> float:
 def check_flash_512(torch, fa, F, dtype) -> dict:
     """The flash kernel at the VAE mid-block's shapes: d = 512, one head,
     B = 4 frames of a decode chunk at L = 9216 (72 x 128 latent positions),
-    the last chunk of 25 frames (B = 1) and the DiT decode's L = 2560 (40 x
-    64), both softmax modes, plus ragged lengths (600, 201) whose last query
-    and key tiles are part-filled. fp32 is the decoder's default and runs on
-    the register-tiled SIMT kernel; bf16 is ``VAEConfig.svd(torch.bfloat16)``
-    and runs on the wgmma + TMA kernel. The three path shapes are timed."""
+    B = 1 (the last chunk of 25 frames, and the VAE encoder's one image), B
+    = 2 (the last chunk of the image->video app's 14 frames) and the DiT
+    decode's L = 2560 (40 x 64), both softmax modes, plus ragged lengths
+    (600, 201) whose last query and key tiles are part-filled. fp32 is the
+    VAE's default and runs on the register-tiled SIMT kernel; bf16 is
+    ``VAEConfig.svd(torch.bfloat16)`` and runs on the wgmma + TMA kernel.
+    The four path shapes are timed."""
     g = torch.Generator(device="cuda").manual_seed(1 if dtype == torch.float32 else 9)
     name = "fp32" if dtype == torch.float32 else "bf16"
 
@@ -310,7 +332,7 @@ def check_flash_512(torch, fa, F, dtype) -> dict:
              else "(as at d = 64: q', P and o rounded to bf16 on both sides)"))
     max_err = 0.0
     shapes = []
-    for b, l in ((4, 9216), (1, 9216), (4, 2560), (2, 600), (2, 201)):
+    for b, l in ((4, 9216), (1, 9216), (2, 9216), (4, 2560), (2, 600), (2, 201)):
         q, k, v = inputs(b, l)
         for static in (True, False):
             got = fa.flash_attention(q, k, v, static_max=static).float()
@@ -646,14 +668,15 @@ def check_vae_agreement(torch, fa) -> None:
     card.load_state_dict(cpu.state_dict())
     lat = torch.randn(1, 3, 16, 32, 4, generator=torch.Generator().manual_seed(5))
     ref = cpu.decode_chunked(lat, chunk_frames=2)
-    fa.launches = 0
+    fa.launches.clear()
     got = card.decode_chunked(lat.cuda(), chunk_frames=2).cpu()
     rel = ((got - ref).abs().max() / ref.abs().max()).item()
     print(f"agreement card vs CPU, small fp32 VAE decoder (d = 512 attention, 2 chunks): "
           f"max|diff|/max|ref| {rel:.3g} (tolerance 1e-4: fp32 sums in other orders, no TF32); "
-          f"flash launches {fa.launches}")
-    if fa.launches != 2:
-        fail(f"the small VAE decoder launched the flash kernel {fa.launches} times, expected 2")
+          f"flash launches {fa.launches.total()}")
+    if fa.launches.total() != 2:
+        fail(f"the small VAE decoder launched the flash kernel {fa.launches.total()} times, "
+             f"expected 2")
     if got.shape != (1, 3, 32, 64, 3) or not math.isfinite(rel) or rel > 1e-4:
         fail(f"card and CPU disagree on the small VAE decoder: {rel}, shape {tuple(got.shape)}")
 
@@ -684,14 +707,15 @@ def check_dit_agreement(torch, fa, ta) -> None:
             for dev, model in models.items():
                 wrapper = DiTVideoWrapper(cfg, num_steps=4, device=dev)
                 bundle = (model, ctx.to(dev), make_guidance_ramp(6.0, 4, device=dev))
-                fa.launches = ta.launches = 0
+                fa.launches.clear()
+                ta.launches = 0
                 with torch.inference_mode():
                     fwd = model(lat.to(dev), 0.3, ctx.to(dev))
                     step = run_reference_single_device(
                         wrapper.pipeline_step_fn(), bundle,
                         (lat * wrapper.init_noise_sigma).to(dev)[None], 1)
                 outs[dev] = (fwd.cpu(), step.cpu())
-                counts[dev] = (fa.launches, ta.launches)
+                counts[dev] = (fa.launches.total(), ta.launches)
         what = "joint3d" if mode == "joint3d" else "factorized with VDPP_TEMPORAL_ATTN=pallas"
         forwards = 3  # the forward, then the step's two CFG forwards
         expect(f"flash in the small DiT {what} on the card", counts["cuda"][0],
@@ -706,6 +730,155 @@ def check_dit_agreement(torch, fa, ta) -> None:
                   f"no TF32)")
             if not math.isfinite(rel) or rel > 1e-4:
                 fail(f"card and CPU disagree on the small DiT {what} ({name}): {rel}")
+
+
+def check_encoder_agreement(torch, fa) -> None:
+    """The image->video app's two encoders, small and fp32, on the card
+    against the same weights on the CPU: a CLIP tower at ViT-H/14's head dim
+    80 and 257 tokens (2 layers of width 160; it must launch no flash
+    kernel), and a VAE encoder whose last level has 512 channels, so that
+    its mid-block attention (one head, d = 512, over the 32 x 32 positions
+    of a 64 x 64 image) takes the flash kernel once."""
+    from vdpp_tpu_torch.models.clip_encoder import CLIPVisionConfig, CLIPVisionEncoder
+    from vdpp_tpu_torch.models.vae import VAEConfig, VAEEncoder
+
+    g = torch.Generator().manual_seed(10)
+    clip_cfg = CLIPVisionConfig(hidden_size=160, num_layers=2, num_heads=2, projection_dim=64)
+    vae_cfg = VAEConfig(block_out_channels=(64, 512), layers_per_block=1)
+    cases = (("CLIP tower (head dim 80, L = 257)", CLIPVisionEncoder, clip_cfg,
+              torch.randn(2, 224, 224, 3, generator=g), {}),
+             ("VAE encoder (d = 512 attention, L = 1024)", VAEEncoder, vae_cfg,
+              torch.randn(2, 64, 64, 3, generator=g), {512: 1}))
+    for what, cls, cfg, x, want in cases:
+        cpu = cls(cfg, device="cpu").init_weights(torch.Generator().manual_seed(11))
+        card = cls(cfg, device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        ref = cpu.apply(x)
+        fa.launches.clear()
+        got = card.apply(x.cuda()).cpu()
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        print(f"agreement card vs CPU, small fp32 {what}: output {tuple(got.shape)}, "
+              f"max|diff|/max|ref| {rel:.3g} (tolerance 1e-4: fp32 sums in other orders, no "
+              f"TF32); flash launches by head dim {dict(fa.launches)}")
+        if dict(fa.launches) != want:
+            fail(f"the small {what} launched flash {dict(fa.launches)}, "
+                 f"expected {want}")
+        if got.shape != ref.shape or not math.isfinite(rel) or rel > 1e-4:
+            fail(f"card and CPU disagree on the small {what}: {rel}")
+
+
+def y4m_frames(path: str) -> tuple[int, int, int]:
+    """(frames, width, height) of a Y4M file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header = data[:data.index(b"\n")].split()
+    w = int(next(t[1:] for t in header if t.startswith(b"W")))
+    h = int(next(t[1:] for t in header if t.startswith(b"H")))
+    return data.count(b"FRAME"), w, h
+
+
+def gif_frames(path: str) -> tuple[int, int, int]:
+    """(frames, width, height) of a GIF: its image descriptors, found by
+    walking the blocks."""
+    with open(path, "rb") as f:
+        data = f.read()
+    w, h = int.from_bytes(data[6:8], "little"), int.from_bytes(data[8:10], "little")
+    pos = 13 + (3 << ((data[10] & 7) + 1) if data[10] & 0x80 else 0)
+
+    def skip_sub_blocks(pos: int) -> int:
+        while data[pos]:
+            pos += data[pos] + 1
+        return pos + 1
+
+    frames = 0
+    while pos < len(data) and data[pos] != 0x3B:
+        if data[pos] == 0x21:  # extension: label, then sub-blocks
+            pos = skip_sub_blocks(pos + 2)
+        elif data[pos] == 0x2C:  # image descriptor, local colour table, LZW data
+            flags = data[pos + 9]
+            pos += 10 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)
+            frames += 1
+        else:
+            fail(f"{path}: unexpected GIF block 0x{data[pos]:02x} at byte {pos}")
+    return frames, w, h
+
+
+def run_app(torch, fa, nk, ta, smi: str) -> dict:
+    """The image->video app at full width through its entry point,
+    ``apps.generate_video.main``: random weights from a seed, SVD-XT,
+    ViT-H/14 and the SVD VAE in fp32, the synthetic card at 1024x576, 14
+    frames, APP_STEPS Euler steps, into a temporary directory. The launch
+    counts are set to 0 just before and read just after; the files must
+    hold 14 frames of 1024x576. Returns the app's TIMING split, the encode
+    seconds, the peak memory and the launch counts."""
+    import logging
+    import shutil
+    import tempfile
+
+    from vdpp_tpu_torch.apps import generate_video
+
+    lines: list[str] = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    keep = Keep()
+    logging.getLogger("vdpp_torch.generate").addHandler(keep)
+    logging.getLogger("vdpp_torch.generate").setLevel(logging.INFO)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_app_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, nk, ta)
+        t0 = time.perf_counter()
+        rc = generate_video.main(["--random-weights", "--steps", str(APP_STEPS), "--device",
+                                  "cuda", "--output-dir", out_dir])
+        wall = time.perf_counter() - t0
+        flash = dict(fa.launches)
+        counts = {"gn": nk.launches, "frame": ta.launches}
+        peak = torch.cuda.max_memory_allocated()
+        files = {os.path.splitext(n)[1]: os.path.join(out_dir, n) for n in os.listdir(out_dir)}
+        if rc != 0:
+            fail(f"the image->video app returned {rc}")
+        want = (APP_FRAMES, APP_W, APP_H)
+        # The native writer (the card's machine has no imageio) writes an
+        # MJPEG MP4 and a lossless Y4M beside it; the Y4M is read back.
+        if not ({".mp4", ".y4m", ".gif"} <= set(files)
+                and os.path.getsize(files[".mp4"]) > 0):
+            fail(f"the image->video app wrote {sorted(files)}, not an MP4, a Y4M and a GIF")
+        video = y4m_frames(files[".y4m"])
+        gif = gif_frames(files[".gif"])
+    finally:
+        logging.getLogger("vdpp_torch.generate").removeHandler(keep)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"image->video app: y4m {video}, gif {gif} (frames, width, height; expected "
+          f"{want}), {wall:.3f} s in main ({smi})")
+    if video != want or gif != want:
+        fail(f"the app's files hold y4m {video} and gif {gif}, expected {want}")
+    for d, n in FLASH_PER_APP.items():
+        expect(f"flash at d = {d} in the image->video app", flash.get(d, 0), n)
+    if set(flash) - set(FLASH_PER_APP):
+        fail(f"the image->video app launched flash at head dims {sorted(flash)}")
+    expect("GroupNorm+SiLU in the image->video app", counts["gn"], 0)
+    expect("frame attention in the image->video app", counts["frame"], 0)
+    timing = next((ln for ln in lines if ln.startswith("TIMING")), None)
+    encode = next((ln for ln in lines if ln.startswith("conditioning encoded")), None)
+    decode = next((ln for ln in lines if ln.startswith("decoded in")), None)
+    if timing is None or encode is None or decode is None:
+        fail("the image->video app logged no TIMING, encode or decode line")
+    secs = dict(zip(("load", "encode", "diffusion", "decode_save", "total"),
+                    map(float, re.findall(r"([0-9.]+)s", timing))))
+    secs.update(zip(("encode_total", "preprocess", "clip", "vae_encode"),
+                    map(float, re.findall(r"([0-9.]+)s", encode))))
+    secs.update(zip(("decode", "save"), map(float, re.findall(r"([0-9.]+)s", decode))))
+    print(f"image->video app {timing} ({smi})")
+    print(f"image->video app encode: CLIP ViT-H/14 fp32 {secs['clip']:.3f} s, VAE encode fp32 "
+          f"at {APP_W}x{APP_H} {secs['vae_encode']:.3f} s, preprocess {secs['preprocess']:.3f} s "
+          f"(cold: first call of each in the process); decode fp32 of {APP_FRAMES} frames "
+          f"{secs['decode']:.3f} s, writing the files {secs['save']:.3f} s ({smi})")
+    print(f"image->video app peak allocated {peak / 2**30:.2f} GiB ({smi})")
+    return {"seconds": secs, "peak_mem_bytes": peak, "flash": flash}
 
 
 def run_dit_path(torch, bench, config, context, smi: str, what: str) -> dict:
@@ -742,6 +915,12 @@ def run_main_path(torch, bench, config, smi: str, what: str) -> dict:
     if res["shape"] != (1, 25, 72, 128, 4):
         fail(f"unexpected output shape {res['shape']}")
     return res
+
+
+def reset_counts(fa, nk, ta) -> None:
+    """Every kernel's launch count set to 0."""
+    fa.launches.clear()
+    nk.launches = ta.launches = 0
 
 
 def expect(what: str, got: int, want: int) -> None:
@@ -830,30 +1009,31 @@ def main() -> int:
     check_agreement(torch, switches=True)
     check_vae_agreement(torch, fa)
     check_dit_agreement(torch, fa, ta)
+    check_encoder_agreement(torch, fa)
 
     forwards = 2 * STEPS * (VIDEOS + 1)
-    fa.launches = nk.launches = ta.launches = 0
+    reset_counts(fa, nk, ta)
     run_main_path(torch, bench, SVDUNetConfig.svd_xt(), smi, "as it is")
-    flash_launches = fa.launches
+    flash_launches = fa.launches.total()
     expect(f"flash on the main path ({forwards} UNet forwards)", flash_launches,
            FLASH_PER_FORWARD * forwards)
     expect("GroupNorm+SiLU on the main path as it is", nk.launches, 0)
     expect("frame attention on the main path as it is", ta.launches, 0)
 
     with kernel_switches():
-        fa.launches = nk.launches = ta.launches = 0
+        reset_counts(fa, nk, ta)
         res = run_main_path(torch, bench, SVDUNetConfig.svd_xt(), smi,
                             "with VDPP_GN_FUSED=1 VDPP_TEMPORAL_ATTN=pallas")
-        switched = {"flash": fa.launches, "gn": nk.launches, "frame": ta.launches}
+        switched = {"flash": fa.launches.total(), "gn": nk.launches, "frame": ta.launches}
     expect(f"flash on the switched path ({forwards} UNet forwards)", switched["flash"],
            FLASH_PER_FORWARD * forwards)
     expect("GroupNorm+SiLU on the switched path", switched["gn"], GN_SILU_PER_FORWARD * forwards)
     expect("frame attention on the switched path", switched["frame"],
            FRAME_ATTN_PER_FORWARD * forwards)
 
-    fa.launches = nk.launches = ta.launches = 0
+    reset_counts(fa, nk, ta)
     dec = bench.measure_decode(res["latent"])
-    decode_flash = fa.launches
+    decode_flash = fa.launches.total()
     print(f"decode: temporal VAE decoder fp32, 25 frames in chunks of 4: {dec['sec']:.3f} s, "
           f"video {dec['shape']}, finite {dec['finite']}, peak allocated "
           f"{dec['peak_mem_bytes'] / 2**30:.2f} GiB ({smi})")
@@ -865,9 +1045,9 @@ def main() -> int:
     # The same latent through the bf16 decoder (VAEConfig.svd(torch.bfloat16),
     # the JAX scripts' --vae-dtype bfloat16): its mid-block attention takes the
     # flash kernel at d = 512 in bf16.
-    fa.launches = nk.launches = ta.launches = 0
+    reset_counts(fa, nk, ta)
     dec16 = bench.measure_decode(res["latent"], config=VAEConfig.svd(torch.bfloat16))
-    decode16_flash = fa.launches
+    decode16_flash = fa.launches.total()
     print(f"decode: temporal VAE decoder bf16, 25 frames in chunks of 4: {dec16['sec']:.3f} s, "
           f"video {dec16['shape']}, finite {dec16['finite']}, peak allocated "
           f"{dec16['peak_mem_bytes'] / 2**30:.2f} GiB ({smi})")
@@ -885,27 +1065,27 @@ def main() -> int:
     if tuple(ctx.shape) != (1, enc["tokens"], t5_cfg.d_model) or not torch.isfinite(ctx).all():
         fail(f"the T5-XXL encode gave shape {tuple(ctx.shape)} or non-finite values")
     dit_xl = dataclasses.replace(DiTVideoConfig.latte_xl(), cross_attention_dim=t5_cfg.d_model)
-    fa.launches = nk.launches = ta.launches = 0
+    reset_counts(fa, nk, ta)
     run_dit_path(torch, bench, dataclasses.replace(dit_xl, attention_mode="joint3d"), ctx, smi,
                  "joint3d")
-    joint = {"flash": fa.launches, "frame": ta.launches}
+    joint = {"flash": fa.launches.total(), "frame": ta.launches}
     expect(f"flash at d = 72 on the joint3d path ({forwards} DiT forwards)", joint["flash"],
            FLASH_PER_JOINT3D_FORWARD * forwards)
     expect("frame attention on the joint3d path", joint["frame"], 0)
     with kernel_switches(TEMPORAL_SWITCH):
-        fa.launches = nk.launches = ta.launches = 0
+        reset_counts(fa, nk, ta)
         dit_res = run_dit_path(torch, bench, dataclasses.replace(dit_xl,
                                                                  attention_mode="factorized"),
                                ctx, smi, "factorized with VDPP_TEMPORAL_ATTN=pallas")
-        fact = {"flash": fa.launches, "frame": ta.launches}
+        fact = {"flash": fa.launches.total(), "frame": ta.launches}
     expect(f"flash at d = 72 on the factorized path ({forwards} DiT forwards)", fact["flash"],
            FLASH_PER_FACTORIZED_FORWARD * forwards)
     expect("frame attention at d = 72 on the factorized path", fact["frame"],
            FRAME_ATTN_PER_FACTORIZED_FORWARD * forwards)
     expect("GroupNorm+SiLU on the DiT paths", nk.launches, 0)
-    fa.launches = 0
+    fa.launches.clear()
     dit_dec = bench.measure_decode(dit_res["latent"])
-    dit_decode_flash = fa.launches
+    dit_decode_flash = fa.launches.total()
     print(f"decode: temporal VAE decoder fp32, {DIT_FRAMES} frames in chunks of 4: "
           f"{dit_dec['sec']:.3f} s, video {dit_dec['shape']}, finite {dit_dec['finite']}, peak "
           f"allocated {dit_dec['peak_mem_bytes'] / 2**30:.2f} GiB ({smi})")
@@ -913,6 +1093,9 @@ def main() -> int:
     if dit_dec["shape"] != (1, DIT_FRAMES, 320, 512, 3) or not dit_dec["finite"]:
         fail(f"the text->video decode gave shape {dit_dec['shape']}, finite "
              f"{dit_dec['finite']}")
+
+    # The image->video app: CLIP and VAE encode, the SVD-XT denoise, the decode.
+    app = run_app(torch, fa, nk, ta, smi)
 
     def entry(name, source, replaces, launches, check, row, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -927,11 +1110,17 @@ def main() -> int:
     frame_src, frame_tpu = ("vdpp_tpu_torch/csrc/frame_attention.cu",
                             "vdpp_tpu/ops/temporal_attention_kernel.py:80")
     print(json.dumps({"kernels": [
-        entry("flash_attention", flash_src, flash_tpu, flash_launches, flash,
+        entry("flash_attention", flash_src, flash_tpu, flash_launches + app["flash"][64], flash,
               flash["shapes"][0], ptxas=ptxas,
-              fp32_d64_d72=[flash["fp32"], flash72["fp32"]]),
-        entry("flash_attention_d512", flash_src, flash_tpu, decode_flash + dit_decode_flash,
-              flash512, flash512["shapes"][0]),
+              fp32_d64_d72=[flash["fp32"], flash72["fp32"]],
+              launches_by_path={"svd_xt_denoise": flash_launches,
+                                "image_to_video_app": app["flash"][64]}),
+        entry("flash_attention_d512", flash_src, flash_tpu,
+              decode_flash + dit_decode_flash + app["flash"][512], flash512,
+              flash512["shapes"][0], encoder_site=flash512["shapes"][1],
+              launches_by_path={"svd_decode": decode_flash, "dit_decode": dit_decode_flash,
+                                "image_to_video_app (1 encoder + 4 decode)":
+                                    app["flash"][512]}),
         entry("flash_attention_d512_bf16", flash_src, flash_tpu, decode16_flash, flash512_bf16,
               flash512_bf16["shapes"][0]),
         entry("group_norm_silu", "vdpp_tpu_torch/csrc/group_norm_silu.cu",

@@ -36,6 +36,8 @@ from vdpp_tpu_torch.ops import flash_attention as fa
 from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
 from vdpp_tpu_torch.utils.weights import from_jax_dit_params, load_jax_npz
 
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
 REL_TOL = 1e-4
 F, H, W = 4, 16, 32
 CROSS = 24

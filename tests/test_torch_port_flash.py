@@ -23,6 +23,8 @@ from vdpp_tpu.ops.flash_attention import flash_attention as jax_flash
 
 from vdpp_tpu_torch.ops import flash_attention as fa
 
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
 TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 NP_DTYPE = {torch.float32: np.float32, torch.bfloat16: ml_dtypes.bfloat16}
 JNP_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}

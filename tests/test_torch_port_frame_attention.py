@@ -21,6 +21,8 @@ from vdpp_tpu.ops.temporal_attention_kernel import frame_attention as jax_frame_
 
 from vdpp_tpu_torch.ops import temporal_attention_kernel as tak
 
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
 NP_DTYPE = {torch.float32: np.float32, torch.bfloat16: ml_dtypes.bfloat16}
 JNP_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 

@@ -46,10 +46,10 @@ def _qkv(device, b, l, h, d, dtype, seed):
 @pytest.mark.parametrize("l", [64, 200, 576, 2304])
 def test_flash_kernel_matches_plain(cuda, l, static_max, dtype):
     q, k, v = _qkv(cuda, 2, l, 5, 64, dtype, l)
-    before = fa.launches
+    before = fa.launches.total()
     got = fa.flash_attention(q, k, v, static_max=static_max)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert fa.launches.total() == before + 1
     ref = fa.flash_attention_plain(q, k, v, static_max).float()
     err = (got.float() - ref).abs().max().item()
     assert err <= TOL[dtype] * ref.abs().max().item(), (err, ref.abs().max().item())
@@ -102,10 +102,10 @@ def test_flash_d512_kernel_matches_plain(cuda, b, lq, lk, static_max, dtype):
     g = torch.Generator(device=cuda).manual_seed(lq + lk + 1)
     q = torch.randn(b, lq, 1, 512, generator=g, device=cuda).to(dtype)
     k, v = (torch.randn(b, lk, 1, 512, generator=g, device=cuda).to(dtype) for _ in range(2))
-    before = fa.launches
+    before = fa.launches.total()
     got = fa.flash_attention(q, k, v, static_max=static_max)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert fa.launches.total() == before + 1
     ref = fa.flash_attention_plain(q, k, v, static_max).float()
     err = (got.float() - ref).abs().max().item()
     assert err <= TOL[dtype] * ref.abs().max().item(), (err, ref.abs().max().item())
@@ -243,10 +243,10 @@ def test_flash_d72_kernel_matches_plain(cuda, b, l, h, static_max, dtype):
     """DiT-XL's head dim: a ragged 600 keys, the factorized spatial site and
     the joint3d site (8 frames x 640 tokens)."""
     q, k, v = _qkv(cuda, b, l, h, 72, dtype, l + 72)
-    before = fa.launches
+    before = fa.launches.total()
     got = fa.flash_attention(q, k, v, static_max=static_max)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert fa.launches.total() == before + 1
     ref = fa.flash_attention_plain(q, k, v, static_max).float()
     err = (got.float() - ref).abs().max().item()
     assert err <= TOL[dtype] * ref.abs().max().item(), (err, ref.abs().max().item())
@@ -289,10 +289,10 @@ def test_flash_wgmma_kernel_matches_plain(cuda, d, static_max, b, lq, lk, h):
     g = torch.Generator(device=cuda).manual_seed(lq + lk + d)
     q = torch.randn(b, lq, h, d, generator=g, device=cuda).bfloat16()
     k, v = (torch.randn(b, lk, h, d, generator=g, device=cuda).bfloat16() for _ in range(2))
-    before = fa.launches
+    before = fa.launches.total()
     got = fa.flash_attention(q, k, v, static_max=static_max)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert fa.launches.total() == before + 1
     ref = fa.flash_attention_plain(q, k, v, static_max).float()
     err = (got.float() - ref).abs().max().item()
     assert err <= TOL[torch.bfloat16] * ref.abs().max().item(), (err, ref.abs().max().item())

@@ -34,6 +34,8 @@ from vdpp_tpu_torch.ops import flash_attention as fa
 from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
 from vdpp_tpu_torch.utils.weights import from_jax_params
 
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
 REL_TOL = 1e-4
 KEYS_FIXTURE = Path(__file__).parent / "fixtures" / "svd_xt_unet_keys.txt"
 
@@ -82,10 +84,10 @@ def test_unet_forward_matches_jax(tiny, hw):
     t = np.float32(0.25 * np.log(80.0))
     want = jax.jit(JaxUNet(JaxConfig.tiny()).apply)(params, jnp.asarray(x), t, jnp.asarray(ctx),
                                                     jnp.asarray(ids))
-    fa.launches = 0
+    fa.launches.clear()
     with torch.inference_mode():
         got = unet(torch.from_numpy(x), float(t), torch.from_numpy(ctx), torch.from_numpy(ids))
-    assert fa.launches == 0  # CPU tensors take the plain version, never the kernel
+    assert not fa.launches  # CPU tensors take the plain version, never the kernel
     _assert_close(got, want)
 
 

@@ -24,6 +24,8 @@ from vdpp_tpu.ops import normalization as jnorm
 from vdpp_tpu_torch.ops import norm_kernel as nk
 from vdpp_tpu_torch.ops import normalization as tnorm
 
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
 NP_DTYPE = {torch.float32: np.float32, torch.bfloat16: ml_dtypes.bfloat16}
 JNP_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 

@@ -23,6 +23,8 @@ from vdpp_tpu_torch.ops import embeddings as temb
 from vdpp_tpu_torch.ops import linear as tlin
 from vdpp_tpu_torch.ops import normalization as tnorm
 
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
 # vdpp_tpu.ops re-exports functions named like these two modules
 jattn = importlib.import_module("vdpp_tpu.ops.attention")
 jlin = importlib.import_module("vdpp_tpu.ops.linear")
@@ -134,7 +136,7 @@ def test_conv2d(kernel, stride):
     p = jax_params(conv, lambda sd, pf: sd.conv2d(pf))
     pad = "SAME" if stride == 1 else ((1, 1), (1, 1))
     want = jconv.conv2d(jnp.asarray(x), p, stride=stride, padding=pad)
-    got = tconv.conv2d(torch.from_numpy(x), conv, stride=stride)
+    got = tconv.conv2d(torch.from_numpy(x), conv, stride=stride, padding=pad)
     assert tuple(got.shape) == want.shape
     _check(got, want)
 

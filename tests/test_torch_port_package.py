@@ -12,9 +12,13 @@ import pytest
 import torch
 
 from vdpp_tpu_torch import bench
+from vdpp_tpu_torch.models.clip_encoder import CLIPVisionConfig, CLIPVisionEncoder
 from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
 from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet
+from vdpp_tpu_torch.models.vae import VAEConfig, VAEEncoder
 from vdpp_tpu_torch.utils.device import resolve_device
+
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "vdpp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -34,13 +38,16 @@ def test_port_sources_import_no_jax():
 
 def test_port_modules_load_without_jax():
     """Importing every module of the port in a fresh interpreter leaves
-    ``jax`` and ``vdpp_tpu`` unloaded."""
+    ``jax`` and ``vdpp_tpu`` unloaded, and also ``PIL`` and ``safetensors``,
+    which the card's machine lacks (the image->video app imports Pillow only
+    to read an ``--image`` file)."""
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts) for p in PORT_FILES[:-1]]
     mods = [m.removesuffix(".__init__") for m in mods]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'vdpp_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'vdpp_tpu', 'PIL', 'safetensors'))\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -59,6 +66,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         SVDUNet(SVDUNetConfig.tiny())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.main(["--preset", "tiny"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CLIPVisionEncoder(CLIPVisionConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VAEEncoder(VAEConfig.tiny())
     assert resolve_device("cpu").type == "cpu"
 
 

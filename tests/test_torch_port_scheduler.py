@@ -15,6 +15,8 @@ from vdpp_tpu.parallel import step_assignment as jsa
 from vdpp_tpu_torch.diffusion import scheduler as tsched
 from vdpp_tpu_torch.parallel import step_assignment as tsa
 
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("n", [1, 2, 4, 25, 30])
 def test_tables_equal_bitwise(n):

@@ -24,6 +24,8 @@ from vdpp_tpu.utils.weights import convert_t5_encoder_state_dict
 from vdpp_tpu_torch.models import t5_encoder as tt5
 from vdpp_tpu_torch.utils.weights import from_jax_t5_params
 
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
 REL_TOL = 1e-5
 
 

@@ -396,7 +396,7 @@ class SVDUNet(nn.Module):
                     x = block.attentions[j](x, ctx_f, heads[i], b, f)
                 res_stack.append(x)
             if hasattr(block, "downsamplers"):
-                x = conv2d(x, block.downsamplers[0].conv, stride=2)
+                x = conv2d(x, block.downsamplers[0].conv, stride=2, padding=((1, 1), (1, 1)))
                 res_stack.append(x)
 
         mid = self.mid_block

@@ -1,6 +1,15 @@
-"""Temporal VAE decoder of the SVD family in PyTorch: the port of
-``vdpp_tpu/models/vae.py`` (``VAEConfig``, the decoder's blocks,
-``TemporalVAEDecoder.apply`` and ``.decode_chunked``).
+"""KL encoder and temporal VAE decoder of the SVD family in PyTorch: the port
+of ``vdpp_tpu/models/vae.py`` (``VAEConfig``, ``VAEEncoder.apply`` and
+``.mode``, the decoder's blocks, ``TemporalVAEDecoder.apply`` and
+``.decode_chunked``).
+
+The encoder turns images ``(N, H, W, 3)`` into moments ``(N, H/8, W/8, 8)``
+(for the 4-level config) frame by frame: conv_in, down blocks of ResNets with
+a stride-2 downsample padded on the right and bottom only (diffusers'
+``Downsample2D`` with ``padding=0``) on every level but the last, a mid block
+(ResNet, single-head attention, ResNet), a GroupNorm+SiLU head and conv_out.
+``mode`` keeps the mean, the first ``latent_channels`` channels. Its modules
+carry the diffusers ``Encoder`` names under ``encoder.``.
 
 The decoder turns denoised latents ``(B, F, h, w, 4)`` into frames
 ``(B, F, 8h, 8w, 3)``: conv_in, a mid block (spatio-temporal ResNet,
@@ -12,9 +21,10 @@ the diffusers ``AutoencoderKLTemporalDecoder`` names under ``decoder.``, so
 Activations stay channels-last as in the reference; GroupNorm statistics are
 fp32 and the default dtype is fp32.
 
-The mid-block attention runs over all h * w latent positions with one head
-of d = 512 (at SVD, 72 * 128 = 9216 positions): the port's ``attention``
-sends it to the flash kernel at head dim 512, with the static-max softmax,
+The mid-block attentions run over all h * w latent positions with one head
+of d = 512 (at SVD, 72 * 128 = 9216 positions, in the encoder once per
+image and in the decoder once per chunk of frames): the port's ``attention``
+sends them to the flash kernel at head dim 512, with the static-max softmax,
 as the reference does.
 """
 
@@ -142,6 +152,81 @@ class _VAEAttention(Attention):
         return x + h.reshape(n, hh, ww, c)
 
 
+class Encoder(nn.Module):
+    """diffusers KL ``Encoder``: parameters only, run by :class:`VAEEncoder`."""
+
+    def __init__(self, cfg: VAEConfig, **kw):
+        super().__init__()
+        boc = cfg.block_out_channels
+        self.conv_in = Conv2d(cfg.in_channels, boc[0], 3, **kw)
+        down = []
+        ch = boc[0]
+        for i, out_ch in enumerate(boc):
+            down.append(_Block(
+                [_SpatialResnet(cfg, ch if j == 0 else out_ch, out_ch, **kw)
+                 for j in range(cfg.layers_per_block)],
+                [],
+                downsample=_Resample(out_ch, **kw) if i < len(boc) - 1 else None,
+            ))
+            ch = out_ch
+        self.down_blocks = nn.ModuleList(down)
+        self.mid_block = _Block(
+            [_SpatialResnet(cfg, ch, ch, **kw), _SpatialResnet(cfg, ch, ch, **kw)],
+            [_VAEAttention(cfg, ch, **kw)],
+        )
+        self.conv_norm_out = Norm(ch, **kw)
+        self.conv_out = Conv2d(ch, 2 * cfg.latent_channels, 3, **kw)
+
+
+class _VAEModule(nn.Module):
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        """Random init: LeCun-normal weights, zero biases, unit norm scales,
+        mix factors 0 (as the reference's ``init``)."""
+        for module in self.modules():
+            if hasattr(module, "reset_parameters"):
+                module.reset_parameters(generator)
+        return self
+
+
+class VAEEncoder(_VAEModule):
+    """Per-frame KL encoder: ``apply`` gives the latent moments (mean then
+    log-variance), ``mode`` their mean. Parameters are allocated on
+    ``device`` (``None`` means CUDA, which must exist) and left unset: load a
+    state dict (keys ``encoder.*``) or call :meth:`init_weights`."""
+
+    def __init__(self, config: VAEConfig | None = None,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        self.config = config or VAEConfig.svd()
+        self.encoder = Encoder(self.config, device=resolve_device(device),
+                               dtype=self.config.dtype)
+
+    @torch.inference_mode()
+    def apply(self, images: torch.Tensor) -> torch.Tensor:
+        """images (N, H, W, 3) -> moments (N, H/8, W/8, 2 * latent_channels)
+        for the 4-level config."""
+        cfg = self.config
+        enc = self.encoder
+        x = conv2d(images.to(cfg.dtype), enc.conv_in)
+        for block in enc.down_blocks:
+            for res in block.resnets:
+                x = res(x)
+            if hasattr(block, "downsamplers"):
+                x = conv2d(x, block.downsamplers[0].conv, stride=2, padding=((0, 1), (0, 1)))
+        mid = enc.mid_block
+        x = mid.resnets[0](x)
+        x = mid.attentions[0](x)
+        x = mid.resnets[1](x)
+        x = group_norm_silu(x, enc.conv_norm_out, cfg.norm_num_groups, cfg.eps)
+        return conv2d(x, enc.conv_out)
+
+    def mode(self, moments: torch.Tensor) -> torch.Tensor:
+        """The distribution's mode, its mean: the first ``latent_channels``
+        channels (the reference encodes with ``.mode()``, no sampling)."""
+        return moments[..., :self.config.latent_channels]
+
+
 class TemporalDecoder(nn.Module):
     """diffusers ``TemporalDecoder``: parameters only, run by
     :class:`TemporalVAEDecoder`."""
@@ -172,7 +257,7 @@ class TemporalDecoder(nn.Module):
         self.time_conv_out = ConvTemporal(cfg.in_channels, cfg.in_channels, 3, **kw)
 
 
-class TemporalVAEDecoder(nn.Module):
+class TemporalVAEDecoder(_VAEModule):
     """Video decoder: ``apply`` decodes latents, ``decode_chunked`` decodes
     them in frame chunks. Parameters are allocated on ``device`` (``None``
     means CUDA, which must exist) and left unset: load a state dict (keys
@@ -184,15 +269,6 @@ class TemporalVAEDecoder(nn.Module):
         self.config = config or VAEConfig.svd()
         self.decoder = TemporalDecoder(self.config, device=resolve_device(device),
                                        dtype=self.config.dtype)
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> TemporalVAEDecoder:
-        """Random init: LeCun-normal weights, zero biases, unit norm scales,
-        mix factors 0 (as the reference's ``init``)."""
-        for module in self.modules():
-            if hasattr(module, "reset_parameters"):
-                module.reset_parameters(generator)
-        return self
 
     @torch.inference_mode()
     def apply(self, latents: torch.Tensor) -> torch.Tensor:

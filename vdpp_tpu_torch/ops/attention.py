@@ -6,7 +6,8 @@ Three regimes, chosen on shapes as in the reference:
 * one key (SVD's CLIP-image cross-attention): softmax over one key is 1, so
   the output is ``to_out(to_v(ctx))`` broadcast over the queries -- exact;
 * self-attention with L >= 512: the flash kernel
-  (:mod:`vdpp_tpu_torch.ops.flash_attention`);
+  (:mod:`vdpp_tpu_torch.ops.flash_attention`), unless the caller passes
+  ``use_flash=False``;
 * otherwise plain dot-product attention with an fp32 softmax.
 
 ``temporal_self_attention`` attends over the frame axis; with
@@ -69,9 +70,11 @@ def attention(
     p: Attention,
     heads: int,
     context: torch.Tensor | None = None,
+    use_flash: bool = True,
 ) -> torch.Tensor:
     """Multi-head attention over ``(B, L, C)``; ``context (B, M, Ckv)`` makes
-    it cross-attention."""
+    it cross-attention. ``use_flash=False`` keeps self-attention on the plain
+    path at any length (the CLIP tower's, as in the reference)."""
     b, l, c = x.shape
     ctx = x if context is None else context
     m = ctx.shape[1]
@@ -85,7 +88,7 @@ def attention(
     q = p.to_q(x).reshape(b, l, heads, d)
     k = p.to_k(ctx).reshape(b, m, heads, d)
     v = p.to_v(ctx).reshape(b, m, heads, d)
-    if context is None and l >= FLASH_MIN_Q_LEN:
+    if use_flash and context is None and l >= FLASH_MIN_Q_LEN:
         _check_attn_impl()
         out = flash_attention(q, k, v)
     else:

@@ -43,12 +43,40 @@ class ConvTemporal(Conv):
         super().__init__(in_ch, out_ch, (kernel, 1, 1), **kw)
 
 
-def conv2d(x: torch.Tensor, conv: Conv, stride: int = 1) -> torch.Tensor:
-    """2-D conv of ``(N, H, W, C)`` with SAME-style padding ``k // 2`` on
-    each side (the reference's SAME at stride 1 and its explicit
-    ``((1, 1), (1, 1))`` at the stride-2 downsample)."""
-    pad = conv.weight.shape[-1] // 2
-    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, stride=stride, padding=pad)
+Padding = str | tuple[tuple[int, int], tuple[int, int]]
+
+
+def _pads(h: int, w: int, k: tuple[int, int], stride: int, padding: Padding
+          ) -> tuple[tuple[int, int], tuple[int, int]]:
+    """``((top, bottom), (left, right))`` for ``padding`` as ``lax.conv`` reads
+    it: ``"SAME"`` (output ``ceil(size / stride)``, the odd pixel of padding
+    at the bottom/right) or explicit pairs."""
+    if padding == "SAME":
+        out = []
+        for size, kk in ((h, k[0]), (w, k[1])):
+            total = max((-(-size // stride) - 1) * stride + kk - size, 0)
+            out.append((total // 2, total - total // 2))
+        return out[0], out[1]
+    (top, bottom), (left, right) = padding
+    return (top, bottom), (left, right)
+
+
+def conv2d(x: torch.Tensor, conv: Conv, stride: int = 1, padding: Padding = "SAME"
+           ) -> torch.Tensor:
+    """2-D conv of ``(N, H, W, C)``. ``padding`` takes the reference's forms
+    (``vdpp_tpu/ops/conv.py::conv2d``): ``"SAME"`` (the default) or
+    ``((top, bottom), (left, right))``, such as the UNet downsample's
+    ``((1, 1), (1, 1))`` and the KL encoder's right/bottom-only
+    ``((0, 1), (0, 1))``. Equal pads go to the convolution itself; unequal
+    ones are padded first."""
+    (top, bottom), (left, right) = _pads(x.shape[1], x.shape[2], conv.weight.shape[-2:],
+                                         stride, padding)
+    xc = x.permute(0, 3, 1, 2)
+    if top == bottom and left == right:
+        y = F.conv2d(xc, conv.weight, conv.bias, stride=stride, padding=(top, left))
+    else:
+        y = F.conv2d(F.pad(xc, (left, right, top, bottom)), conv.weight, conv.bias,
+                     stride=stride)
     return y.permute(0, 2, 3, 1).contiguous()
 
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+from collections import Counter
 
 import torch
 
@@ -47,9 +48,11 @@ KERNEL_HEAD_DIMS = {
 # fp32 scores the plain version holds at once (query chunk x all keys x B*H).
 _PLAIN_SCORE_ELEMS = 1 << 26
 
-# Kernel launches since the count was last set to 0 (chip_smoke.py reads it to
-# show that the models' attention went through the kernel).
-launches = 0
+# Kernel launches by head dim since the count was last cleared (chip_smoke.py
+# reads it to show that the models' attention went through the kernel; a path
+# such as the image->video app runs several head dims); ``launches.total()``
+# is the count over all of them.
+launches: Counter[int] = Counter()
 
 _lib: ctypes.CDLL | None = None
 
@@ -128,8 +131,7 @@ def flash_attention(
         )
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
-    global launches
-    launches += 1
+    launches[d] += 1
     return out
 
 

@@ -6,15 +6,29 @@ and lists of numpy arrays) and returns a diffusers-named state dict that
 ``SVDUNet.load_state_dict`` takes as it is. ``from_jax_vae_decoder_params``
 is the inverse of ``convert_vae_decoder_state_dict`` and gives the
 ``decoder.*`` names that ``TemporalVAEDecoder.load_state_dict`` takes.
-``from_jax_t5_params`` is the inverse of ``convert_t5_encoder_state_dict``
-(transformers ``T5EncoderModel`` names), and ``from_jax_dit_params`` maps the
-DiT's tree onto ``DiTVideo``'s names, which follow that tree.
-``load_jax_npz`` reads the JAX package's own ``save_params`` files
-(``dit.npz``, ``t5.npz``, ``vae_decoder.npz`` of a ``--checkpoint`` directory)
-with numpy alone. Layouts go back to PyTorch's:
+``from_jax_vae_encoder_params`` is the inverse of
+``convert_vae_encoder_state_dict`` (``encoder.*`` names, for ``VAEEncoder``),
+``from_jax_clip_params`` the inverse of ``convert_clip_state_dict``
+(transformers ``CLIPVisionModelWithProjection`` names, for
+``CLIPVisionEncoder``), ``from_jax_t5_params`` the inverse of
+``convert_t5_encoder_state_dict`` (transformers ``T5EncoderModel`` names),
+and ``from_jax_dit_params`` maps the DiT's tree onto ``DiTVideo``'s names,
+which follow that tree. ``load_jax_npz`` reads the JAX package's own
+``save_params`` files (``unet.npz``, ``clip.npz``, ``vae_encoder.npz``,
+``vae_decoder.npz``, ``dit.npz``, ``t5.npz`` of a ``--checkpoint``
+directory) with numpy alone.
+
+``load_safetensors`` reads a ``.safetensors`` file with ``json`` and
+``torch.frombuffer`` (no ``safetensors`` package), and
+``load_svd_checkpoint`` loads a local diffusers SVD directory (``unet/``,
+``vae/``, ``image_encoder/``) into the port's modules by name: their names
+are the checkpoint's, so no layout changes. Layouts of the JAX trees go back
+to PyTorch's:
 
 * linear ``w (in, out)``           -> ``weight (out, in)``
 * conv2d ``w (kh, kw, I, O)``      -> ``weight (O, I, kh, kw)``
+* CLIP's patch embedding ``w (p * p * 3, D)``, a linear over patches
+  flattened in (row, column, channel) order -> ``weight (D, 3, p, p)``
 * temporal ``w (kd, 1, 1, I, O)``  -> ``weight (O, I, kd, 1, 1)``
 * norm ``scale`` / ``bias``        -> ``weight`` / ``bias``
 * ``mix_factor ()``                -> ``time_mixer.mix_factor (1,)``
@@ -22,6 +36,10 @@ with numpy alone. Layouts go back to PyTorch's:
 
 from __future__ import annotations
 
+import glob
+import json
+import math
+import os
 import re
 from collections.abc import Mapping
 from typing import Any
@@ -132,6 +150,14 @@ class _Out:
         self.conv(t + ".conv2", tp["conv2"])
         self.mix(prefix, p["mix_factor"])
 
+    def temporal_block(self, prefix: str, p: Mapping) -> None:
+        for n in ("norm_in", "norm1", "norm2", "norm3"):
+            self.norm(f"{prefix}.{n}", p[n])
+        self.ff(prefix + ".ff_in", p["ff_in"])
+        self.attention(prefix + ".attn1", p["attn1"])
+        self.attention(prefix + ".attn2", p["attn2"])
+        self.ff(prefix + ".ff", p["ff"])
+
     def transformer(self, prefix: str, p: Mapping) -> None:
         self.norm(prefix + ".norm", p["norm"])
         self.linear(prefix + ".proj_in", p["proj_in"])
@@ -144,13 +170,7 @@ class _Out:
             self.attention(b + ".attn2", blk["attn2"])
             self.ff(b + ".ff", blk["ff"])
         for i, blk in enumerate(p["temporal_blocks"]):
-            b = f"{prefix}.temporal_transformer_blocks.{i}"
-            for n in ("norm_in", "norm1", "norm2", "norm3"):
-                self.norm(f"{b}.{n}", blk[n])
-            self.ff(b + ".ff_in", blk["ff_in"])
-            self.attention(b + ".attn1", blk["attn1"])
-            self.attention(b + ".attn2", blk["attn2"])
-            self.ff(b + ".ff", blk["ff"])
+            self.temporal_block(f"{prefix}.temporal_transformer_blocks.{i}", blk)
         self.mix(prefix, p["mix_factor"])
         self.linear(prefix + ".proj_out", p["proj_out"])
 
@@ -166,7 +186,9 @@ def from_jax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         base = f"down_blocks.{i}"
         for j, res in enumerate(block["resnets"]):
             out.resblock(f"{base}.resnets.{j}", res)
-        for j, att in enumerate(block["attentions"]):
+        # A block without attention holds an empty list, which a save_params
+        # file does not keep.
+        for j, att in enumerate(block.get("attentions", ())):
             out.transformer(f"{base}.attentions.{j}", att)
         if "downsample" in block:
             out.conv(f"{base}.downsamplers.0.conv", block["downsample"])
@@ -178,7 +200,7 @@ def from_jax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         base = f"up_blocks.{i}"
         for j, res in enumerate(block["resnets"]):
             out.resblock(f"{base}.resnets.{j}", res)
-        for j, att in enumerate(block["attentions"]):
+        for j, att in enumerate(block.get("attentions", ())):
             out.transformer(f"{base}.attentions.{j}", att)
         if "upsample" in block:
             out.conv(f"{base}.upsamplers.0.conv", block["upsample"])
@@ -257,3 +279,161 @@ def from_jax_dit_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     out.linear("final_ada", params["final_ada"])
     out.linear("final_proj", params["final_proj"])
     return out.sd
+
+
+def _resnet2d(out: _Out, prefix: str, p: Mapping) -> None:
+    """A plain 2-D ResNet (the KL encoder's; no time embedding)."""
+    for n in ("norm1", "norm2"):
+        out.norm(f"{prefix}.{n}", p[n])
+    for n in ("conv1", "conv2", "conv_shortcut"):
+        if n in p:
+            out.conv(f"{prefix}.{n}", p[n])
+
+
+def from_jax_vae_encoder_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``VAEEncoder`` parameter tree (numpy leaves) -> the diffusers
+    ``encoder.*`` state dict that ``VAEEncoder.load_state_dict`` takes."""
+    out = _Out()
+    out.conv("encoder.conv_in", params["conv_in"])
+    for i, block in enumerate(params["down_blocks"]):
+        base = f"encoder.down_blocks.{i}"
+        for j, res in enumerate(block["resnets"]):
+            _resnet2d(out, f"{base}.resnets.{j}", res)
+        if "downsample" in block:
+            out.conv(f"{base}.downsamplers.0.conv", block["downsample"])
+    mid = params["mid"]
+    _resnet2d(out, "encoder.mid_block.resnets.0", mid["resnet1"])
+    out.norm("encoder.mid_block.attentions.0.group_norm", mid["attn"]["norm"])
+    out.attention("encoder.mid_block.attentions.0", mid["attn"]["attn"])
+    _resnet2d(out, "encoder.mid_block.resnets.1", mid["resnet2"])
+    out.norm("encoder.conv_norm_out", params["norm_out"])
+    out.conv("encoder.conv_out", params["conv_out"])
+    return out.sd
+
+
+def from_jax_clip_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``CLIPVisionEncoder`` parameter tree (numpy leaves) -> the
+    transformers ``CLIPVisionModelWithProjection`` state dict that
+    ``CLIPVisionEncoder.load_state_dict`` takes."""
+    out = _Out()
+    vm = "vision_model."
+    w = _t(params["patch_embed"]["w"])  # (p * p * 3, D), rows in (row, column, channel) order
+    p = math.isqrt(w.shape[0] // 3)
+    out.sd[vm + "embeddings.patch_embedding.weight"] = (
+        w.reshape(p, p, 3, -1).permute(3, 2, 0, 1).contiguous())
+    out.sd[vm + "embeddings.class_embedding"] = _t(params["class_embed"])
+    out.sd[vm + "embeddings.position_embedding.weight"] = _t(params["pos_embed"])
+    out.norm(vm + "pre_layrnorm", params["pre_ln"])
+    for i, layer in enumerate(params["layers"]):
+        base = f"{vm}encoder.layers.{i}"
+        out.norm(base + ".layer_norm1", layer["ln1"])
+        for ours, theirs in (("q_proj", "to_q"), ("k_proj", "to_k"), ("v_proj", "to_v"),
+                             ("out_proj", "to_out")):
+            out.linear(f"{base}.self_attn.{ours}", layer["attn"][theirs])
+        out.norm(base + ".layer_norm2", layer["ln2"])
+        out.linear(base + ".mlp.fc1", layer["mlp_in"])
+        out.linear(base + ".mlp.fc2", layer["mlp_out"])
+    out.norm(vm + "post_layernorm", params["post_ln"])
+    out.linear("visual_projection", params["projection"])
+    return out.sd
+
+
+# The safetensors dtypes of SVD's checkpoints: weights in F32, F16 or BF16,
+# and the I64 ``position_ids`` an HF CLIP checkpoint may carry.
+_ST_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+              "I64": torch.int64}
+
+
+def load_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """A ``.safetensors`` file as CPU tensors, read with ``json`` and
+    ``torch.frombuffer``: an 8-byte little-endian header length, a JSON
+    header of ``{name: {dtype, shape, data_offsets}}`` (offsets into the
+    bytes after it), then the raw little-endian data. The tensors share one
+    buffer holding the file."""
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    n = int.from_bytes(data[:8], "little")
+    header = json.loads(data[8:8 + n])
+    base = 8 + n
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _ST_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}, not read")
+        begin, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        count = math.prod(shape)
+        if end - begin != count * torch.empty((), dtype=dtype).element_size():
+            raise ValueError(f"{path}: tensor {name!r} spans {end - begin} bytes, not its shape's")
+        if count == 0:
+            out[name] = torch.empty(shape, dtype=dtype)
+            continue
+        out[name] = torch.frombuffer(data, dtype=dtype, count=count,
+                                     offset=base + begin).reshape(shape)
+    return out
+
+
+def _load_dir(model_dir: str, sub: str) -> dict[str, torch.Tensor]:
+    """Every ``*.safetensors`` shard under ``model_dir/sub``, merged."""
+    sd: dict[str, torch.Tensor] = {}
+    for path in sorted(glob.glob(os.path.join(model_dir, sub, "*.safetensors"))):
+        sd.update(load_safetensors(path))
+    return sd
+
+
+def _load_by_name(module: torch.nn.Module, sd: Mapping[str, torch.Tensor], what: str,
+                  strict: bool) -> None:
+    """``module.load_state_dict`` by name; every parameter must be in ``sd``
+    with its shape. Other keys of ``sd`` are an error when ``strict``, and
+    are passed over otherwise, as the JAX package's non-strict converters
+    pass them over."""
+    own = module.state_dict()
+    missing = sorted(set(own) - set(sd))
+    extra = sorted(set(sd) - set(own))
+    if missing or (strict and extra):
+        raise KeyError(f"{what}: missing keys {missing[:10]}, unexpected keys {extra[:10]}")
+    for k, v in own.items():
+        if tuple(sd[k].shape) != tuple(v.shape):
+            raise ValueError(f"{what}: {k} has shape {tuple(sd[k].shape)}, the model "
+                             f"{tuple(v.shape)}")
+    module.load_state_dict({k: sd[k] for k in own})
+
+
+def load_svd_checkpoint(model_dir: str, *, unet_config=None, vae_config=None,
+                        clip_config=None, device: str | torch.device | None = None
+                        ) -> dict[str, torch.nn.Module]:
+    """A local diffusers-layout SVD checkpoint (``unet/``, ``vae/``,
+    ``image_encoder/`` with ``*.safetensors`` shards) loaded into the port's
+    modules by name: ``{"unet": SVDUNet, "vae_encoder": VAEEncoder,
+    "vae_decoder": TemporalVAEDecoder, "clip": CLIPVisionEncoder}`` for the
+    folders present, in their configs' dtypes (defaults: SVD-XT, the SVD VAE
+    in fp32, ViT-H/14). The counterpart of the JAX package's
+    ``convert_svd_checkpoint``. The UNet's keys must be exactly the model's
+    (1428 at SVD-XT), and so must the VAE's ``encoder.*`` and ``decoder.*``
+    subtrees; the vision tower must hold all of its model's keys. Keys
+    outside those (the VAE's ``quant_conv``, the tower's ``position_ids``)
+    are passed over, as that converter passes them over."""
+    from vdpp_tpu_torch.models.clip_encoder import CLIPVisionConfig, CLIPVisionEncoder
+    from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
+    from vdpp_tpu_torch.models.vae import TemporalVAEDecoder, VAEConfig, VAEEncoder
+
+    out: dict[str, torch.nn.Module] = {}
+    sd = _load_dir(model_dir, "unet")
+    if sd:
+        out["unet"] = SVDUNet(unet_config or SVDUNetConfig.svd_xt(), device=device)
+        _load_by_name(out["unet"], sd, "unet", strict=True)
+    sd = _load_dir(model_dir, "vae")
+    if sd:
+        vae_config = vae_config or VAEConfig.svd()
+        for name, cls, prefix in (("vae_encoder", VAEEncoder, "encoder."),
+                                  ("vae_decoder", TemporalVAEDecoder, "decoder.")):
+            out[name] = cls(vae_config, device=device)
+            _load_by_name(out[name], {k: v for k, v in sd.items() if k.startswith(prefix)},
+                          name, strict=True)
+    sd = _load_dir(model_dir, "image_encoder")
+    if sd:
+        out["clip"] = CLIPVisionEncoder(clip_config or CLIPVisionConfig.vit_h_14(), device=device)
+        _load_by_name(out["clip"], sd, "image_encoder", strict=False)
+    return out
