@@ -46,15 +46,26 @@ Phases (any failure exits non-zero and prints no result line):
    joint3d and then factorized with VDPP_TEMPORAL_ATTN=pallas, and the fp32
    decoder turns the factorized run's latent into (1, 8, 320, 512, 3). Last,
    the image->video app through its entry point
-   (``vdpp_tpu_torch.apps.generate_video.main``, random weights from a seed):
+   (``vdpp_tpu_torch.apps.generate_video.main``, random weights from a seed,
+   ``--num-stages 1`` so that it runs in this process on any card count):
    CLIP ViT-H/14 and the SVD VAE encoder (fp32) encode the synthetic card at
    1024x576, SVD-XT denoises 14 frames for 2 Euler steps, the fp32 decoder
    decodes them and the app writes MP4 (or Y4M) and GIF, which must hold 14
    frames of 1024x576; 60 flash launches at d = 64 and 5 at d = 512 (1 in the
    encoder, 4 in the decode); its TIMING split, the CLIP and VAE-encode
-   seconds and the peak memory are printed. For each run the launch counts
-   are set to 0 just before and read just after, and must show the kernels
-   on every site.
+   seconds and the peak memory are printed. Then the step pipeline, one
+   process per stage (``parallel/mesh.py::run_stages``): full-width SVD-XT
+   with both switches on, 25 frames at 72x128, CFG ramp to 3, 2 stages, 2
+   Euler steps (one a stage), 2 samples, through ``StepPipeline.run_ticked``
+   (3 ticks): NCCL on cuda:0 and cuda:1 where there are two cards, else both
+   ranks on cuda:0 over gloo with the hand-off through host memory. The last
+   rank's outputs must equal the single-device run on cuda:0 bit for bit,
+   and each rank must launch 60 flash (d = 64), 356 GroupNorm+SiLU and 64
+   frame-attention kernels; tick seconds, each rank's peak memory and the
+   hand-off's bytes are printed, and a one-stage pipeline is timed against
+   the single-device run. The same again with the dpmpp2m solver, whose
+   payload has 8 channels. For each run the launch counts are set to 0 just
+   before and read just after, and must show the kernels on every site.
 
 The last two lines are the ``nvidia-smi`` name/power-limit line and the
 contract line ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
@@ -115,6 +126,12 @@ FLASH_PER_DIT_DECODE = 2
 # frames in the decode. CLIP (head dim 80, L = 257) never takes flash.
 APP_FRAMES, APP_W, APP_H, APP_STEPS = 14, 1024, 576, 2
 FLASH_PER_APP = {64: FLASH_PER_FORWARD * 2 * APP_STEPS, 512: 1 + -(-APP_FRAMES // 4)}
+# The step pipeline, one process per stage, at full SVD-XT width with both
+# switches on: PIPE_STAGES stages, PIPE_STEPS Euler steps (one a stage),
+# PIPE_SAMPLES samples, so N + S - 1 = 3 ticks, and each rank runs one step of
+# each sample, two UNet forwards a step (CFG sequential).
+PIPE_STAGES, PIPE_STEPS, PIPE_SAMPLES = 2, 2, 2
+PIPE_FORWARDS_PER_RANK = 2 * PIPE_SAMPLES * PIPE_STEPS // PIPE_STAGES
 
 
 def fail(msg: str) -> None:
@@ -832,8 +849,10 @@ def run_app(torch, fa, nk, ta, smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_counts(fa, nk, ta)
         t0 = time.perf_counter()
+        # One stage, in this process (the counts and log lines are read here),
+        # on any number of cards; the pipeline phase spawns the stages.
         rc = generate_video.main(["--random-weights", "--steps", str(APP_STEPS), "--device",
-                                  "cuda", "--output-dir", out_dir])
+                                  "cuda", "--num-stages", "1", "--output-dir", out_dir])
         wall = time.perf_counter() - t0
         flash = dict(fa.launches)
         counts = {"gn": nk.launches, "frame": ta.launches}
@@ -915,6 +934,183 @@ def run_main_path(torch, bench, config, smi: str, what: str) -> dict:
     if res["shape"] != (1, 25, 72, 128, 4):
         fail(f"unexpected output shape {res['shape']}")
     return res
+
+
+def exact_libraries(torch) -> None:
+    """cuDNN picks its algorithms by its heuristics, the same in every
+    process, and none that is not deterministic: the pipeline's ranks and
+    the single-device run must give the same bits."""
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+
+
+def pipeline_case(torch, device, solver: str):
+    """What every rank and the single-device run build alike on ``device``:
+    full-width SVD-XT from seed 0, random conditioning for 25 frames at
+    72x128 with a CFG ramp to 3, and PIPE_SAMPLES noise draws packed for
+    ``solver`` (dpmpp2m: 8 channels). Returns (wrapper, params, inputs)."""
+    from vdpp_tpu_torch.models.svd_unet import SVDUNetConfig
+    from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet, make_dummy_conditioning
+
+    config = SVDUNetConfig.svd_xt()
+    wrapper = StableVideoUNet(config, num_steps=PIPE_STEPS, cfg_mode="sequential", solver=solver,
+                              device=device)
+    unet = wrapper.init(torch.Generator(device=device).manual_seed(0))
+    cond = make_dummy_conditioning(torch.Generator(device=device).manual_seed(1), 1, 25, 72, 128,
+                                   cross_dim=config.cross_attention_dim, guidance_scale=3.0)
+    noise = torch.randn(PIPE_SAMPLES, 1, 25, 72, 128, 4, device=device,
+                        generator=torch.Generator(device=device).manual_seed(2))
+    return wrapper, (unet, cond), wrapper.pack_initial(noise * wrapper.init_noise_sigma)
+
+
+def pipeline_rank(stage, solver: str) -> dict:
+    """One rank of the pipeline phase, in its own process: the launch counts
+    set to 0 just before ``run_ticked`` and read just after; the last rank
+    also returns the outputs, the tick seconds and what ``on_sample`` saw."""
+    import torch
+
+    from vdpp_tpu_torch.ops import flash_attention as fa
+    from vdpp_tpu_torch.ops import norm_kernel as nk
+    from vdpp_tpu_torch.ops import temporal_attention_kernel as ta
+    from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+
+    exact_libraries(torch)
+    wrapper, params, inputs = pipeline_case(torch, stage.device, solver)
+    pipe = StepPipeline(stage, wrapper.pipeline_step_fn(),
+                        PipelineConfig(PIPE_STEPS, stage.num_stages))
+    handoff, handoff_s = stage.handoff, []
+
+    def timed_handoff(out, recv_like):  # host seconds of each tick's hand-off
+        t0 = time.perf_counter()
+        got = handoff(out, recv_like)
+        handoff_s.append(time.perf_counter() - t0)
+        return got
+
+    stage.handoff = timed_handoff
+    seen = []
+    torch.cuda.synchronize(stage.device)
+    torch.cuda.reset_peak_memory_stats(stage.device)
+    reset_counts(fa, nk, ta)
+    res = pipe.run_ticked(params, inputs, on_sample=lambda i, lat: seen.append((i, lat.clone())))
+    out = {"rank": stage.rank, "device": str(stage.device),
+           "counts": {"flash": dict(fa.launches), "gn": nk.launches, "frame": ta.launches},
+           "peak": torch.cuda.max_memory_allocated(stage.device),
+           "handoff_bytes": inputs[0].numel() * inputs.element_size(), "handoff_s": handoff_s}
+    if res is not None:
+        outputs, ticks = res
+        out.update(outputs=outputs.cpu(), ticks=ticks, on_sample=[i for i, _ in seen],
+                   on_sample_equal=all(torch.equal(lat, outputs[i]) for i, lat in seen))
+    return out
+
+
+def run_pipeline(torch, smi: str, solver: str) -> dict:
+    """The step pipeline at full width, switched, through ``run_ticked``: two
+    ranks on two cards over NCCL where there are two, else both on the one
+    card over gloo (the hand-off through host memory). The last rank's
+    outputs must equal the single-device run of every step on cuda:0 bit for
+    bit; each rank must have launched every kernel on every site. With Euler
+    it also times a one-stage ``StepPipeline.run`` against
+    ``run_reference_single_device`` in this process (O, P, P, O)."""
+    from vdpp_tpu_torch.parallel.mesh import Stage, make_pipeline_mesh, run_stages
+    from vdpp_tpu_torch.parallel.pipeline import (
+        PipelineConfig,
+        StepPipeline,
+        run_reference_single_device,
+    )
+
+    if torch.cuda.device_count() >= 2:
+        mesh = make_pipeline_mesh(PIPE_STAGES, device="cuda")
+        how, note = "NCCL, one card a rank (cuda:0, cuda:1)", ""
+    else:
+        mesh = make_pipeline_mesh(devices=["cuda:0"] * PIPE_STAGES)
+        how = "gloo, both ranks sharing cuda:0, the hand-off through host memory"
+        note = " (the ranks time-share one card: no measure of pipelining speed)"
+    saved = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.cuda.empty_cache()
+    with kernel_switches():
+        t0 = time.perf_counter()
+        try:
+            ranks = run_stages(mesh, pipeline_rank, solver, timeout=900)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"the {solver} pipeline failed: {e}")
+        wall = time.perf_counter() - t0
+        exact_libraries(torch)
+        wrapper, params, inputs = pipeline_case(torch, torch.device("cuda:0"), solver)
+        step_fn = wrapper.pipeline_step_fn()
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, out
+
+        def oracle():
+            return run_reference_single_device(step_fn, params, inputs, PIPE_STEPS)
+
+        t_ref, ref = timed(oracle)
+        one_stage = {}
+        if solver == "euler":
+            pipe1 = StepPipeline(Stage(make_pipeline_mesh(1, device="cuda"), 0), step_fn,
+                                 PipelineConfig(PIPE_STEPS, 1))
+            t_p1, out1 = timed(lambda: pipe1.run(params, inputs))
+            t_p2, _ = timed(lambda: pipe1.run(params, inputs))
+            t_ref2, _ = timed(oracle)
+            one_stage = {"oracle_s": [t_ref, t_ref2], "pipeline_s": [t_p1, t_p2],
+                         "equal": bool(torch.equal(out1, ref))}
+        ref = ref.cpu()
+        del wrapper, params, inputs, step_fn
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+    torch.cuda.empty_cache()
+
+    last = ranks[-1]
+    what = f"the {solver} pipeline ({PIPE_STAGES} stages, {how})"
+    print(f"{what}: SVD-XT bf16 switched, 25 frames at 72x128, CFG 3 sequential, {PIPE_STEPS} "
+          f"steps, {PIPE_SAMPLES} samples: {wall:.3f} s for the spawned ranks, tick seconds "
+          f"{[round(t, 4) for t in last['ticks']]}{note} ({smi})")
+    for r in ranks:
+        print(f"{what}: rank {r['rank']} on {r['device']}: peak allocated {r['peak'] / 2**30:.2f} "
+              f"GiB, hand-off {r['handoff_bytes']} bytes a sample, hand-off seconds by tick "
+              f"{[round(t, 5) for t in r['handoff_s']]}, launches {r['counts']} ({smi})")
+    print(f"{what}: rank 0's tick-0 hand-off ({ranks[0]['handoff_s'][0] * 1e3:.3f} ms) is the "
+          f"send alone, rank 1 having posted its receive; a receive's time includes the wait "
+          f"for the sender's steps")
+    if one_stage:
+        print(f"one-stage StepPipeline.run against run_reference_single_device, the same "
+              f"{PIPE_SAMPLES} samples x {PIPE_STEPS} steps in this process (O, P, P, O): oracle "
+              f"{one_stage['oracle_s'][0]:.3f} / {one_stage['oracle_s'][1]:.3f} s, pipeline "
+              f"{one_stage['pipeline_s'][0]:.3f} / {one_stage['pipeline_s'][1]:.3f} s, equal "
+              f"{one_stage['equal']} ({smi})")
+        if not one_stage["equal"]:
+            fail("the one-stage pipeline differs from run_reference_single_device")
+    channels = 4 * (2 if solver == "dpmpp2m" else 1)
+    want_shape = (PIPE_SAMPLES, 1, 25, 72, 128, channels)
+    out = last["outputs"]
+    print(f"{what}: output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}, equal "
+          f"to the single-device run {bool(torch.equal(out, ref))} (max|diff| "
+          f"{(out - ref).abs().max().item():.3g}), {len(last['ticks'])} ticks, on_sample "
+          f"{last['on_sample']}")
+    if tuple(out.shape) != want_shape or not torch.isfinite(out).all():
+        fail(f"{what} gave {tuple(out.shape)} (expected {want_shape}) or non-finite values")
+    if not torch.equal(out, ref):
+        fail(f"{what} differs from the single-device run")
+    if len(last["ticks"]) != PIPE_SAMPLES + PIPE_STAGES - 1:
+        fail(f"{what} ran {len(last['ticks'])} ticks")
+    if last["on_sample"] != list(range(PIPE_SAMPLES)) or not last["on_sample_equal"]:
+        fail(f"{what}: on_sample saw {last['on_sample']}, equal {last['on_sample_equal']}")
+    for r in ranks:
+        expect(f"{what}, rank {r['rank']}: flash at d = 64", r["counts"]["flash"].get(64, 0),
+               FLASH_PER_FORWARD * PIPE_FORWARDS_PER_RANK)
+        if set(r["counts"]["flash"]) - {64}:
+            fail(f"{what}, rank {r['rank']} launched flash at {sorted(r['counts']['flash'])}")
+        expect(f"{what}, rank {r['rank']}: GroupNorm+SiLU", r["counts"]["gn"],
+               GN_SILU_PER_FORWARD * PIPE_FORWARDS_PER_RANK)
+        expect(f"{what}, rank {r['rank']}: frame attention", r["counts"]["frame"],
+               FRAME_ATTN_PER_FORWARD * PIPE_FORWARDS_PER_RANK)
+        if r["handoff_bytes"] != 25 * 72 * 128 * channels * 4:
+            fail(f"{what}: a {r['handoff_bytes']}-byte hand-off")
+    return {"ranks": [{k: v for k, v in r.items() if k != "outputs"} for r in ranks],
+            "backend": mesh.backend, "wall_s": wall, "one_stage": one_stage}
 
 
 def reset_counts(fa, nk, ta) -> None:
@@ -1097,6 +1293,17 @@ def main() -> int:
     # The image->video app: CLIP and VAE encode, the SVD-XT denoise, the decode.
     app = run_app(torch, fa, nk, ta, smi)
 
+    # The step pipeline, one process per stage, with Euler and with dpmpp2m
+    # (whose 8-channel payload carries the solver's state across the hand-off).
+    pipes = {solver: run_pipeline(torch, smi, solver) for solver in ("euler", "dpmpp2m")}
+
+    def pipe_launches(key, get=lambda c: c):
+        return {f"step_pipeline_{solver}_rank{r['rank']}": get(r["counts"][key])
+                for solver, res in pipes.items() for r in res["ranks"]}
+
+    pipe_flash = pipe_launches("flash", lambda c: c.get(64, 0))
+    pipe_gn, pipe_frame = pipe_launches("gn"), pipe_launches("frame")
+
     def entry(name, source, replaces, launches, check, row, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": check["max_abs_err"], "ms": row["ms"],
@@ -1110,11 +1317,12 @@ def main() -> int:
     frame_src, frame_tpu = ("vdpp_tpu_torch/csrc/frame_attention.cu",
                             "vdpp_tpu/ops/temporal_attention_kernel.py:80")
     print(json.dumps({"kernels": [
-        entry("flash_attention", flash_src, flash_tpu, flash_launches + app["flash"][64], flash,
+        entry("flash_attention", flash_src, flash_tpu,
+              flash_launches + app["flash"][64] + sum(pipe_flash.values()), flash,
               flash["shapes"][0], ptxas=ptxas,
               fp32_d64_d72=[flash["fp32"], flash72["fp32"]],
               launches_by_path={"svd_xt_denoise": flash_launches,
-                                "image_to_video_app": app["flash"][64]}),
+                                "image_to_video_app": app["flash"][64], **pipe_flash}),
         entry("flash_attention_d512", flash_src, flash_tpu,
               decode_flash + dit_decode_flash + app["flash"][512], flash512,
               flash512["shapes"][0], encoder_site=flash512["shapes"][1],
@@ -1124,10 +1332,12 @@ def main() -> int:
         entry("flash_attention_d512_bf16", flash_src, flash_tpu, decode16_flash, flash512_bf16,
               flash512_bf16["shapes"][0]),
         entry("group_norm_silu", "vdpp_tpu_torch/csrc/group_norm_silu.cu",
-              "vdpp_tpu/ops/norm_kernel.py:165", switched["gn"], gn, gn["shapes"][0],
-              ptxas=other_ptxas["group_norm_silu"]),
-        entry("frame_attention", frame_src, frame_tpu, switched["frame"], frame,
-              frame["shapes"][0], ptxas=other_ptxas["frame_attention"]),
+              "vdpp_tpu/ops/norm_kernel.py:165", switched["gn"] + sum(pipe_gn.values()), gn,
+              gn["shapes"][0], ptxas=other_ptxas["group_norm_silu"],
+              launches_by_path={"svd_xt_denoise_switched": switched["gn"], **pipe_gn}),
+        entry("frame_attention", frame_src, frame_tpu, switched["frame"] + sum(pipe_frame.values()),
+              frame, frame["shapes"][0], ptxas=other_ptxas["frame_attention"],
+              launches_by_path={"svd_xt_denoise_switched": switched["frame"], **pipe_frame}),
         entry("flash_attention_d72", flash_src, flash_tpu, joint["flash"] + fact["flash"],
               flash72, flash72["shapes"][0]),
         entry("frame_attention_d72", frame_src, frame_tpu, fact["frame"], frame72,

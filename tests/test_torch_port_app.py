@@ -16,6 +16,7 @@ summation order alone through four models).
 import dataclasses
 import importlib.util
 import os
+from concurrent.futures import ThreadPoolExecutor
 import sys
 from pathlib import Path
 
@@ -273,6 +274,24 @@ def test_main_tiny_on_cpu_writes_a_video(tmp_path):
         assert _y4m_frames(files[".y4m"]) == (4, 64, 64)
 
 
+def test_main_pipelined_writes_the_same_files(tmp_path):
+    """``--num-stages 2`` (two processes over gloo: rank 0 encodes, the last
+    rank decodes) writes the files ``--num-stages 1`` writes, byte for byte,
+    here with dpmpp2m, whose x0_hat crosses the hand-off in the payload."""
+    argv = ["--random-weights", "--device", "cpu", "--preset", "tiny", "--width", "64",
+            "--height", "64", "--num-frames", "4", "--steps", "2", "--solver", "dpmpp2m",
+            "--log-level", "WARNING", "--output-dir"]
+    with ThreadPoolExecutor(1) as pool:  # the ranks start while one stage runs here
+        two = pool.submit(app.main, argv + [str(tmp_path / "s2"), "--num-stages", "2"])
+        assert app.main(argv + [str(tmp_path / "s1"), "--num-stages", "1"]) == 0
+        assert two.result() == 0
+    files = {d: {p.suffix: p.read_bytes() for p in (tmp_path / d).iterdir()}
+             for d in ("s1", "s2")}
+    assert ".gif" in files["s1"] and len(files["s1"]) >= 2
+    assert files["s2"] == files["s1"]
+    assert [p.name for p in (tmp_path / "s2").glob("*.gif")][0].count("_st2_") == 1
+
+
 def test_main_reads_npz_and_diffusers_checkpoints(tmp_path):
     """``--checkpoint`` reads both layouts: the JAX package's ``save_params``
     files (written here through its converters) and a diffusers directory
@@ -333,8 +352,8 @@ def test_main_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     base = ["--preset", "tiny", "--device", "cpu", "--output-dir", str(tmp_path)]
     assert app.main(base) == 1  # neither --checkpoint nor --random-weights
     run = base + ["--random-weights"]
-    for extra, item in ((["--solver", "heun"], "A12"), (["--deepcache", "2"], "A12"),
-                        (["--num-stages", "2"], "A6"), (["--seq-parallel", "2"], "A13"),
+    for extra, item in ((["--solver", "euler_a"], "A12"), (["--deepcache", "2"], "A12"),
+                        (["--seq-parallel", "2"], "A13"),
                         (["--frame-parallel", "2"], "A13"), (["--decode-devices", "1"], "A13")):
         with pytest.raises(NotImplementedError, match=item):
             app.main(run + extra)

@@ -18,6 +18,7 @@ blocks; measured under 5e-6 relative on the forwards and the steps.
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -138,11 +139,13 @@ def _contexts(ctx_np, neg_np):
     return (torch.from_numpy(neg_np), t_ctx), (jnp.asarray(neg_np), j_ctx)
 
 
-@pytest.mark.parametrize("solver", ["euler", "flowmatch"])
+@pytest.mark.parametrize("solver", ["euler", "flowmatch", "heun", "dpmpp2m"])
 @pytest.mark.parametrize("negative", [False, True])
 def test_wrapper_step_matches_jax(pair, solver, negative):
-    """One CFG step (ramp to 6 over the frames) from the first sigma, with
-    zeros or a negative prompt's tokens as the uncond context."""
+    """One CFG step (ramp to 6 over the frames) from the second sigma, with
+    zeros or a negative prompt's tokens as the uncond context (dpmpp2m: on
+    its packed payload, x0_hat slot drawn too, so the second-order branch
+    reads it)."""
     _, jcfg, params, model = pair
     jw, tw = _wrappers(jcfg, solver, 4)
     lat, ctx = _inputs(6)
@@ -150,6 +153,8 @@ def test_wrapper_step_matches_jax(pair, solver, negative):
         if negative else None
     t_ctx, j_ctx = _contexts(ctx, neg)
     x = lat * tw.init_noise_sigma
+    if solver == "dpmpp2m":
+        x = np.concatenate([x, lat], axis=-1)
     assert tw.init_noise_sigma == jw.init_noise_sigma
     got = tw.step(model, torch.from_numpy(x), 1, t_ctx, make_guidance_ramp(6.0, F))
     want = jw.step(params, jnp.asarray(x), 1, j_ctx, jax_ramp(6.0, F))
@@ -180,9 +185,8 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A15"):
         tdit.DiTVideo(dataclasses.replace(tdit.DiTVideoConfig.tiny(), num_experts=4),
                       device="cpu")
-    for solver in ("euler_a", "heun", "dpmpp2m"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            tdit.DiTVideoWrapper(tdit.DiTVideoConfig.tiny(), solver=solver, device="cpu")
+    with pytest.raises(NotImplementedError, match="A12"):
+        tdit.DiTVideoWrapper(tdit.DiTVideoConfig.tiny(), solver="euler_a", device="cpu")
     w = tdit.DiTVideoWrapper(tdit.DiTVideoConfig.tiny(), device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         w.pipeline_step_fn(cfg_axis="cfg")
@@ -232,6 +236,25 @@ def test_app_tiny_on_cpu_writes_a_video(tmp_path, mode, solver):
     assert ".gif" in suffixes and suffixes & {".mp4", ".avi", ".y4m"}, suffixes
 
 
+def test_app_pipelined_writes_the_same_files(tmp_path):
+    """``--num-stages 2`` (two processes over gloo: rank 0 runs T5, the last
+    rank decodes) writes the files ``--num-stages 1`` writes, byte for
+    byte, here with heun and a negative prompt."""
+    from vdpp_tpu_torch.apps import generate_video_text as app
+
+    argv = ["--random-weights", "--preset", "tiny", "--device", "cpu", "--num-frames", "4",
+            "--steps", "2", "--solver", "heun", "--negative-prompt", "blurry",
+            "--log-level", "WARNING", "--output-dir"]
+    with ThreadPoolExecutor(1) as pool:  # the ranks start while one stage runs here
+        two = pool.submit(app.main, argv + [str(tmp_path / "s2"), "--num-stages", "2"])
+        assert app.main(argv + [str(tmp_path / "s1")]) == 0
+        assert two.result() == 0
+    files = {d: {p.suffix: p.read_bytes() for p in (tmp_path / d).iterdir()}
+             for d in ("s1", "s2")}
+    assert ".gif" in files["s1"] and len(files["s1"]) >= 2
+    assert files["s2"] == files["s1"]
+
+
 def test_app_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     from vdpp_tpu_torch.apps import generate_video_text as app
 
@@ -239,8 +262,10 @@ def test_app_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     assert app.main(base) == 1  # neither --checkpoint nor --random-weights
     assert app.main(base + ["--random-weights", "--negative-prompt", "x",
                             "--guidance-scale", "1"]) == 1
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        app.main(base + ["--random-weights", "--num-stages", "2"])
+    with pytest.raises(NotImplementedError, match="A12"):
+        app.main(base + ["--random-weights", "--solver", "euler_a"])
+    with pytest.raises(NotImplementedError, match="A13"):
+        app.main(base + ["--random-weights", "--seq-parallel", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         app.main(["--random-weights", "--preset", "tiny", "--output-dir", str(tmp_path)])

@@ -15,15 +15,22 @@ the rounding of q', P or o by an ulp here and there). GroupNorm+SiLU and frame
 attention compute in fp32 and round once: bf16 one ulp at max|ref|, fp32 1e-5.
 """
 
+import functools
 import math
 
 import pytest
 import torch
 
+from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
+from vdpp_tpu_torch.models.svd_wrapper import make_dummy_conditioning
 from vdpp_tpu_torch.ops import flash_attention as fa
 from vdpp_tpu_torch.ops import norm_kernel as nk
 from vdpp_tpu_torch.ops import temporal_attention_kernel as tak
 from vdpp_tpu_torch.ops.normalization import Norm
+from vdpp_tpu_torch.parallel.mesh import make_pipeline_mesh, run_stages
+from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
+
+import torch_port_helpers as helpers
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -322,3 +329,51 @@ def test_flash_wgmma_kernel_large_logits(cuda, d):
             assert apart <= TOL[torch.bfloat16] * top, apart
         else:
             assert apart > 0.1 * top, apart
+
+
+def _pipeline_against_single_device(cuda, devices, steps: int, samples: int) -> None:
+    """A small fp32 UNet whose level 0 has 512 tokens at head dim 64, so the
+    flash kernel runs, for ``steps`` CFG Euler steps of ``samples`` samples,
+    one stage process on each of ``devices``: the last rank's outputs equal
+    the single-device run on ``cuda`` bit for bit."""
+    cfg = SVDUNetConfig(block_out_channels=(128, 256), num_attention_heads=(2, 4),
+                        layers_per_block=1, cross_attention_dim=64, addition_time_embed_dim=8,
+                        projection_class_embeddings_input_dim=24, norm_num_groups=8,
+                        dtype=torch.float32)
+    state = SVDUNet(cfg, device="cpu").init_weights(torch.Generator().manual_seed(0)).state_dict()
+    cond = make_dummy_conditioning(torch.Generator().manual_seed(1), 1, 3, 16, 32, cross_dim=64,
+                                   guidance_scale=3.0)
+    x = 80.0 * torch.randn(samples, 1, 3, 16, 32, 4, generator=torch.Generator().manual_seed(2))
+    build = functools.partial(helpers.svd_build, cfg, "euler", steps, None, state, cond)
+    mesh = make_pipeline_mesh(devices=devices)
+    got = run_stages(mesh, helpers.pipeline_cases, [("euler", build, x, steps, False)],
+                     timeout=600)[-1]["euler"]
+    step_fn, params = build(cuda)
+    fa.launches.clear()
+    want = run_reference_single_device(step_fn, params, x.to(cuda), steps)
+    # 3 sites at 512 tokens (level 0: 1 down, 2 up) x 2 CFG forwards a step
+    assert fa.launches[64] == 3 * 2 * steps * samples
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.gpu
+def test_step_pipeline_on_a_shared_card_matches_single_device(cuda, monkeypatch):
+    """Two stage processes sharing the card over gloo (the hand-off through
+    host memory), 2 steps of 2 samples."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    assert make_pipeline_mesh(devices=[cuda, cuda]).host_handoff
+    _pipeline_against_single_device(cuda, [cuda, cuda], steps=2, samples=2)
+
+
+@pytest.mark.gpu
+def test_step_pipeline_over_nccl_matches_single_device(cuda, monkeypatch):
+    """A stage process on each card (up to 4) over NCCL, the hand-off card
+    to card, 4 steps of 3 samples."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("NCCL between stages needs two cards")
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    devices = [f"cuda:{i}" for i in range(min(count, 4))]
+    mesh = make_pipeline_mesh(devices=devices)
+    assert mesh.backend == "nccl" and not mesh.host_handoff
+    _pipeline_against_single_device(cuda, devices, steps=4, samples=3)

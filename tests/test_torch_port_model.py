@@ -13,6 +13,8 @@ a few dozen layers that stays around 1e-6 relative, and the Euler steps
 scale the UNet output by at most sigma_max / sqrt(sigma_max^2 + 1) ~ 1.
 """
 
+import functools
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -25,15 +27,20 @@ from vdpp_tpu.models.svd_unet import SVDUNet as JaxUNet
 from vdpp_tpu.models.svd_unet import SVDUNetConfig as JaxConfig
 from vdpp_tpu.models.svd_wrapper import StableVideoUNet as JaxSVD
 from vdpp_tpu.models.svd_wrapper import make_conditioning as jax_conditioning
+from vdpp_tpu.parallel.mesh import make_pipeline_mesh as jax_mesh
+from vdpp_tpu.parallel.pipeline import PipelineConfig as JaxPipelineConfig
+from vdpp_tpu.parallel.pipeline import StepPipeline as JaxPipeline
 from vdpp_tpu.parallel.pipeline import run_reference_single_device as jax_reference
 from vdpp_tpu.utils.weights import convert_unet_state_dict
 
 from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
 from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet, make_conditioning
 from vdpp_tpu_torch.ops import flash_attention as fa
+from vdpp_tpu_torch.parallel.mesh import make_pipeline_mesh, run_stages
 from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
 from vdpp_tpu_torch.utils.weights import from_jax_params
 
+import torch_port_helpers as helpers
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 REL_TOL = 1e-4
@@ -116,6 +123,63 @@ def test_cfg_euler_schedule_matches_jax(tiny, cfg_mode, steps, run):
     _assert_close(got, want)
 
 
+def _solver_case(solver: str, seed: int):
+    """3 steps padded to 4 (one leading identity step), no CFG: the padded
+    step, the first real step (first order for dpmpp2m), a second-order step
+    and the final sigma = 0. Returns both wrappers, both conditionings and
+    the packed initial payloads of two samples."""
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((1, 1, 48)).astype(np.float32)
+    img = rng.standard_normal((1, 3, 16, 16, 4)).astype(np.float32)
+    noise = rng.standard_normal((2, 1, 3, 16, 16, 4)).astype(np.float32)
+    jmodel = JaxSVD(JaxConfig.tiny(), num_steps=3, pad_steps_to=2, solver=solver)
+    model = StableVideoUNet(SVDUNetConfig.tiny(), num_steps=3, pad_steps_to=2, solver=solver,
+                            device="cpu")
+    assert model.num_steps == 4 and model.schedule.sigmas[0] == model.schedule.sigmas[1]
+    x0 = noise * model.init_noise_sigma
+    return (jmodel, model, jax_conditioning(jnp.asarray(emb), jnp.asarray(img), 3),
+            make_conditioning(torch.from_numpy(emb), torch.from_numpy(img), 3),
+            jmodel.pack_initial(jnp.asarray(x0)), model.pack_initial(torch.from_numpy(x0)))
+
+
+def test_heun_schedule_matches_jax(tiny):
+    """Two UNet calls a step; the JAX side runs its steps one by one with
+    the UNet call jitted (one compile for both calls)."""
+    params, unet = tiny
+    jmodel, model, jcond, cond, jx, x = _solver_case("heun", 4)
+    jmodel.noise_pred = jax.jit(jmodel.noise_pred)
+    jxi = jx[0]  # one sample
+    for k in range(4):
+        jxi = jmodel.step(params, jxi, k, jcond)
+    _assert_close(run_reference_single_device(model.pipeline_step_fn(), (unet, cond), x[:1], 4),
+                  jxi[None])
+
+
+def test_dpmpp2m_pipelined_matches_jax(tiny):
+    """dpmpp2m carries its previous x0_hat in channels 4-7 of the payload,
+    across the hand-off: the port's 2-stage pipeline (two processes over
+    gloo) equals its single-device run bit for bit, and JAX's 2-stage
+    StepPipeline (jitted, on two host devices) within 2e-5 * max|ref|, all
+    8 channels."""
+    params, unet = tiny
+    jmodel, model, jcond, cond, jx, x = _solver_case("dpmpp2m", 5)
+    assert model.latent_channel_multiplier == 2 and x.shape[-1] == 8
+    build = functools.partial(helpers.svd_build, SVDUNetConfig.tiny(), "dpmpp2m", 3, 2,
+                              unet.state_dict(), cond)
+    with ThreadPoolExecutor(1) as pool:  # the ranks start while JAX compiles
+        ranks = pool.submit(run_stages, make_pipeline_mesh(2, device="cpu"),
+                            helpers.pipeline_cases, [("dpmpp2m", build, x, 4, False)],
+                            timeout=300)
+        want = np.asarray(JaxPipeline(jax_mesh(2), jmodel.pipeline_step_fn(),
+                                      JaxPipelineConfig(4, 2)).run((params, jcond), jx))
+        oracle = run_reference_single_device(model.pipeline_step_fn(), (unet, cond), x, 4)
+        got = ranks.result()[-1]["dpmpp2m"]
+    assert torch.equal(got, oracle)
+    assert got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= 2e-5 * np.abs(want).max()
+    _assert_close(model.unpack_final(got), jmodel.unpack_final(want))
+
+
 def test_state_dict_keys_are_the_diffusers_checkpoint_keys():
     keys = set(KEYS_FIXTURE.read_text().split())
     unet = SVDUNet(SVDUNetConfig.svd_xt(), device="meta")
@@ -136,8 +200,8 @@ def test_state_dict_survives_jax_conversion_and_back(tiny):
 
 
 def test_unported_options_raise(monkeypatch):
-    for kw in ({"solver": "heun"}, {"deepcache_interval": 2}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"solver": "euler_a"}, {"deepcache_interval": 2}):
+        with pytest.raises(NotImplementedError, match="A12"):
             StableVideoUNet(SVDUNetConfig.tiny(), device="cpu", **kw)
     # VDPP_GN_FUSED=1 is ported; a UNet built without it cannot run under it
     monkeypatch.setenv("VDPP_GN_FUSED", "1")

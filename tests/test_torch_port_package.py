@@ -13,9 +13,12 @@ import torch
 
 from vdpp_tpu_torch import bench
 from vdpp_tpu_torch.models.clip_encoder import CLIPVisionConfig, CLIPVisionEncoder
+from vdpp_tpu_torch.models.dummy_unet import DummyUNet
 from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
 from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet
 from vdpp_tpu_torch.models.vae import VAEConfig, VAEEncoder
+from vdpp_tpu_torch.modes import simulator
+from vdpp_tpu_torch.parallel.mesh import make_pipeline_mesh
 from vdpp_tpu_torch.utils.device import resolve_device
 
 from torch_port_helpers import one_torch_thread  # noqa: F401
@@ -70,6 +73,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         CLIPVisionEncoder(CLIPVisionConfig.tiny())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         VAEEncoder(VAEConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DummyUNet()
+    # The step pipeline's stages go on the cards unless the CPU is asked for.
+    for kw in ({}, {"num_stages": 2}, {"devices": ["cuda:0", "cuda:0"]}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_pipeline_mesh(**kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulator.main(["--num-stages", "2"])
+    assert make_pipeline_mesh(2, device="cpu").backend == "gloo"
     assert resolve_device("cpu").type == "cpu"
 
 

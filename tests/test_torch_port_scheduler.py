@@ -127,3 +127,68 @@ def test_flowmatch_identity_padded_step_is_bitwise_noop():
     x = torch.from_numpy(rng.standard_normal((1, 3, 8, 8, 4)).astype(np.float32))
     v = torch.from_numpy(rng.standard_normal((1, 3, 8, 8, 4)).astype(np.float32))
     assert torch.equal(sched.step(x, v, 0), x)
+
+
+# The second-order solvers, on a smooth stand-in for the model (the same
+# function of the scaled latent and the c_noise timestep on both sides).
+def _jax_eps(xs, t):
+    return jnp.tanh(xs) * 0.5 + 0.1 * t
+
+
+def _torch_eps(xs, t):
+    return torch.tanh(xs) * 0.5 + 0.1 * t
+
+
+def _table(padded: bool) -> np.ndarray:
+    """30 Karras steps; padded to a multiple of 8 (two leading identity steps)."""
+    if padded:
+        return jsched.EulerKarrasSchedule.create(30, pad_to_multiple_of=8).sigmas
+    return jsched.karras_sigmas(30)
+
+
+@pytest.mark.parametrize("case,k", [("first", 0), ("padded", 0), ("final", 29)])
+def test_heun_step_matches_jax(case, k):
+    """The first step, an identity-padded step (a bitwise no-op on both
+    sides, whatever the model returns) and the final sigma = 0 (plain
+    Euler)."""
+    sig = _table(case == "padded")
+    x = (np.random.default_rng(k).standard_normal((1, 3, 8, 8, 4)) * sig[k]).astype(np.float32)
+    want = np.asarray(jsched.heun_step_v_prediction(jnp.asarray(x), _jax_eps, sig[k], sig[k + 1]))
+    got = tsched.heun_step_v_prediction(torch.from_numpy(x), _torch_eps, sig[k], sig[k + 1])
+    if case == "padded":
+        assert torch.equal(got, torch.from_numpy(x)) and np.array_equal(want, x)
+    if case == "final":
+        eps = _torch_eps(torch.from_numpy(x) * torch.rsqrt(torch.tensor(sig[k]) ** 2 + 1.0),
+                         0.25 * torch.log(torch.tensor(sig[k])))
+        assert torch.equal(got, tsched.euler_step_v_prediction(torch.from_numpy(x), eps, sig[k],
+                                                               0.0))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("case,k", [("first", 0), ("second_order", 10), ("padded", 0),
+                                    ("after_padding", 2), ("final", 29)])
+def test_dpmpp2m_step_matches_jax(case, k):
+    """The first step (sigma_prev == sigma: first order), a second-order
+    step, an identity-padded step (a bitwise no-op), the step after the
+    padding (first order again: the carried x0_hat is not read) and the
+    final sigma = 0 (x_next = x0_hat)."""
+    sig = _table(case in ("padded", "after_padding"))
+    rng = np.random.default_rng(50 + k)
+    x, eps, old = rng.standard_normal((3, 1, 3, 8, 8, 4)).astype(np.float32)
+    x = x * sig[k]
+    s_prev, s, s_next = sig[max(k - 1, 0)], sig[k], sig[k + 1]
+    want = [np.asarray(a) for a in jsched.dpmpp2m_step_v_prediction(
+        jnp.asarray(x), jnp.asarray(eps), jnp.asarray(old), s_prev, s, s_next)]
+    got = tsched.dpmpp2m_step_v_prediction(torch.from_numpy(x), torch.from_numpy(eps),
+                                           torch.from_numpy(old), s_prev, s, s_next)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-6, atol=1e-6 * np.abs(w).max())
+    if case == "padded":
+        assert torch.equal(got[0], torch.from_numpy(x)) and np.array_equal(want[0], x)
+    if case in ("first", "after_padding"):  # the carried x0_hat is not read
+        zeros = tsched.dpmpp2m_step_v_prediction(torch.from_numpy(x), torch.from_numpy(eps),
+                                                 torch.zeros_like(torch.from_numpy(old)),
+                                                 s_prev, s, s_next)
+        assert torch.equal(got[0], zeros[0])
+    if case == "final":
+        torch.testing.assert_close(got[0], got[1], rtol=1e-6, atol=0)

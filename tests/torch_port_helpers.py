@@ -32,3 +32,68 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# ---- step-pipeline jobs: each rank of a spawned group imports this module
+# ---- (no JAX here, so that the ranks start quickly) and runs one of these.
+
+
+def dummy_build(model_kw: dict, state: dict, device):
+    """``(step_fn, params)`` of a DummyUNet holding ``state``."""
+    from vdpp_tpu_torch.models.dummy_unet import DummyUNet
+
+    model = DummyUNet(**model_kw, device=device)
+    model.load_state_dict(state)
+    return (lambda p, x, k: p(x, k)), model
+
+
+def svd_build(config, solver: str, num_steps: int, pad_steps_to, state: dict, cond, device):
+    """``(step_fn, params)`` of the SVD wrapper's step over an SVDUNet
+    holding ``state``, with the conditioning ``cond`` (CPU tensors)."""
+    import dataclasses
+
+    from vdpp_tpu_torch.models.svd_unet import SVDUNet
+    from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet
+
+    if torch.device(device).type == "cuda":  # the same bits in every process
+        torch.backends.cudnn.deterministic = True
+    wrapper = StableVideoUNet(config, num_steps=num_steps, pad_steps_to=pad_steps_to,
+                              solver=solver, device=device)
+    unet = SVDUNet(config, device=device)
+    unet.load_state_dict(state)
+    cond = dataclasses.replace(cond, **{f.name: getattr(cond, f.name).to(device)
+                                        for f in dataclasses.fields(cond)
+                                        if getattr(cond, f.name) is not None})
+    return wrapper.pipeline_step_fn(), (unet, cond)
+
+
+def pipeline_cases(stage, cases: list) -> dict:
+    """Rank job: every ``(name, build, inputs, total_steps, ticked)`` case
+    through a ``StepPipeline`` over all of the group's ranks, where
+    ``build(device)`` gives ``(step_fn, params)``. Returns, on the last rank,
+    ``{name: outputs}`` (ticked: ``(outputs, tick count, [(i, latent) seen by
+    on_sample])``), and on the others ``{name: None}``."""
+    from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+
+    results = {}
+    for name, build, inputs, total, ticked in cases:
+        step_fn, params = build(stage.device)
+        pipe = StepPipeline(stage, step_fn, PipelineConfig(total, stage.num_stages))
+        if not ticked:
+            results[name] = pipe.run(params, inputs)
+            continue
+        seen = []
+        res = pipe.run_ticked(params, inputs, on_sample=lambda i, x: seen.append((i, x.clone())))
+        results[name] = None if res is None else (res[0], len(res[1]), seen)
+    return results
+
+
+def rank_skewed_step(model, x, step):
+    """A simulator model call that differs on rank 1 of a process group (and
+    nowhere else): the simulator must catch it."""
+    import torch.distributed as dist
+
+    out = model(x, step)
+    if dist.is_initialized() and dist.get_rank() == 1:
+        out = out + 1e-3
+    return out

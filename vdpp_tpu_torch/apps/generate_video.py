@@ -23,14 +23,19 @@ at the target size is the input, and no image library is needed; ``--image
 FILE`` needs Pillow to decode the file and for the LANCZOS resize, as the
 reference app does. CLIP's resize runs on PyTorch alone.
 
-The denoise runs every step on one device (``run_reference_single_device``).
-Options of parts not yet ported raise and name their ROADMAP item:
-``--solver`` other than euler and ``--deepcache`` (A12), ``--num-stages``
-above 1 (A6), ``--seq-parallel``, ``--frame-parallel`` and
-``--decode-devices`` (A13). Without a CUDA device the app fails unless
-``--device cpu`` is asked for. The ``tiny`` preset is a CPU preset: its
-UNet's head dim 16 (and its VAE's 32) at L >= 512 has no flash kernel, so
-on the card it raises there.
+``--solver`` is euler, heun or dpmpp2m. ``--num-stages`` defaults to every
+card (1 on the CPU), as the reference's does. The denoise is the step
+pipeline: one stage runs in this process, S stages one process each
+(``parallel/mesh.py``: NCCL with a card per stage, gloo on the CPU). Rank 0
+builds CLIP and the VAE encoder, encodes and broadcasts the conditioning;
+every rank builds the UNet from the same checkpoint or seed and runs its
+slice of the steps; the last rank frees its UNet, builds the decoder,
+decodes and writes the files, the same byte for byte for any stage count. Options of parts not yet ported raise
+and name their ROADMAP item: ``--solver euler_a`` and ``--deepcache`` (A12),
+``--seq-parallel``, ``--frame-parallel`` and ``--decode-devices`` (A13).
+Without a CUDA device the app fails unless ``--device cpu`` is asked for.
+The ``tiny`` preset is a CPU preset: its UNet's head dim 16 (and its VAE's
+32) at L >= 512 has no flash kernel, so on the card it raises there.
 """
 
 from __future__ import annotations
@@ -52,10 +57,18 @@ from vdpp_tpu_torch.models.clip_encoder import (
     preprocess_image,
 )
 from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
-from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet, make_conditioning
+from vdpp_tpu_torch.models.svd_wrapper import (
+    StableVideoUNet,
+    SVDConditioning,
+    make_conditioning,
+)
 from vdpp_tpu_torch.models.vae import TemporalVAEDecoder, VAEConfig, VAEEncoder
-from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
-from vdpp_tpu_torch.utils.device import resolve_device
+from vdpp_tpu_torch.parallel.mesh import Stage, make_pipeline_mesh, run_stages
+from vdpp_tpu_torch.parallel.pipeline import (
+    PipelineConfig,
+    StepPipeline,
+    run_reference_single_device,
+)
 from vdpp_tpu_torch.utils.video_io import (
     build_output_name,
     frames_to_uint8,
@@ -90,12 +103,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--height", type=int, default=576)
     p.add_argument("--num-frames", type=int, default=14)
     p.add_argument("--steps", type=int, default=25)
-    p.add_argument("--num-stages", type=int, default=None)
+    p.add_argument("--num-stages", type=int, default=None,
+                   help="pipeline stages, one process each (default: every card; 1 on the CPU)")
     p.add_argument("--num-samples", type=int, default=1)
     p.add_argument("--guidance-scale", type=float, default=3.0)
     p.add_argument("--cfg-mode", default="sequential", choices=["sequential", "batched"])
     p.add_argument("--solver", default="euler", choices=["euler", "euler_a", "heun", "dpmpp2m"],
-                   help="euler (the reference semantics); the others are not ported yet")
+                   help="euler (the reference semantics), heun or dpmpp2m; euler_a is not "
+                        "ported yet")
     p.add_argument("--deepcache", type=int, default=0, metavar="N",
                    help="cached inference every N steps (not ported yet; 0 = off)")
     p.add_argument("--deepcache-split", type=int, default=1)
@@ -164,27 +179,12 @@ def _free(dev: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
-@torch.inference_mode()
-def image_to_video(models: dict, wrapper: StableVideoUNet, image, clip_pixels, aug_noise,
-                   latent_noise, *, num_frames: int, fps: int = 7, motion_bucket_id: int = 127,
-                   noise_aug_strength: float = 0.02, guidance_scale: float = 3.0,
-                   decode_chunk_frames: int = 4) -> tuple[list[torch.Tensor], dict]:
-    """The app's device work on preprocessed inputs, on ``wrapper.device``.
-
-    ``models`` holds ``clip``, ``vae_encoder``, ``unet`` and ``vae_decoder``;
-    CLIP and the VAE encoder are taken out of it after the encode and the
-    UNet before the decode, so that they are freed when the caller holds no
-    other reference. ``image`` is ``(H, W, 3)`` in [-1, 1], ``clip_pixels``
-    CLIP's ``(S, S, 3)``; ``aug_noise`` (like ``image``) and ``latent_noise``
-    ``(samples, 1, F, h, w, 4)`` are standard-normal draws, scaled here by
-    ``noise_aug_strength`` and the schedule's initial sigma.
-
-    Returns the decoded videos, ``(1, F, H, W, 3)`` each, and the seconds of
-    ``clip``, ``vae_encode``, ``encode`` (both and the conditioning),
-    ``diffusion`` and ``decode``, each ending in a device synchronise.
-    """
-    dev = wrapper.device
-    times = {}
+def _encode(models: dict, dev: torch.device, image, clip_pixels, aug_noise, times: dict, *,
+            num_frames: int, fps: int, motion_bucket_id: int, noise_aug_strength: float,
+            guidance_scale: float):
+    """CLIP and the VAE encode into the conditioning; both encoders are taken
+    out of ``models`` and freed. Adds ``clip``, ``vae_encode`` and ``encode``
+    seconds to ``times``."""
 
     def lap(name: str, t0: float) -> float:
         _sync(dev)
@@ -212,8 +212,43 @@ def image_to_video(models: dict, wrapper: StableVideoUNet, image, clip_pixels, a
         fps=fps, motion_bucket_id=motion_bucket_id, noise_aug_strength=noise_aug_strength,
         guidance_scale=guidance_scale,
     )
-    t0 = lap("encode", t_enc)
+    lap("encode", t_enc)
+    return cond
 
+
+def _decode(vae_dec: TemporalVAEDecoder, latents: torch.Tensor,
+            chunk_frames: int) -> list[torch.Tensor]:
+    return [vae_dec.decode_chunked(lat / vae_dec.config.scaling_factor, chunk_frames=chunk_frames)
+            for lat in latents]
+
+
+@torch.inference_mode()
+def image_to_video(models: dict, wrapper: StableVideoUNet, image, clip_pixels, aug_noise,
+                   latent_noise, *, num_frames: int, fps: int = 7, motion_bucket_id: int = 127,
+                   noise_aug_strength: float = 0.02, guidance_scale: float = 3.0,
+                   decode_chunk_frames: int = 4) -> tuple[list[torch.Tensor], dict]:
+    """The app's device work on preprocessed inputs, on ``wrapper.device``,
+    every step in this process (the composition the app's stages split).
+
+    ``models`` holds ``clip``, ``vae_encoder``, ``unet`` and ``vae_decoder``;
+    CLIP and the VAE encoder are taken out of it after the encode and the
+    UNet before the decode, so that they are freed when the caller holds no
+    other reference. ``image`` is ``(H, W, 3)`` in [-1, 1], ``clip_pixels``
+    CLIP's ``(S, S, 3)``; ``aug_noise`` (like ``image``) and ``latent_noise``
+    ``(samples, 1, F, h, w, 4)`` are standard-normal draws, scaled here by
+    ``noise_aug_strength`` and the schedule's initial sigma.
+
+    Returns the decoded videos, ``(1, F, H, W, 3)`` each, and the seconds of
+    ``clip``, ``vae_encode``, ``encode`` (both and the conditioning),
+    ``diffusion`` and ``decode``, each ending in a device synchronise.
+    """
+    dev = wrapper.device
+    times: dict = {}
+    cond = _encode(models, dev, image, clip_pixels, aug_noise, times, num_frames=num_frames,
+                   fps=fps, motion_bucket_id=motion_bucket_id,
+                   noise_aug_strength=noise_aug_strength, guidance_scale=guidance_scale)
+
+    t0 = time.perf_counter()
     noise = torch.as_tensor(latent_noise, dtype=torch.float32, device=dev)
     noise = wrapper.pack_initial(noise * wrapper.init_noise_sigma)
     unet = models.pop("unet")
@@ -222,130 +257,209 @@ def image_to_video(models: dict, wrapper: StableVideoUNet, image, clip_pixels, a
     latents = wrapper.unpack_final(latents)
     del unet
     _free(dev)
-    t0 = lap("diffusion", t0)
+    _sync(dev)
+    times["diffusion"] = time.perf_counter() - t0
 
-    vae_dec = models["vae_decoder"]
-    videos = [vae_dec.decode_chunked(lat / vae_dec.config.scaling_factor,
-                                     chunk_frames=decode_chunk_frames) for lat in latents]
-    lap("decode", t0)
+    t0 = time.perf_counter()
+    videos = _decode(models["vae_decoder"], latents, decode_chunk_frames)
+    _sync(dev)
+    times["decode"] = time.perf_counter() - t0
     return videos, times
 
 
 def _check_ported(args: argparse.Namespace) -> None:
-    if args.solver != "euler" or args.deepcache:
-        raise NotImplementedError("--solver other than euler and --deepcache come with a later "
-                                  "slice of the port (ROADMAP A12)")
-    if (args.num_stages or 1) != 1:
-        raise NotImplementedError("--num-stages above 1 comes with the multi-GPU step pipeline "
-                                  "(ROADMAP A6)")
+    if args.solver == "euler_a" or args.deepcache:
+        raise NotImplementedError("--solver euler_a and --deepcache come with a later slice of "
+                                  "the port (ROADMAP A12)")
     if args.seq_parallel != 1 or args.frame_parallel != 1 or args.decode_devices:
         raise NotImplementedError("--seq-parallel, --frame-parallel and --decode-devices come "
                                   "with intra-sample parallelism (ROADMAP A13)")
 
 
-def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
-    logging.basicConfig(level=getattr(logging, args.log_level.upper(), logging.INFO),
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    t_start = time.perf_counter()
-    if not args.checkpoint and not args.random_weights:
-        LOGGER.error("provide --checkpoint or --random-weights")
-        return 1
-    _check_ported(args)
-    dev = resolve_device(args.device)
-
+def _configs(args: argparse.Namespace):
+    """The preset's UNet, VAE and CLIP configs and the latent's (h, w) (the
+    tiny preset widens the frame to at least 64x64 in ``args``)."""
     vae_dtype = torch.bfloat16 if args.vae_dtype == "bfloat16" else torch.float32
     if args.preset == "tiny":
-        unet_cfg = SVDUNetConfig.tiny()
-        vae_cfg = VAEConfig.tiny(vae_dtype)
+        unet_cfg, vae_cfg = SVDUNetConfig.tiny(), VAEConfig.tiny(vae_dtype)
         # CLIP's projection must match the UNet's cross-attention width.
         clip_cfg = dataclasses.replace(CLIPVisionConfig.tiny(),
                                        projection_dim=unet_cfg.cross_attention_dim)
         args.width, args.height = max(args.width, 64), max(args.height, 64)
     else:
-        unet_cfg = SVDUNetConfig.svd_xt()
-        vae_cfg = VAEConfig.svd(vae_dtype)
+        unet_cfg, vae_cfg = SVDUNetConfig.svd_xt(), VAEConfig.svd(vae_dtype)
         clip_cfg = CLIPVisionConfig.vit_h_14()
     spatial_down = 2 ** (len(vae_cfg.block_out_channels) - 1)
-    lat_h, lat_w = args.height // spatial_down, args.width // spatial_down
-    LOGGER.info("generate: %dx%d, %d frames, %d steps on %s, CFG %.1f", args.width, args.height,
-                args.num_frames, args.steps, dev, args.guidance_scale)
+    return unet_cfg, vae_cfg, clip_cfg, (args.height // spatial_down, args.width // spatial_down)
 
-    # ---- models ----
-    t0 = time.perf_counter()
-    wrapper = StableVideoUNet(unet_cfg, num_steps=args.steps, cfg_mode=args.cfg_mode,
-                              device=dev)
+
+_SEED_OFFSET = {"unet": 0, "clip": 1, "vae_encoder": 2, "vae_decoder": 3}
+
+
+def _load_models(args: argparse.Namespace, wrapper: StableVideoUNet, vae_cfg: VAEConfig,
+                 clip_cfg: CLIPVisionConfig, names) -> dict:
+    """The modules ``names`` (of ``unet``, ``clip``, ``vae_encoder``,
+    ``vae_decoder``) on ``wrapper.device``: from ``--checkpoint`` (the JAX
+    package's npz files, or a diffusers directory), or drawn each from its
+    own seed, so that any subset is the same as in the whole."""
+    dev = wrapper.device
     if args.checkpoint and not os.path.exists(os.path.join(args.checkpoint, "unet.npz")):
         models = load_svd_checkpoint(args.checkpoint, unet_config=wrapper.config,
-                                     vae_config=vae_cfg, clip_config=clip_cfg, device=dev)
-        missing = {"unet", "clip", "vae_encoder", "vae_decoder"} - set(models)
+                                     vae_config=vae_cfg, clip_config=clip_cfg, device=dev,
+                                     parts=names)
+        missing = set(names) - set(models)
         if missing:
             raise FileNotFoundError(f"{args.checkpoint}: neither unet.npz nor a diffusers "
                                     f"checkpoint with every part (missing {sorted(missing)})")
-    else:
-        models = {"clip": CLIPVisionEncoder(clip_cfg, device=dev),
-                  "vae_encoder": VAEEncoder(vae_cfg, device=dev),
-                  "vae_decoder": TemporalVAEDecoder(vae_cfg, device=dev)}
+        return models
+    build = {"unet": lambda: SVDUNet(wrapper.config, device=dev),
+             "clip": lambda: CLIPVisionEncoder(clip_cfg, device=dev),
+             "vae_encoder": lambda: VAEEncoder(vae_cfg, device=dev),
+             "vae_decoder": lambda: TemporalVAEDecoder(vae_cfg, device=dev)}
+    carry = {"unet": from_jax_params, "clip": from_jax_clip_params,
+             "vae_encoder": from_jax_vae_encoder_params, "vae_decoder": from_jax_vae_decoder_params}
+    models = {}
+    for name in names:
+        models[name] = build[name]()
         if args.checkpoint:
-            models["unet"] = SVDUNet(wrapper.config, device=dev)
-            for name, carry in (("unet", from_jax_params), ("clip", from_jax_clip_params),
-                                ("vae_encoder", from_jax_vae_encoder_params),
-                                ("vae_decoder", from_jax_vae_decoder_params)):
-                path = os.path.join(args.checkpoint, f"{name}.npz")
-                models[name].load_state_dict(carry(load_jax_npz(path)))
+            path = os.path.join(args.checkpoint, f"{name}.npz")
+            models[name].load_state_dict(carry[name](load_jax_npz(path)))
         else:
-            models["unet"] = wrapper.init(torch.Generator(device=dev).manual_seed(args.seed))
-            for i, name in enumerate(("clip", "vae_encoder", "vae_decoder"), start=1):
-                models[name].init_weights(torch.Generator(device=dev).manual_seed(args.seed + i))
-    _sync(dev)
-    t_load = time.perf_counter() - t0
-    LOGGER.info("models ready in %.3fs", t_load)
+            models[name].init_weights(torch.Generator(device=dev).manual_seed(
+                args.seed + _SEED_OFFSET[name]))
+    return models
 
-    # ---- inputs: the preprocessed image and the noise draws ----
-    t0 = time.perf_counter()
+
+def _prepare(args: argparse.Namespace, clip_cfg: CLIPVisionConfig, dev: torch.device):
+    """The preprocessed image, CLIP's pixels and the augmentation noise."""
     image = load_and_preprocess_image(args.image, args.width, args.height)
     clip_px = preprocess_image(((image + 1.0) * 127.5).astype(np.uint8), size=clip_cfg.image_size)
     aug_noise = torch.randn(image.shape, generator=torch.Generator(device=dev).manual_seed(
         args.seed + 4), device=dev)
-    latent_noise = torch.randn(args.num_samples, 1, args.num_frames, lat_h, lat_w, 4,
-                               generator=torch.Generator(device=dev).manual_seed(args.seed),
-                               device=dev)
-    t_prep = time.perf_counter() - t0
+    return image, clip_px, aug_noise
 
-    videos, times = image_to_video(
-        models, wrapper, image, clip_px, aug_noise, latent_noise, num_frames=args.num_frames,
-        fps=args.fps, motion_bucket_id=args.motion_bucket_id,
-        noise_aug_strength=args.noise_aug_strength, guidance_scale=args.guidance_scale,
-        decode_chunk_frames=args.decode_chunk_frames,
-    )
-    t_encode = t_prep + times["encode"]
-    LOGGER.info("conditioning encoded in %.3fs (preprocess %.3fs, CLIP %.3fs, VAE encode %.3fs)",
-                t_encode, t_prep, times["clip"], times["vae_encode"])
-    LOGGER.info("diffusion [single]: %.3fs (%d samples)", times["diffusion"], args.num_samples)
 
-    # ---- save ----
-    t0 = time.perf_counter()
+def _latent_noise(args: argparse.Namespace, lat_hw, dev: torch.device):
+    return torch.randn(args.num_samples, 1, args.num_frames, *lat_hw, 4,
+                       generator=torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+
+
+def _save(args: argparse.Namespace, videos: list[torch.Tensor], stages: int) -> list[str]:
     os.makedirs(args.output_dir, exist_ok=True)
     outputs = []
     for i, video in enumerate(videos):
         frames = frames_to_uint8(video[0].float().cpu().numpy())
-        name = build_output_name("svd", num_frames=args.num_frames, steps=args.steps, stages=1,
-                                 fps=args.fps, seed=args.seed + i, ext="mp4")
+        name = build_output_name("svd", num_frames=args.num_frames, steps=args.steps,
+                                 stages=stages, fps=args.fps, seed=args.seed + i, ext="mp4")
         path = save_video_mp4(frames, os.path.join(args.output_dir, name), args.fps)
         save_video_gif(frames, os.path.splitext(path)[0] + ".gif", args.fps)
         outputs.append(path)
-    t_save = time.perf_counter() - t0
-    t_decode = times["decode"] + t_save
-    LOGGER.info("decoded in %.3fs, saved in %.3fs", times["decode"], t_save)
+    return outputs
 
-    total = time.perf_counter() - t_start
+
+def _log_timing(t_load: float, t_encode: float, t_diffusion: float, t_decode: float,
+                total: float, outputs: list[str]) -> None:
     LOGGER.info("=" * 60)
     LOGGER.info("TIMING  load %.3fs | encode %.3fs | diffusion %.3fs | decode+save %.3fs | "
-                "total %.3fs", t_load, t_encode, times["diffusion"], t_decode, total)
+                "total %.3fs", t_load, t_encode, t_diffusion, t_decode, total)
     for p in outputs:
         LOGGER.info("output: %s", p)
     LOGGER.info("=" * 60)
+
+
+def _logging(level: str, prefix: str = "") -> None:
+    logging.basicConfig(level=getattr(logging, level.upper(), logging.INFO),
+                        format=f"%(asctime)s %(levelname)s {prefix}%(name)s: %(message)s")
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    _logging(args.log_level)
+    t_start = time.perf_counter()
+    if not args.checkpoint and not args.random_weights:
+        LOGGER.error("provide --checkpoint or --random-weights")
+        return 1
+    _check_ported(args)
+    mesh = make_pipeline_mesh(args.num_stages, device=args.device)
+    PipelineConfig(args.steps, mesh.num_stages)  # a bad split fails before any rank starts
+    if mesh.num_stages == 1:
+        _stage_main(Stage(mesh, 0), args, t_start)
+    else:
+        run_stages(mesh, _stage_main, args, t_start)
     return 0
+
+
+def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float) -> list[str] | None:
+    """One stage of the run, in this process when there is one stage, else
+    in its own rank: rank 0 encodes and broadcasts the conditioning, every
+    rank denoises its slice of the steps, and the last rank frees its UNet,
+    builds the decoder, decodes and writes the files (whose paths it
+    returns)."""
+    if stage.num_stages > 1:  # a spawned rank starts with no logging set up
+        _logging(args.log_level, f"rank {stage.rank}/{stage.num_stages} ")
+    dev = stage.device
+    unet_cfg, vae_cfg, clip_cfg, lat_hw = _configs(args)
+    if stage.rank == 0:
+        LOGGER.info("generate: %dx%d, %d frames, %d steps on %s, CFG %.1f, %d stage(s)",
+                    args.width, args.height, args.num_frames, args.steps, dev,
+                    args.guidance_scale, stage.num_stages)
+    t0 = time.perf_counter()
+    wrapper = StableVideoUNet(unet_cfg, num_steps=args.steps, cfg_mode=args.cfg_mode,
+                              solver=args.solver, device=dev)
+    models = _load_models(args, wrapper, vae_cfg, clip_cfg,
+                          ["unet", "clip", "vae_encoder"] if stage.rank == 0 else ["unet"])
+    _sync(dev)
+    t_load = time.perf_counter() - t0
+    LOGGER.info("models ready in %.3fs", t_load)
+
+    sent = None
+    if stage.rank == 0:
+        t0 = time.perf_counter()
+        image, clip_px, aug_noise = _prepare(args, clip_cfg, dev)
+        t_prep = time.perf_counter() - t0
+        times: dict = {}
+        with torch.inference_mode():
+            cond = _encode(models, dev, image, clip_px, aug_noise, times,
+                           num_frames=args.num_frames, fps=args.fps,
+                           motion_bucket_id=args.motion_bucket_id,
+                           noise_aug_strength=args.noise_aug_strength,
+                           guidance_scale=args.guidance_scale)
+        t_encode = t_prep + times["encode"]
+        LOGGER.info("conditioning encoded in %.3fs (preprocess %.3fs, CLIP %.3fs, VAE encode "
+                    "%.3fs)", t_encode, t_prep, times["clip"], times["vae_encode"])
+        sent = ({k: None if v is None else v.cpu() for k, v in vars(cond).items()}, t_encode)
+    fields, t_encode = stage.broadcast_object(sent)
+    cond = SVDConditioning(**{k: None if v is None else v.to(dev) for k, v in fields.items()})
+
+    t0 = time.perf_counter()
+    noise = wrapper.pack_initial(_latent_noise(args, lat_hw, dev) * wrapper.init_noise_sigma)
+    pipe = StepPipeline(stage, wrapper.pipeline_step_fn(),
+                        PipelineConfig(wrapper.num_steps, stage.num_stages))
+    latents = pipe.run((models.pop("unet"), cond), noise)
+    _free(dev)
+    _sync(dev)
+    if not stage.is_last:
+        return None
+    t_diffusion = time.perf_counter() - t0
+    LOGGER.info("diffusion [%d stage(s)]: %.3fs (%d samples)", stage.num_stages, t_diffusion,
+                args.num_samples)
+
+    t0 = time.perf_counter()
+    vae_dec = _load_models(args, wrapper, vae_cfg, clip_cfg, ["vae_decoder"])["vae_decoder"]
+    _sync(dev)
+    t_load += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        videos = _decode(vae_dec, wrapper.unpack_final(latents), args.decode_chunk_frames)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outputs = _save(args, videos, stage.num_stages)
+    t_save = time.perf_counter() - t0
+    LOGGER.info("decoded in %.3fs, saved in %.3fs", t_decode, t_save)
+    _log_timing(t_load, t_encode, t_diffusion, t_decode + t_save, time.perf_counter() - t_start,
+                outputs)
+    return outputs
 
 
 if __name__ == "__main__":

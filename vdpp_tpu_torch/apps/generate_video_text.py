@@ -17,10 +17,15 @@ ships with a checkpoint. With ``--checkpoint`` pass ``--token-ids`` or
 stands in. ``--checkpoint`` is a directory of the JAX package's own
 ``save_params`` files (``t5.npz``, ``dit.npz``, ``vae_decoder.npz``).
 
-The denoise runs every step on one device (``run_reference_single_device``);
-``--num-stages`` and ``--seq-parallel`` take only 1 until the multi-GPU
-slice of the port. Without a CUDA device the app fails unless ``--device
-cpu`` is asked for.
+``--solver`` is euler, heun, dpmpp2m or flowmatch. ``--num-stages`` defaults
+to every card (1 on the CPU), as the reference's does. The denoise is the
+step pipeline: one stage runs in this process, S stages one process each
+(``parallel/mesh.py``). Rank 0 runs T5 and broadcasts the context, every rank
+builds the DiT from the same checkpoint or seed, and the last rank builds the
+decoder, decodes and writes the files, the same byte for byte for any stage
+count. ``--solver euler_a`` (A12) and
+``--seq-parallel`` above 1 (A13) raise. Without a CUDA device the app fails
+unless ``--device cpu`` is asked for.
 """
 
 from __future__ import annotations
@@ -39,8 +44,8 @@ from vdpp_tpu_torch.models.dit import DiTVideo, DiTVideoConfig, DiTVideoWrapper
 from vdpp_tpu_torch.models.svd_wrapper import make_guidance_ramp
 from vdpp_tpu_torch.models.t5_encoder import T5EncoderConfig, T5TextEncoder, hash_tokenize
 from vdpp_tpu_torch.models.vae import TemporalVAEDecoder, VAEConfig
-from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
-from vdpp_tpu_torch.utils.device import resolve_device
+from vdpp_tpu_torch.parallel.mesh import Stage, make_pipeline_mesh, run_stages
+from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
 from vdpp_tpu_torch.utils.video_io import (
     build_output_name,
     frames_to_uint8,
@@ -82,11 +87,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=24)
     p.add_argument("--solver", default="euler",
                    choices=["euler", "euler_a", "heun", "dpmpp2m", "flowmatch"],
-                   help="euler (v-prediction over Karras sigmas) or flowmatch (rectified "
-                        "flow, shifted-linear schedule); the others are not ported yet")
+                   help="euler, heun or dpmpp2m (v-prediction over Karras sigmas) or "
+                        "flowmatch (rectified flow, shifted-linear schedule); euler_a is not "
+                        "ported yet")
     p.add_argument("--flow-shift", type=float, default=3.0,
                    help="flowmatch only: resolution shift of the sigma schedule")
-    p.add_argument("--num-stages", type=int, default=None)
+    p.add_argument("--num-stages", type=int, default=None,
+                   help="pipeline stages, one process each (default: every card; 1 on the CPU)")
     p.add_argument("--seq-parallel", type=int, default=1)
     p.add_argument("--num-samples", type=int, default=1)
     p.add_argument("--guidance-scale", type=float, default=6.0)
@@ -107,43 +114,24 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
-    logging.basicConfig(level=getattr(logging, args.log_level.upper(), logging.INFO),
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    t_start = time.perf_counter()
-    if not args.checkpoint and not args.random_weights:
-        LOGGER.error("provide --checkpoint or --random-weights")
-        return 1
-    if (args.negative_prompt is not None or args.negative_token_ids) and (
-            args.guidance_scale is None or args.guidance_scale <= 1.0):
-        LOGGER.error("--negative-prompt needs CFG: set --guidance-scale > 1.0 (got %s)",
-                     args.guidance_scale)
-        return 1
-    if (args.num_stages or 1) != 1 or args.seq_parallel != 1:
-        raise NotImplementedError("--num-stages and --seq-parallel above 1 come with the "
-                                  "multi-GPU slice of the port (ROADMAP A6, A13)")
-    dev = resolve_device(args.device)
-
+def _configs(args: argparse.Namespace):
+    """The preset's T5, DiT and VAE configs (the tiny preset shrinks the
+    frame to at most 64x64 in ``args``)."""
     if args.preset == "tiny":
-        t5_cfg = T5EncoderConfig.tiny()
-        dit_base = DiTVideoConfig.tiny()
-        vae_cfg = VAEConfig.tiny()
+        t5_cfg, dit_base, vae_cfg = (T5EncoderConfig.tiny(), DiTVideoConfig.tiny(),
+                                     VAEConfig.tiny())
         args.width, args.height = min(args.width, 64), min(args.height, 64)
     else:
-        t5_cfg = T5EncoderConfig.xxl()
-        dit_base = DiTVideoConfig.latte_xl()
-        vae_cfg = VAEConfig.svd(torch.float32)
+        t5_cfg, dit_base, vae_cfg = (T5EncoderConfig.xxl(), DiTVideoConfig.latte_xl(),
+                                     VAEConfig.svd(torch.float32))
     dit_cfg = dataclasses.replace(dit_base, cross_attention_dim=t5_cfg.d_model,
                                   attention_mode=args.attention_mode)
-
     spatial_down = 2 ** (len(vae_cfg.block_out_channels) - 1)
-    lat_h, lat_w = args.height // spatial_down, args.width // spatial_down
-    if lat_h % dit_cfg.patch_size or lat_w % dit_cfg.patch_size:
-        LOGGER.error("latent %dx%d not divisible by patch size", lat_h, lat_w)
-        return 1
+    return t5_cfg, dit_cfg, vae_cfg, (args.height // spatial_down, args.width // spatial_down)
 
-    # ---- token ids ----
+
+def _token_ids(args: argparse.Namespace, t5_cfg: T5EncoderConfig):
+    """The prompt's token ids and the negative prompt's (or None)."""
     if args.token_ids_file:
         ids = np.load(args.token_ids_file).astype(np.int64).reshape(1, -1)
     elif args.token_ids:
@@ -167,79 +155,149 @@ def main(argv: list[str] | None = None) -> int:
         want = max(ids.shape[1], neg_ids.shape[1])
         ids = np.pad(ids, ((0, 0), (0, want - ids.shape[1])), constant_values=eos)
         neg_ids = np.pad(neg_ids, ((0, 0), (0, want - neg_ids.shape[1])), constant_values=eos)
+    return ids, neg_ids
 
-    # ---- models ----
-    t0 = time.perf_counter()
-    t5 = T5TextEncoder(t5_cfg, device=dev)
-    wrapper = DiTVideoWrapper(dit_cfg, num_steps=args.steps, solver=args.solver,
-                              flow_shift=args.flow_shift, device=dev)
-    vae = TemporalVAEDecoder(vae_cfg, device=dev)
+
+def _load(args: argparse.Namespace, name: str, module: torch.nn.Module, seed: int):
+    """``module`` with its weights from ``--checkpoint`` (``<name>.npz``) or
+    drawn from ``seed``."""
+    carry = {"t5": from_jax_t5_params, "dit": from_jax_dit_params,
+             "vae_decoder": from_jax_vae_decoder_params}[name]
     if args.checkpoint:
-        t5.load_state_dict(from_jax_t5_params(load_jax_npz(
-            os.path.join(args.checkpoint, "t5.npz"))))
-        dit = DiTVideo(dit_cfg, device=dev)
-        dit.load_state_dict(from_jax_dit_params(load_jax_npz(
-            os.path.join(args.checkpoint, "dit.npz"))))
-        vae.load_state_dict(from_jax_vae_decoder_params(load_jax_npz(
-            os.path.join(args.checkpoint, "vae_decoder.npz"))))
+        module.load_state_dict(carry(load_jax_npz(os.path.join(args.checkpoint, f"{name}.npz"))))
     else:
-        t5.init_weights(torch.Generator(device=dev).manual_seed(args.seed))
-        dit = wrapper.init(torch.Generator(device=dev).manual_seed(args.seed + 1))
-        vae.init_weights(torch.Generator(device=dev).manual_seed(args.seed + 2))
-    _sync(dev)
-    t_load = time.perf_counter() - t0
-    LOGGER.info("models ready in %.1fs", t_load)
+        module.init_weights(torch.Generator(device=next(module.parameters()).device)
+                            .manual_seed(seed))
+    return module
 
-    # ---- text encode, then free the tower ----
-    t0 = time.perf_counter()
+
+def _encode(t5: T5TextEncoder, ids, neg_ids, dev: torch.device):
+    """The T5 context, or ``(negative, positive)`` for negative-prompt CFG."""
     ctx = t5(torch.as_tensor(ids, device=dev)).float()  # (1, M, D)
     if neg_ids is not None:
-        ctx = (t5(torch.as_tensor(neg_ids, device=dev)).float(), ctx)  # negative-prompt CFG
-    del t5
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    guidance = make_guidance_ramp(args.guidance_scale, args.num_frames, device=dev)
-    _sync(dev)
-    t_encode = time.perf_counter() - t0
-    LOGGER.info("text encoded in %.1fs (%d tokens)", t_encode, ids.shape[1])
+        ctx = (t5(torch.as_tensor(neg_ids, device=dev)).float(), ctx)
+    return ctx
 
-    # ---- denoise, every step on this device ----
-    t0 = time.perf_counter()
+
+def _noise(args: argparse.Namespace, wrapper: DiTVideoWrapper, lat_hw, dev: torch.device):
     g = torch.Generator(device=dev).manual_seed(args.seed + 3)
-    noise = torch.randn(args.num_samples, 1, args.num_frames, lat_h, lat_w,
-                        dit_cfg.in_channels, generator=g, device=dev)
-    noise = wrapper.pack_initial(noise * wrapper.init_noise_sigma)
-    latents = run_reference_single_device(wrapper.pipeline_step_fn(), (dit, ctx, guidance),
-                                          noise, args.steps)
-    latents = wrapper.unpack_final(latents)
-    _sync(dev)
-    t_diffusion = time.perf_counter() - t0
-    del dit
-    LOGGER.info("diffusion [single]: %.1fs (%d samples)", t_diffusion, args.num_samples)
+    noise = torch.randn(args.num_samples, 1, args.num_frames, *lat_hw,
+                        wrapper.config.in_channels, generator=g, device=dev)
+    return wrapper.pack_initial(noise * wrapper.init_noise_sigma)
 
-    # ---- decode + save ----
-    t0 = time.perf_counter()
+
+def _decode_and_save(args: argparse.Namespace, vae: TemporalVAEDecoder, latents: torch.Tensor,
+                     stages: int) -> list[str]:
     os.makedirs(args.output_dir, exist_ok=True)
     outputs = []
     for i in range(args.num_samples):
-        video = vae.decode_chunked(latents[i] / vae_cfg.scaling_factor,
+        video = vae.decode_chunked(latents[i] / vae.config.scaling_factor,
                                    chunk_frames=args.decode_chunk_frames)
         frames = frames_to_uint8(video[0].float().cpu().numpy())
         name = build_output_name("dit_text", num_frames=args.num_frames, steps=args.steps,
-                                 stages=1, fps=args.fps, seed=args.seed + i, ext="mp4")
+                                 stages=stages, fps=args.fps, seed=args.seed + i, ext="mp4")
         path = save_video_mp4(frames, os.path.join(args.output_dir, name), args.fps)
         save_video_gif(frames, os.path.splitext(path)[0] + ".gif", args.fps)
         outputs.append(path)
-    t_decode = time.perf_counter() - t0
+    return outputs
 
-    total = time.perf_counter() - t_start
+
+def _log_timing(t_load, t_encode, t_diffusion, t_decode, total, outputs) -> None:
     LOGGER.info("=" * 60)
     LOGGER.info("TIMING  load %.1fs | encode %.1fs | diffusion %.1fs | decode+save %.1fs | "
                 "total %.1fs", t_load, t_encode, t_diffusion, t_decode, total)
     for p in outputs:
         LOGGER.info("output: %s", p)
     LOGGER.info("=" * 60)
+
+
+def _logging(level: str, prefix: str = "") -> None:
+    logging.basicConfig(level=getattr(logging, level.upper(), logging.INFO),
+                        format=f"%(asctime)s %(levelname)s {prefix}%(name)s: %(message)s")
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    _logging(args.log_level)
+    t_start = time.perf_counter()
+    if not args.checkpoint and not args.random_weights:
+        LOGGER.error("provide --checkpoint or --random-weights")
+        return 1
+    if (args.negative_prompt is not None or args.negative_token_ids) and (
+            args.guidance_scale is None or args.guidance_scale <= 1.0):
+        LOGGER.error("--negative-prompt needs CFG: set --guidance-scale > 1.0 (got %s)",
+                     args.guidance_scale)
+        return 1
+    if args.solver == "euler_a":
+        raise NotImplementedError("--solver euler_a comes with a later slice of the port "
+                                  "(ROADMAP A12)")
+    if args.seq_parallel != 1:
+        raise NotImplementedError("--seq-parallel above 1 comes with intra-sample parallelism "
+                                  "(ROADMAP A13)")
+    t5_cfg, dit_cfg, vae_cfg, lat_hw = _configs(args)
+    if lat_hw[0] % dit_cfg.patch_size or lat_hw[1] % dit_cfg.patch_size:
+        LOGGER.error("latent %dx%d not divisible by patch size", *lat_hw)
+        return 1
+    mesh = make_pipeline_mesh(args.num_stages, device=args.device)
+    PipelineConfig(args.steps, mesh.num_stages)  # a bad split fails before any rank starts
+    if mesh.num_stages == 1:
+        _stage_main(Stage(mesh, 0), args, t_start)
+    else:
+        run_stages(mesh, _stage_main, args, t_start)
     return 0
+
+
+def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float) -> list[str] | None:
+    """One stage of the run, in this process when there is one stage, else
+    in its own rank: rank 0 runs T5 and broadcasts the context, every rank
+    denoises its slice of the steps, and the last rank builds the decoder,
+    decodes and writes the files (whose paths it returns)."""
+    if stage.num_stages > 1:  # a spawned rank starts with no logging set up
+        _logging(args.log_level, f"rank {stage.rank}/{stage.num_stages} ")
+    dev = stage.device
+    t5_cfg, dit_cfg, vae_cfg, lat_hw = _configs(args)
+    t0 = time.perf_counter()
+    wrapper = DiTVideoWrapper(dit_cfg, num_steps=args.steps, solver=args.solver,
+                              flow_shift=args.flow_shift, device=dev)
+    dit = _load(args, "dit", DiTVideo(dit_cfg, device=dev), args.seed + 1)
+    _sync(dev)
+    t_load = time.perf_counter() - t0
+    LOGGER.info("DiT ready in %.1fs", t_load)
+
+    sent = None
+    if stage.rank == 0:
+        t0 = time.perf_counter()
+        ids, neg_ids = _token_ids(args, t5_cfg)
+        t5 = _load(args, "t5", T5TextEncoder(t5_cfg, device=dev), args.seed)
+        ctx = _encode(t5, ids, neg_ids, dev)
+        del t5
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t_encode = time.perf_counter() - t0
+        LOGGER.info("T5 built and text encoded in %.1fs (%d tokens)", t_encode, ids.shape[1])
+        sent = (tuple(c.cpu() for c in ctx) if isinstance(ctx, tuple) else ctx.cpu(), t_encode)
+    ctx, t_encode = stage.broadcast_object(sent)
+    ctx = tuple(c.to(dev) for c in ctx) if isinstance(ctx, tuple) else ctx.to(dev)
+    guidance = make_guidance_ramp(args.guidance_scale, args.num_frames, device=dev)
+
+    t0 = time.perf_counter()
+    pipe = StepPipeline(stage, wrapper.pipeline_step_fn(),
+                        PipelineConfig(args.steps, stage.num_stages))
+    latents = pipe.run((dit, ctx, guidance), _noise(args, wrapper, lat_hw, dev))
+    del dit
+    _sync(dev)
+    if not stage.is_last:
+        return None
+    t_diffusion = time.perf_counter() - t0
+    LOGGER.info("diffusion [%d stage(s)]: %.1fs (%d samples)", stage.num_stages, t_diffusion,
+                args.num_samples)
+
+    t0 = time.perf_counter()
+    vae = _load(args, "vae_decoder", TemporalVAEDecoder(vae_cfg, device=dev), args.seed + 2)
+    outputs = _decode_and_save(args, vae, wrapper.unpack_final(latents), stage.num_stages)
+    _log_timing(t_load, t_encode, t_diffusion, time.perf_counter() - t0,
+                time.perf_counter() - t_start, outputs)
+    return outputs
 
 
 if __name__ == "__main__":

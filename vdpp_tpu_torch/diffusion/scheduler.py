@@ -11,6 +11,9 @@ The per-step updates run in fp32 on tensors:
     x0_hat = eps * (-sigma / sqrt(sigma^2+1)) + x / (sigma^2 + 1)
     x     <- x + (x - x0_hat) / sigma * (sigma_next - sigma)      (Euler)
     x     <- x + (sigma_next - sigma) * v                          (flow match)
+
+and the second-order v-prediction solvers, Heun (two model calls a step) and
+DPM-Solver++ (2M) (one call, and the previous ``x0_hat`` carried as state).
 """
 
 from __future__ import annotations
@@ -76,6 +79,87 @@ def euler_step_v_prediction(
     derivative = (x - pred_original) / s
     prev = x + derivative * (s_next - s)
     return prev.to(out_dtype)
+
+
+def _pred_original(x: torch.Tensor, eps: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """v-prediction ``x0_hat`` (the EulerDiscrete denoiser output form)."""
+    denom = s * s + 1.0
+    return eps * (-s * torch.rsqrt(denom)) + x / denom
+
+
+def heun_step_v_prediction(
+    latent: torch.Tensor,
+    eps_fn,
+    sigma,
+    sigma_next,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """One Heun update (2nd-order EDM, Karras et al. 2022 Alg. 1) in fp32,
+    in the parameterization of :func:`euler_step_v_prediction`.
+
+    ``eps_fn(scaled_latent, c_noise_timestep)`` is the full model call (CFG
+    included), evaluated at ``sigma`` (predictor) and at ``sigma_next``
+    (corrector). An identity-padded step (``sigma_next == sigma``) returns
+    the latent bit for bit; at the final ``sigma_next == 0`` the corrector is
+    undefined and the step is the plain Euler one, which is returned without
+    the second model call.
+    """
+    out_dtype = out_dtype or latent.dtype
+    x = latent.float()
+    s = _f32(sigma, x)
+    s_next = _f32(sigma_next, x)
+    dt = s_next - s
+    d1 = (x - _pred_original(x, eps_fn(x * torch.rsqrt(s * s + 1.0), 0.25 * torch.log(s))
+                            .float(), s)) / s
+    x_euler = x + d1 * dt
+    if not float(sigma_next) > 0.0:
+        return x_euler.to(out_dtype)
+    eps2 = eps_fn(x_euler * torch.rsqrt(s_next * s_next + 1.0), 0.25 * torch.log(s_next)).float()
+    d2 = (x_euler - _pred_original(x_euler, eps2, s_next)) / s_next
+    return (x + 0.5 * (d1 + d2) * dt).to(out_dtype)
+
+
+def dpmpp2m_step_v_prediction(
+    latent: torch.Tensor,
+    noise_pred: torch.Tensor,
+    old_denoised: torch.Tensor,
+    sigma_prev,
+    sigma,
+    sigma_next,
+    out_dtype: torch.dtype | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One DPM-Solver++ (2M) update in fp32: one model call a step, the
+    second-order term from the previous step's ``x0_hat``. Over
+    ``t = -ln(sigma)``:
+
+        h      = t_next - t,   h_last = t - t_prev,   r = h_last / h
+        x_next = (sigma_next / sigma) * x - expm1(-h) * D
+        D      = x0_hat                                 (first order)
+        D      = (1 + 1/2r) x0_hat - (1/2r) old_x0_hat  (second order)
+
+    Returns ``(x_next, x0_hat)``; callers carry ``x0_hat`` to the next step.
+    First order exactly where the second-order term is undefined: the first
+    step and a step after identity padding (``h_last == 0``), the final step
+    (``sigma_next == 0``: ``x_next = x0_hat``) and a padded step itself
+    (``h == 0``: a bitwise no-op for a finite ``noise_pred``).
+    """
+    out_dtype = out_dtype or latent.dtype
+    x = latent.float()
+    s_prev = _f32(sigma_prev, x)
+    s = _f32(sigma, x)
+    s_next = _f32(sigma_next, x)
+    denoised = _pred_original(x, noise_pred.float(), s)
+
+    h = torch.log(s) - torch.log(s_next)
+    h_last = torch.log(s_prev) - torch.log(s)
+    first_order = (h_last == 0.0) | (s_next <= 0.0) | (h == 0.0)
+    # The guarded divisions feed only the second-order expression.
+    r = h_last / torch.where(h > 0.0, h, 1.0)
+    inv_2r = 0.5 / torch.where(r > 0.0, r, 1.0)
+    d_used = torch.where(first_order, denoised,
+                         (1.0 + inv_2r) * denoised - inv_2r * old_denoised.float())
+    x_next = s_next / s * x - torch.expm1(-h) * d_used
+    return x_next.to(out_dtype), denoised.to(out_dtype)
 
 
 @dataclass(frozen=True)

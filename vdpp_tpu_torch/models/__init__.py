@@ -1,1 +1,2 @@
-"""Denoisers: the SVD UNet and its Euler/CFG wrapper."""
+"""Denoisers: the SVD UNet and its wrapper, the video DiT, the simulator's
+DummyUNet; the encoders and the VAE."""

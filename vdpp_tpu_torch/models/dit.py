@@ -39,8 +39,10 @@ from torch import nn
 from vdpp_tpu_torch.diffusion.scheduler import (
     EulerKarrasSchedule,
     FlowMatchSchedule,
+    dpmpp2m_step_v_prediction,
     euler_step_v_prediction,
     flowmatch_step,
+    heun_step_v_prediction,
 )
 from vdpp_tpu_torch.ops.attention import Attention, attention, temporal_self_attention
 from vdpp_tpu_torch.ops.embeddings import TimestepEmbedding, sinusoidal_embedding
@@ -251,11 +253,13 @@ class DiTVideoWrapper:
 
     ``solver="euler"``: Karras sigmas, input scaled by ``rsqrt(sigma^2 + 1)``,
     timestep ``0.25 * log(sigma)``, fp32 v-prediction Euler update.
-    ``solver="flowmatch"``: shifted-linear flow-matching sigmas, no input
-    scaling, timestep ``sigma * 1000``, fp32 velocity update. CFG blends in
-    fp32 with per-frame ``guidance``; the uncond branch gets zeros, or the
-    negative prompt's tokens when ``context`` is a ``(neg_ctx, pos_ctx)``
-    tuple.
+    ``solver="heun"`` and ``"dpmpp2m"``: the same sigmas and scaling with the
+    second-order updates; dpmpp2m's payload is ``[x | previous x0_hat]`` along
+    channels (``pack_initial``). ``solver="flowmatch"``: shifted-linear
+    flow-matching sigmas, no input scaling, timestep ``sigma * 1000``, fp32
+    velocity update. CFG blends in fp32 with per-frame ``guidance``; the
+    uncond branch gets zeros, or the negative prompt's tokens when
+    ``context`` is a ``(neg_ctx, pos_ctx)`` tuple.
     """
 
     def __init__(
@@ -271,8 +275,8 @@ class DiTVideoWrapper:
         if solver not in ("euler", "euler_a", "heun", "dpmpp2m", "flowmatch"):
             raise ValueError("solver must be 'euler', 'euler_a', 'heun', 'dpmpp2m' or "
                              "'flowmatch'")
-        if solver not in ("euler", "flowmatch"):
-            raise NotImplementedError(f"solver {solver!r} is not ported yet (ROADMAP A12)")
+        if solver == "euler_a":
+            raise NotImplementedError("solver 'euler_a' is not ported yet (ROADMAP A12)")
         self.solver = solver
         self.config = config or DiTVideoConfig.latte_xl()
         self.device = resolve_device(device)
@@ -286,12 +290,21 @@ class DiTVideoWrapper:
     def init_noise_sigma(self) -> float:
         return self.schedule.init_noise_sigma
 
-    # euler and flowmatch carry no cross-step state: the payload is the latent.
+    @property
+    def latent_channel_multiplier(self) -> int:
+        """Channel slots the pipeline payload carries (2 for dpmpp2m:
+        [x | previous x0_hat])."""
+        return 2 if self.solver == "dpmpp2m" else 1
+
     def pack_initial(self, latent: torch.Tensor) -> torch.Tensor:
-        return latent
+        if self.latent_channel_multiplier == 1:
+            return latent
+        return torch.cat([latent, torch.zeros_like(latent)], dim=-1)
 
     def unpack_final(self, latent: torch.Tensor) -> torch.Tensor:
-        return latent
+        if self.latent_channel_multiplier == 1:
+            return latent
+        return latent[..., : latent.shape[-1] // 2]
 
     def init(self, generator: torch.Generator) -> DiTVideo:
         """A randomly initialised DiT on this wrapper's device."""
@@ -324,8 +337,19 @@ class DiTVideoWrapper:
         if self.solver == "flowmatch":
             v = self._eps(params, lat32, s * 1000.0, context, neg_context, guidance)
             return flowmatch_step(lat32, v, sigma, sigma_next, latent.dtype)
+        if self.solver == "heun":
+            return heun_step_v_prediction(
+                lat32, lambda x, t: self._eps(params, x, t, context, neg_context, guidance),
+                sigma, sigma_next, latent.dtype)
+        if self.solver == "dpmpp2m":
+            lat32, old_den = lat32.chunk(2, dim=-1)
         scaled = lat32 * torch.rsqrt(s * s + 1.0)
         eps = self._eps(params, scaled, 0.25 * torch.log(s), context, neg_context, guidance)
+        if self.solver == "dpmpp2m":
+            x_next, denoised = dpmpp2m_step_v_prediction(
+                lat32, eps, old_den, self.schedule.sigmas[max(step_idx - 1, 0)], sigma,
+                sigma_next, latent.dtype)
+            return torch.cat([x_next, denoised], dim=-1)
         return euler_step_v_prediction(lat32, eps, sigma, sigma_next, latent.dtype)
 
     def pipeline_step_fn(self, seq_axis: str | None = None, cfg_axis: str | None = None,

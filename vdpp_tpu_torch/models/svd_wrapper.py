@@ -1,12 +1,15 @@
 """Stable Video Diffusion denoise-step wrapper (port of
-``vdpp_tpu/models/svd_wrapper.py`` for the Euler solver).
+``vdpp_tpu/models/svd_wrapper.py`` for the euler, heun and dpmpp2m solvers).
 
 Owns the Euler/Karras schedule, the conditioning (CLIP image embedding,
 frame-repeated image latents, added time ids, per-frame guidance ramp),
 classifier-free guidance in ``sequential`` or ``batched`` mode, and the
 per-step math
 
-    scale -> UNet (uncond, cond) -> per-frame guidance blend -> fp32 Euler.
+    scale -> UNet (uncond, cond) -> per-frame guidance blend -> fp32 update
+
+(Euler; Heun, which calls the UNet twice a step; or DPM-Solver++ (2M), whose
+previous ``x0_hat`` rides the pipeline payload along the channel axis).
 
 Latents are channels-last ``(B, F, H, W, 4)``. The UNet's weights travel as
 the ``params`` argument (an initialised :class:`SVDUNet`), as the reference's
@@ -22,7 +25,12 @@ from dataclasses import dataclass
 
 import torch
 
-from vdpp_tpu_torch.diffusion.scheduler import EulerKarrasSchedule, euler_step_v_prediction
+from vdpp_tpu_torch.diffusion.scheduler import (
+    EulerKarrasSchedule,
+    dpmpp2m_step_v_prediction,
+    euler_step_v_prediction,
+    heun_step_v_prediction,
+)
 from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
 from vdpp_tpu_torch.utils.device import resolve_device
 
@@ -113,8 +121,8 @@ def make_dummy_conditioning(
 
 class StableVideoUNet:
     """SVD denoiser with embedded schedule; ``pipeline_step_fn`` gives the
-    pipeline's ``step_fn(bundle, latent, step)`` contract. Only the Euler
-    solver is ported so far."""
+    pipeline's ``step_fn(bundle, latent, step)`` contract. The euler_a solver
+    and deepcache are not ported yet."""
 
     def __init__(
         self,
@@ -133,10 +141,10 @@ class StableVideoUNet:
             raise ValueError("cfg_mode must be 'sequential' or 'batched'")
         if solver not in ("euler", "euler_a", "heun", "dpmpp2m"):
             raise ValueError("solver must be 'euler', 'euler_a', 'heun' or 'dpmpp2m'")
-        if solver != "euler":
-            raise NotImplementedError(f"solver {solver!r} comes with a later slice of the port")
+        if solver == "euler_a":
+            raise NotImplementedError("solver 'euler_a' is not ported yet (ROADMAP A12)")
         if deepcache_interval:
-            raise NotImplementedError("deepcache comes with a later slice of the port")
+            raise NotImplementedError("deepcache is not ported yet (ROADMAP A12)")
         self.config = config or SVDUNetConfig.svd_xt()
         # VDPP_GN_FUSED=1 routes GroupNorm->SiLU pairs through the fused
         # kernel; read at construction, as the reference reads it.
@@ -150,12 +158,25 @@ class StableVideoUNet:
         self.cfg_mode = cfg_mode
         self.solver = solver
 
-    # Euler carries no cross-step state: the payload is the latent itself.
+    @property
+    def latent_channel_multiplier(self) -> int:
+        """How many latent-sized channel slots the pipeline payload carries
+        (2 for dpmpp2m: [x | previous x0_hat])."""
+        return 2 if self.solver == "dpmpp2m" else 1
+
     def pack_initial(self, latent: torch.Tensor) -> torch.Tensor:
-        return latent
+        """Attach the solver's cross-step state to a fresh latent. dpmpp2m's
+        x0_hat slot starts at zero; its first step is first order
+        (``sigma_prev == sigma``), so the zeros are never read."""
+        if self.latent_channel_multiplier == 1:
+            return latent
+        return torch.cat([latent, torch.zeros_like(latent)], dim=-1)
 
     def unpack_final(self, latent: torch.Tensor) -> torch.Tensor:
-        return latent
+        """Strip the solver's state from the pipeline's final payload."""
+        if self.latent_channel_multiplier == 1:
+            return latent
+        return latent[..., : latent.shape[-1] // 2]
 
     @property
     def num_steps(self) -> int:
@@ -210,14 +231,28 @@ class StableVideoUNet:
 
     def step(self, params: SVDUNet, latent: torch.Tensor, step_idx: int,
              cond: SVDConditioning) -> torch.Tensor:
-        """One denoising step: scale, UNet (+CFG), fp32 Euler update."""
-        sigma = self.schedule.sigmas[step_idx]
-        sigma_next = self.schedule.sigmas[step_idx + 1]
+        """One denoising step: scale, UNet (+CFG), fp32 solver update. With
+        dpmpp2m ``latent`` is the payload ``[x | previous x0_hat]`` and so is
+        the result."""
+        sigmas = self.schedule.sigmas
+        sigma, sigma_next = sigmas[step_idx], sigmas[step_idx + 1]
         lat32 = latent.float()
+        if self.solver == "heun":
+            return heun_step_v_prediction(
+                lat32, lambda scaled, t: self.noise_pred(params, scaled, t, cond), sigma,
+                sigma_next, latent.dtype)
+        if self.solver == "dpmpp2m":
+            lat32, old_den = lat32.chunk(2, dim=-1)
         s = torch.as_tensor(sigma, dtype=torch.float32, device=latent.device)
         timestep = 0.25 * torch.log(s)
         scaled = lat32 * torch.rsqrt(s * s + 1.0)
         eps = self.noise_pred(params, scaled, timestep, cond)
+        if self.solver == "dpmpp2m":
+            # sigma_prev == sigma at step 0 and after identity padding: first order.
+            x_next, denoised = dpmpp2m_step_v_prediction(
+                lat32, eps, old_den, sigmas[max(step_idx - 1, 0)], sigma, sigma_next,
+                latent.dtype)
+            return torch.cat([x_next, denoised], dim=-1)
         return euler_step_v_prediction(lat32, eps, sigma, sigma_next, latent.dtype)
 
     def pipeline_step_fn(self):

@@ -1,1 +1,2 @@
-"""Step assignment and the single-device reference run."""
+"""Step assignment, the stage processes and the step pipeline, and the
+single-device reference run."""

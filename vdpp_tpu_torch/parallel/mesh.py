@@ -1,0 +1,245 @@
+"""Stage processes for the step pipeline (the port's counterpart of
+``vdpp_tpu/parallel/mesh.py::make_pipeline_mesh``).
+
+The JAX package runs the pipeline as one SPMD program over a mesh axis
+``"stage"``. The port takes the original system's shape instead: one OS
+process per stage, each holding the whole model, all joined by one
+``torch.distributed`` process group. :func:`make_pipeline_mesh` says where the
+S ranks run and how they talk; :func:`run_stages` starts them (``spawn``: a
+parent that already holds a CUDA context cannot fork) and returns what each
+rank's function returned; each rank gets a :class:`Stage`, its view of the
+group.
+
+The backend follows from the layout and is not a choice:
+
+* ``nccl`` when each rank has a card of its own: the payload goes card to card;
+* ``gloo`` on the CPU, and on cards that ranks share, which a caller asks for
+  with an explicit device list (``devices=["cuda:0", "cuda:0"]``), as the
+  original's simulator ran its ranks on one shared GPU (NCCL refuses two ranks
+  on one card). The payload is copied to host memory on each side of the
+  hand-off.
+
+One stage needs no process group: :class:`Stage` then makes no collective
+call, so a one-stage run goes in the caller's own process.
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+import os
+import pickle
+import queue
+import tempfile
+import time
+import traceback
+from collections.abc import Callable, Sequence
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from vdpp_tpu_torch.utils.device import resolve_device
+
+@dataclass(frozen=True)
+class PipelineMesh:
+    """Where the stages run: ``devices[s]`` is stage s's device, and
+    ``backend`` the process group's."""
+
+    devices: tuple[torch.device, ...]
+    backend: str
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.devices)
+
+    @property
+    def host_handoff(self) -> bool:
+        """The payload crosses host memory (gloo) rather than going card to
+        card (NCCL)."""
+        return self.backend == "gloo"
+
+
+def make_pipeline_mesh(num_stages: int | None = None, device: str | torch.device | None = None,
+                       devices: Sequence[str | torch.device] | None = None) -> PipelineMesh:
+    """The stage layout.
+
+    Args:
+        num_stages: stage count; ``None`` means every visible card (on the
+            CPU: 1), as ``make_pipeline_mesh(None)`` means every device in
+            the JAX package. More stages than cards raises.
+        device: ``"cuda"`` (the default) or ``"cpu"``; stage s runs on card s,
+            or every stage on the CPU.
+        devices: an explicit device per stage instead, which may name one card
+            several times (a shared card: gloo, host hand-off).
+
+    The backend is NCCL when every rank has a card of its own, else gloo.
+    """
+    if devices is not None:
+        devs = tuple(torch.device(d) for d in devices)
+        if num_stages is not None and num_stages != len(devs):
+            raise ValueError(f"num_stages {num_stages} != {len(devs)} devices given")
+        if len({d.type for d in devs}) > 1:
+            raise ValueError(f"stages on more than one device type: {list(devs)}")
+        for d in devs:
+            resolve_device(d)
+        if devs and devs[0].type == "cuda":
+            devs = tuple(torch.device("cuda", d.index or 0) for d in devs)
+            count = torch.cuda.device_count()
+            if max(d.index for d in devs) >= count:
+                raise ValueError(f"{list(devs)} named, but only {count} cards are visible")
+    else:
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            count = torch.cuda.device_count()
+            n = count if num_stages is None else num_stages
+            if n > count:
+                raise ValueError(f"Requested {n} stages but only {count} devices available.")
+            devs = tuple(torch.device("cuda", i) for i in range(n))
+        else:
+            devs = (dev,) * (1 if num_stages is None else num_stages)
+    if not devs:
+        raise ValueError("a pipeline needs at least one stage")
+    own_cards = devs[0].type == "cuda" and len(set(devs)) == len(devs)
+    return PipelineMesh(devs, "nccl" if own_cards else "gloo")
+
+
+def make_2d_mesh(num_stages: int, num_data: int) -> PipelineMesh:
+    """The (stage, data) mesh of pipeline x data parallelism is not ported."""
+    raise NotImplementedError("the (stage, data) mesh comes with data parallelism and the "
+                              "multi-axis meshes (ROADMAP A11, A13)")
+
+
+class Stage:
+    """One rank's view of the pipeline: its stage index, its device, and the
+    collective calls the pipeline and the apps make."""
+
+    def __init__(self, mesh: PipelineMesh, rank: int):
+        self.mesh = mesh
+        self.rank = rank
+        self.device = mesh.devices[rank]
+
+    @property
+    def num_stages(self) -> int:
+        return self.mesh.num_stages
+
+    @property
+    def is_last(self) -> bool:
+        return self.rank == self.num_stages - 1
+
+    def handoff(self, out: torch.Tensor | None,
+                recv_like: torch.Tensor | None) -> torch.Tensor | None:
+        """Send ``out`` to the next stage and receive from the previous one a
+        payload of ``recv_like``'s shape and dtype, both at once (so a chain
+        of blocking ranks cannot wait on each other); either may be None.
+        Returns the received payload on this rank's device.
+
+        Under NCCL ``wait`` orders the current stream after the transfer and
+        does not block the host; the caller synchronises before it leaves
+        the group (``StepPipeline.run`` does)."""
+        host = self.mesh.host_handoff
+        ops, buf = [], None
+        if out is not None:
+            sent = out.cpu() if host else out.contiguous()
+            ops.append(dist.P2POp(dist.isend, sent, self.rank + 1))
+        if recv_like is not None:
+            buf = torch.empty_like(recv_like, device="cpu" if host else self.device)
+            ops.append(dist.P2POp(dist.irecv, buf, self.rank - 1))
+        for w in dist.batch_isend_irecv(ops) if ops else ():
+            w.wait()
+        return None if buf is None else buf.to(self.device)
+
+    def broadcast_object(self, obj: Any, src: int = 0) -> Any:
+        """``obj`` from rank ``src`` on every rank (pickled; put tensors on
+        the CPU first)."""
+        if self.num_stages == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=src)
+        return box[0]
+
+    def barrier(self) -> None:
+        if self.num_stages == 1:
+            return
+        if self.mesh.backend == "nccl":
+            dist.barrier(device_ids=[self.device.index])
+        else:
+            dist.barrier()
+
+
+def _rank_main(rank: int, mesh: PipelineMesh, init_method: str, payload: bytes, threads: int,
+               results) -> None:
+    """A spawned rank: joins the group, runs the pickled ``fn(stage, *args)``
+    and puts ``(rank, pickled result, None)`` or ``(rank, None, traceback)``
+    on ``results``."""
+    try:
+        torch.set_num_threads(threads)
+        if mesh.devices[rank].type == "cuda":
+            torch.cuda.set_device(mesh.devices[rank])
+        dist.init_process_group(mesh.backend, init_method=init_method, rank=rank,
+                                world_size=mesh.num_stages)
+        stage = Stage(mesh, rank)
+        # Every rank joins one collective first: NCCL's batched point-to-point
+        # calls need that, since a rank idle in tick 0 posts none.
+        stage.barrier()
+        fn, args = pickle.loads(payload)
+        results.put((rank, pickle.dumps(fn(stage, *args)), None))
+    except Exception:  # the parent reports it; this process ends here
+        results.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_stages(mesh: PipelineMesh, fn: Callable[..., Any], *args: Any, threads: int | None = None,
+               timeout: float | None = None) -> list[Any]:
+    """Run ``fn(stage, *args)`` on each of ``mesh``'s ranks, one spawned
+    process each, and return their results in rank order.
+
+    ``fn`` is sent by import path (a module-level function), ``args`` and the
+    results are pickled. ``threads`` is each rank's intra-op thread count
+    (default: this process's). A rank that raises or dies fails the call
+    with its traceback, and the other ranks are terminated; so are all of
+    them after ``timeout`` seconds.
+    """
+    ctx = multiprocessing.get_context("spawn")
+    threads = torch.get_num_threads() if threads is None else threads
+    payload = pickle.dumps((fn, args))
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="vdpp_stages_") as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_rank_main, args=(r, mesh, init, payload, threads, results),
+                             daemon=True) for r in range(mesh.num_stages)]
+        for p in procs:
+            p.start()
+        try:
+            return _collect(procs, results, timeout)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+
+
+def _collect(procs, results, timeout: float | None) -> list[Any]:
+    deadline = None if timeout is None else time.monotonic() + timeout
+    got: dict[int, Any] = {}
+    while len(got) < len(procs):
+        try:
+            rank, out, err = results.get(timeout=1.0)
+        except queue.Empty:
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(f"stage ranks {sorted(set(range(len(procs))) - set(got))} "
+                                   f"gave no result in {timeout} s") from None
+            dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode is not None]
+            if not dead:
+                continue
+            try:  # a rank that exited may have flushed its result just now
+                rank, out, err = results.get(timeout=5.0)
+            except queue.Empty:
+                raise RuntimeError(f"stage rank(s) {dead} exited with code(s) "
+                                   f"{[procs[r].exitcode for r in dead]} and no result") from None
+        if err is not None:
+            raise RuntimeError(f"stage rank {rank} of {len(procs)} failed:\n{err}")
+        got[rank] = pickle.loads(out)
+    return [got[r] for r in range(len(procs))]

@@ -1,19 +1,154 @@
-"""The single-device reference run (port of
-``vdpp_tpu/parallel/pipeline.py::run_reference_single_device``).
+"""The step pipeline, one process per stage (port of
+``vdpp_tpu/parallel/pipeline.py``), and the single-device run it is held to.
 
-The multi-process step pipeline over NCCL point-to-point is a later slice of
-the port; this is the oracle it will be held to: every step of the schedule
-run in order on one device.
+The JAX package runs the schedule as one SPMD program: a ``shard_map`` over
+the ``"stage"`` axis with ``ppermute`` for the hand-off. The port takes the
+original system's shape: S processes (``parallel/mesh.py``), rank s holding
+the whole model and running steps ``[s*K, (s+1)*K)`` of every sample, then
+handing the payload to rank s+1. The schedule is the same:
+
+    tick:      0         1          2        ...
+    stage 0:  x0:0..K   x1:0..K    x2:0..K
+    stage 1:     -      x0:K..2K   x1:K..2K
+    ...
+    stage S-1 finishes sample t-(S-1) at tick t;  total ticks = N + S - 1.
+
+A stage with no sample in a fill or drain tick computes nothing; the bubble
+fraction is still ``(S-1)/(N+S-1)`` of the stage-ticks. There is no edge
+from the last stage back to the first (the JAX ring's wrap-around carries
+only data nobody reads).
 """
 
 from __future__ import annotations
 
+import time
 from collections.abc import Callable
+from dataclasses import dataclass
 from typing import Any
 
 import torch
 
+from vdpp_tpu_torch.parallel.mesh import Stage
+from vdpp_tpu_torch.parallel.step_assignment import assign_steps
+
 StepFn = Callable[[Any, torch.Tensor, int], torch.Tensor]
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Static configuration of a step pipeline: uniform splits only
+    (``assign_steps`` raises on a bad or non-divisible one)."""
+
+    total_steps: int
+    num_stages: int
+
+    def __post_init__(self) -> None:
+        assign_steps(self.total_steps, self.num_stages, 0)
+
+    @property
+    def steps_per_stage(self) -> int:
+        return self.total_steps // self.num_stages
+
+    def num_ticks(self, num_samples: int) -> int:
+        return num_samples + self.num_stages - 1
+
+    def bubble_fraction(self, num_samples: int) -> float:
+        """Exact fraction of stage-ticks spent in fill and drain."""
+        s = self.num_stages
+        return (s - 1) / (num_samples + s - 1)
+
+
+class StepPipeline:
+    """The step pipeline as seen from one rank; every rank of the group
+    builds one and calls the same method.
+
+    Every stage holds the whole model (``params``, the same on every rank)
+    and runs ``step_fn(params, payload, step)`` for its contiguous slice of
+    steps. ``inputs`` is ``(N, *payload)`` on every rank: rank 0 ingests its
+    samples, and the other ranks size their receive buffers from its shape
+    and dtype (a solver whose state rides the payload, such as dpmpp2m's 8
+    channels, has a payload wider than the latent).
+    """
+
+    def __init__(self, stage: Stage, step_fn: StepFn, config: PipelineConfig,
+                 param_spec=None):
+        if param_spec is not None:
+            raise NotImplementedError("sharded parameters (param_spec) come with expert "
+                                      "parallelism (ROADMAP A15)")
+        if stage.num_stages != config.num_stages:
+            raise ValueError(f"mesh stage axis ({stage.num_stages}) != config.num_stages "
+                             f"({config.num_stages})")
+        self.stage = stage
+        self.step_fn = step_fn
+        self.config = config
+
+    def _tick(self, params, inputs: torch.Tensor, t: int,
+              x: torch.Tensor | None) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+        """Tick ``t`` on this rank, holding ``x`` (the payload received in the
+        previous tick). Returns the payload received in this tick and, on the
+        last stage, the sample it finished (else None)."""
+        s, S, N = self.stage.rank, self.config.num_stages, len(inputs)
+        K = self.config.steps_per_stage
+        active = 0 <= t - s < N
+        if active:
+            if s == 0:
+                x = inputs[t].to(self.stage.device)
+            for k in range(s * K, (s + 1) * K):
+                x = self.step_fn(params, x, k)
+            if x.shape != inputs.shape[1:] or x.dtype != inputs.dtype:
+                raise ValueError(f"step_fn returned a {tuple(x.shape)} {x.dtype} payload for a "
+                                 f"{tuple(inputs.shape[1:])} {inputs.dtype} one")
+        receives = s > 0 and 0 <= t - (s - 1) < N
+        nxt = self.stage.handoff(x if active and s < S - 1 else None,
+                                 inputs[0] if receives else None)
+        return nxt, (x if active and s == S - 1 else None)
+
+    def run(self, params, inputs: torch.Tensor) -> torch.Tensor | None:
+        """Pipeline ``inputs (N, *payload)`` through all ``total_steps``.
+        Returns the finished ``(N, *payload)`` on the last rank (on its
+        device) and None on the others."""
+        outputs, x = [], None
+        with torch.inference_mode():
+            for t in range(self.config.num_ticks(len(inputs))):
+                x, done = self._tick(params, inputs, t, x)
+                if done is not None:
+                    outputs.append(done)
+        if self.stage.device.type == "cuda":  # the last send lands before the rank moves on
+            torch.cuda.synchronize(self.stage.device)
+        return torch.stack(outputs) if self.stage.is_last else None
+
+    def run_ticked(self, params, inputs: torch.Tensor, on_sample=None, start_tick: int = 0,
+                   initial_buf=None, on_tick=None):
+        """Host-stepped run: every rank advances one tick at a time, with a
+        barrier at the end of each (after its device work has finished).
+
+        Returns ``(outputs, tick_seconds)`` on the last rank, with
+        ``len(tick_seconds) == num_ticks(N)``, and None on the others.
+        ``on_sample(i, latent)`` fires on the last rank, in order, the moment
+        sample ``i`` finishes (tick ``i + S - 1``).
+        """
+        if start_tick or initial_buf is not None or on_tick is not None:
+            raise NotImplementedError("resuming a ticked run (start_tick, initial_buf, "
+                                      "on_tick) comes with utils/resume.py (ROADMAP A12)")
+        dev = self.stage.device
+        outputs, ticks, x = [], [], None
+        with torch.inference_mode():
+            for t in range(self.config.num_ticks(len(inputs))):
+                t0 = time.perf_counter()
+                x, done = self._tick(params, inputs, t, x)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                self.stage.barrier()
+                ticks.append(time.perf_counter() - t0)
+                if done is not None:
+                    outputs.append(done)
+                    if on_sample is not None:
+                        on_sample(len(outputs) - 1, done)
+        return (torch.stack(outputs), ticks) if self.stage.is_last else None
+
+    def stream(self, params, latent_shape: tuple, dtype=torch.float32):
+        """The streaming executor for serving is not ported."""
+        raise NotImplementedError("PipelineStream comes with serving (ROADMAP A16)")
 
 
 def run_reference_single_device(
@@ -21,7 +156,7 @@ def run_reference_single_device(
 ) -> torch.Tensor:
     """Run ``step_fn(params, x, k)`` for ``k = 0 .. total_steps - 1`` on each
     sample of ``inputs`` (leading axis = samples); returns the stacked final
-    latents."""
+    latents. The oracle every pipelined run must equal."""
     with torch.inference_mode():
         outs = []
         for x in inputs:

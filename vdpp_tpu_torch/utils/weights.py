@@ -12,8 +12,9 @@ is the inverse of ``convert_vae_decoder_state_dict`` and gives the
 (transformers ``CLIPVisionModelWithProjection`` names, for
 ``CLIPVisionEncoder``), ``from_jax_t5_params`` the inverse of
 ``convert_t5_encoder_state_dict`` (transformers ``T5EncoderModel`` names),
-and ``from_jax_dit_params`` maps the DiT's tree onto ``DiTVideo``'s names,
-which follow that tree. ``load_jax_npz`` reads the JAX package's own
+``from_jax_dit_params`` maps the DiT's tree onto ``DiTVideo``'s names,
+which follow that tree, and ``from_jax_dummy_params`` the simulator's
+``DummyUNet``. ``load_jax_npz`` reads the JAX package's own
 ``save_params`` files (``unet.npz``, ``clip.npz``, ``vae_encoder.npz``,
 ``vae_decoder.npz``, ``dit.npz``, ``t5.npz`` of a ``--checkpoint``
 directory) with numpy alone.
@@ -209,6 +210,17 @@ def from_jax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return out.sd
 
 
+def from_jax_dummy_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``DummyUNet`` parameters -> the state dict that
+    ``vdpp_tpu_torch.models.dummy_unet.DummyUNet.load_state_dict`` takes
+    (both hold conv kernels as ``(O, I, kd, kh, kw)``)."""
+    sd = {f"{name}.{leaf}": _t(params[name][key]) for name in ("conv1", "conv2")
+          for leaf, key in (("weight", "w"), ("bias", "b"))}
+    if "ln" in params:
+        sd["ln.weight"], sd["ln.bias"] = _t(params["ln"]["w"]), _t(params["ln"]["b"])
+    return sd
+
+
 def from_jax_vae_decoder_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """JAX ``TemporalVAEDecoder`` parameter tree (numpy leaves) -> the
     diffusers ``decoder.*`` state dict of CPU tensors in the leaves' dtypes."""
@@ -402,7 +414,8 @@ def _load_by_name(module: torch.nn.Module, sd: Mapping[str, torch.Tensor], what:
 
 
 def load_svd_checkpoint(model_dir: str, *, unet_config=None, vae_config=None,
-                        clip_config=None, device: str | torch.device | None = None
+                        clip_config=None, device: str | torch.device | None = None,
+                        parts=("unet", "vae_encoder", "vae_decoder", "clip"),
                         ) -> dict[str, torch.nn.Module]:
     """A local diffusers-layout SVD checkpoint (``unet/``, ``vae/``,
     ``image_encoder/`` with ``*.safetensors`` shards) loaded into the port's
@@ -414,25 +427,28 @@ def load_svd_checkpoint(model_dir: str, *, unet_config=None, vae_config=None,
     (1428 at SVD-XT), and so must the VAE's ``encoder.*`` and ``decoder.*``
     subtrees; the vision tower must hold all of its model's keys. Keys
     outside those (the VAE's ``quant_conv``, the tower's ``position_ids``)
-    are passed over, as that converter passes them over."""
+    are passed over, as that converter passes them over. Only the modules
+    named in ``parts`` are built and read."""
     from vdpp_tpu_torch.models.clip_encoder import CLIPVisionConfig, CLIPVisionEncoder
     from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
     from vdpp_tpu_torch.models.vae import TemporalVAEDecoder, VAEConfig, VAEEncoder
 
     out: dict[str, torch.nn.Module] = {}
-    sd = _load_dir(model_dir, "unet")
+    sd = _load_dir(model_dir, "unet") if "unet" in parts else {}
     if sd:
         out["unet"] = SVDUNet(unet_config or SVDUNetConfig.svd_xt(), device=device)
         _load_by_name(out["unet"], sd, "unet", strict=True)
-    sd = _load_dir(model_dir, "vae")
+    vae_parts = [(name, cls, prefix) for name, cls, prefix in (
+        ("vae_encoder", VAEEncoder, "encoder."), ("vae_decoder", TemporalVAEDecoder, "decoder."))
+        if name in parts]
+    sd = _load_dir(model_dir, "vae") if vae_parts else {}
     if sd:
         vae_config = vae_config or VAEConfig.svd()
-        for name, cls, prefix in (("vae_encoder", VAEEncoder, "encoder."),
-                                  ("vae_decoder", TemporalVAEDecoder, "decoder.")):
+        for name, cls, prefix in vae_parts:
             out[name] = cls(vae_config, device=device)
             _load_by_name(out[name], {k: v for k, v in sd.items() if k.startswith(prefix)},
                           name, strict=True)
-    sd = _load_dir(model_dir, "image_encoder")
+    sd = _load_dir(model_dir, "image_encoder") if "clip" in parts else {}
     if sd:
         out["clip"] = CLIPVisionEncoder(clip_config or CLIPVisionConfig.vit_h_14(), device=device)
         _load_by_name(out["clip"], sd, "image_encoder", strict=False)
