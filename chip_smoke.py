@@ -66,6 +66,23 @@ Phases (any failure exits non-zero and prints no result line):
    the single-device run. The same again with the dpmpp2m solver, whose
    payload has 8 channels. For each run the launch counts are set to 0 just
    before and read just after, and must show the kernels on every site.
+6. the slice of DeepCache, euler_a and the video->video and long apps,
+   between the image->video app and the pipeline: (c) the restyle app
+   (``apps.restyle_video.main``) on the image->video app's 14-frame Y4M,
+   strength 0.4 of 5 steps (2 run), whose files must hold 14 frames of
+   1024x576, 60 flash launches at d = 64 and 9 at d = 512 (5 in the encoder,
+   4 in the decode); (d) the long app (``apps.generate_video_long.main``), 2
+   segments of 14 frames, 2 steps at DeepCache-2, 27 frames, 80 and 10
+   launches; (a) full-width SVD-XT switched, 25 frames, dpmpp2m x
+   DeepCache-2 at split 1: ``apply_cached(use_full=True)`` bit-equal to
+   ``forward`` on the same inputs, the launches of a full (15, 89, 16) and a
+   cache forward (5, 21, 5), 4 steps (full, cache, full, cache) through
+   ``run_reference_single_device`` with their launches counted, and a full
+   and a cache step timed alone; (b) the pipeline phase again with euler_a
+   and with dpmpp2m at DeepCache-2 (rank 0 takes the full step, rank 1 the
+   cache step; 644 and 648 fp32 channels, 593.5 and 597.2 MB a hand-off),
+   bit-equal to the single-device run as words, the hand-off's bytes and
+   milliseconds printed.
 
 The last two lines are the ``nvidia-smi`` name/power-limit line and the
 contract line ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
@@ -132,6 +149,31 @@ FLASH_PER_APP = {64: FLASH_PER_FORWARD * 2 * APP_STEPS, 512: 1 + -(-APP_FRAMES /
 # each sample, two UNet forwards a step (CFG sequential).
 PIPE_STAGES, PIPE_STEPS, PIPE_SAMPLES = 2, 2, 2
 PIPE_FORWARDS_PER_RANK = 2 * PIPE_SAMPLES * PIPE_STEPS // PIPE_STAGES
+# The pipeline phase's cases: (solver, DeepCache interval). With interval 2
+# rank 0 takes the full step and rank 1 the cache step, so the cache crosses
+# the hand-off: 644 fp32 channels a sample (648 with dpmpp2m's x0_hat).
+PIPE_CASES = (("euler", 0), ("dpmpp2m", 0), ("euler_a", 2), ("dpmpp2m", 2))
+# A cache forward at split 1 runs conv_in, down level 0 (2 ResBlocks, 2
+# transformers; no downsample), up block 3 (3 ResBlocks, 3 transformers) and
+# the head: 5 flash sites (all at L = 9216), 5 temporal attentions, and
+# 4 x 5 + 1 GroupNorm+SiLU pairs.
+FLASH_PER_CACHE_FORWARD = 5
+FRAME_ATTN_PER_CACHE_FORWARD = 5
+GN_SILU_PER_CACHE_FORWARD = 4 * 5 + 1
+# Phase (a): the fast path's composition, dpmpp2m x DeepCache-2 at split 1,
+# switched, 25 frames, DC_STEPS steps: full, cache, full, cache.
+DC_STEPS, DC_INTERVAL = 4, 2
+# The restyle app on the image->video app's 14-frame Y4M: strength 0.4 of 5
+# steps runs the last 2 (denoise_from 3). The VAE encodes frame 0 (B = 1)
+# and the 14 frames in chunks of 4 (B = 4, 4, 4, 2), and decodes 4 chunks.
+RESTYLE_STEPS, RESTYLE_STRENGTH, RESTYLE_RUN = 5, 0.4, 2
+FLASH_PER_RESTYLE = {64: FLASH_PER_FORWARD * 2 * RESTYLE_RUN, 512: 1 + 4 + 4}
+# The long app: 2 segments of 14 frames, 2 steps at DeepCache-2 (a full and
+# a cache step each), so 14 + 13 = 27 frames; per segment 1 encoder and 4
+# decode launches at d = 512.
+LONG_SEGMENTS, LONG_STEPS = 2, 2
+FLASH_PER_LONG = {64: LONG_SEGMENTS * 2 * (FLASH_PER_FORWARD + FLASH_PER_CACHE_FORWARD),
+                  512: LONG_SEGMENTS * (1 + 4)}
 
 
 def fail(msg: str) -> None:
@@ -868,6 +910,10 @@ def run_app(torch, fa, nk, ta, smi: str) -> dict:
             fail(f"the image->video app wrote {sorted(files)}, not an MP4, a Y4M and a GIF")
         video = y4m_frames(files[".y4m"])
         gif = gif_frames(files[".gif"])
+        # The restyle phase's input.
+        fd, y4m = tempfile.mkstemp(prefix="chip_smoke_app_", suffix=".y4m")
+        os.close(fd)
+        shutil.copyfile(files[".y4m"], y4m)
     finally:
         logging.getLogger("vdpp_torch.generate").removeHandler(keep)
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -897,7 +943,49 @@ def run_app(torch, fa, nk, ta, smi: str) -> dict:
           f"(cold: first call of each in the process); decode fp32 of {APP_FRAMES} frames "
           f"{secs['decode']:.3f} s, writing the files {secs['save']:.3f} s ({smi})")
     print(f"image->video app peak allocated {peak / 2**30:.2f} GiB ({smi})")
-    return {"seconds": secs, "peak_mem_bytes": peak, "flash": flash}
+    return {"seconds": secs, "peak_mem_bytes": peak, "flash": flash, "y4m": y4m}
+
+
+def run_entry_point(torch, fa, nk, ta, smi: str, what: str, main, argv: list[str],
+                    want_frames: int, want_flash: dict) -> dict:
+    """An app through its entry point ``main(argv + ["--output-dir", tmp])``
+    at one stage in this process, the launch counts set to 0 just before and
+    read just after; its Y4M and GIF must hold ``want_frames`` frames of
+    APP_W x APP_H, and flash must have launched ``want_flash`` times by head
+    dim."""
+    import shutil
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_app_")
+    try:
+        reset_counts(fa, nk, ta)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = main(argv + ["--num-stages", "1", "--device", "cuda", "--output-dir", out_dir])
+        wall = time.perf_counter() - t0
+        flash = dict(fa.launches)
+        counts = {"gn": nk.launches, "frame": ta.launches}
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            fail(f"the {what} returned {rc}")
+        files = {os.path.splitext(n)[1]: os.path.join(out_dir, n) for n in os.listdir(out_dir)}
+        if not {".mp4", ".y4m", ".gif"} <= set(files):
+            fail(f"the {what} wrote {sorted(files)}, not an MP4, a Y4M and a GIF")
+        video, gif = y4m_frames(files[".y4m"]), gif_frames(files[".gif"])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    want = (want_frames, APP_W, APP_H)
+    print(f"{what}: y4m {video}, gif {gif} (frames, width, height; expected {want}), "
+          f"{wall:.3f} s in main, peak allocated {peak / 2**30:.2f} GiB ({smi})")
+    if video != want or gif != want:
+        fail(f"the {what}'s files hold y4m {video} and gif {gif}, expected {want}")
+    for d, n in want_flash.items():
+        expect(f"flash at d = {d} in the {what}", flash.get(d, 0), n)
+    if set(flash) - set(want_flash):
+        fail(f"the {what} launched flash at head dims {sorted(flash)}")
+    expect(f"GroupNorm+SiLU in the {what}", counts["gn"], 0)
+    expect(f"frame attention in the {what}", counts["frame"], 0)
+    return {"flash": flash, "wall_s": wall, "peak_mem_bytes": peak}
 
 
 def run_dit_path(torch, bench, config, context, smi: str, what: str) -> dict:
@@ -944,17 +1032,19 @@ def exact_libraries(torch) -> None:
     torch.backends.cudnn.deterministic = True
 
 
-def pipeline_case(torch, device, solver: str):
+def pipeline_case(torch, device, solver: str, interval: int = 0):
     """What every rank and the single-device run build alike on ``device``:
     full-width SVD-XT from seed 0, random conditioning for 25 frames at
     72x128 with a CFG ramp to 3, and PIPE_SAMPLES noise draws packed for
-    ``solver`` (dpmpp2m: 8 channels). Returns (wrapper, params, inputs)."""
+    ``solver`` (dpmpp2m: 8 channels) and DeepCache every ``interval`` steps
+    (640 more). euler_a draws its noise from sampler seed 7 on each rank's
+    card. Returns (wrapper, params, inputs)."""
     from vdpp_tpu_torch.models.svd_unet import SVDUNetConfig
     from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet, make_dummy_conditioning
 
     config = SVDUNetConfig.svd_xt()
     wrapper = StableVideoUNet(config, num_steps=PIPE_STEPS, cfg_mode="sequential", solver=solver,
-                              device=device)
+                              deepcache_interval=interval, sampler_seed=7, device=device)
     unet = wrapper.init(torch.Generator(device=device).manual_seed(0))
     cond = make_dummy_conditioning(torch.Generator(device=device).manual_seed(1), 1, 25, 72, 128,
                                    cross_dim=config.cross_attention_dim, guidance_scale=3.0)
@@ -963,7 +1053,7 @@ def pipeline_case(torch, device, solver: str):
     return wrapper, (unet, cond), wrapper.pack_initial(noise * wrapper.init_noise_sigma)
 
 
-def pipeline_rank(stage, solver: str) -> dict:
+def pipeline_rank(stage, solver: str, interval: int) -> dict:
     """One rank of the pipeline phase, in its own process: the launch counts
     set to 0 just before ``run_ticked`` and read just after; the last rank
     also returns the outputs, the tick seconds and what ``on_sample`` saw."""
@@ -975,7 +1065,7 @@ def pipeline_rank(stage, solver: str) -> dict:
     from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
 
     exact_libraries(torch)
-    wrapper, params, inputs = pipeline_case(torch, stage.device, solver)
+    wrapper, params, inputs = pipeline_case(torch, stage.device, solver, interval)
     pipe = StepPipeline(stage, wrapper.pipeline_step_fn(),
                         PipelineConfig(PIPE_STEPS, stage.num_stages))
     handoff, handoff_s = stage.handoff, []
@@ -1003,7 +1093,13 @@ def pipeline_rank(stage, solver: str) -> dict:
     return out
 
 
-def run_pipeline(torch, smi: str, solver: str) -> dict:
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit (the packed cache lanes are compared as words)."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def run_pipeline(torch, smi: str, solver: str, interval: int = 0) -> dict:
     """The step pipeline at full width, switched, through ``run_ticked``: two
     ranks on two cards over NCCL where there are two, else both on the one
     card over gloo (the hand-off through host memory). The last rank's
@@ -1025,17 +1121,18 @@ def run_pipeline(torch, smi: str, solver: str) -> dict:
         mesh = make_pipeline_mesh(devices=["cuda:0"] * PIPE_STAGES)
         how = "gloo, both ranks sharing cuda:0, the hand-off through host memory"
         note = " (the ranks time-share one card: no measure of pipelining speed)"
+    name = solver + (f" x DeepCache-{interval}" if interval else "")
     saved = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
     torch.cuda.empty_cache()
     with kernel_switches():
         t0 = time.perf_counter()
         try:
-            ranks = run_stages(mesh, pipeline_rank, solver, timeout=900)
+            ranks = run_stages(mesh, pipeline_rank, solver, interval, timeout=900)
         except (RuntimeError, TimeoutError) as e:
-            fail(f"the {solver} pipeline failed: {e}")
+            fail(f"the {name} pipeline failed: {e}")
         wall = time.perf_counter() - t0
         exact_libraries(torch)
-        wrapper, params, inputs = pipeline_case(torch, torch.device("cuda:0"), solver)
+        wrapper, params, inputs = pipeline_case(torch, torch.device("cuda:0"), solver, interval)
         step_fn = wrapper.pipeline_step_fn()
 
         def timed(fn):
@@ -1050,7 +1147,7 @@ def run_pipeline(torch, smi: str, solver: str) -> dict:
 
         t_ref, ref = timed(oracle)
         one_stage = {}
-        if solver == "euler":
+        if solver == "euler" and not interval:
             pipe1 = StepPipeline(Stage(make_pipeline_mesh(1, device="cuda"), 0), step_fn,
                                  PipelineConfig(PIPE_STEPS, 1))
             t_p1, out1 = timed(lambda: pipe1.run(params, inputs))
@@ -1059,12 +1156,13 @@ def run_pipeline(torch, smi: str, solver: str) -> dict:
             one_stage = {"oracle_s": [t_ref, t_ref2], "pipeline_s": [t_p1, t_p2],
                          "equal": bool(torch.equal(out1, ref))}
         ref = ref.cpu()
+        channels = inputs.shape[-1]
         del wrapper, params, inputs, step_fn
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
     torch.cuda.empty_cache()
 
     last = ranks[-1]
-    what = f"the {solver} pipeline ({PIPE_STAGES} stages, {how})"
+    what = f"the {name} pipeline ({PIPE_STAGES} stages, {how})"
     print(f"{what}: SVD-XT bf16 switched, 25 frames at 72x128, CFG 3 sequential, {PIPE_STEPS} "
           f"steps, {PIPE_SAMPLES} samples: {wall:.3f} s for the spawned ranks, tick seconds "
           f"{[round(t, 4) for t in last['ticks']]}{note} ({smi})")
@@ -1083,34 +1181,139 @@ def run_pipeline(torch, smi: str, solver: str) -> dict:
               f"{one_stage['equal']} ({smi})")
         if not one_stage["equal"]:
             fail("the one-stage pipeline differs from run_reference_single_device")
-    channels = 4 * (2 if solver == "dpmpp2m" else 1)
-    want_shape = (PIPE_SAMPLES, 1, 25, 72, 128, channels)
+    want_ch = 4 * (2 if solver == "dpmpp2m" else 1) + (640 if interval else 0)
+    want_shape = (PIPE_SAMPLES, 1, 25, 72, 128, want_ch)
     out = last["outputs"]
-    print(f"{what}: output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}, equal "
-          f"to the single-device run {bool(torch.equal(out, ref))} (max|diff| "
-          f"{(out - ref).abs().max().item():.3g}), {len(last['ticks'])} ticks, on_sample "
-          f"{last['on_sample']}")
-    if tuple(out.shape) != want_shape or not torch.isfinite(out).all():
+    equal = same_bits(torch, out, ref)
+    head = out[..., :4 * (2 if solver == "dpmpp2m" else 1)]
+    print(f"{what}: output {tuple(out.shape)}, latent finite {bool(torch.isfinite(head).all())}, "
+          f"equal bit for bit to the single-device run {equal}, {len(last['ticks'])} ticks, "
+          f"on_sample {last['on_sample']}")
+    if tuple(out.shape) != want_shape or channels != want_ch or not torch.isfinite(head).all():
         fail(f"{what} gave {tuple(out.shape)} (expected {want_shape}) or non-finite values")
-    if not torch.equal(out, ref):
+    if not equal:
         fail(f"{what} differs from the single-device run")
     if len(last["ticks"]) != PIPE_SAMPLES + PIPE_STAGES - 1:
         fail(f"{what} ran {len(last['ticks'])} ticks")
     if last["on_sample"] != list(range(PIPE_SAMPLES)) or not last["on_sample_equal"]:
         fail(f"{what}: on_sample saw {last['on_sample']}, equal {last['on_sample_equal']}")
     for r in ranks:
+        # With DeepCache-2 rank 0 runs step 0 (full) and rank 1 step 1 (cache).
+        cache = interval and r["rank"] % interval
+        per = ((FLASH_PER_CACHE_FORWARD, GN_SILU_PER_CACHE_FORWARD, FRAME_ATTN_PER_CACHE_FORWARD)
+               if cache else (FLASH_PER_FORWARD, GN_SILU_PER_FORWARD, FRAME_ATTN_PER_FORWARD))
         expect(f"{what}, rank {r['rank']}: flash at d = 64", r["counts"]["flash"].get(64, 0),
-               FLASH_PER_FORWARD * PIPE_FORWARDS_PER_RANK)
+               per[0] * PIPE_FORWARDS_PER_RANK)
         if set(r["counts"]["flash"]) - {64}:
             fail(f"{what}, rank {r['rank']} launched flash at {sorted(r['counts']['flash'])}")
         expect(f"{what}, rank {r['rank']}: GroupNorm+SiLU", r["counts"]["gn"],
-               GN_SILU_PER_FORWARD * PIPE_FORWARDS_PER_RANK)
+               per[1] * PIPE_FORWARDS_PER_RANK)
         expect(f"{what}, rank {r['rank']}: frame attention", r["counts"]["frame"],
-               FRAME_ATTN_PER_FORWARD * PIPE_FORWARDS_PER_RANK)
-        if r["handoff_bytes"] != 25 * 72 * 128 * channels * 4:
+               per[2] * PIPE_FORWARDS_PER_RANK)
+        if r["handoff_bytes"] != 25 * 72 * 128 * want_ch * 4:
             fail(f"{what}: a {r['handoff_bytes']}-byte hand-off")
+    print(f"{what}: the hand-off carries {ranks[0]['handoff_bytes']} bytes a sample "
+          f"({ranks[0]['handoff_bytes'] / 1e6:.1f} MB); rank 0's tick-0 send "
+          f"{ranks[0]['handoff_s'][0] * 1e3:.3f} ms, its tick-1 send and receive "
+          f"{ranks[0]['handoff_s'][1] * 1e3:.3f} ms ({smi})")
     return {"ranks": [{k: v for k, v in r.items() if k != "outputs"} for r in ranks],
             "backend": mesh.backend, "wall_s": wall, "one_stage": one_stage}
+
+
+def run_deepcache(torch, fa, nk, ta, smi: str) -> dict:
+    """Phase (a): full-width SVD-XT, switched, 25 frames at 72x128, CFG 3
+    sequential, dpmpp2m x DeepCache-2 at split 1 for DC_STEPS steps (full,
+    cache, full, cache) through ``run_reference_single_device``. First the
+    full branch of ``apply_cached`` against ``forward`` on the same inputs,
+    bit for bit, each forward's launches counted; then the schedule, its
+    launches counted; then each kind of step timed alone (CUDA events around
+    ``wrapper.step``, 3 calls after a warm-up)."""
+    from vdpp_tpu_torch.models.svd_unet import SVDUNetConfig
+    from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet, make_dummy_conditioning
+    from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
+
+    saved = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    exact_libraries(torch)
+    dev = torch.device("cuda:0")
+    out = {}
+    with kernel_switches(), torch.inference_mode():
+        config = SVDUNetConfig.svd_xt()
+        wrapper = StableVideoUNet(config, num_steps=DC_STEPS, cfg_mode="sequential",
+                                  solver="dpmpp2m", deepcache_interval=DC_INTERVAL, device=dev)
+        unet = wrapper.init(torch.Generator(device=dev).manual_seed(0))
+        cond = make_dummy_conditioning(torch.Generator(device=dev).manual_seed(1), 1, 25, 72, 128,
+                                       cross_dim=config.cross_attention_dim, guidance_scale=3.0)
+        g = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(1, 25, 72, 128, 8, generator=g, device=dev)
+        cache0 = torch.zeros(unet.cache_feature_shape(1, 25, 72, 128, 1), dtype=config.dtype,
+                             device=dev)
+        counts = {}
+        for what, fn in (("forward", lambda: unet(x, 0.7, cond.image_embeddings,
+                                                     cond.added_time_ids)),
+                         ("full", lambda: unet.apply_cached(x, 0.7, cond.image_embeddings,
+                                                            cond.added_time_ids, cache0, True)),
+                         ("cache", lambda: unet.apply_cached(x, 0.7, cond.image_embeddings,
+                                                             cond.added_time_ids, cache, False))):
+            reset_counts(fa, nk, ta)
+            res = fn()
+            torch.cuda.synchronize()
+            counts[what] = (fa.launches.total(), nk.launches, ta.launches)
+            out[what] = res
+            if what == "full":
+                cache = res[1]
+        equal = bool(torch.equal(out["forward"], out["full"][0]))
+        print(f"DeepCache (a): apply_cached(use_full=True) against forward, SVD-XT bf16 switched, "
+              f"25 frames at 72x128: equal bit for bit {equal}; cache "
+              f"{tuple(out['full'][1].shape)} {out['full'][1].dtype}; launches (flash, "
+              f"GroupNorm+SiLU, frame attention) per forward {counts['forward']}, per full "
+              f"forward {counts['full']}, per cache forward {counts['cache']}")
+        if not equal:
+            fail("the full branch of apply_cached differs from forward on the card")
+        per_full = (FLASH_PER_FORWARD, GN_SILU_PER_FORWARD, FRAME_ATTN_PER_FORWARD)
+        per_cache = (FLASH_PER_CACHE_FORWARD, GN_SILU_PER_CACHE_FORWARD,
+                     FRAME_ATTN_PER_CACHE_FORWARD)
+        for what, want in (("forward", per_full), ("full", per_full), ("cache", per_cache)):
+            for kname, got, n in zip(("flash", "GroupNorm+SiLU", "frame attention"),
+                                     counts[what], want):
+                expect(f"DeepCache (a): {kname} per {what} forward", got, n)
+        if not torch.isfinite(out["cache"][0]).all():
+            fail("the cache forward gave non-finite values")
+        del out
+
+        noise = torch.randn(1, 1, 25, 72, 128, 4, generator=g, device=dev)
+        inputs = wrapper.pack_initial(noise * wrapper.init_noise_sigma)
+        step_fn = wrapper.pipeline_step_fn()
+        reset_counts(fa, nk, ta)
+        final = run_reference_single_device(step_fn, (unet, cond), inputs, DC_STEPS)
+        torch.cuda.synchronize()
+        sched = {"flash": fa.launches.total(), "gn": nk.launches, "frame": ta.launches}
+        full_steps = len(range(0, DC_STEPS, DC_INTERVAL))
+        cache_steps = DC_STEPS - full_steps
+        for key, i in (("flash", 0), ("gn", 1), ("frame", 2)):
+            expect(f"DeepCache (a): {key} over {DC_STEPS} dpmpp2m steps ({full_steps} full, "
+                   f"{cache_steps} cache, 2 forwards each)", sched[key],
+                   2 * (full_steps * per_full[i] + cache_steps * per_cache[i]))
+        lat = wrapper.unpack_final(final)
+        print(f"DeepCache (a): payload {tuple(inputs.shape)} fp32 "
+              f"({inputs[0].numel() * 4} bytes a sample), output {tuple(lat.shape)}, finite "
+              f"{bool(torch.isfinite(lat).all())}")
+        if tuple(lat.shape) != (1, 1, 25, 72, 128, 4) or not torch.isfinite(lat).all():
+            fail("the DeepCache denoise gave a wrong shape or non-finite values")
+
+        payload = final[0]
+        times = {}
+        for what, k in (("full", 0), ("cache", 1)):
+            step = lambda k=k: wrapper.step(unet, payload, k, cond)  # noqa: E731
+            times[what] = time_ms(torch, step, iters=3, warmup=1)
+        share = times["cache"] / times["full"]
+        print(f"DeepCache (a): one step (2 CFG forwards + the dpmpp2m update): full "
+              f"{times['full']:.3f} ms, cache {times['cache']:.3f} ms, cache / full "
+              f"{share:.4f} ({smi})")
+        del wrapper, unet, cond, inputs, final, payload
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+    torch.cuda.empty_cache()
+    return {"counts": counts, "schedule": sched, "full_ms": times["full"],
+            "cache_ms": times["cache"], "cache_share": share}
 
 
 def reset_counts(fa, nk, ta) -> None:
@@ -1292,14 +1495,36 @@ def main() -> int:
 
     # The image->video app: CLIP and VAE encode, the SVD-XT denoise, the decode.
     app = run_app(torch, fa, nk, ta, smi)
+    # (c) The restyle app on the Y4M the image->video app wrote; (d) the long
+    # app, two segments at DeepCache-2.
+    from vdpp_tpu_torch.apps import generate_video_long, restyle_video
 
-    # The step pipeline, one process per stage, with Euler and with dpmpp2m
-    # (whose 8-channel payload carries the solver's state across the hand-off).
-    pipes = {solver: run_pipeline(torch, smi, solver) for solver in ("euler", "dpmpp2m")}
+    try:
+        restyle = run_entry_point(
+            torch, fa, nk, ta, smi, "restyle app", restyle_video.main,
+            ["--input", app["y4m"], "--random-weights", "--strength", str(RESTYLE_STRENGTH),
+             "--steps", str(RESTYLE_STEPS)], APP_FRAMES, FLASH_PER_RESTYLE)
+    finally:
+        os.remove(app["y4m"])
+    long_app = run_entry_point(
+        torch, fa, nk, ta, smi, "long app", generate_video_long.main,
+        ["--random-weights", "--segments", str(LONG_SEGMENTS), "--steps", str(LONG_STEPS),
+         "--deepcache", "2"], APP_FRAMES + (LONG_SEGMENTS - 1) * (APP_FRAMES - 1),
+        FLASH_PER_LONG)
+
+    # (a) DeepCache: the full branch against forward, the launches of each
+    # kind of forward, the fast path's composition and each step's time.
+    deepcache = run_deepcache(torch, fa, nk, ta, smi)
+
+    # The step pipeline, one process per stage, with Euler and dpmpp2m (whose
+    # 8-channel payload carries the solver's state across the hand-off), and
+    # (b) euler_a and dpmpp2m at DeepCache-2, whose cache crosses it too.
+    pipes = {solver + (f"_deepcache{interval}" if interval else ""):
+             run_pipeline(torch, smi, solver, interval) for solver, interval in PIPE_CASES}
 
     def pipe_launches(key, get=lambda c: c):
-        return {f"step_pipeline_{solver}_rank{r['rank']}": get(r["counts"][key])
-                for solver, res in pipes.items() for r in res["ranks"]}
+        return {f"step_pipeline_{case}_rank{r['rank']}": get(r["counts"][key])
+                for case, res in pipes.items() for r in res["ranks"]}
 
     pipe_flash = pipe_launches("flash", lambda c: c.get(64, 0))
     pipe_gn, pipe_frame = pipe_launches("gn"), pipe_launches("frame")
@@ -1318,26 +1543,47 @@ def main() -> int:
                             "vdpp_tpu/ops/temporal_attention_kernel.py:80")
     print(json.dumps({"kernels": [
         entry("flash_attention", flash_src, flash_tpu,
-              flash_launches + app["flash"][64] + sum(pipe_flash.values()), flash,
+              flash_launches + app["flash"][64] + restyle["flash"][64] + long_app["flash"][64]
+              + deepcache["schedule"]["flash"] + sum(pipe_flash.values()), flash,
               flash["shapes"][0], ptxas=ptxas,
               fp32_d64_d72=[flash["fp32"], flash72["fp32"]],
+              launches_per_forward={"full": deepcache["counts"]["full"][0],
+                                    "deepcache_split1": deepcache["counts"]["cache"][0]},
               launches_by_path={"svd_xt_denoise": flash_launches,
-                                "image_to_video_app": app["flash"][64], **pipe_flash}),
+                                "image_to_video_app": app["flash"][64],
+                                "restyle_app": restyle["flash"][64],
+                                "long_app_deepcache2": long_app["flash"][64],
+                                "dpmpp2m_deepcache2_switched": deepcache["schedule"]["flash"],
+                                **pipe_flash}),
         entry("flash_attention_d512", flash_src, flash_tpu,
-              decode_flash + dit_decode_flash + app["flash"][512], flash512,
+              decode_flash + dit_decode_flash + app["flash"][512] + restyle["flash"][512]
+              + long_app["flash"][512], flash512,
               flash512["shapes"][0], encoder_site=flash512["shapes"][1],
               launches_by_path={"svd_decode": decode_flash, "dit_decode": dit_decode_flash,
                                 "image_to_video_app (1 encoder + 4 decode)":
-                                    app["flash"][512]}),
+                                    app["flash"][512],
+                                "restyle_app (5 encoder + 4 decode)": restyle["flash"][512],
+                                "long_app (2 x (1 encoder + 4 decode))":
+                                    long_app["flash"][512]}),
         entry("flash_attention_d512_bf16", flash_src, flash_tpu, decode16_flash, flash512_bf16,
               flash512_bf16["shapes"][0]),
         entry("group_norm_silu", "vdpp_tpu_torch/csrc/group_norm_silu.cu",
-              "vdpp_tpu/ops/norm_kernel.py:165", switched["gn"] + sum(pipe_gn.values()), gn,
+              "vdpp_tpu/ops/norm_kernel.py:165",
+              switched["gn"] + deepcache["schedule"]["gn"] + sum(pipe_gn.values()), gn,
               gn["shapes"][0], ptxas=other_ptxas["group_norm_silu"],
-              launches_by_path={"svd_xt_denoise_switched": switched["gn"], **pipe_gn}),
-        entry("frame_attention", frame_src, frame_tpu, switched["frame"] + sum(pipe_frame.values()),
+              launches_per_forward={"full": deepcache["counts"]["full"][1],
+                                    "deepcache_split1": deepcache["counts"]["cache"][1]},
+              launches_by_path={"svd_xt_denoise_switched": switched["gn"],
+                                "dpmpp2m_deepcache2_switched": deepcache["schedule"]["gn"],
+                                **pipe_gn}),
+        entry("frame_attention", frame_src, frame_tpu,
+              switched["frame"] + deepcache["schedule"]["frame"] + sum(pipe_frame.values()),
               frame, frame["shapes"][0], ptxas=other_ptxas["frame_attention"],
-              launches_by_path={"svd_xt_denoise_switched": switched["frame"], **pipe_frame}),
+              launches_per_forward={"full": deepcache["counts"]["full"][2],
+                                    "deepcache_split1": deepcache["counts"]["cache"][2]},
+              launches_by_path={"svd_xt_denoise_switched": switched["frame"],
+                                "dpmpp2m_deepcache2_switched": deepcache["schedule"]["frame"],
+                                **pipe_frame}),
         entry("flash_attention_d72", flash_src, flash_tpu, joint["flash"] + fact["flash"],
               flash72, flash72["shapes"][0]),
         entry("frame_attention_d72", frame_src, frame_tpu, fact["frame"], frame72,

@@ -30,6 +30,7 @@ from safetensors.torch import save_file
 from vdpp_tpu.models.clip_encoder import CLIPVisionConfig as JaxClipConfig
 from vdpp_tpu.models.clip_encoder import CLIPVisionEncoder as JaxClip
 from vdpp_tpu.models.clip_encoder import preprocess_image as jax_preprocess
+from vdpp_tpu.models.svd_unet import SVDUNet as JaxUNet
 from vdpp_tpu.models.svd_unet import SVDUNetConfig as JaxUNetConfig
 from vdpp_tpu.models.svd_wrapper import StableVideoUNet as JaxSVD
 from vdpp_tpu.models.svd_wrapper import make_conditioning as jax_conditioning
@@ -45,7 +46,11 @@ from vdpp_tpu.utils.weights import (
 )
 
 from vdpp_tpu_torch.apps import generate_video as app
-from vdpp_tpu_torch.models.clip_encoder import CLIPVisionConfig, CLIPVisionEncoder
+from vdpp_tpu_torch.models.clip_encoder import (
+    CLIPVisionConfig,
+    CLIPVisionEncoder,
+    preprocess_image,
+)
 from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
 from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet
 from vdpp_tpu_torch.models.vae import TemporalVAEDecoder, VAEConfig, VAEEncoder
@@ -180,7 +185,80 @@ def test_load_and_preprocess_image_matches_jax(tmp_path):
                                   jax_app.load_and_preprocess_image(path, 64, 48))
 
 
-def test_image_to_video_matches_the_jax_sequence():
+@pytest.fixture(scope="module")
+def tiny_pair():
+    """The tiny preset's four models in both packages with the same weights
+    (drawn once from a numpy seed with the checkpoint names, through each
+    side's converter), the JAX ones jitted once for the module: ``(jax,
+    port)``, where ``jax`` holds the parameter trees and the jitted calls
+    and ``port()`` builds fresh port modules holding the weights."""
+    unet_j = JaxUNetConfig.tiny()
+    clip_j = dataclasses.replace(JaxClipConfig.tiny(), projection_dim=unet_j.cross_attention_dim)
+    vae_j = JaxVAEConfig.tiny()
+    jclip, jenc, jdec = JaxClip(clip_j), JaxEncoder(vae_j), JaxDecoder(vae_j)
+    build = {"unet": lambda: SVDUNet(SVDUNetConfig.tiny(), device="cpu"),
+             "clip": lambda: CLIPVisionEncoder(dataclasses.replace(
+                 CLIPVisionConfig.tiny(), projection_dim=48), device="cpu"),
+             "vae_encoder": lambda: VAEEncoder(VAEConfig.tiny(), device="cpu"),
+             "vae_decoder": lambda: TemporalVAEDecoder(VAEConfig.tiny(), device="cpu")}
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    sd = {k: random_state_dict(b(), i, mix_base=0.5) for i, (k, b) in enumerate(build.items())}
+    p = {"unet": to_np(convert_unet_state_dict(sd["unet"], num_levels=2, layers_per_block=1,
+                                               dtype=jnp.float32)),
+         "clip": to_np(convert_clip_state_dict(sd["clip"], num_layers=2, patch_size=8)),
+         "vae_encoder": to_np(convert_vae_encoder_state_dict(sd["vae_encoder"], num_levels=2,
+                                                             layers_per_block=1)),
+         "vae_decoder": to_np(convert_vae_decoder_state_dict(sd["vae_decoder"], num_levels=2,
+                                                             layers_per_block=1))}
+    carry = {"unet": weights.from_jax_params, "clip": weights.from_jax_clip_params,
+             "vae_encoder": weights.from_jax_vae_encoder_params,
+             "vae_decoder": weights.from_jax_vae_decoder_params}
+    states = {k: carry[k](p[k]) for k in build}
+
+    def port() -> dict:
+        models = {k: b() for k, b in build.items()}
+        for k, m in models.items():
+            m.load_state_dict(states[k])
+        return models
+
+    static = ("seq_axis", "seq_shards", "frame_axis", "frame_shards")
+    jax_side = {"params": p, "unet": JaxUNetConfig.tiny(), "vae": vae_j, "enc": jenc,
+                "clip_size": clip_j.image_size,
+                "clip": jax.jit(jclip.apply), "encode": jax.jit(jenc.apply),
+                "apply": jax.jit(JaxUNet(unet_j).apply, static_argnames=static),
+                "decode": jax.jit(lambda p, x: jdec.decode_chunked(p, x, chunk_frames=4))}
+    return jax_side, port
+
+
+def _jax_denoise(j, jmodel, cond, x, steps: int):
+    """JAX's steps one by one, eager around the module's jitted UNet call
+    (``run_reference_single_device``'s loop for one sample)."""
+    jmodel.unet.apply = j["apply"]
+    for k in range(steps):
+        x = jmodel.step(j["params"]["unet"], x, jnp.int32(k), cond)
+    return x
+
+
+def _jax_cond(j, image, clip_px, aug, frames: int):
+    """``scripts/generate_video.py``'s conditioning: CLIP, the VAE encode of
+    the noise-augmented image, ``.mode()``, ``make_conditioning``."""
+    emb = j["clip"](j["params"]["clip"], jnp.asarray(clip_px, jnp.float32)[None])
+    moments = j["encode"](j["params"]["vae_encoder"], jnp.asarray(image)[None]
+                          + 0.02 * jnp.asarray(aug))
+    lat = jnp.repeat(j["enc"].mode(moments)[:, None], frames, axis=1)
+    return jax_conditioning(emb, lat, frames, fps=7, motion_bucket_id=127,
+                            noise_aug_strength=0.02, guidance_scale=3.0)
+
+
+def _assert_video_close(got, want) -> None:
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert np.isfinite(want).all() and np.isfinite(got).all()
+    err = np.abs(got - want).max()
+    assert err <= REL_TOL * np.abs(want).max(), (err, np.abs(want).max())
+
+
+def test_image_to_video_matches_the_jax_sequence(tiny_pair):
     """The app's device work at the tiny preset, 48x32 (H != W, so a
     transposed axis fails), 4 frames, 2 steps of CFG sequential Euler,
     against ``scripts/generate_video.py``'s sequence in JAX. The weights are
@@ -189,57 +267,23 @@ def test_image_to_video_matches_the_jax_sequence():
     ``test_torch_port_model.py`` and ``test_torch_port_vae.py``; here every
     attention is below L = 512, which keeps the JAX side to one compile of
     each model.)"""
+    j, port = tiny_pair
     w, h = 48, 32
     frames, steps, seed = 4, 2, 42
-    unet_j = JaxUNetConfig.tiny()
-    clip_j = dataclasses.replace(JaxClipConfig.tiny(), projection_dim=unet_j.cross_attention_dim)
-    vae_j = JaxVAEConfig.tiny()
-    jmodel = JaxSVD(unet_j, num_steps=steps, cfg_mode="sequential")
-    jclip, jenc, jdec = JaxClip(clip_j), JaxEncoder(vae_j), JaxDecoder(vae_j)
-    # The port's modules, and the JAX trees of the same weights: drawn from a
-    # numpy seed with the checkpoint names, through the JAX converters.
+    jmodel = JaxSVD(j["unet"], num_steps=steps, cfg_mode="sequential")
     wrapper = StableVideoUNet(SVDUNetConfig.tiny(), num_steps=steps, device="cpu")
-    models = {"unet": SVDUNet(SVDUNetConfig.tiny(), device="cpu"),
-              "clip": CLIPVisionEncoder(dataclasses.replace(
-                  CLIPVisionConfig.tiny(), projection_dim=48), device="cpu"),
-              "vae_encoder": VAEEncoder(VAEConfig.tiny(), device="cpu"),
-              "vae_decoder": TemporalVAEDecoder(VAEConfig.tiny(), device="cpu")}
-    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
-    sd = {k: random_state_dict(m, i, mix_base=0.5) for i, (k, m) in enumerate(models.items())}
-    p_unet = to_np(convert_unet_state_dict(sd["unet"], num_levels=2, layers_per_block=1,
-                                           dtype=jnp.float32))
-    p_clip = to_np(convert_clip_state_dict(sd["clip"], num_layers=2, patch_size=8))
-    p_enc = to_np(convert_vae_encoder_state_dict(sd["vae_encoder"], num_levels=2,
-                                                 layers_per_block=1))
-    p_dec = to_np(convert_vae_decoder_state_dict(sd["vae_decoder"], num_levels=2,
-                                                 layers_per_block=1))
-    models["unet"].load_state_dict(weights.from_jax_params(p_unet))
-    models["clip"].load_state_dict(weights.from_jax_clip_params(p_clip))
-    models["vae_encoder"].load_state_dict(weights.from_jax_vae_encoder_params(p_enc))
-    models["vae_decoder"].load_state_dict(weights.from_jax_vae_decoder_params(p_dec))
+    models = port()
 
     # The JAX app's inputs and noise draws.
     image = _jax_app().load_and_preprocess_image(None, w, h)
-    clip_px = jax_preprocess(((image + 1.0) * 127.5).astype(np.uint8), size=clip_j.image_size)
+    clip_px = jax_preprocess(((image + 1.0) * 127.5).astype(np.uint8), size=j["clip_size"])
     aug = np.array(jax.random.normal(jax.random.key(seed + 4), image.shape, jnp.float32))
     lat_noise = np.array(jax.random.normal(jax.random.key(seed), (1, 1, frames, h // 2, w // 2, 4)))
 
     # The JAX sequence (scripts/generate_video.py).
-    emb = jax.jit(jclip.apply)(p_clip, jnp.asarray(clip_px, jnp.float32)[None])
-    moments = jax.jit(jenc.apply)(p_enc, jnp.asarray(image)[None] + 0.02 * jnp.asarray(aug))
-    lat = jnp.repeat(jenc.mode(moments)[:, None], frames, axis=1)
-    cond = jax_conditioning(emb, lat, frames, fps=7, motion_bucket_id=127,
-                            noise_aug_strength=0.02, guidance_scale=3.0)
-    # ``run_reference_single_device``'s loop (which ``StepPipeline.run`` equals)
-    # for the one sample, with the step jitted alone: about half the compile
-    # time of its scan under vmap.
-    step_fn = jax.jit(jmodel.pipeline_step_fn())
-    x = jnp.asarray(lat_noise[0]) * jmodel.init_noise_sigma
-    for k in range(steps):
-        x = step_fn((p_unet, cond), x, jnp.int32(k))
-    latents = x[None]
-    decode = jax.jit(lambda p, x: jdec.decode_chunked(p, x, chunk_frames=4))
-    want = np.asarray(decode(p_dec, latents[0] / vae_j.scaling_factor))
+    cond = _jax_cond(j, image, clip_px, aug, frames)
+    x = _jax_denoise(j, jmodel, cond, jnp.asarray(lat_noise[0]) * jmodel.init_noise_sigma, steps)
+    want = np.asarray(j["decode"](j["params"]["vae_decoder"], x / j["vae"].scaling_factor))
 
     # The port, on the same weights and inputs.
     fa.launches.clear()
@@ -248,11 +292,93 @@ def test_image_to_video_matches_the_jax_sequence():
     assert not fa.launches  # CPU tensors take the plain version, never the kernel
     assert set(models) == {"vae_decoder"}  # CLIP, the encoder and the UNet were let go
     assert set(times) == {"clip", "vae_encode", "encode", "diffusion", "decode"}
-    got = videos[0]
-    assert tuple(got.shape) == want.shape == (1, frames, h, w, 3)
-    assert np.isfinite(want).all() and torch.isfinite(got).all()
-    err = np.abs(got.numpy() - want).max()
-    assert err <= REL_TOL * np.abs(want).max(), (err, np.abs(want).max())
+    assert tuple(videos[0].shape) == (1, frames, h, w, 3)
+    _assert_video_close(videos[0], want)
+
+
+def test_restyle_matches_the_jax_sequence(tiny_pair):
+    """``apps.restyle_video.restyle`` at the tiny preset on 4 frames of
+    48x32: strength 0.5 of 4 steps runs the last 2 (``denoise_from`` 2), from
+    ``x0 + sigma_start * noise``, against ``scripts/restyle_video.py``'s
+    sequence in JAX (frame 0 conditions; every frame's clean latent is
+    ``.mode()`` x the scaling factor, encoded in one chunk of 4). JAX's
+    noise draws are injected; CLIP's pixels are the port's
+    ``preprocess_image`` on both sides (held apart in
+    ``test_torch_port_clip.py``)."""
+    from vdpp_tpu_torch.apps import restyle_video as restyle
+    from vdpp_tpu_torch.parallel.mesh import Stage, make_pipeline_mesh
+
+    j, port = tiny_pair
+    frames_u8 = np.random.default_rng(50).integers(0, 256, (4, 32, 48, 3), dtype=np.uint8)
+    args = restyle.build_parser().parse_args(
+        ["--input", "-", "--random-weights", "--preset", "tiny", "--device", "cpu",
+         "--strength", "0.5", "--steps", "4"])
+    wrapper = restyle.wrapper_for(args, SVDUNetConfig.tiny(), 1, "cpu")
+    assert restyle.denoise_from(0.5, 4) == 2 and wrapper.num_steps == 2
+    frames = frames_u8.astype(np.float32) / 127.5 - 1.0
+    clip_px = preprocess_image(frames_u8[0], size=j["clip_size"]).numpy()
+    draws = {"aug": np.array(jax.random.normal(jax.random.key(46), frames[0].shape, jnp.float32)),
+             "latent": np.array(jax.random.normal(jax.random.key(42), (1, 1, 4, 16, 24, 4),
+                                                  jnp.float32))}
+
+    jmodel = JaxSVD(j["unet"], num_steps=4, denoise_from=2, cfg_mode="sequential")
+    assert jmodel.sigma_start == wrapper.sigma_start
+    cond = _jax_cond(j, frames[0], clip_px, draws["aug"], 4)
+    x0 = (j["enc"].mode(j["encode"](j["params"]["vae_encoder"], jnp.asarray(frames)))
+          * j["vae"].scaling_factor)[None]
+    x = _jax_denoise(j, jmodel, cond, x0 + jmodel.sigma_start * draws["latent"][0], 2)
+    want = np.asarray(j["decode"](j["params"]["vae_decoder"], x / j["vae"].scaling_factor))
+
+    models = port()
+    got = restyle.restyle(Stage(make_pipeline_mesh(1, device="cpu"), 0), models, wrapper,
+                          frames_u8, args, 7,
+                          draw=lambda name, shape, dev: torch.from_numpy(draws[name]))
+    assert set(models) == {"vae_decoder"}
+    _assert_video_close(got, want)
+
+
+def test_long_video_matches_the_jax_sequence(tiny_pair):
+    """``apps.generate_video_long.long_video`` at the tiny preset: 2
+    segments of 4 frames of 48x32, 2 Euler steps each, the second segment
+    conditioned on the first's last decoded frame, 7 frames in all, against
+    ``scripts/generate_video_long.py``'s sequence in JAX, JAX's draws
+    injected (augmentation from ``seed + 100 + k``, latents from ``seed +
+    k``), CLIP's pixels the port's ``preprocess_image`` on both sides, and
+    the JAX side's second segment conditioned on the port's last frame."""
+    from vdpp_tpu_torch.apps import generate_video_long as long_app
+    from vdpp_tpu_torch.parallel.mesh import Stage, make_pipeline_mesh
+
+    j, port = tiny_pair
+    args = long_app.build_parser().parse_args(
+        ["--random-weights", "--preset", "tiny", "--device", "cpu", "--width", "48",
+         "--height", "32", "--num-frames", "4", "--steps", "2", "--segments", "2"])
+    first = _jax_app().load_and_preprocess_image(None, 48, 32)
+    draws = {(name, k): np.array(jax.random.normal(jax.random.key(42 + k + (100 if name == "aug"
+                                                                        else 0)), shape))
+             for k in range(2)
+             for name, shape in (("aug", first.shape), ("latent", (1, 1, 4, 16, 24, 4)))}
+
+    wrapper = app.make_wrapper(args, SVDUNetConfig.tiny(), torch.device("cpu"))
+    got = long_app.long_video(Stage(make_pipeline_mesh(1, device="cpu"), 0), port(), wrapper,
+                              first, args, (16, 24),
+                              draw=lambda name, k, shape, dev: torch.from_numpy(
+                                  draws[(name, k)]).float())
+    assert got.shape == (7, 32, 48, 3)
+
+    jmodel = JaxSVD(j["unet"], num_steps=2, cfg_mode="sequential")
+    pieces = []
+    # Segment 2 starts from the port's last frame on both sides: the uint8
+    # cast of CLIP's input would turn a last-bit difference into a level.
+    for k, image in enumerate((first, np.clip(got[3], -1.0, 1.0))):
+        clip_px = preprocess_image(((image + 1.0) * 127.5).astype(np.uint8),
+                                   size=j["clip_size"]).numpy()
+        cond = _jax_cond(j, image, clip_px, draws[("aug", k)], 4)
+        x = _jax_denoise(j, jmodel, cond, jnp.asarray(draws[("latent", k)][0])
+                         * jmodel.init_noise_sigma, 2)
+        vid = np.asarray(j["decode"](j["params"]["vae_decoder"],
+                                     x / j["vae"].scaling_factor))[0]
+        pieces.append(vid if k == 0 else vid[1:])
+    _assert_video_close(got, np.concatenate(pieces))
 
 
 def _y4m_frames(path: Path) -> tuple[int, int, int]:
@@ -290,6 +416,70 @@ def test_main_pipelined_writes_the_same_files(tmp_path):
     assert ".gif" in files["s1"] and len(files["s1"]) >= 2
     assert files["s2"] == files["s1"]
     assert [p.name for p in (tmp_path / "s2").glob("*.gif")][0].count("_st2_") == 1
+
+
+def test_read_y4m_matches_jax(tmp_path):
+    """The port's own ``read_y4m`` reads what the native writer wrote exactly
+    as the JAX package's reader does, with the fps; a 10-bit or truncated
+    file is refused."""
+    from vdpp_tpu.utils.video_io import read_y4m as jax_read_y4m
+
+    from vdpp_tpu_torch.utils import native
+    from vdpp_tpu_torch.utils.video_io import read_y4m
+
+    frames = np.random.default_rng(60).integers(0, 256, (3, 16, 24, 3), dtype=np.uint8)
+    path = native.write_y4m(str(tmp_path / "a.y4m"), frames, fps=9)
+    got, fps = read_y4m(path)
+    want, want_fps = jax_read_y4m(path)
+    assert fps == want_fps == 9 and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == frames.shape
+    data = (tmp_path / "a.y4m").read_bytes()
+    (tmp_path / "cut.y4m").write_bytes(data[:-10])
+    with pytest.raises(ValueError, match="truncated"):
+        read_y4m(str(tmp_path / "cut.y4m"))
+    (tmp_path / "p10.y4m").write_bytes(data.replace(b"C420jpeg", b"C420p10", 1))
+    with pytest.raises(ValueError, match="8-bit"):
+        read_y4m(str(tmp_path / "p10.y4m"))
+
+
+def test_restyle_and_long_pipelined_write_the_same_files(tmp_path):
+    """At the tiny preset on the CPU, ``--num-stages 2`` (two processes over
+    gloo) writes the files ``--num-stages 1`` writes, byte for byte: the
+    restyle app on a 4-frame 64x64 Y4M at strength 0.5 of 5 steps (a 3-step
+    tail, padded to 4 over 2 stages) with euler_a x DeepCache-2, and the
+    long app, 2 segments of 4 frames, dpmpp2m x DeepCache-2 (7 frames)."""
+    from vdpp_tpu_torch.apps import generate_video_long as long_app
+    from vdpp_tpu_torch.apps import restyle_video as restyle
+    from vdpp_tpu_torch.utils import native
+
+    yy, xx = np.mgrid[0:64, 0:64]
+    g = ((yy * 4 + xx * 4) / 2).astype(np.uint8)
+    src = native.write_y4m(str(tmp_path / "in.y4m"),
+                           np.stack([np.stack([g, np.roll(g, 7 * i, 0), g.T], -1)
+                                     for i in range(4)]), fps=7)
+    common = ["--random-weights", "--preset", "tiny", "--device", "cpu", "--log-level",
+              "WARNING", "--deepcache", "2"]
+    runs = {"restyle": (restyle.main, common + ["--input", src, "--strength", "0.5", "--steps",
+                                                "5", "--solver", "euler_a"], 4),
+            "long": (long_app.main, common + ["--width", "64", "--height", "64", "--num-frames",
+                                              "4", "--steps", "2", "--segments", "2",
+                                              "--solver", "dpmpp2m"], 7)}
+    with ThreadPoolExecutor(2) as pool:  # the ranks start while one stage runs here
+        two = {k: pool.submit(main, argv + ["--num-stages", "2", "--output-dir",
+                                            str(tmp_path / k / "s2")])
+               for k, (main, argv, _) in runs.items()}
+        for k, (main, argv, _) in runs.items():
+            assert main(argv + ["--num-stages", "1", "--output-dir", str(tmp_path / k / "s1")]) == 0
+        assert all(t.result() == 0 for t in two.values())
+    for k, (_, _, frames) in runs.items():
+        files = {d: {p.suffix: p.read_bytes() for p in (tmp_path / k / d).iterdir()}
+                 for d in ("s1", "s2")}
+        assert ".gif" in files["s1"] and len(files["s1"]) >= 2, k
+        assert files["s2"] == files["s1"], k
+        y4m = next((tmp_path / k / "s1").glob("*.y4m"), None)
+        if y4m is not None:
+            assert _y4m_frames(y4m) == (frames, 64, 64), k
 
 
 def test_main_reads_npz_and_diffusers_checkpoints(tmp_path):
@@ -352,8 +542,7 @@ def test_main_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     base = ["--preset", "tiny", "--device", "cpu", "--output-dir", str(tmp_path)]
     assert app.main(base) == 1  # neither --checkpoint nor --random-weights
     run = base + ["--random-weights"]
-    for extra, item in ((["--solver", "euler_a"], "A12"), (["--deepcache", "2"], "A12"),
-                        (["--seq-parallel", "2"], "A13"),
+    for extra, item in ((["--seq-parallel", "2"], "A13"),
                         (["--frame-parallel", "2"], "A13"), (["--decode-devices", "1"], "A13")):
         with pytest.raises(NotImplementedError, match=item):
             app.main(run + extra)

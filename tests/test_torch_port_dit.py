@@ -18,6 +18,7 @@ blocks; measured under 5e-6 relative on the forwards and the steps.
 """
 
 import dataclasses
+import functools
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -37,6 +38,7 @@ from vdpp_tpu_torch.ops import flash_attention as fa
 from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
 from vdpp_tpu_torch.utils.weights import from_jax_dit_params, load_jax_npz
 
+import torch_port_helpers as helpers
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 REL_TOL = 1e-4
@@ -181,12 +183,54 @@ def test_wrapper_schedule_matches_jax(pair, solver):
     _close(tw.unpack_final(got), jw.unpack_final(want))
 
 
+@pytest.mark.parametrize("pair", ["joint3d"], indirect=True)
+def test_euler_a_matches_jax_at_the_pipeline_stage_counts(pair):
+    """euler_a, 4 CFG steps of two samples. This wrapper draws on
+    ``step_idx`` (the reference's DiT folds there; its SVD wrapper on the
+    real step). With JAX's draws (``fold_in(sampler_seed, step_idx)``)
+    injected, the port's single-device run is within REL_TOL of JAX's; with
+    the port's own generator, its StepPipeline at 1 stage and at 2 (spawned
+    ranks over gloo, 2 steps each) equals its single-device run bit for bit."""
+    from vdpp_tpu_torch.parallel.mesh import Stage, make_pipeline_mesh, run_stages
+    from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+
+    _, jcfg, params, model = pair
+    tcfg, steps, seed = _cfgs("joint3d")[1], 4, 3
+    rng = np.random.default_rng(9)
+    jw = jdit.DiTVideoWrapper(jcfg, num_steps=steps, solver="euler_a", sampler_seed=seed)
+    x = rng.standard_normal((2, 1, F, H, W, 4)).astype(np.float32) * jw.init_noise_sigma
+    ctx = rng.standard_normal((1, 5, CROSS)).astype(np.float32)
+    bundle = (model, torch.from_numpy(ctx), make_guidance_ramp(6.0, F))
+    job = functools.partial(helpers.dit_build, tcfg, steps, model.state_dict(), bundle[1],
+                            bundle[2], solver="euler_a", sampler_seed=seed)
+    with ThreadPoolExecutor(1) as pool:  # the ranks start while JAX runs
+        ranks = pool.submit(run_stages, make_pipeline_mesh(2, device="cpu"),
+                            helpers.pipeline_cases,
+                            [("euler_a", job, torch.from_numpy(x), steps, False)],
+                            timeout=300)
+        want = jax_run(jw.pipeline_step_fn(), (params, jnp.asarray(ctx), jax_ramp(6.0, F)),
+                       jnp.asarray(x), steps)
+        table = {k: np.asarray(jax.random.normal(jax.random.fold_in(jax.random.key(seed), k),
+                                                 x.shape[1:], jnp.float32))
+                 for k in range(steps)}
+        tw = tdit.DiTVideoWrapper(tcfg, num_steps=steps, solver="euler_a", sampler_seed=seed,
+                                  device="cpu", noise_source=helpers.NoiseTable(table))
+        _close(run_reference_single_device(tw.pipeline_step_fn(), bundle, torch.from_numpy(x),
+                                           steps), want)
+        own = tdit.DiTVideoWrapper(tcfg, num_steps=steps, solver="euler_a", sampler_seed=seed,
+                                   device="cpu")
+        oracle = run_reference_single_device(own.pipeline_step_fn(), bundle,
+                                             torch.from_numpy(x), steps)
+        one = StepPipeline(Stage(make_pipeline_mesh(1, device="cpu"), 0), own.pipeline_step_fn(),
+                           PipelineConfig(steps, 1)).run(bundle, torch.from_numpy(x))
+        assert torch.equal(one, oracle)
+        assert torch.equal(ranks.result()[-1]["euler_a"], oracle)
+
+
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A15"):
         tdit.DiTVideo(dataclasses.replace(tdit.DiTVideoConfig.tiny(), num_experts=4),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tdit.DiTVideoWrapper(tdit.DiTVideoConfig.tiny(), solver="euler_a", device="cpu")
     w = tdit.DiTVideoWrapper(tdit.DiTVideoConfig.tiny(), device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         w.pipeline_step_fn(cfg_axis="cfg")
@@ -262,8 +306,6 @@ def test_app_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     assert app.main(base) == 1  # neither --checkpoint nor --random-weights
     assert app.main(base + ["--random-weights", "--negative-prompt", "x",
                             "--guidance-scale", "1"]) == 1
-    with pytest.raises(NotImplementedError, match="A12"):
-        app.main(base + ["--random-weights", "--solver", "euler_a"])
     with pytest.raises(NotImplementedError, match="A13"):
         app.main(base + ["--random-weights", "--seq-parallel", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
-from vdpp_tpu_torch.models.svd_wrapper import make_dummy_conditioning
+from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet, make_dummy_conditioning
 from vdpp_tpu_torch.ops import flash_attention as fa
 from vdpp_tpu_torch.ops import norm_kernel as nk
 from vdpp_tpu_torch.ops import temporal_attention_kernel as tak
@@ -331,11 +331,13 @@ def test_flash_wgmma_kernel_large_logits(cuda, d):
             assert apart > 0.1 * top, apart
 
 
-def _pipeline_against_single_device(cuda, devices, steps: int, samples: int) -> None:
+def _pipeline_against_single_device(cuda, devices, steps: int, samples: int,
+                                    solver: str = "euler", **wrapper_kw) -> None:
     """A small fp32 UNet whose level 0 has 512 tokens at head dim 64, so the
-    flash kernel runs, for ``steps`` CFG Euler steps of ``samples`` samples,
-    one stage process on each of ``devices``: the last rank's outputs equal
-    the single-device run on ``cuda`` bit for bit."""
+    flash kernel runs, for ``steps`` CFG steps of ``solver`` (and
+    ``wrapper_kw``: DeepCache) of ``samples`` samples, one stage process on
+    each of ``devices``: the last rank's payloads equal the single-device run
+    on ``cuda`` bit for bit (as words: the cache lanes may hold any bits)."""
     cfg = SVDUNetConfig(block_out_channels=(128, 256), num_attention_heads=(2, 4),
                         layers_per_block=1, cross_attention_dim=64, addition_time_embed_dim=8,
                         projection_class_embeddings_input_dim=24, norm_num_groups=8,
@@ -344,16 +346,21 @@ def _pipeline_against_single_device(cuda, devices, steps: int, samples: int) -> 
     cond = make_dummy_conditioning(torch.Generator().manual_seed(1), 1, 3, 16, 32, cross_dim=64,
                                    guidance_scale=3.0)
     x = 80.0 * torch.randn(samples, 1, 3, 16, 32, 4, generator=torch.Generator().manual_seed(2))
-    build = functools.partial(helpers.svd_build, cfg, "euler", steps, None, state, cond)
+    build = functools.partial(helpers.svd_build, cfg, solver, steps, None, state, cond,
+                              **wrapper_kw)
+    x = StableVideoUNet(cfg, num_steps=steps, solver=solver, device="cpu",
+                        **wrapper_kw).pack_initial(x)
     mesh = make_pipeline_mesh(devices=devices)
-    got = run_stages(mesh, helpers.pipeline_cases, [("euler", build, x, steps, False)],
-                     timeout=600)[-1]["euler"]
+    got = run_stages(mesh, helpers.pipeline_cases, [(solver, build, x, steps, False)],
+                     timeout=600)[-1][solver]
     step_fn, params = build(cuda)
     fa.launches.clear()
     want = run_reference_single_device(step_fn, params, x.to(cuda), steps)
-    # 3 sites at 512 tokens (level 0: 1 down, 2 up) x 2 CFG forwards a step
+    # 3 sites at 512 tokens (level 0: 1 down, 2 up; a cache step at split 1
+    # runs all three) x 2 CFG forwards a step
     assert fa.launches[64] == 3 * 2 * steps * samples
-    assert torch.equal(got.cpu(), want.cpu())
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.int32), want.cpu().view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -377,3 +384,18 @@ def test_step_pipeline_over_nccl_matches_single_device(cuda, monkeypatch):
     mesh = make_pipeline_mesh(devices=devices)
     assert mesh.backend == "nccl" and not mesh.host_handoff
     _pipeline_against_single_device(cuda, devices, steps=4, samples=3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["euler_a", "dpmpp2m"])
+def test_deepcache_pipeline_over_nccl_matches_single_device(cuda, monkeypatch, solver):
+    """DeepCache-2 (full and cache steps alternate, so the stages alternate
+    too) with euler_a (its noise from the port's generator on each card) or
+    dpmpp2m: a stage process on each card (up to 4) over NCCL, the cache
+    lanes crossing each hand-off, 4 steps of 3 samples; on one card, two
+    ranks sharing it over gloo."""
+    count = torch.cuda.device_count()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    devices = [f"cuda:{i}" for i in range(min(count, 4))] if count >= 2 else [cuda, cuda]
+    _pipeline_against_single_device(cuda, devices, steps=4, samples=3, solver=solver,
+                                    deepcache_interval=2, sampler_seed=11)

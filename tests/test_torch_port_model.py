@@ -200,9 +200,12 @@ def test_state_dict_survives_jax_conversion_and_back(tiny):
 
 
 def test_unported_options_raise(monkeypatch):
-    for kw in ({"solver": "euler_a"}, {"deepcache_interval": 2}):
-        with pytest.raises(NotImplementedError, match="A12"):
-            StableVideoUNet(SVDUNetConfig.tiny(), device="cpu", **kw)
+    # The cached forward over sequence or frame shards is A13's.
+    unet = SVDUNet(SVDUNetConfig.tiny(), device="cpu")
+    for kw in ({"seq_axis": "seq"}, {"frame_axis": "frame"}):
+        with pytest.raises(NotImplementedError, match="A13"):
+            unet.apply_cached(torch.zeros(1, 3, 8, 8, 8), 0.0, torch.zeros(1, 1, 48),
+                              torch.zeros(1, 3), torch.zeros(1, 3, 8, 8, 64), True, **kw)
     # VDPP_GN_FUSED=1 is ported; a UNet built without it cannot run under it
     monkeypatch.setenv("VDPP_GN_FUSED", "1")
     model = StableVideoUNet(SVDUNetConfig.tiny(), device="cpu")

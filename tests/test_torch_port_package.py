@@ -59,7 +59,7 @@ def test_port_modules_load_without_jax():
     assert out.stdout.strip() == "[]"
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
@@ -81,6 +81,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             make_pipeline_mesh(**kw)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         simulator.main(["--num-stages", "2"])
+    # The apps built on the image->video app's pieces.
+    from vdpp_tpu_torch.apps import generate_video_long, restyle_video
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_video_long.main(["--random-weights", "--preset", "tiny"])
+    y4m = Path(tmp_path) / "in.y4m"
+    y4m.write_bytes(b"YUV4MPEG2 W4 H4 F7:1 C420jpeg\nFRAME\n" + bytes(24))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        restyle_video.main(["--input", str(y4m), "--random-weights", "--preset", "tiny"])
     assert make_pipeline_mesh(2, device="cpu").backend == "gloo"
     assert resolve_device("cpu").type == "cpu"
 

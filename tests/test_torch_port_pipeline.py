@@ -248,7 +248,7 @@ def test_pipeline_config_errors():
     with pytest.raises(ValueError, match="payload"):  # a step must keep the payload's shape
         one.run(None, torch.zeros(1, 2, 8))
     for kw in ({"start_tick": 1}, {"initial_buf": torch.zeros(1)}, {"on_tick": print}):
-        with pytest.raises(NotImplementedError, match="A12"):
+        with pytest.raises(NotImplementedError, match="A11"):
             one.run_ticked(None, torch.zeros(1, 4), **kw)
     with pytest.raises(NotImplementedError, match="A16"):
         one.stream(None, (4,))

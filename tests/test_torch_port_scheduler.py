@@ -4,6 +4,8 @@ within 1e-6 relative (scalar rsqrt/log may differ by an ulp between the two
 frameworks), the flow-matching update exactly (one multiply-add in fp32 on
 both sides); an identity-padded step must be a bitwise no-op."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -192,3 +194,56 @@ def test_dpmpp2m_step_matches_jax(case, k):
         assert torch.equal(got[0], zeros[0])
     if case == "final":
         torch.testing.assert_close(got[0], got[1], rtol=1e-6, atol=0)
+
+
+# ------------------------ euler_a (ancestral) ------------------------ #
+@pytest.mark.parametrize("k", [0, 10, 28, 29])
+def test_euler_ancestral_step_matches_jax(k):
+    """Same latent, model output and noise on both sides: within 1e-6 of
+    max|ref| (scalar sqrt/rsqrt may differ by an ulp); step 29 is the last,
+    to sigma 0."""
+    sig = jsched.karras_sigmas(30)
+    rng = np.random.default_rng(100 + k)
+    x, eps, z = (rng.standard_normal((1, 3, 8, 8, 4)).astype(np.float32) for _ in range(3))
+    x = x * np.float32(sig[k])
+    want = np.asarray(jsched.euler_ancestral_step_v_prediction(
+        jnp.asarray(x), jnp.asarray(eps), jnp.asarray(z), sig[k], sig[k + 1]))
+    got = tsched.euler_ancestral_step_v_prediction(
+        *(torch.from_numpy(a) for a in (x, eps, z)), sig[k], sig[k + 1]).numpy()
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def test_euler_ancestral_exact_points():
+    """A padded step (sigma_next == sigma) is a bitwise no-op whatever the
+    noise; the last step (sigma_next == 0) ignores the noise and is the
+    Euler step; the noise enters at exactly sigma_up, and sigma_up^2 +
+    sigma_down^2 == sigma_next^2."""
+    rng = np.random.default_rng(7)
+    x, eps, z1, z2 = (torch.from_numpy(rng.standard_normal((3, 4)).astype(np.float32))
+                      for _ in range(4))
+    step = tsched.euler_ancestral_step_v_prediction
+    assert torch.equal(step(x * 700, eps, z1, np.float32(700.0), np.float32(700.0)), x * 700)
+    a, b = step(x, eps, z1, 0.002, 0.0), step(x, eps, z2, 0.002, 0.0)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, tsched.euler_step_v_prediction(x, eps, 0.002, 0.0),
+                               rtol=1e-6, atol=1e-7)
+    zero = torch.zeros(2, 2)
+    up = math.sqrt(1.25 ** 2 * (2.5 ** 2 - 1.25 ** 2) / 2.5 ** 2)
+    diff = step(zero, zero, torch.ones(2, 2), 2.5, 1.25) - step(zero, zero, zero, 2.5, 1.25)
+    torch.testing.assert_close(diff, torch.full((2, 2), up), rtol=1e-6, atol=0)
+    down2 = 1.25 ** 2 - up ** 2
+    assert math.isclose(up ** 2 + down2, 1.25 ** 2, rel_tol=1e-12)
+
+
+def test_ancestral_noise_is_a_pure_function_of_seed_and_step():
+    """The port's draw (its own generator, not JAX's stream): standard
+    normal, the same for the same (seed, step) in any process, different
+    for another seed or step (the pair is hashed into the generator's seed,
+    of which the CPU generator reads 32 bits)."""
+    draw = tsched.ancestral_noise
+    z = draw(3, 5, (4, 64, 64), "cpu")
+    assert z.dtype == torch.float32 and z.shape == (4, 64, 64)
+    assert abs(z.mean().item()) < 0.05 and abs(z.std().item() - 1.0) < 0.05
+    assert torch.equal(z, draw(3, 5, (4, 64, 64), "cpu"))
+    for seed, step in ((3, 6), (4, 5), (2 ** 31 + 3, 5), (5, 3), (-3, 5)):
+        assert not torch.equal(z, draw(seed, step, (4, 64, 64), "cpu")), (seed, step)

@@ -47,9 +47,11 @@ def dummy_build(model_kw: dict, state: dict, device):
     return (lambda p, x, k: p(x, k)), model
 
 
-def svd_build(config, solver: str, num_steps: int, pad_steps_to, state: dict, cond, device):
+def svd_build(config, solver: str, num_steps: int, pad_steps_to, state: dict, cond, device,
+              **wrapper_kw):
     """``(step_fn, params)`` of the SVD wrapper's step over an SVDUNet
-    holding ``state``, with the conditioning ``cond`` (CPU tensors)."""
+    holding ``state``, with the conditioning ``cond`` (CPU tensors);
+    ``wrapper_kw`` goes to the wrapper (DeepCache, CFG mode, noise)."""
     import dataclasses
 
     from vdpp_tpu_torch.models.svd_unet import SVDUNet
@@ -58,13 +60,37 @@ def svd_build(config, solver: str, num_steps: int, pad_steps_to, state: dict, co
     if torch.device(device).type == "cuda":  # the same bits in every process
         torch.backends.cudnn.deterministic = True
     wrapper = StableVideoUNet(config, num_steps=num_steps, pad_steps_to=pad_steps_to,
-                              solver=solver, device=device)
+                              solver=solver, device=device, **wrapper_kw)
     unet = SVDUNet(config, device=device)
     unet.load_state_dict(state)
     cond = dataclasses.replace(cond, **{f.name: getattr(cond, f.name).to(device)
                                         for f in dataclasses.fields(cond)
                                         if getattr(cond, f.name) is not None})
     return wrapper.pipeline_step_fn(), (unet, cond)
+
+
+def dit_build(config, num_steps: int, state: dict, context, guidance, device, **wrapper_kw):
+    """``(step_fn, params)`` of the DiT wrapper's step over a DiTVideo
+    holding ``state``, with ``context`` and ``guidance`` (CPU tensors)."""
+    from vdpp_tpu_torch.models.dit import DiTVideo, DiTVideoWrapper
+
+    wrapper = DiTVideoWrapper(config, num_steps=num_steps, device=device, **wrapper_kw)
+    dit = DiTVideo(config, device=device)
+    dit.load_state_dict(state)
+    return wrapper.pipeline_step_fn(), (dit, context.to(device), guidance.to(device))
+
+
+class NoiseTable:
+    """A wrapper's ``noise_source``: the draw for step k is ``table[k]``
+    (numpy arrays, so that it pickles into spawned ranks)."""
+
+    def __init__(self, table: dict):
+        self.table = table
+
+    def __call__(self, step: int, shape) -> torch.Tensor:
+        z = torch.tensor(self.table[step])
+        assert tuple(z.shape) == tuple(shape), (z.shape, shape)
+        return z
 
 
 def pipeline_cases(stage, cases: list) -> dict:

@@ -23,16 +23,21 @@ at the target size is the input, and no image library is needed; ``--image
 FILE`` needs Pillow to decode the file and for the LANCZOS resize, as the
 reference app does. CLIP's resize runs on PyTorch alone.
 
-``--solver`` is euler, heun or dpmpp2m. ``--num-stages`` defaults to every
+``--solver`` is euler, euler_a (its noise seeded by ``--sampler-seed``),
+heun or dpmpp2m; ``--deepcache N`` runs the whole UNet every N steps and its
+shallow ``--deepcache-split`` levels between, on a cached deep feature that
+rides the pipeline payload (not with heun). ``--num-stages`` defaults to every
 card (1 on the CPU), as the reference's does. The denoise is the step
 pipeline: one stage runs in this process, S stages one process each
 (``parallel/mesh.py``: NCCL with a card per stage, gloo on the CPU). Rank 0
 builds CLIP and the VAE encoder, encodes and broadcasts the conditioning;
 every rank builds the UNet from the same checkpoint or seed and runs its
 slice of the steps; the last rank frees its UNet, builds the decoder,
-decodes and writes the files, the same byte for byte for any stage count. Options of parts not yet ported raise
-and name their ROADMAP item: ``--solver euler_a`` and ``--deepcache`` (A12),
-``--seq-parallel``, ``--frame-parallel`` and ``--decode-devices`` (A13).
+decodes and writes the files, the same byte for byte for any stage count.
+``--seq-parallel``, ``--frame-parallel`` and ``--decode-devices`` are not
+ported yet: they raise and name ROADMAP A13. The encode, denoise and decode
+pieces here are shared with ``apps.restyle_video`` and
+``apps.generate_video_long``.
 Without a CUDA device the app fails unless ``--device cpu`` is asked for.
 The ``tiny`` preset is a CPU preset: its UNet's head dim 16 (and its VAE's
 32) at L >= 512 has no flash kernel, so on the card it raises there.
@@ -108,12 +113,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-samples", type=int, default=1)
     p.add_argument("--guidance-scale", type=float, default=3.0)
     p.add_argument("--cfg-mode", default="sequential", choices=["sequential", "batched"])
-    p.add_argument("--solver", default="euler", choices=["euler", "euler_a", "heun", "dpmpp2m"],
-                   help="euler (the reference semantics), heun or dpmpp2m; euler_a is not "
-                        "ported yet")
-    p.add_argument("--deepcache", type=int, default=0, metavar="N",
-                   help="cached inference every N steps (not ported yet; 0 = off)")
-    p.add_argument("--deepcache-split", type=int, default=1)
+    add_solver_args(p)
     p.add_argument("--fps", type=int, default=7)
     p.add_argument("--motion-bucket-id", type=int, default=127)
     p.add_argument("--noise-aug-strength", type=float, default=0.02)
@@ -124,10 +124,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vae-dtype", default="float32", choices=["float32", "bfloat16"],
                    help="VAE compute dtype (bfloat16 halves decode memory)")
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--sampler-seed", type=int, default=0, help="euler_a only (not ported yet)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--log-level", default="INFO")
     return p
+
+
+def add_solver_args(p: argparse.ArgumentParser) -> None:
+    """``--solver``, ``--sampler-seed``, ``--deepcache``, ``--deepcache-split``."""
+    p.add_argument("--solver", default="euler", choices=["euler", "euler_a", "heun", "dpmpp2m"],
+                   help="euler (the reference semantics), euler_a (ancestral), heun (2 UNet "
+                        "evals a step) or dpmpp2m (DPM-Solver++ 2M, 1 eval a step)")
+    p.add_argument("--sampler-seed", type=int, default=0,
+                   help="euler_a only: seed of the per-step injected noise")
+    p.add_argument("--deepcache", type=int, default=0, metavar="N",
+                   help="DeepCache: the whole UNet every N steps, its shallow levels between "
+                        "(0 = off; changes the output)")
+    p.add_argument("--deepcache-split", type=int, default=1,
+                   help="shallow levels a cache step still computes")
+
+
+def make_wrapper(args: argparse.Namespace, unet_cfg: SVDUNetConfig, dev: torch.device,
+                 **kw) -> StableVideoUNet:
+    """The SVD wrapper from the app's solver and cache flags."""
+    return StableVideoUNet(unet_cfg, num_steps=args.steps, cfg_mode=args.cfg_mode,
+                           solver=args.solver, sampler_seed=args.sampler_seed,
+                           deepcache_interval=args.deepcache,
+                           deepcache_split=args.deepcache_split, device=dev, **kw)
 
 
 def _pillow():
@@ -181,10 +203,11 @@ def _free(dev: torch.device) -> None:
 
 def _encode(models: dict, dev: torch.device, image, clip_pixels, aug_noise, times: dict, *,
             num_frames: int, fps: int, motion_bucket_id: int, noise_aug_strength: float,
-            guidance_scale: float):
+            guidance_scale: float, keep: bool = False):
     """CLIP and the VAE encode into the conditioning; both encoders are taken
-    out of ``models`` and freed. Adds ``clip``, ``vae_encode`` and ``encode``
-    seconds to ``times``."""
+    out of ``models`` and freed, unless ``keep``. Adds ``clip``,
+    ``vae_encode`` and ``encode`` seconds to ``times``."""
+    take = models.get if keep else models.pop
 
     def lap(name: str, t0: float) -> float:
         _sync(dev)
@@ -192,20 +215,22 @@ def _encode(models: dict, dev: torch.device, image, clip_pixels, aug_noise, time
         return time.perf_counter()
 
     t0 = t_enc = time.perf_counter()
-    clip = models.pop("clip")
+    clip = take("clip")
     clip_embeds = clip.apply(torch.as_tensor(clip_pixels, device=dev)[None])  # (1, D)
     del clip
-    _free(dev)
+    if not keep:
+        _free(dev)
     t0 = lap("clip", t0)
 
     # VAE encode with pixel-space noise augmentation; .mode(), no scaling factor.
-    vae_enc = models.pop("vae_encoder")
+    vae_enc = take("vae_encoder")
     noise_aug = noise_aug_strength * torch.as_tensor(aug_noise, dtype=torch.float32, device=dev)
     pixels = torch.as_tensor(image, dtype=torch.float32, device=dev)[None] + noise_aug
     image_latent = vae_enc.mode(vae_enc.apply(pixels))  # (1, h, w, 4)
     image_latents = image_latent[:, None].repeat(1, num_frames, 1, 1, 1)
     del vae_enc
-    _free(dev)
+    if not keep:
+        _free(dev)
     lap("vae_encode", t0)
     cond = make_conditioning(
         image_embeddings=clip_embeds, image_latents=image_latents, num_frames=num_frames,
@@ -268,27 +293,31 @@ def image_to_video(models: dict, wrapper: StableVideoUNet, image, clip_pixels, a
 
 
 def _check_ported(args: argparse.Namespace) -> None:
-    if args.solver == "euler_a" or args.deepcache:
-        raise NotImplementedError("--solver euler_a and --deepcache come with a later slice of "
-                                  "the port (ROADMAP A12)")
     if args.seq_parallel != 1 or args.frame_parallel != 1 or args.decode_devices:
         raise NotImplementedError("--seq-parallel, --frame-parallel and --decode-devices come "
                                   "with intra-sample parallelism (ROADMAP A13)")
 
 
-def _configs(args: argparse.Namespace):
-    """The preset's UNet, VAE and CLIP configs and the latent's (h, w) (the
-    tiny preset widens the frame to at least 64x64 in ``args``)."""
+def model_configs(args: argparse.Namespace):
+    """The preset's UNet, VAE and CLIP configs."""
     vae_dtype = torch.bfloat16 if args.vae_dtype == "bfloat16" else torch.float32
     if args.preset == "tiny":
         unet_cfg, vae_cfg = SVDUNetConfig.tiny(), VAEConfig.tiny(vae_dtype)
         # CLIP's projection must match the UNet's cross-attention width.
         clip_cfg = dataclasses.replace(CLIPVisionConfig.tiny(),
                                        projection_dim=unet_cfg.cross_attention_dim)
-        args.width, args.height = max(args.width, 64), max(args.height, 64)
     else:
         unet_cfg, vae_cfg = SVDUNetConfig.svd_xt(), VAEConfig.svd(vae_dtype)
         clip_cfg = CLIPVisionConfig.vit_h_14()
+    return unet_cfg, vae_cfg, clip_cfg
+
+
+def _configs(args: argparse.Namespace):
+    """:func:`model_configs` and the latent's (h, w) (the tiny preset widens
+    the frame to at least 64x64 in ``args``)."""
+    unet_cfg, vae_cfg, clip_cfg = model_configs(args)
+    if args.preset == "tiny":
+        args.width, args.height = max(args.width, 64), max(args.height, 64)
     spatial_down = 2 ** (len(vae_cfg.block_out_channels) - 1)
     return unet_cfg, vae_cfg, clip_cfg, (args.height // spatial_down, args.width // spatial_down)
 
@@ -334,27 +363,49 @@ def _prepare(args: argparse.Namespace, clip_cfg: CLIPVisionConfig, dev: torch.de
     """The preprocessed image, CLIP's pixels and the augmentation noise."""
     image = load_and_preprocess_image(args.image, args.width, args.height)
     clip_px = preprocess_image(((image + 1.0) * 127.5).astype(np.uint8), size=clip_cfg.image_size)
-    aug_noise = torch.randn(image.shape, generator=torch.Generator(device=dev).manual_seed(
-        args.seed + 4), device=dev)
+    aug_noise = seeded_normal(args.seed + 4, image.shape, dev)
     return image, clip_px, aug_noise
 
 
+def seeded_normal(seed: int, shape, dev: torch.device) -> torch.Tensor:
+    """A standard-normal draw of ``shape`` from a generator on ``dev``."""
+    return torch.randn(tuple(shape), generator=torch.Generator(device=dev).manual_seed(seed),
+                       device=dev)
+
+
 def _latent_noise(args: argparse.Namespace, lat_hw, dev: torch.device):
-    return torch.randn(args.num_samples, 1, args.num_frames, *lat_hw, 4,
-                       generator=torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    return seeded_normal(args.seed, (args.num_samples, 1, args.num_frames, *lat_hw, 4), dev)
 
 
-def _save(args: argparse.Namespace, videos: list[torch.Tensor], stages: int) -> list[str]:
+def _save(args: argparse.Namespace, videos, stages: int, prefix: str = "svd",
+          steps: int | None = None, fps: int | None = None) -> list[str]:
+    """Each ``(1, F, H, W, 3)`` video in [-1, 1] as MP4 (or its stand-in)
+    and GIF under ``--output-dir``; returns the MP4 paths."""
     os.makedirs(args.output_dir, exist_ok=True)
+    fps = args.fps if fps is None else fps
     outputs = []
     for i, video in enumerate(videos):
-        frames = frames_to_uint8(video[0].float().cpu().numpy())
-        name = build_output_name("svd", num_frames=args.num_frames, steps=args.steps,
-                                 stages=stages, fps=args.fps, seed=args.seed + i, ext="mp4")
-        path = save_video_mp4(frames, os.path.join(args.output_dir, name), args.fps)
-        save_video_gif(frames, os.path.splitext(path)[0] + ".gif", args.fps)
+        video = video[0]
+        frames = frames_to_uint8(video.float().cpu().numpy() if torch.is_tensor(video) else video)
+        name = build_output_name(prefix, num_frames=frames.shape[0],
+                                 steps=args.steps if steps is None else steps, stages=stages,
+                                 fps=fps, seed=args.seed + i, ext="mp4")
+        path = save_video_mp4(frames, os.path.join(args.output_dir, name), fps)
+        save_video_gif(frames, os.path.splitext(path)[0] + ".gif", fps)
         outputs.append(path)
     return outputs
+
+
+def _share(stage: Stage, obj, src: int = 0):
+    """A tuple of tensors (or None, or a conditioning) from rank ``src`` on
+    every rank, moved to each rank's device."""
+    def to(v, dev):
+        if isinstance(v, SVDConditioning):
+            return SVDConditioning(**{k: to(x, dev) for k, x in vars(v).items()})
+        return v.to(dev) if torch.is_tensor(v) else v
+
+    sent = None if obj is None else tuple(to(v, "cpu") for v in obj)
+    return tuple(to(v, stage.device) for v in stage.broadcast_object(sent, src=src))
 
 
 def _log_timing(t_load: float, t_encode: float, t_diffusion: float, t_decode: float,
@@ -404,8 +455,7 @@ def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float) -> list[
                     args.width, args.height, args.num_frames, args.steps, dev,
                     args.guidance_scale, stage.num_stages)
     t0 = time.perf_counter()
-    wrapper = StableVideoUNet(unet_cfg, num_steps=args.steps, cfg_mode=args.cfg_mode,
-                              solver=args.solver, device=dev)
+    wrapper = make_wrapper(args, unet_cfg, dev)
     models = _load_models(args, wrapper, vae_cfg, clip_cfg,
                           ["unet", "clip", "vae_encoder"] if stage.rank == 0 else ["unet"])
     _sync(dev)
@@ -427,9 +477,8 @@ def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float) -> list[
         t_encode = t_prep + times["encode"]
         LOGGER.info("conditioning encoded in %.3fs (preprocess %.3fs, CLIP %.3fs, VAE encode "
                     "%.3fs)", t_encode, t_prep, times["clip"], times["vae_encode"])
-        sent = ({k: None if v is None else v.cpu() for k, v in vars(cond).items()}, t_encode)
-    fields, t_encode = stage.broadcast_object(sent)
-    cond = SVDConditioning(**{k: None if v is None else v.to(dev) for k, v in fields.items()})
+        sent = (cond, t_encode)
+    cond, t_encode = _share(stage, sent)
 
     t0 = time.perf_counter()
     noise = wrapper.pack_initial(_latent_noise(args, lat_hw, dev) * wrapper.init_noise_sigma)

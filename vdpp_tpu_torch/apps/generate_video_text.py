@@ -17,15 +17,15 @@ ships with a checkpoint. With ``--checkpoint`` pass ``--token-ids`` or
 stands in. ``--checkpoint`` is a directory of the JAX package's own
 ``save_params`` files (``t5.npz``, ``dit.npz``, ``vae_decoder.npz``).
 
-``--solver`` is euler, heun, dpmpp2m or flowmatch. ``--num-stages`` defaults
-to every card (1 on the CPU), as the reference's does. The denoise is the
-step pipeline: one stage runs in this process, S stages one process each
-(``parallel/mesh.py``). Rank 0 runs T5 and broadcasts the context, every rank
-builds the DiT from the same checkpoint or seed, and the last rank builds the
-decoder, decodes and writes the files, the same byte for byte for any stage
-count. ``--solver euler_a`` (A12) and
-``--seq-parallel`` above 1 (A13) raise. Without a CUDA device the app fails
-unless ``--device cpu`` is asked for.
+``--solver`` is euler, euler_a (its noise seeded by ``--sampler-seed``), heun,
+dpmpp2m or flowmatch. ``--num-stages`` defaults to every card (1 on the CPU),
+as the reference's does. The denoise is the step pipeline: one stage runs in
+this process, S stages one process each (``parallel/mesh.py``). Rank 0 runs
+T5 and broadcasts the context, every rank builds the DiT from the same
+checkpoint or seed, and the last rank builds the decoder, decodes and writes
+the files, the same byte for byte for any stage count. ``--seq-parallel``
+above 1 raises (ROADMAP A13). Without a CUDA device the app fails unless
+``--device cpu`` is asked for.
 """
 
 from __future__ import annotations
@@ -87,9 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=24)
     p.add_argument("--solver", default="euler",
                    choices=["euler", "euler_a", "heun", "dpmpp2m", "flowmatch"],
-                   help="euler, heun or dpmpp2m (v-prediction over Karras sigmas) or "
-                        "flowmatch (rectified flow, shifted-linear schedule); euler_a is not "
-                        "ported yet")
+                   help="euler, euler_a, heun or dpmpp2m (v-prediction over Karras sigmas) "
+                        "or flowmatch (rectified flow, shifted-linear schedule)")
     p.add_argument("--flow-shift", type=float, default=3.0,
                    help="flowmatch only: resolution shift of the sigma schedule")
     p.add_argument("--num-stages", type=int, default=None,
@@ -100,6 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fps", type=int, default=8)
     p.add_argument("--decode-chunk-frames", type=int, default=4)
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--sampler-seed", type=int, default=0,
+                   help="euler_a only: seed of the per-step injected noise")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--log-level", default="INFO")
     return p
@@ -228,9 +229,6 @@ def main(argv: list[str] | None = None) -> int:
         LOGGER.error("--negative-prompt needs CFG: set --guidance-scale > 1.0 (got %s)",
                      args.guidance_scale)
         return 1
-    if args.solver == "euler_a":
-        raise NotImplementedError("--solver euler_a comes with a later slice of the port "
-                                  "(ROADMAP A12)")
     if args.seq_parallel != 1:
         raise NotImplementedError("--seq-parallel above 1 comes with intra-sample parallelism "
                                   "(ROADMAP A13)")
@@ -258,7 +256,8 @@ def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float) -> list[
     t5_cfg, dit_cfg, vae_cfg, lat_hw = _configs(args)
     t0 = time.perf_counter()
     wrapper = DiTVideoWrapper(dit_cfg, num_steps=args.steps, solver=args.solver,
-                              flow_shift=args.flow_shift, device=dev)
+                              flow_shift=args.flow_shift, sampler_seed=args.sampler_seed,
+                              device=dev)
     dit = _load(args, "dit", DiTVideo(dit_cfg, device=dev), args.seed + 1)
     _sync(dev)
     t_load = time.perf_counter() - t0

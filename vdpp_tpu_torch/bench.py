@@ -3,6 +3,8 @@ flagship) and the DiT text->video family.
 
     python -m vdpp_tpu_torch.bench [--preset full|tiny] [--steps N] [--frames F]
                                    [--latent-hw H W] [--device cuda|cpu] [--decode]
+                                   [--solver S] [--deepcache N [--deepcache-split K]]
+    python -m vdpp_tpu_torch.bench --solver dpmpp2m --steps 15 --deepcache 2
     python -m vdpp_tpu_torch.bench --model dit3d_xl|dit_xl|dit3d_tiny [--profile]
 
 The counterpart of the root ``bench.py::measure_config``: random-init SVD-XT
@@ -14,7 +16,11 @@ the device it ran on and the kernel switches that were set
 (``VDPP_GN_FUSED=1``, ``VDPP_TEMPORAL_ATTN=pallas``); progress goes to stderr.
 ``--decode`` then decodes the last video's latent with the temporal VAE
 decoder (random weights from the seed, fp32, chunks of 4 frames, as the
-image->video app decodes) and reports its time on stderr.
+image->video app decodes) and reports its time on stderr. ``--solver``
+(euler, euler_a, heun, dpmpp2m) and ``--deepcache N`` (the whole UNet every
+N steps, its ``--deepcache-split`` shallow levels between) change the
+denoise and are named in the metric; ``--solver dpmpp2m --steps 15
+--deepcache 2`` is the root bench's fast path.
 
 ``vs_baseline`` is the root bench's yardstick: the reference system's
 measured single-GPU 14-frame/25-step diffusion time (47.65 s, RTX A5000)
@@ -185,6 +191,9 @@ def measure_config(
     seed: int = 0,
     device: str | torch.device | None = None,
     profile: bool = False,
+    solver: str = "euler",
+    deepcache: int = 0,
+    deepcache_split: int = 1,
 ) -> dict:
     """Generate ``warmup + videos`` videos and time the last ``videos``.
 
@@ -196,7 +205,9 @@ def measure_config(
     more denoise step (:func:`profile_step`).
     """
     dev = resolve_device(device)
-    model = StableVideoUNet(config, num_steps=steps, cfg_mode=cfg_mode, device=dev)
+    model = StableVideoUNet(config, num_steps=steps, cfg_mode=cfg_mode, solver=solver,
+                            deepcache_interval=deepcache, deepcache_split=deepcache_split,
+                            device=dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     cond = make_dummy_conditioning(
@@ -350,6 +361,14 @@ def _decode(latent: torch.Tensor, seed: int, config: VAEConfig) -> bool:
     return True
 
 
+def fast_path(args: argparse.Namespace) -> str:
+    """The solver and cache words of the metric (none at the defaults)."""
+    words = "" if args.solver == "euler" else f", {args.solver}"
+    if args.deepcache:
+        words += f" x deepcache-{args.deepcache} (split {args.deepcache_split})"
+    return words
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=["svd", *DIT_MODELS], default="svd",
@@ -361,6 +380,12 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--latent-hw", type=int, nargs=2, metavar=("H", "W"))
     ap.add_argument("--guidance", type=float, help="CFG scale (default 3 for svd, 6 for DiT)")
     ap.add_argument("--cfg-mode", choices=["sequential", "batched"], default="sequential")
+    ap.add_argument("--solver", choices=["euler", "euler_a", "heun", "dpmpp2m"], default="euler")
+    ap.add_argument("--deepcache", type=int, default=0, metavar="N",
+                    help="svd only: the whole UNet every N steps, the shallow levels between "
+                         "(0 = off)")
+    ap.add_argument("--deepcache-split", type=int, default=1,
+                    help="svd only: shallow levels a cache step computes")
     ap.add_argument("--videos", type=int, default=2)
     ap.add_argument("--warmup", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
@@ -375,6 +400,8 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     dit = args.model in DIT_MODELS
+    if dit and args.deepcache:
+        ap.error("--deepcache is the SVD UNet's (--model svd)")
     tiny = DIT_MODELS[args.model][0] == "tiny" if dit else args.preset == "tiny"
     if dit:
         frames = args.frames or (4 if tiny else 8)
@@ -393,8 +420,8 @@ def main(argv: list[str] | None = None) -> int:
         log(f"card: {nvidia_smi_line()}")
     switches = kernel_switches()
     log(f"{args.model} {'tiny' if tiny else 'full'}: {frames}f latent {lat_h}x{lat_w}, {steps} "
-        f"steps, guidance {guidance}, cfg_mode {args.cfg_mode}, device {device_name(dev)}, "
-        f"kernel switches: {switches or 'none'}")
+        f"steps, guidance {guidance}, cfg_mode {args.cfg_mode}, solver {args.solver}, deepcache "
+        f"{args.deepcache}, device {device_name(dev)}, kernel switches: {switches or 'none'}")
     if dit:
         mode = DIT_MODELS[args.model][1]
         t5_cfg = T5EncoderConfig.tiny() if tiny else T5EncoderConfig.xxl()
@@ -406,8 +433,8 @@ def main(argv: list[str] | None = None) -> int:
                                      attention_mode=mode)
         res = measure_dit_config(
             config=config, context=enc["context"], frames=frames, lat_h=lat_h, lat_w=lat_w,
-            steps=steps, guidance=guidance, videos=args.videos, warmup=args.warmup,
-            seed=args.seed, device=dev, profile=args.profile,
+            steps=steps, guidance=guidance, solver=args.solver, videos=args.videos,
+            warmup=args.warmup, seed=args.seed, device=dev, profile=args.profile,
         )
         what = f"DiT-{'tiny' if tiny else 'XL'} {mode} text->video"
     else:
@@ -415,6 +442,7 @@ def main(argv: list[str] | None = None) -> int:
             config=config, frames=frames, lat_h=lat_h, lat_w=lat_w, steps=steps,
             guidance=guidance, cfg_mode=args.cfg_mode, videos=args.videos,
             warmup=args.warmup, seed=args.seed, device=dev, profile=args.profile,
+            solver=args.solver, deepcache=args.deepcache, deepcache_split=args.deepcache_split,
         )
         what = "SVD"
     if not res["finite"]:
@@ -429,7 +457,8 @@ def main(argv: list[str] | None = None) -> int:
     baseline = 0.0 if tiny or dit else SECONDARY_BASELINE_SEC * frames * steps / (14 * 25)
     print(json.dumps({
         "metric": (f"sec/video single {res['device']} {what} {frames}f {lat_h}x{lat_w} latent, "
-                   f"{steps} steps, CFG {guidance}" + (f", {switches}" if switches else "")),
+                   f"{steps} steps, CFG {guidance}" + fast_path(args) +
+                   (f", {switches}" if switches else "")),
         "value": round(res["sec_per_video"], 3),
         "unit": "s/video",
         "vs_baseline": round(baseline / res["sec_per_video"], 3) if baseline else 0.0,

@@ -12,8 +12,9 @@ The per-step updates run in fp32 on tensors:
     x     <- x + (x - x0_hat) / sigma * (sigma_next - sigma)      (Euler)
     x     <- x + (sigma_next - sigma) * v                          (flow match)
 
-and the second-order v-prediction solvers, Heun (two model calls a step) and
-DPM-Solver++ (2M) (one call, and the previous ``x0_hat`` carried as state).
+the second-order v-prediction solvers, Heun (two model calls a step) and
+DPM-Solver++ (2M) (one call, and the previous ``x0_hat`` carried as state),
+and the ancestral (stochastic) Euler step, whose noise the caller draws.
 """
 
 from __future__ import annotations
@@ -160,6 +161,53 @@ def dpmpp2m_step_v_prediction(
                          (1.0 + inv_2r) * denoised - inv_2r * old_denoised.float())
     x_next = s_next / s * x - torch.expm1(-h) * d_used
     return x_next.to(out_dtype), denoised.to(out_dtype)
+
+
+def euler_ancestral_step_v_prediction(
+    latent: torch.Tensor,
+    noise_pred: torch.Tensor,
+    noise: torch.Tensor,
+    sigma,
+    sigma_next,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """One fp32 ancestral Euler update in the parameterization of
+    :func:`euler_step_v_prediction`: an Euler step to ``sigma_down`` plus
+    ``sigma_up * noise``, where
+
+        sigma_up^2   = sigma_next^2 (sigma^2 - sigma_next^2) / sigma^2
+        sigma_down^2 = sigma_next^2 - sigma_up^2
+
+    ``noise`` is standard normal, drawn by the caller. An identity-padded
+    step (``sigma_next == sigma``) returns the latent bit for bit for finite
+    noise, and the final step (``sigma_next == 0``) ignores the noise.
+    """
+    out_dtype = out_dtype or latent.dtype
+    x = latent.float()
+    eps = noise_pred.float()
+    z = noise.float()
+    s = _f32(sigma, x)
+    s_next = _f32(sigma_next, x)
+    up2 = s_next * s_next * (s * s - s_next * s_next) / (s * s)
+    up = torch.sqrt(torch.clamp(up2, min=0.0))
+    down = torch.sqrt(torch.clamp(s_next * s_next - up2, min=0.0))
+    # sqrt(s_next^2 - 0) may land an ulp off s on a padded step: force the no-op.
+    same = s_next == s
+    up = torch.where(same, 0.0, up)
+    dt = torch.where(same, 0.0, down - s)
+    d = (x - _pred_original(x, eps, s)) / s
+    return (x + d * dt + up * z).to(out_dtype)
+
+
+def ancestral_noise(seed: int, step: int, shape, device) -> torch.Tensor:
+    """The ancestral step's standard-normal draw for ``step``: a generator on
+    ``device`` seeded from ``(seed, step)`` alone, so that every rank of a
+    pipeline and the single-device run draw the same noise."""
+    # A hash of the pair: the CPU generator reads only the low 32 bits.
+    lo, hi = np.random.SeedSequence([int(seed) & 0xFFFFFFFF,
+                                     int(step) & 0xFFFFFFFF]).generate_state(2)
+    g = torch.Generator(device=device).manual_seed(int(lo) | int(hi) << 32)
+    return torch.randn(tuple(shape), generator=g, device=device, dtype=torch.float32)
 
 
 @dataclass(frozen=True)

@@ -39,7 +39,9 @@ from torch import nn
 from vdpp_tpu_torch.diffusion.scheduler import (
     EulerKarrasSchedule,
     FlowMatchSchedule,
+    ancestral_noise,
     dpmpp2m_step_v_prediction,
+    euler_ancestral_step_v_prediction,
     euler_step_v_prediction,
     flowmatch_step,
     heun_step_v_prediction,
@@ -253,13 +255,15 @@ class DiTVideoWrapper:
 
     ``solver="euler"``: Karras sigmas, input scaled by ``rsqrt(sigma^2 + 1)``,
     timestep ``0.25 * log(sigma)``, fp32 v-prediction Euler update.
-    ``solver="heun"`` and ``"dpmpp2m"``: the same sigmas and scaling with the
-    second-order updates; dpmpp2m's payload is ``[x | previous x0_hat]`` along
-    channels (``pack_initial``). ``solver="flowmatch"``: shifted-linear
-    flow-matching sigmas, no input scaling, timestep ``sigma * 1000``, fp32
-    velocity update. CFG blends in fp32 with per-frame ``guidance``; the
-    uncond branch gets zeros, or the negative prompt's tokens when
-    ``context`` is a ``(neg_ctx, pos_ctx)`` tuple.
+    ``solver="euler_a"``: the same with the ancestral update, its noise drawn
+    from ``(sampler_seed, step)``. ``solver="heun"`` and ``"dpmpp2m"``: the
+    same sigmas and scaling with the second-order updates; dpmpp2m's payload
+    is ``[x | previous x0_hat]`` along channels (``pack_initial``).
+    ``solver="flowmatch"``: shifted-linear flow-matching sigmas, no input
+    scaling, timestep ``sigma * 1000``, fp32 velocity update. CFG blends in
+    fp32 with per-frame ``guidance``; the uncond branch gets zeros, or the
+    negative prompt's tokens when ``context`` is a ``(neg_ctx, pos_ctx)``
+    tuple.
     """
 
     def __init__(
@@ -270,14 +274,19 @@ class DiTVideoWrapper:
         sigma_max: float = 700.0,
         solver: str = "euler",
         flow_shift: float = 3.0,
+        sampler_seed: int = 0,
         device: str | torch.device | None = None,
+        noise_source=None,
     ):
         if solver not in ("euler", "euler_a", "heun", "dpmpp2m", "flowmatch"):
             raise ValueError("solver must be 'euler', 'euler_a', 'heun', 'dpmpp2m' or "
                              "'flowmatch'")
-        if solver == "euler_a":
-            raise NotImplementedError("solver 'euler_a' is not ported yet (ROADMAP A12)")
         self.solver = solver
+        # euler_a draws its noise from (sampler_seed, step_idx), as the
+        # reference's DiT wrapper folds it (the SVD wrapper folds the real
+        # step instead); ``noise_source(step, shape)`` replaces the draw.
+        self.sampler_seed = int(sampler_seed)
+        self.noise_source = noise_source
         self.config = config or DiTVideoConfig.latte_xl()
         self.device = resolve_device(device)
         if solver == "flowmatch":
@@ -350,6 +359,12 @@ class DiTVideoWrapper:
                 lat32, eps, old_den, self.schedule.sigmas[max(step_idx - 1, 0)], sigma,
                 sigma_next, latent.dtype)
             return torch.cat([x_next, denoised], dim=-1)
+        if self.solver == "euler_a":
+            z = (ancestral_noise(self.sampler_seed, step_idx, lat32.shape, lat32.device)
+                 if self.noise_source is None else
+                 self.noise_source(step_idx, tuple(lat32.shape)).to(lat32.device, torch.float32))
+            return euler_ancestral_step_v_prediction(lat32, eps, z, sigma, sigma_next,
+                                                     latent.dtype)
         return euler_step_v_prediction(lat32, eps, sigma, sigma_next, latent.dtype)
 
     def pipeline_step_fn(self, seq_axis: str | None = None, cfg_axis: str | None = None,

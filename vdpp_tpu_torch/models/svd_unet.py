@@ -1,6 +1,6 @@
 """Spatio-temporal conditioned video UNet (SVD architecture) in PyTorch.
 
-Port of ``vdpp_tpu/models/svd_unet.py`` (``SVDUNet.apply`` and its blocks,
+Port of ``vdpp_tpu/models/svd_unet.py`` (``SVDUNet.apply``, ``apply_cached`` and their blocks,
 without the sequence/frame-sharding and int8 arguments). Modules carry the
 diffusers ``UNetSpatioTemporalConditionModel`` parameter names, so
 ``state_dict()`` has exactly the keys of a diffusers checkpoint (1428 at
@@ -76,6 +76,17 @@ class SVDUNetConfig:
             norm_num_groups=8,
             dtype=dtype,
         )
+
+
+def cache_feature_shape(cfg: SVDUNetConfig, batch: int, frames: int, height: int, width: int,
+                        split: int) -> tuple[int, ...]:
+    """Shape of the DeepCache deep feature for ``split`` shallow levels: the
+    tensor entering up block ``n_levels - split``, at ``H / 2^(split-1)``
+    with ``block_out_channels[split]`` channels."""
+    if not 1 <= split <= cfg.num_levels - 1:
+        raise ValueError(f"deepcache split must be in [1, {cfg.num_levels - 1}], got {split}")
+    r = 2 ** (split - 1)
+    return (batch, frames, height // r, width // r, cfg.block_out_channels[split])
 
 
 class AlphaBlender(nn.Module):
@@ -362,6 +373,74 @@ class SVDUNet(nn.Module):
         add_emb = add_emb.reshape(b, -1).to(cfg.dtype)
         return emb + self.add_embedding(add_emb)
 
+    # ``forward`` and ``apply_cached`` are built from these bodies alone, so
+    # the cache's full branch runs exactly the forward's ops.
+    def _embeddings(self, timestep, added_time_ids: torch.Tensor,
+                    encoder_hidden_states: torch.Tensor, b: int, f: int):
+        """The time embedding and the context, each repeated per frame."""
+        cfg = self.config
+        emb_f = self._time_embeddings(timestep, added_time_ids, b).repeat_interleave(f, dim=0)
+        ctx_f = encoder_hidden_states.to(cfg.dtype).repeat_interleave(f, dim=0)  # (B*F, 1, D)
+        return emb_f, ctx_f
+
+    def _down_path(self, x: torch.Tensor, emb_f: torch.Tensor, ctx_f: torch.Tensor, b: int,
+                   f: int, n_levels_to_run: int | None = None,
+                   run_last_downsample: bool = True) -> tuple[torch.Tensor, list]:
+        """Down levels ``0..n-1`` on a post-``conv_in`` tensor. Returns ``(x,
+        skips)``, the entry tensor first among the skips.
+        ``run_last_downsample=False`` skips level ``n-1``'s downsample, whose
+        skip would feed an up block the cache step never reaches."""
+        heads = self.config.num_attention_heads
+        n_levels = self.config.num_levels
+        n = n_levels if n_levels_to_run is None else n_levels_to_run
+        res_stack = [x]
+        for i in range(n):
+            block = self.down_blocks[i]
+            for j, res in enumerate(block.resnets):
+                x = res(x, emb_f, b, f)
+                if i < n_levels - 1:
+                    x = block.attentions[j](x, ctx_f, heads[i], b, f)
+                res_stack.append(x)
+            if hasattr(block, "downsamplers") and (i < n - 1 or run_last_downsample):
+                x = conv2d(x, block.downsamplers[0].conv, stride=2, padding=((1, 1), (1, 1)))
+                res_stack.append(x)
+        return x, res_stack
+
+    def _mid(self, x: torch.Tensor, emb_f: torch.Tensor, ctx_f: torch.Tensor, b: int,
+             f: int) -> torch.Tensor:
+        mid = self.mid_block
+        x = mid.resnets[0](x, emb_f, b, f)
+        x = mid.attentions[0](x, ctx_f, self.config.num_attention_heads[-1], b, f)
+        return mid.resnets[1](x, emb_f, b, f)
+
+    def _up_path(self, x: torch.Tensor, res_stack: list, emb_f: torch.Tensor,
+                 ctx_f: torch.Tensor, b: int, f: int, start: int = 0,
+                 stop: int | None = None) -> torch.Tensor:
+        """Up blocks ``start..stop-1``, popping their skips off ``res_stack``
+        (so a second call goes on where the first stopped)."""
+        rev_heads = list(reversed(self.config.num_attention_heads))
+        stop = self.config.num_levels if stop is None else stop
+        for i in range(start, stop):
+            block = self.up_blocks[i]
+            for j, res in enumerate(block.resnets):
+                x = torch.cat([x, res_stack.pop()], dim=-1)
+                x = res(x, emb_f, b, f)
+                if i > 0:
+                    x = block.attentions[j](x, ctx_f, rev_heads[i], b, f)
+            if hasattr(block, "upsamplers"):
+                x = conv2d(upsample_nearest_2x(x), block.upsamplers[0].conv)
+        return x
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        x = group_norm_silu(x, self.conv_norm_out, cfg.norm_num_groups, cfg.out_norm_eps,
+                            fused=cfg.fused_groupnorm)
+        return conv2d(x, self.conv_out)
+
+    def _conv_in(self, sample: torch.Tensor) -> torch.Tensor:
+        b, f, hh, ww, c_in = sample.shape
+        return conv2d(sample.to(self.config.dtype).reshape(b * f, hh, ww, c_in), self.conv_in)
+
     def forward(
         self,
         sample: torch.Tensor,
@@ -380,41 +459,63 @@ class SVDUNet(nn.Module):
         Returns:
             (B, F, H, W, C_out) v-prediction in the model dtype.
         """
+        b, f, hh, ww, _ = sample.shape
+        emb_f, ctx_f = self._embeddings(timestep, added_time_ids, encoder_hidden_states, b, f)
+        x, res_stack = self._down_path(self._conv_in(sample), emb_f, ctx_f, b, f)
+        x = self._mid(x, emb_f, ctx_f, b, f)
+        x = self._up_path(x, res_stack, emb_f, ctx_f, b, f)
+        return self._head(x).reshape(b, f, hh, ww, self.config.out_channels)
+
+    # ------------------- cached (DeepCache) forward ------------------- #
+    def cache_feature_shape(self, batch: int, frames: int, height: int, width: int,
+                            split: int) -> tuple[int, ...]:
+        return cache_feature_shape(self.config, batch, frames, height, width, split)
+
+    def apply_cached(
+        self,
+        sample: torch.Tensor,
+        timestep,
+        encoder_hidden_states: torch.Tensor,
+        added_time_ids: torch.Tensor,
+        cache: torch.Tensor,
+        use_full: bool,
+        split: int = 1,
+        seq_axis: str | None = None,
+        frame_axis: str | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One step with a deep-feature cache (DeepCache, Ma et al. 2023).
+
+        ``use_full``: the whole UNet (:meth:`forward`'s ops, one by one),
+        capturing the tensor that enters up block ``n_levels - split`` as the
+        new cache. Otherwise only ``conv_in``, down levels ``0..split-1``
+        (without the last one's downsample) and up blocks ``n_levels - split
+        ..`` run, on the cached deep feature, which passes through unchanged.
+        The branch is a host ``if``: a cache step does none of the deep work.
+
+        Returns ``(v_prediction (B, F, H, W, C_out), cache)``, the cache in the
+        model dtype, of :meth:`cache_feature_shape`.
+        """
+        if seq_axis is not None or frame_axis is not None:
+            raise NotImplementedError("the cached forward over sequence or frame shards comes "
+                                      "with intra-sample parallelism (ROADMAP A13)")
         cfg = self.config
-        b, f, hh, ww, c_in = sample.shape
-        heads = cfg.num_attention_heads
-        n = cfg.num_levels
-        emb_f = self._time_embeddings(timestep, added_time_ids, b).repeat_interleave(f, dim=0)
-        ctx_f = encoder_hidden_states.to(cfg.dtype).repeat_interleave(f, dim=0)  # (B*F, 1, D)
-
-        x = conv2d(sample.to(cfg.dtype).reshape(b * f, hh, ww, c_in), self.conv_in)
-        res_stack = [x]
-        for i, block in enumerate(self.down_blocks):
-            for j, res in enumerate(block.resnets):
-                x = res(x, emb_f, b, f)
-                if i < n - 1:
-                    x = block.attentions[j](x, ctx_f, heads[i], b, f)
-                res_stack.append(x)
-            if hasattr(block, "downsamplers"):
-                x = conv2d(x, block.downsamplers[0].conv, stride=2, padding=((1, 1), (1, 1)))
-                res_stack.append(x)
-
-        mid = self.mid_block
-        x = mid.resnets[0](x, emb_f, b, f)
-        x = mid.attentions[0](x, ctx_f, heads[-1], b, f)
-        x = mid.resnets[1](x, emb_f, b, f)
-
-        rev_heads = list(reversed(heads))
-        for i, block in enumerate(self.up_blocks):
-            for j, res in enumerate(block.resnets):
-                x = torch.cat([x, res_stack.pop()], dim=-1)
-                x = res(x, emb_f, b, f)
-                if i > 0:
-                    x = block.attentions[j](x, ctx_f, rev_heads[i], b, f)
-            if hasattr(block, "upsamplers"):
-                x = conv2d(upsample_nearest_2x(x), block.upsamplers[0].conv)
-
-        x = group_norm_silu(x, self.conv_norm_out, cfg.norm_num_groups, cfg.out_norm_eps,
-                            fused=cfg.fused_groupnorm)
-        x = conv2d(x, self.conv_out)
-        return x.reshape(b, f, hh, ww, cfg.out_channels)
+        n_levels = cfg.num_levels
+        b, f, hh, ww, _ = sample.shape
+        want = self.cache_feature_shape(b, f, hh, ww, split)
+        if tuple(cache.shape) != want:
+            raise ValueError(f"cache shape {tuple(cache.shape)} != expected {want}")
+        u_start = n_levels - split
+        emb_f, ctx_f = self._embeddings(timestep, added_time_ids, encoder_hidden_states, b, f)
+        x = self._conv_in(sample)
+        if use_full:
+            x, res_stack = self._down_path(x, emb_f, ctx_f, b, f)
+            x = self._mid(x, emb_f, ctx_f, b, f)
+            x = self._up_path(x, res_stack, emb_f, ctx_f, b, f, stop=u_start)
+            cache = x.reshape(want).to(cfg.dtype)
+        else:
+            _, res_stack = self._down_path(x, emb_f, ctx_f, b, f, n_levels_to_run=split,
+                                           run_last_downsample=False)
+            cache = cache.to(cfg.dtype)
+            x = cache.reshape(b * f, *want[2:])
+        x = self._up_path(x, res_stack, emb_f, ctx_f, b, f, start=u_start)
+        return self._head(x).reshape(b, f, hh, ww, cfg.out_channels), cache

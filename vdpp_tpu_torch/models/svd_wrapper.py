@@ -1,5 +1,6 @@
 """Stable Video Diffusion denoise-step wrapper (port of
-``vdpp_tpu/models/svd_wrapper.py`` for the euler, heun and dpmpp2m solvers).
+``vdpp_tpu/models/svd_wrapper.py``: the euler, euler_a, heun and dpmpp2m
+solvers and DeepCache, without the sharded axes).
 
 Owns the Euler/Karras schedule, the conditioning (CLIP image embedding,
 frame-repeated image latents, added time ids, per-frame guidance ramp),
@@ -8,8 +9,12 @@ per-step math
 
     scale -> UNet (uncond, cond) -> per-frame guidance blend -> fp32 update
 
-(Euler; Heun, which calls the UNet twice a step; or DPM-Solver++ (2M), whose
-previous ``x0_hat`` rides the pipeline payload along the channel axis).
+(Euler; ancestral Euler, whose noise is a pure function of the sampler seed
+and the step; Heun, which calls the UNet twice a step; or DPM-Solver++ (2M),
+whose previous ``x0_hat`` rides the pipeline payload along the channel
+axis). With DeepCache every ``interval``-th real step runs the whole UNet
+and the others only its shallow levels, on a deep feature cached per CFG
+branch that rides the payload too: ``[x | (old x0_hat) | cache_u | cache_c]``.
 
 Latents are channels-last ``(B, F, H, W, 4)``. The UNet's weights travel as
 the ``params`` argument (an initialised :class:`SVDUNet`), as the reference's
@@ -21,17 +26,20 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from collections.abc import Callable
 from dataclasses import dataclass
 
 import torch
 
 from vdpp_tpu_torch.diffusion.scheduler import (
     EulerKarrasSchedule,
+    ancestral_noise,
     dpmpp2m_step_v_prediction,
+    euler_ancestral_step_v_prediction,
     euler_step_v_prediction,
     heun_step_v_prediction,
 )
-from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
+from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig, cache_feature_shape
 from vdpp_tpu_torch.utils.device import resolve_device
 
 
@@ -119,10 +127,21 @@ def make_dummy_conditioning(
     )
 
 
+NoiseSource = Callable[[int, tuple], torch.Tensor]
+
+
 class StableVideoUNet:
     """SVD denoiser with embedded schedule; ``pipeline_step_fn`` gives the
-    pipeline's ``step_fn(bundle, latent, step)`` contract. The euler_a solver
-    and deepcache are not ported yet."""
+    pipeline's ``step_fn(bundle, latent, step)`` contract.
+
+    ``sampler_seed`` seeds euler_a's per-step noise, which is drawn on the
+    real step (identity-padded leading steps count as real step 0), so a
+    padded schedule draws the unpadded one's noise. ``noise_source(step,
+    shape)``, when given, replaces the generator (tests inject another
+    package's draws through it). ``deepcache_interval`` (0 = off) and
+    ``deepcache_split`` set DeepCache; ``denoise_from`` keeps the tail of
+    the schedule (SDEdit), entered at :attr:`sigma_start`.
+    """
 
     def __init__(
         self,
@@ -134,17 +153,22 @@ class StableVideoUNet:
         pad_steps_to: int | None = None,
         solver: str = "euler",
         deepcache_interval: int = 0,
+        deepcache_split: int = 1,
+        sampler_seed: int = 0,
         denoise_from: int = 0,
         device: str | torch.device | None = None,
+        noise_source: NoiseSource | None = None,
     ):
         if cfg_mode not in ("sequential", "batched"):
             raise ValueError("cfg_mode must be 'sequential' or 'batched'")
         if solver not in ("euler", "euler_a", "heun", "dpmpp2m"):
             raise ValueError("solver must be 'euler', 'euler_a', 'heun' or 'dpmpp2m'")
-        if solver == "euler_a":
-            raise NotImplementedError("solver 'euler_a' is not ported yet (ROADMAP A12)")
-        if deepcache_interval:
-            raise NotImplementedError("deepcache is not ported yet (ROADMAP A12)")
+        if deepcache_interval < 0:
+            raise ValueError("deepcache_interval must be >= 0 (0 = off)")
+        if deepcache_interval and solver == "heun":
+            # The cadence counts model calls, and heun makes two a step.
+            raise ValueError("deepcache composes with solver euler/euler_a/dpmpp2m only (heun "
+                             "runs two evals per step)")
         self.config = config or SVDUNetConfig.svd_xt()
         # VDPP_GN_FUSED=1 routes GroupNorm->SiLU pairs through the fused
         # kernel; read at construction, as the reference reads it.
@@ -157,6 +181,13 @@ class StableVideoUNet:
         )
         self.cfg_mode = cfg_mode
         self.solver = solver
+        self.sampler_seed = int(sampler_seed)
+        self.noise_source = noise_source
+        self.deepcache_interval = int(deepcache_interval)
+        self.deepcache_split = int(deepcache_split)
+        if self.deepcache_interval:
+            self._deepcache_packed_channels()  # validates the split against the architecture
+        self._n_pad = self.schedule.num_steps - (num_steps - denoise_from)
 
     @property
     def latent_channel_multiplier(self) -> int:
@@ -164,19 +195,66 @@ class StableVideoUNet:
         (2 for dpmpp2m: [x | previous x0_hat])."""
         return 2 if self.solver == "dpmpp2m" else 1
 
+    def _deepcache_packed_channels(self) -> int:
+        """fp32 payload channels one CFG branch's cache packs into: the
+        (B, F, H/r, W/r, C') cache laid onto the latent's (H, W) grid, C'/r^2
+        values a pixel, two bf16 values to an fp32 word when the model is
+        bf16."""
+        r = 2 ** (self.deepcache_split - 1)
+        shape = cache_feature_shape(self.config, 1, 1, r, r, self.deepcache_split)
+        per_pixel, rem = divmod(shape[-1], r * r)
+        kf, rem2 = divmod(per_pixel, 2 if self.config.dtype == torch.bfloat16 else 1)
+        if rem or rem2:
+            raise ValueError(f"deepcache split {self.deepcache_split}: cache channels "
+                             f"{shape[-1]} not packable onto the latent grid (r={r})")
+        return kf
+
+    @property
+    def payload_extra_channels(self) -> int:
+        """Channels the payload carries beyond the latent's slots (the two
+        branches' caches under DeepCache, else 0)."""
+        return 2 * self._deepcache_packed_channels() if self.deepcache_interval else 0
+
     def pack_initial(self, latent: torch.Tensor) -> torch.Tensor:
-        """Attach the solver's cross-step state to a fresh latent. dpmpp2m's
-        x0_hat slot starts at zero; its first step is first order
-        (``sigma_prev == sigma``), so the zeros are never read."""
-        if self.latent_channel_multiplier == 1:
-            return latent
-        return torch.cat([latent, torch.zeros_like(latent)], dim=-1)
+        """Attach the solver's and the cache's cross-step state to a fresh
+        latent: ``[x | (dpmpp2m's x0_hat) | cache_u | cache_c]``, all zeros.
+        The zeros are never read: dpmpp2m's first step is first order
+        (``sigma_prev == sigma``) and the first real step is a full one."""
+        parts = [latent]
+        if self.latent_channel_multiplier > 1:
+            parts.append(torch.zeros_like(latent))
+        extra = self.payload_extra_channels
+        if extra:
+            if latent.dtype != torch.float32:
+                raise ValueError("deepcache requires an fp32 latent payload")
+            parts.append(latent.new_zeros((*latent.shape[:-1], extra)))
+        return torch.cat(parts, dim=-1) if len(parts) > 1 else latent
 
     def unpack_final(self, latent: torch.Tensor) -> torch.Tensor:
-        """Strip the solver's state from the pipeline's final payload."""
-        if self.latent_channel_multiplier == 1:
-            return latent
-        return latent[..., : latent.shape[-1] // 2]
+        """Strip the solver's and the cache's state from the final payload."""
+        extra = self.payload_extra_channels
+        if extra:
+            latent = latent[..., :-extra]
+        if self.latent_channel_multiplier > 1:
+            latent = latent[..., : latent.shape[-1] // 2]
+        return latent
+
+    def _pack_cache(self, cache: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """(B, F, H/r, W/r, C') model dtype -> (B, F, H, W, Kf) fp32; a bf16
+        pair becomes one fp32 word, its first value in the low 16 bits."""
+        b, f = cache.shape[:2]
+        kf = self._deepcache_packed_channels()
+        if cache.dtype == torch.bfloat16:
+            return cache.reshape(b, f, h, w, kf * 2).contiguous().view(torch.float32)
+        return cache.reshape(b, f, h, w, kf).float()
+
+    def _unpack_cache(self, packed: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """(B, F, H, W, Kf) fp32 -> (B, F, H/r, W/r, C') model dtype."""
+        b, f = packed.shape[:2]
+        shape = cache_feature_shape(self.config, b, f, h, w, self.deepcache_split)
+        if self.config.dtype == torch.bfloat16:
+            return packed.contiguous().view(torch.bfloat16).reshape(shape)
+        return packed.reshape(shape).to(self.config.dtype)
 
     @property
     def num_steps(self) -> int:
@@ -187,16 +265,18 @@ class StableVideoUNet:
     def init_noise_sigma(self) -> float:
         return self.schedule.init_noise_sigma
 
+    @property
+    def sigma_start(self) -> float:
+        """The first sigma: where ``x0 + sigma_start * noise`` enters a
+        ``denoise_from`` run (the SDEdit start)."""
+        return float(self.schedule.sigmas[0])
+
     def init(self, generator: torch.Generator) -> SVDUNet:
         """A randomly initialised UNet on this wrapper's device, built from
         this wrapper's config (so ``VDPP_GN_FUSED`` reaches it)."""
         return SVDUNet(self.config, device=self.device).init_weights(generator)
 
-    def noise_pred(self, params: SVDUNet, latent_scaled: torch.Tensor, timestep,
-                   cond: SVDConditioning) -> torch.Tensor:
-        """UNet eval(s) incl. CFG on the pre-scaled latent; the guided blend
-        is fp32."""
-        md = self.config.dtype
+    def _check_unet(self, params: SVDUNet) -> None:
         if params.config.fused_groupnorm != self.config.fused_groupnorm:
             raise ValueError(
                 "the UNet was built with fused_groupnorm="
@@ -205,35 +285,98 @@ class StableVideoUNet:
                 "the UNet from the wrapper's config (init() or SVDUNet(wrapper.config))"
             )
 
-        def unet_call(lat, image_latents, ctx, added_time_ids):
-            x = torch.cat([lat.to(md), image_latents.to(md)], dim=-1)
-            return params(x, timestep, ctx, added_time_ids)
-
+    def _cfg_calls(self, call, latent_scaled: torch.Tensor, cond: SVDConditioning, *caches):
+        """Run ``call(lat, image_latents, ctx, added_time_ids, *caches)`` for
+        the CFG branches and blend in fp32. Returns ``(eps, outputs)``, where
+        ``outputs`` holds the call's further outputs for (uncond, cond) each
+        (for the cond branch alone without guidance)."""
         atids = cond.added_time_ids
         if cond.guidance is None:
-            return unet_call(latent_scaled, cond.image_latents, cond.image_embeddings, atids)
+            eps, *rest = call(latent_scaled, cond.image_latents, cond.image_embeddings, atids,
+                              *caches[1:])
+            return eps.float(), (None, rest)
         zeros_lat = torch.zeros_like(cond.image_latents)
         zeros_ctx = torch.zeros_like(cond.image_embeddings)
         if self.cfg_mode == "sequential":
             # Two passes: half the activation memory of the batched form.
-            uncond = unet_call(latent_scaled, zeros_lat, zeros_ctx, atids)
-            cond_p = unet_call(latent_scaled, cond.image_latents, cond.image_embeddings, atids)
+            uncond, *rest_u = call(latent_scaled, zeros_lat, zeros_ctx, atids, *caches[:1])
+            cond_p, *rest_c = call(latent_scaled, cond.image_latents, cond.image_embeddings,
+                                   atids, *caches[1:])
         else:
-            both = unet_call(
+            both, *rest = call(
                 torch.cat([latent_scaled, latent_scaled]),
                 torch.cat([zeros_lat, cond.image_latents]),
                 torch.cat([zeros_ctx, cond.image_embeddings]),
                 torch.cat([atids, atids]),
+                *([torch.cat(caches)] if caches else []),
             )
             uncond, cond_p = both.chunk(2)
+            rest_u, rest_c = [r.chunk(2)[0] for r in rest], [r.chunk(2)[1] for r in rest]
         uncond = uncond.float()
-        return uncond + cond.guidance.float() * (cond_p.float() - uncond)
+        return uncond + cond.guidance.float() * (cond_p.float() - uncond), (rest_u, rest_c)
+
+    def noise_pred(self, params: SVDUNet, latent_scaled: torch.Tensor, timestep,
+                   cond: SVDConditioning) -> torch.Tensor:
+        """UNet eval(s) incl. CFG on the pre-scaled latent; the guided blend
+        is fp32."""
+        self._check_unet(params)
+        md = self.config.dtype
+
+        def unet_call(lat, image_latents, ctx, added_time_ids):
+            x = torch.cat([lat.to(md), image_latents.to(md)], dim=-1)
+            return (params(x, timestep, ctx, added_time_ids),)
+
+        if cond.guidance is None:  # the model's dtype, as the reference returns it
+            return unet_call(latent_scaled, cond.image_latents, cond.image_embeddings,
+                             cond.added_time_ids)[0]
+        return self._cfg_calls(unet_call, latent_scaled, cond)[0]
+
+    def _noise_pred_cached(self, params: SVDUNet, latent_scaled: torch.Tensor, timestep,
+                           cond: SVDConditioning, cache_u: torch.Tensor, cache_c: torch.Tensor,
+                           use_full: bool):
+        """:meth:`noise_pred` through ``apply_cached``, a cache per CFG
+        branch. Returns ``(eps, cache_u, cache_c)`` (fp32 eps); without
+        guidance only the cond cache is live."""
+        self._check_unet(params)
+        md = self.config.dtype
+
+        def call(lat, image_latents, ctx, added_time_ids, cache):
+            x = torch.cat([lat.to(md), image_latents.to(md)], dim=-1)
+            return params.apply_cached(x, timestep, ctx, added_time_ids, cache, use_full,
+                                       split=self.deepcache_split)
+
+        eps, (rest_u, rest_c) = self._cfg_calls(call, latent_scaled, cond, cache_u, cache_c)
+        return eps, (cache_u if rest_u is None else rest_u[0]), rest_c[0]
+
+    def _ancestral_noise(self, step_idx: int, shape) -> torch.Tensor:
+        """euler_a's noise, drawn on the real step (padded leading steps clamp
+        to real step 0, which they ignore)."""
+        real = max(step_idx - self._n_pad, 0)
+        if self.noise_source is not None:
+            return self.noise_source(real, tuple(shape)).to(self.device, torch.float32)
+        return ancestral_noise(self.sampler_seed, real, shape, self.device)
+
+    def _update(self, x32: torch.Tensor, eps: torch.Tensor, old_den, step_idx: int,
+                out_dtype: torch.dtype) -> torch.Tensor:
+        """The one-call solvers' fp32 update; dpmpp2m returns ``[x | x0_hat]``."""
+        sigmas = self.schedule.sigmas
+        sigma, sigma_next = sigmas[step_idx], sigmas[step_idx + 1]
+        if self.solver == "dpmpp2m":
+            # sigma_prev == sigma at step 0 and after identity padding: first order.
+            x_next, denoised = dpmpp2m_step_v_prediction(
+                x32, eps, old_den, sigmas[max(step_idx - 1, 0)], sigma, sigma_next, out_dtype)
+            return torch.cat([x_next, denoised], dim=-1)
+        if self.solver == "euler_a":
+            return euler_ancestral_step_v_prediction(
+                x32, eps, self._ancestral_noise(step_idx, x32.shape), sigma, sigma_next,
+                out_dtype)
+        return euler_step_v_prediction(x32, eps, sigma, sigma_next, out_dtype)
 
     def step(self, params: SVDUNet, latent: torch.Tensor, step_idx: int,
              cond: SVDConditioning) -> torch.Tensor:
-        """One denoising step: scale, UNet (+CFG), fp32 solver update. With
-        dpmpp2m ``latent`` is the payload ``[x | previous x0_hat]`` and so is
-        the result."""
+        """One denoising step: scale, UNet (+CFG), fp32 solver update, on the
+        payload (``[x | (old x0_hat) | (cache_u | cache_c)]``); returns the
+        next payload."""
         sigmas = self.schedule.sigmas
         sigma, sigma_next = sigmas[step_idx], sigmas[step_idx + 1]
         lat32 = latent.float()
@@ -241,19 +384,27 @@ class StableVideoUNet:
             return heun_step_v_prediction(
                 lat32, lambda scaled, t: self.noise_pred(params, scaled, t, cond), sigma,
                 sigma_next, latent.dtype)
-        if self.solver == "dpmpp2m":
-            lat32, old_den = lat32.chunk(2, dim=-1)
+        co = self.config.out_channels
+        s0 = co * self.latent_channel_multiplier
+        x32, old_den = lat32[..., :co], lat32[..., co:s0]
         s = torch.as_tensor(sigma, dtype=torch.float32, device=latent.device)
         timestep = 0.25 * torch.log(s)
-        scaled = lat32 * torch.rsqrt(s * s + 1.0)
-        eps = self.noise_pred(params, scaled, timestep, cond)
-        if self.solver == "dpmpp2m":
-            # sigma_prev == sigma at step 0 and after identity padding: first order.
-            x_next, denoised = dpmpp2m_step_v_prediction(
-                lat32, eps, old_den, sigmas[max(step_idx - 1, 0)], sigma, sigma_next,
-                latent.dtype)
-            return torch.cat([x_next, denoised], dim=-1)
-        return euler_step_v_prediction(lat32, eps, sigma, sigma_next, latent.dtype)
+        scaled = x32 * torch.rsqrt(s * s + 1.0)
+        if not self.deepcache_interval:
+            eps = self.noise_pred(params, scaled, timestep, cond)
+            return self._update(x32, eps, old_den, step_idx, latent.dtype)
+        h, w = latent.shape[-3:-1]
+        kf = self._deepcache_packed_channels()
+        cache_u = self._unpack_cache(latent[..., s0:s0 + kf], h, w)
+        cache_c = self._unpack_cache(latent[..., s0 + kf:], h, w)
+        # The cadence counts real steps: padded leading steps clamp to real
+        # step 0 (a full step), so padded and unpadded runs agree bit for bit.
+        use_full = max(step_idx - self._n_pad, 0) % self.deepcache_interval == 0
+        eps, cache_u, cache_c = self._noise_pred_cached(params, scaled, timestep, cond,
+                                                        cache_u, cache_c, use_full)
+        return torch.cat([self._update(x32, eps, old_den, step_idx, latent.dtype),
+                          self._pack_cache(cache_u, h, w), self._pack_cache(cache_c, h, w)],
+                         dim=-1)
 
     def pipeline_step_fn(self):
         """``step_fn(bundle, latent, step)`` with ``bundle = (unet, cond)``."""

@@ -129,7 +129,8 @@ class StepPipeline:
         """
         if start_tick or initial_buf is not None or on_tick is not None:
             raise NotImplementedError("resuming a ticked run (start_tick, initial_buf, "
-                                      "on_tick) comes with utils/resume.py (ROADMAP A12)")
+                                      "on_tick) comes with utils/resume.py and the "
+                                      "production mode (ROADMAP A11)")
         dev = self.stage.device
         outputs, ticks, x = [], [], None
         with torch.inference_mode():

@@ -1,5 +1,5 @@
-"""Writing generated videos (the port's own copy of the writers in
-``vdpp_tpu/utils/video_io.py``).
+"""Reading and writing videos (the port's own copy of the reader and the
+writers in ``vdpp_tpu/utils/video_io.py``).
 
 ``save_video_mp4`` picks the best container it can write: H.264 MP4 through
 imageio when an ffmpeg backend is installed; else the native MJPEG-in-MP4
@@ -18,6 +18,65 @@ import numpy as np
 from vdpp_tpu_torch.utils import native
 
 LOGGER = logging.getLogger(__name__)
+
+
+def read_y4m(path: str) -> tuple[np.ndarray, int]:
+    """A YUV4MPEG2 4:2:0 file -> (uint8 RGB frames (F, H, W, 3), fps).
+
+    Inverts the native writer's conversion (``native/videopack.cpp``: BT.601
+    studio swing, 2x2 box-averaged chroma) with a nearest chroma upsample;
+    takes the 8-bit 4:2:0 siting variants. The input of the video->video
+    restyle app.
+    """
+    with open(path, "rb") as f:
+        header = f.readline().decode("ascii", "replace").strip()
+        if not header.startswith("YUV4MPEG2"):
+            raise ValueError(f"{path}: not a YUV4MPEG2 file ({header[:20]!r})")
+        w = h = 0
+        fps = 30
+        colorspace = "C420jpeg"
+        for tok in header.split()[1:]:
+            if tok[0] == "W":
+                w = int(tok[1:])
+            elif tok[0] == "H":
+                h = int(tok[1:])
+            elif tok[0] == "F":
+                num, den = tok[1:].split(":")
+                fps = max(1, round(int(num) / max(int(den), 1)))
+            elif tok[0] == "C":
+                colorspace = tok
+        if not w or not h:
+            raise ValueError(f"{path}: header missing W/H: {header!r}")
+        # 8-bit only: C420p10 and the like have two bytes a sample.
+        if colorspace not in ("C420", "C420jpeg", "C420mpeg2", "C420paldv"):
+            raise ValueError(f"{path}: only 8-bit 4:2:0 colorspaces supported "
+                             f"(C420/C420jpeg/C420mpeg2/C420paldv), got {colorspace}")
+        ch, cw = h // 2, w // 2
+        frame_bytes = h * w + 2 * ch * cw
+        frames = []
+        while True:
+            line = f.readline()
+            if not line:
+                break
+            if not line.startswith(b"FRAME"):
+                raise ValueError(f"{path}: bad frame marker {line[:20]!r}")
+            raw = f.read(frame_bytes)
+            if len(raw) != frame_bytes:
+                raise ValueError(f"{path}: truncated frame {len(frames)}")
+            planes = np.frombuffer(raw, np.uint8)
+            y = planes[: h * w].reshape(h, w).astype(np.float32)
+            u = planes[h * w: h * w + ch * cw].reshape(ch, cw).astype(np.float32)
+            v = planes[h * w + ch * cw:].reshape(ch, cw).astype(np.float32)
+            u = np.repeat(np.repeat(u, 2, axis=0), 2, axis=1)
+            v = np.repeat(np.repeat(v, 2, axis=0), 2, axis=1)
+            yp = (y - 16.0) * 1.164
+            up, vp = u - 128.0, v - 128.0
+            rgb = np.stack([yp + 1.596 * vp, yp - 0.813 * vp - 0.391 * up, yp + 2.018 * up],
+                           axis=-1)
+            frames.append(np.clip(rgb + 0.5, 0.0, 255.0).astype(np.uint8))
+    if not frames:
+        raise ValueError(f"{path}: no frames")
+    return np.stack(frames), fps
 
 
 def frames_to_uint8(video: np.ndarray) -> np.ndarray:
