@@ -83,6 +83,16 @@ Phases (any failure exits non-zero and prints no result line):
    cache step; 644 and 648 fp32 channels, 593.5 and 597.2 MB a hand-off),
    bit-equal to the single-device run as words, the hand-off's bytes and
    milliseconds printed.
+7. the benchmark modes through their entry points, after the pipeline
+   phase, at full SVD-XT width with both switches on, 25 frames at 72x128,
+   CFG ramp to 3: (a) ``modes.benchmark.main`` at one stage in this
+   process, 4 steps, 1 warm-up and 2 measured samples, whose 360 flash,
+   2136 GroupNorm+SiLU and 384 frame-attention launches are counted; (b) 2
+   stages, ticked and ``--fused``; (c) ``--fsdp`` at 2 ranks and
+   ``modes.benchmark_data_parallel.main`` at 2 ranks, or 1: NCCL on a card a
+   rank where there are two, else the ranks sharing cuda:0 over gloo. Each
+   ``BENCHMARK_JSON`` line is printed and must carry the contract's keys, one
+   positive allocator peak a rank and finite positive times.
 
 The last two lines are the ``nvidia-smi`` name/power-limit line and the
 contract line ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
@@ -174,6 +184,20 @@ FLASH_PER_RESTYLE = {64: FLASH_PER_FORWARD * 2 * RESTYLE_RUN, 512: 1 + 4 + 4}
 LONG_SEGMENTS, LONG_STEPS = 2, 2
 FLASH_PER_LONG = {64: LONG_SEGMENTS * 2 * (FLASH_PER_FORWARD + FLASH_PER_CACHE_FORWARD),
                   512: LONG_SEGMENTS * (1 + 4)}
+# The benchmark modes (phase 7), all at full SVD-XT width with both switches
+# on, 25 frames at 72x128, CFG ramp to 3 (sequential: 2 forwards a step).
+# (a) one stage in this process: BENCH_STEPS steps of BENCH_WARMUP +
+# BENCH_SAMPLES samples, every forward's launches counted.
+BENCH_LATENT = ["--latent-shape", "1", "4", "25", "72", "128"]
+BENCH_STEPS, BENCH_SAMPLES, BENCH_WARMUP = 4, 2, 1
+BENCH_FORWARDS = 2 * BENCH_STEPS * (BENCH_SAMPLES + BENCH_WARMUP)
+# The BENCHMARK_JSON keys of every mode (the JAX package's, but for its
+# compiled-program fallback), and the pipeline modes' two more.
+BENCH_KEYS = {"world_size", "total_steps", "steps_per_gpu", "model", "mode", "fsdp",
+              "num_samples_measured", "warmup_samples", "latent_shape", "first_sample_time_s",
+              "avg_sample_time_s", "throughput_samples_per_s", "per_sample_times_ms",
+              "peak_memory_gb_per_rank", "max_peak_memory_gb", "platform", "peak_memory_source"}
+PIPELINE_KEYS = BENCH_KEYS | {"bubble_fraction", "data_parallel_size"}
 
 
 def fail(msg: str) -> None:
@@ -1316,6 +1340,101 @@ def run_deepcache(torch, fa, nk, ta, smi: str) -> dict:
             "cache_ms": times["cache"], "cache_share": share}
 
 
+def run_mode(main, argv: list[str], what: str, mode: str, ranks: int, smi: str) -> dict:
+    """One benchmark mode through its entry point ``main(argv)`` in this
+    process (ranks above one are spawned): its one BENCHMARK_JSON line
+    parsed and printed, and checked for the contract's keys, the mode, one
+    positive allocator peak a rank, and finite positive times."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    except (Exception, SystemExit) as e:  # noqa: BLE001 (reported, then the script fails)
+        fail(f"the benchmark mode {what} failed: {e!r}")
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("BENCHMARK_JSON=")]
+    if rc != 0 or len(lines) != 1:
+        fail(f"the benchmark mode {what} returned {rc} with {len(lines)} BENCHMARK_JSON lines")
+    print(lines[0], flush=True)
+    res = json.loads(lines[0][len("BENCHMARK_JSON="):])
+    keys = BENCH_KEYS if mode == "data_parallel" else PIPELINE_KEYS
+    times = [res["first_sample_time_s"], res["avg_sample_time_s"],
+             res["throughput_samples_per_s"], *res["per_sample_times_ms"]]
+    peaks = res["peak_memory_gb_per_rank"]
+    print(f"benchmark mode {what}: {res['mode']}, world {res['world_size']}, "
+          f"{res['steps_per_gpu']} steps a rank, avg_sample_time_s {res['avg_sample_time_s']}, "
+          f"throughput_samples_per_s {res['throughput_samples_per_s']}, first_sample_time_s "
+          f"{res['first_sample_time_s']}, peak GB a rank {peaks} ({res['peak_memory_source']}), "
+          f"{wall:.1f} s in main ({smi})", flush=True)
+    if set(res) != keys:
+        fail(f"{what}: BENCHMARK_JSON keys {sorted(res)}, expected {sorted(keys)}")
+    if res["mode"] != mode or res["platform"] != "gpu":
+        fail(f"{what}: mode {res['mode']} on {res['platform']}, expected {mode} on gpu")
+    if res["peak_memory_source"] != "allocator" or len(peaks) != ranks or min(peaks) <= 0:
+        fail(f"{what}: peaks {peaks} from {res['peak_memory_source']}, expected {ranks} "
+             f"positive allocator peaks")
+    if not all(math.isfinite(t) and t > 0 for t in times):
+        fail(f"{what}: times {times} are not all finite and positive")
+    res["wall_s"] = wall
+    return res
+
+
+def run_benchmark_modes(torch, fa, nk, ta, smi: str) -> dict:
+    """Phase 7: the benchmark modes through their entry points at full SVD-XT
+    width, switched (``modes.benchmark.main``, ``modes.benchmark_data_parallel
+    .main``). (a) One stage in this process, the launch counts set to 0 just
+    before and read just after; (b) two stages, ticked and ``--fused``;
+    (c) ``--fsdp`` at two ranks and the data-parallel baseline: NCCL on a card
+    a rank where there are two, else the ranks sharing cuda:0 over gloo (the
+    data-parallel baseline then at one rank, in this process)."""
+    from vdpp_tpu_torch.modes import benchmark, benchmark_data_parallel
+
+    two = torch.cuda.device_count() >= 2
+    pair = [] if two else ["--devices", "cuda:0", "cuda:0"]
+    svd = ["--model", "svd", "--guidance-scale", "3", *BENCH_LATENT]
+    out = {}
+    torch.cuda.empty_cache()
+    with kernel_switches():
+        reset_counts(fa, nk, ta)
+        out["one_stage"] = run_mode(
+            benchmark.main, [*svd, "--num-stages", "1", "--total-steps", str(BENCH_STEPS),
+                             "--num-samples", str(BENCH_SAMPLES), "--warmup-samples",
+                             str(BENCH_WARMUP)], "(a) 1 stage, ticked", "pipeline", 1, smi)
+        counts = {"flash": fa.launches.total(), "gn": nk.launches, "frame": ta.launches}
+        expect(f"flash in the benchmark mode (a) ({BENCH_FORWARDS} UNet forwards)",
+               counts["flash"], FLASH_PER_FORWARD * BENCH_FORWARDS)
+        expect("GroupNorm+SiLU in the benchmark mode (a)", counts["gn"],
+               GN_SILU_PER_FORWARD * BENCH_FORWARDS)
+        expect("frame attention in the benchmark mode (a)", counts["frame"],
+               FRAME_ATTN_PER_FORWARD * BENCH_FORWARDS)
+        torch.cuda.empty_cache()
+        how = "NCCL, a card a rank" if two else "gloo, the ranks sharing cuda:0"
+        two_stages = [*svd, "--num-stages", "2", "--total-steps", "2", *pair]
+        out["ticked_2"] = run_mode(benchmark.main, [*two_stages, "--num-samples", "2",
+                                                    "--warmup-samples", "1"],
+                                   f"(b) 2 stages, ticked ({how})", "pipeline", 2, smi)
+        out["fused_2"] = run_mode(benchmark.main, [*two_stages, "--num-samples", "1",
+                                                   "--warmup-samples", "1", "--fused"],
+                                  f"(b) 2 stages, --fused ({how})", "pipeline", 2, smi)
+        out["fsdp_2"] = run_mode(benchmark.main, [*svd, "--fsdp", "--num-stages", "2", *pair,
+                                                  "--total-steps", "1", "--num-samples", "1",
+                                                  "--warmup-samples", "1"],
+                                 f"(c) --fsdp at 2 ranks ({how})", "fsdp", 2, smi)
+        n = 2 if two else 1
+        out["data_parallel"] = run_mode(
+            benchmark_data_parallel.main,
+            ["--model", "svd", "--guidance-scale", "3", *BENCH_LATENT, "--num-devices", str(n),
+             "--total-steps", "2", "--num-samples", "2"],
+            f"(c) data parallel at {n} rank(s)", "data_parallel", n, smi)
+    torch.cuda.empty_cache()
+    out["counts"] = counts
+    return out
+
+
 def reset_counts(fa, nk, ta) -> None:
     """Every kernel's launch count set to 0."""
     fa.launches.clear()
@@ -1529,6 +1648,11 @@ def main() -> int:
     pipe_flash = pipe_launches("flash", lambda c: c.get(64, 0))
     pipe_gn, pipe_frame = pipe_launches("gn"), pipe_launches("frame")
 
+    # 7. The benchmark modes: (a) one stage in this process, counted; (b), (c)
+    # the spawned modes.
+    modes = run_benchmark_modes(torch, fa, nk, ta, smi)
+    bench_counts = modes["counts"]
+
     def entry(name, source, replaces, launches, check, row, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": check["max_abs_err"], "ms": row["ms"],
@@ -1544,7 +1668,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("flash_attention", flash_src, flash_tpu,
               flash_launches + app["flash"][64] + restyle["flash"][64] + long_app["flash"][64]
-              + deepcache["schedule"]["flash"] + sum(pipe_flash.values()), flash,
+              + deepcache["schedule"]["flash"] + sum(pipe_flash.values())
+              + bench_counts["flash"], flash,
               flash["shapes"][0], ptxas=ptxas,
               fp32_d64_d72=[flash["fp32"], flash72["fp32"]],
               launches_per_forward={"full": deepcache["counts"]["full"][0],
@@ -1554,7 +1679,8 @@ def main() -> int:
                                 "restyle_app": restyle["flash"][64],
                                 "long_app_deepcache2": long_app["flash"][64],
                                 "dpmpp2m_deepcache2_switched": deepcache["schedule"]["flash"],
-                                **pipe_flash}),
+                                **pipe_flash,
+                                "benchmark_mode_1stage_switched": bench_counts["flash"]}),
         entry("flash_attention_d512", flash_src, flash_tpu,
               decode_flash + dit_decode_flash + app["flash"][512] + restyle["flash"][512]
               + long_app["flash"][512], flash512,
@@ -1569,21 +1695,25 @@ def main() -> int:
               flash512_bf16["shapes"][0]),
         entry("group_norm_silu", "vdpp_tpu_torch/csrc/group_norm_silu.cu",
               "vdpp_tpu/ops/norm_kernel.py:165",
-              switched["gn"] + deepcache["schedule"]["gn"] + sum(pipe_gn.values()), gn,
+              switched["gn"] + deepcache["schedule"]["gn"] + sum(pipe_gn.values())
+              + bench_counts["gn"], gn,
               gn["shapes"][0], ptxas=other_ptxas["group_norm_silu"],
               launches_per_forward={"full": deepcache["counts"]["full"][1],
                                     "deepcache_split1": deepcache["counts"]["cache"][1]},
               launches_by_path={"svd_xt_denoise_switched": switched["gn"],
                                 "dpmpp2m_deepcache2_switched": deepcache["schedule"]["gn"],
-                                **pipe_gn}),
+                                **pipe_gn,
+                                "benchmark_mode_1stage_switched": bench_counts["gn"]}),
         entry("frame_attention", frame_src, frame_tpu,
-              switched["frame"] + deepcache["schedule"]["frame"] + sum(pipe_frame.values()),
-              frame, frame["shapes"][0], ptxas=other_ptxas["frame_attention"],
+              switched["frame"] + deepcache["schedule"]["frame"] + sum(pipe_frame.values())
+              + bench_counts["frame"], frame, frame["shapes"][0],
+              ptxas=other_ptxas["frame_attention"],
               launches_per_forward={"full": deepcache["counts"]["full"][2],
                                     "deepcache_split1": deepcache["counts"]["cache"][2]},
               launches_by_path={"svd_xt_denoise_switched": switched["frame"],
                                 "dpmpp2m_deepcache2_switched": deepcache["schedule"]["frame"],
-                                **pipe_frame}),
+                                **pipe_frame,
+                                "benchmark_mode_1stage_switched": bench_counts["frame"]}),
         entry("flash_attention_d72", flash_src, flash_tpu, joint["flash"] + fact["flash"],
               flash72, flash72["shapes"][0]),
         entry("frame_attention_d72", frame_src, frame_tpu, fact["frame"], frame72,

@@ -17,8 +17,8 @@ from vdpp_tpu_torch.models.dummy_unet import DummyUNet
 from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
 from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet
 from vdpp_tpu_torch.models.vae import VAEConfig, VAEEncoder
-from vdpp_tpu_torch.modes import simulator
-from vdpp_tpu_torch.parallel.mesh import make_pipeline_mesh
+from vdpp_tpu_torch.modes import benchmark, benchmark_data_parallel, simulator
+from vdpp_tpu_torch.parallel.mesh import make_2d_mesh, make_data_mesh, make_pipeline_mesh
 from vdpp_tpu_torch.utils.device import resolve_device
 
 from torch_port_helpers import one_torch_thread  # noqa: F401
@@ -81,6 +81,17 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             make_pipeline_mesh(**kw)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         simulator.main(["--num-stages", "2"])
+    # The benchmark modes and their meshes.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_data_mesh(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_2d_mesh(2, 2)
+    for mode_flags in ([], ["--fused"], ["--fsdp"],
+                       ["--data-parallel-size", "2", "--num-samples", "3"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            benchmark.main(["--num-stages", "2", *mode_flags])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        benchmark_data_parallel.main(["--num-devices", "2"])
     # The apps built on the image->video app's pieces.
     from vdpp_tpu_torch.apps import generate_video_long, restyle_video
 

@@ -252,8 +252,8 @@ def test_pipeline_config_errors():
             one.run_ticked(None, torch.zeros(1, 4), **kw)
     with pytest.raises(NotImplementedError, match="A16"):
         one.stream(None, (4,))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmesh.make_2d_mesh(2, 2)
+    two_d = tmesh.make_2d_mesh(2, 2, device="cpu")  # the (stage, data) mesh, since A11
+    assert (two_d.num_stages, two_d.num_data, two_d.world_size) == (2, 2, 4)
 
 
 def test_mesh_layouts(monkeypatch):

@@ -123,3 +123,33 @@ def rank_skewed_step(model, x, step):
     if dist.is_initialized() and dist.get_rank() == 1:
         out = out + 1e-3
     return out
+
+
+def runner_cases(stage, cases: list) -> dict:
+    """Rank job: every ``(name, kind, build, inputs, total_steps)`` case on the
+    group's mesh, where ``build(device)`` gives ``(step_fn, params)`` and
+    ``kind`` is ``"dp"`` (``DataParallelRunner``: this rank's block),
+    ``"fsdp"`` (``FSDPRunner`` sharding every tensor it can: ``(outputs,
+    parameter bytes this rank holds, names of gathered tensors still held
+    after the run)``), ``"pipeline"`` (``StepPipeline.run``: a column's
+    outputs on its last stage, else None) or ``"ticked"``
+    (``StepPipeline.run_ticked``: ``(outputs, tick seconds)`` or None)."""
+    from vdpp_tpu_torch.parallel.data_parallel import DataParallelRunner, FSDPRunner
+    from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+    from vdpp_tpu_torch.utils.memory import bundle_modules, params_bytes_per_device
+
+    results = {}
+    for name, kind, build, inputs, total in cases:
+        step_fn, params = build(stage.device)
+        if kind == "dp":
+            results[name] = DataParallelRunner(stage, step_fn, total).run(params, inputs)
+        elif kind == "fsdp":
+            out = FSDPRunner(stage, step_fn, total, min_shard_params=0).run(params, inputs)
+            held = [n for m in bundle_modules(params) for sub in m.modules()
+                    for n in sub.__dict__.get("_fsdp_dims", {}) if n in sub.__dict__]
+            results[name] = (out, params_bytes_per_device(params), held)
+        else:
+            pipe = StepPipeline(stage, step_fn, PipelineConfig(total, stage.num_stages))
+            results[name] = (pipe.run(params, inputs) if kind == "pipeline"
+                             else pipe.run_ticked(params, inputs))
+    return results

@@ -1,14 +1,16 @@
-"""Stage processes for the step pipeline (the port's counterpart of
-``vdpp_tpu/parallel/mesh.py::make_pipeline_mesh``).
+"""Rank processes for the step pipeline and the data-parallel modes (the
+port's counterpart of ``vdpp_tpu/parallel/mesh.py``: ``make_pipeline_mesh``,
+``make_data_mesh`` and ``make_2d_mesh``).
 
-The JAX package runs the pipeline as one SPMD program over a mesh axis
-``"stage"``. The port takes the original system's shape instead: one OS
-process per stage, each holding the whole model, all joined by one
-``torch.distributed`` process group. :func:`make_pipeline_mesh` says where the
-S ranks run and how they talk; :func:`run_stages` starts them (``spawn``: a
-parent that already holds a CUDA context cannot fork) and returns what each
-rank's function returned; each rank gets a :class:`Stage`, its view of the
-group.
+The JAX package runs its modes as one SPMD program over mesh axes ``"stage"``
+and ``"data"``. The port takes the original system's shape instead: one OS
+process per rank, each holding the whole model (or, under FSDP, its shards),
+all joined by one ``torch.distributed`` process group. A mesh says where the
+ranks run and how they talk: S stages of D data columns, rank ``s * D + d``
+being stage s of column d, as the JAX package lays out a ``(stage, data)``
+mesh. :func:`run_stages` starts the ranks (``spawn``: a parent that already
+holds a CUDA context cannot fork) and returns what each rank's function
+returned; each rank gets a :class:`Stage`, its view of the group.
 
 The backend follows from the layout and is not a choice:
 
@@ -19,8 +21,8 @@ The backend follows from the layout and is not a choice:
   on one card). The payload is copied to host memory on each side of the
   hand-off.
 
-One stage needs no process group: :class:`Stage` then makes no collective
-call, so a one-stage run goes in the caller's own process.
+One rank needs no process group: :class:`Stage` then makes no collective
+call, so a one-rank run goes in the caller's own process.
 """
 
 from __future__ import annotations
@@ -43,21 +45,74 @@ from vdpp_tpu_torch.utils.device import resolve_device
 
 @dataclass(frozen=True)
 class PipelineMesh:
-    """Where the stages run: ``devices[s]`` is stage s's device, and
-    ``backend`` the process group's."""
+    """Where the ranks run and how they talk: ``devices[r]`` is rank r's
+    device and ``backend`` the process group's.
+
+    The ranks form a (stage, data) grid laid out as the JAX package's
+    ``make_axes_mesh(stage=S, data=D)`` lays out its devices, row-major: rank
+    ``r`` is stage ``r // D`` of data column ``r % D``. A pipeline mesh has one
+    column, a data mesh one stage."""
 
     devices: tuple[torch.device, ...]
     backend: str
+    num_data: int = 1
+
+    def __post_init__(self) -> None:
+        if self.num_data < 1 or len(self.devices) % self.num_data:
+            raise ValueError(f"{len(self.devices)} ranks do not form columns of "
+                             f"{self.num_data}")
+
+    @property
+    def world_size(self) -> int:
+        return len(self.devices)
 
     @property
     def num_stages(self) -> int:
-        return len(self.devices)
+        return len(self.devices) // self.num_data
 
     @property
     def host_handoff(self) -> bool:
         """The payload crosses host memory (gloo) rather than going card to
         card (NCCL)."""
         return self.backend == "gloo"
+
+
+def _devices(n: int | None, device, devices) -> tuple[torch.device, ...]:
+    """One device a rank: ``devices`` as given (cards may repeat), else ``n``
+    ranks (``None``: every visible card, or 1 on the CPU), rank r on card r
+    or all of them on the CPU."""
+    if devices is not None:
+        devs = tuple(torch.device(d) for d in devices)
+        if n is not None and n != len(devs):
+            raise ValueError(f"{n} ranks asked for, but {len(devs)} devices given")
+        if len({d.type for d in devs}) > 1:
+            raise ValueError(f"ranks on more than one device type: {list(devs)}")
+        for d in devs:
+            resolve_device(d)
+        if devs and devs[0].type == "cuda":
+            devs = tuple(torch.device("cuda", d.index or 0) for d in devs)
+            count = torch.cuda.device_count()
+            if max(d.index for d in devs) >= count:
+                raise ValueError(f"{list(devs)} named, but only {count} cards are visible")
+    else:
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            count = torch.cuda.device_count()
+            n = count if n is None else n
+            if n > count:
+                raise ValueError(f"Need {n} devices, but only {count} devices available.")
+            devs = tuple(torch.device("cuda", i) for i in range(n))
+        else:
+            devs = (dev,) * (1 if n is None else n)
+    if not devs:
+        raise ValueError("a mesh needs at least one rank")
+    return devs
+
+
+def _mesh(devs: tuple[torch.device, ...], num_data: int = 1) -> PipelineMesh:
+    """NCCL when every rank has a card of its own, else gloo."""
+    own_cards = devs[0].type == "cuda" and len(set(devs)) == len(devs)
+    return PipelineMesh(devs, "nccl" if own_cards else "gloo", num_data)
 
 
 def make_pipeline_mesh(num_stages: int | None = None, device: str | torch.device | None = None,
@@ -75,44 +130,33 @@ def make_pipeline_mesh(num_stages: int | None = None, device: str | torch.device
 
     The backend is NCCL when every rank has a card of its own, else gloo.
     """
-    if devices is not None:
-        devs = tuple(torch.device(d) for d in devices)
-        if num_stages is not None and num_stages != len(devs):
-            raise ValueError(f"num_stages {num_stages} != {len(devs)} devices given")
-        if len({d.type for d in devs}) > 1:
-            raise ValueError(f"stages on more than one device type: {list(devs)}")
-        for d in devs:
-            resolve_device(d)
-        if devs and devs[0].type == "cuda":
-            devs = tuple(torch.device("cuda", d.index or 0) for d in devs)
-            count = torch.cuda.device_count()
-            if max(d.index for d in devs) >= count:
-                raise ValueError(f"{list(devs)} named, but only {count} cards are visible")
-    else:
-        dev = resolve_device(device)
-        if dev.type == "cuda":
-            count = torch.cuda.device_count()
-            n = count if num_stages is None else num_stages
-            if n > count:
-                raise ValueError(f"Requested {n} stages but only {count} devices available.")
-            devs = tuple(torch.device("cuda", i) for i in range(n))
-        else:
-            devs = (dev,) * (1 if num_stages is None else num_stages)
-    if not devs:
-        raise ValueError("a pipeline needs at least one stage")
-    own_cards = devs[0].type == "cuda" and len(set(devs)) == len(devs)
-    return PipelineMesh(devs, "nccl" if own_cards else "gloo")
+    return _mesh(_devices(num_stages, device, devices))
 
 
-def make_2d_mesh(num_stages: int, num_data: int) -> PipelineMesh:
-    """The (stage, data) mesh of pipeline x data parallelism is not ported."""
-    raise NotImplementedError("the (stage, data) mesh comes with data parallelism and the "
-                              "multi-axis meshes (ROADMAP A11, A13)")
+def make_data_mesh(num_shards: int | None = None, device: str | torch.device | None = None,
+                   devices: Sequence[str | torch.device] | None = None) -> PipelineMesh:
+    """One stage of ``num_shards`` data columns (``None``: every visible card,
+    1 on the CPU): the layout of the data-parallel baseline and of FSDP. The
+    arguments and the backend rule are :func:`make_pipeline_mesh`'s."""
+    devs = _devices(num_shards, device, devices)
+    return _mesh(devs, len(devs))
+
+
+def make_2d_mesh(num_stages: int, num_data: int, device: str | torch.device | None = None,
+                 devices: Sequence[str | torch.device] | None = None) -> PipelineMesh:
+    """The (stage, data) mesh of pipeline x data parallelism: ``num_data``
+    columns, each a pipeline of ``num_stages`` ranks; rank ``s * num_data + d``
+    is stage s of column d (on card ``s * num_data + d``, or on
+    ``devices[s * num_data + d]``)."""
+    if num_stages < 1 or num_data < 1:
+        raise ValueError(f"a ({num_stages}, {num_data}) mesh")
+    return _mesh(_devices(num_stages * num_data, device, devices), num_data)
 
 
 class Stage:
-    """One rank's view of the pipeline: its stage index, its device, and the
-    collective calls the pipeline and the apps make."""
+    """One rank's view of the mesh: its global rank, its stage and data
+    column, its device, and the collective calls the pipeline, the runners
+    and the apps make."""
 
     def __init__(self, mesh: PipelineMesh, rank: int):
         self.mesh = mesh
@@ -124,27 +168,47 @@ class Stage:
         return self.mesh.num_stages
 
     @property
+    def index(self) -> int:
+        """This rank's stage."""
+        return self.rank // self.mesh.num_data
+
+    @property
+    def column(self) -> int:
+        """This rank's data column."""
+        return self.rank % self.mesh.num_data
+
+    @property
     def is_last(self) -> bool:
-        return self.rank == self.num_stages - 1
+        return self.index == self.num_stages - 1
+
+    def column_shard(self, inputs: torch.Tensor) -> torch.Tensor:
+        """This column's contiguous block of the samples ``inputs (N, ...)``,
+        the block a leading-axis ``P("data")`` gives a column in the JAX
+        package; N must be divisible by the column count."""
+        n, d = len(inputs), self.mesh.num_data
+        if n % d:
+            raise ValueError(f"num_samples {n} must be divisible by data-axis size {d}")
+        k = n // d
+        return inputs[self.column * k:(self.column + 1) * k]
 
     def handoff(self, out: torch.Tensor | None,
                 recv_like: torch.Tensor | None) -> torch.Tensor | None:
-        """Send ``out`` to the next stage and receive from the previous one a
-        payload of ``recv_like``'s shape and dtype, both at once (so a chain
-        of blocking ranks cannot wait on each other); either may be None.
-        Returns the received payload on this rank's device.
+        """Send ``out`` to the next stage of this column and receive from the
+        previous one a payload of ``recv_like``'s shape and dtype, both at
+        once (so a chain of blocking ranks cannot wait on each other); either
+        may be None. Returns the received payload on this rank's device.
 
         Under NCCL ``wait`` orders the current stream after the transfer and
         does not block the host; the caller synchronises before it leaves
         the group (``StepPipeline.run`` does)."""
-        host = self.mesh.host_handoff
+        host, step = self.mesh.host_handoff, self.mesh.num_data
         ops, buf = [], None
         if out is not None:
             sent = out.cpu() if host else out.contiguous()
-            ops.append(dist.P2POp(dist.isend, sent, self.rank + 1))
+            ops.append(dist.P2POp(dist.isend, sent, self.rank + step))
         if recv_like is not None:
             buf = torch.empty_like(recv_like, device="cpu" if host else self.device)
-            ops.append(dist.P2POp(dist.irecv, buf, self.rank - 1))
+            ops.append(dist.P2POp(dist.irecv, buf, self.rank - step))
         for w in dist.batch_isend_irecv(ops) if ops else ():
             w.wait()
         return None if buf is None else buf.to(self.device)
@@ -152,14 +216,16 @@ class Stage:
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:
         """``obj`` from rank ``src`` on every rank (pickled; put tensors on
         the CPU first)."""
-        if self.num_stages == 1:
+        if self.mesh.world_size == 1:
             return obj
         box = [obj]
         dist.broadcast_object_list(box, src=src)
         return box[0]
 
     def barrier(self) -> None:
-        if self.num_stages == 1:
+        """Every rank of the mesh, all columns: ticks stay aligned across
+        columns, as in the JAX package's one SPMD program."""
+        if self.mesh.world_size == 1:
             return
         if self.mesh.backend == "nccl":
             dist.barrier(device_ids=[self.device.index])
@@ -177,7 +243,7 @@ def _rank_main(rank: int, mesh: PipelineMesh, init_method: str, payload: bytes, 
         if mesh.devices[rank].type == "cuda":
             torch.cuda.set_device(mesh.devices[rank])
         dist.init_process_group(mesh.backend, init_method=init_method, rank=rank,
-                                world_size=mesh.num_stages)
+                                world_size=mesh.world_size)
         stage = Stage(mesh, rank)
         # Every rank joins one collective first: NCCL's batched point-to-point
         # calls need that, since a rank idle in tick 0 posts none.
@@ -193,7 +259,8 @@ def _rank_main(rank: int, mesh: PipelineMesh, init_method: str, payload: bytes, 
 
 def run_stages(mesh: PipelineMesh, fn: Callable[..., Any], *args: Any, threads: int | None = None,
                timeout: float | None = None) -> list[Any]:
-    """Run ``fn(stage, *args)`` on each of ``mesh``'s ranks, one spawned
+    """Run ``fn(stage, *args)`` on each of ``mesh``'s ranks (all stages of all
+    columns), one spawned
     process each, and return their results in rank order.
 
     ``fn`` is sent by import path (a module-level function), ``args`` and the
@@ -209,7 +276,7 @@ def run_stages(mesh: PipelineMesh, fn: Callable[..., Any], *args: Any, threads: 
     with tempfile.TemporaryDirectory(prefix="vdpp_stages_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_rank_main, args=(r, mesh, init, payload, threads, results),
-                             daemon=True) for r in range(mesh.num_stages)]
+                             daemon=True) for r in range(mesh.world_size)]
         for p in procs:
             p.start()
         try:

@@ -16,7 +16,8 @@ handing the payload to rank s+1. The schedule is the same:
 A stage with no sample in a fill or drain tick computes nothing; the bubble
 fraction is still ``(S-1)/(N+S-1)`` of the stage-ticks. There is no edge
 from the last stage back to the first (the JAX ring's wrap-around carries
-only data nobody reads).
+only data nobody reads). On a (stage, data) mesh each of the D columns runs
+this schedule on its own block of N / D samples, as a JAX column does.
 """
 
 from __future__ import annotations
@@ -64,8 +65,8 @@ class StepPipeline:
 
     Every stage holds the whole model (``params``, the same on every rank)
     and runs ``step_fn(params, payload, step)`` for its contiguous slice of
-    steps. ``inputs`` is ``(N, *payload)`` on every rank: rank 0 ingests its
-    samples, and the other ranks size their receive buffers from its shape
+    steps. ``inputs`` is ``(N, *payload)`` on every rank: stage 0 ingests its
+    samples, and the other stages size their receive buffers from its shape
     and dtype (a solver whose state rides the payload, such as dpmpp2m's 8
     channels, has a payload wider than the latent).
     """
@@ -87,7 +88,7 @@ class StepPipeline:
         """Tick ``t`` on this rank, holding ``x`` (the payload received in the
         previous tick). Returns the payload received in this tick and, on the
         last stage, the sample it finished (else None)."""
-        s, S, N = self.stage.rank, self.config.num_stages, len(inputs)
+        s, S, N = self.stage.index, self.config.num_stages, len(inputs)
         K = self.config.steps_per_stage
         active = 0 <= t - s < N
         if active:
@@ -106,7 +107,10 @@ class StepPipeline:
     def run(self, params, inputs: torch.Tensor) -> torch.Tensor | None:
         """Pipeline ``inputs (N, *payload)`` through all ``total_steps``.
         Returns the finished ``(N, *payload)`` on the last rank (on its
-        device) and None on the others."""
+        device) and None on the others. On a (stage, data) mesh each column
+        pipelines its block of N / D samples (:meth:`Stage.column_shard`) and
+        returns them on its last stage."""
+        inputs = self.stage.column_shard(inputs)
         outputs, x = [], None
         with torch.inference_mode():
             for t in range(self.config.num_ticks(len(inputs))):
@@ -125,12 +129,15 @@ class StepPipeline:
         Returns ``(outputs, tick_seconds)`` on the last rank, with
         ``len(tick_seconds) == num_ticks(N)``, and None on the others.
         ``on_sample(i, latent)`` fires on the last rank, in order, the moment
-        sample ``i`` finishes (tick ``i + S - 1``).
+        sample ``i`` finishes (tick ``i + S - 1``). On a (stage, data) mesh
+        each column runs its block of N / D samples, ``i`` counting within
+        it, and the barrier spans every column.
         """
         if start_tick or initial_buf is not None or on_tick is not None:
             raise NotImplementedError("resuming a ticked run (start_tick, initial_buf, "
                                       "on_tick) comes with utils/resume.py and the "
                                       "production mode (ROADMAP A11)")
+        inputs = self.stage.column_shard(inputs)
         dev = self.stage.device
         outputs, ticks, x = [], [], None
         with torch.inference_mode():
