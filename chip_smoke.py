@@ -2,6 +2,7 @@
 """On-card smoke test of the PyTorch/CUDA port (``vdpp_tpu_torch``), one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only   # phases 1-3 and 8 (a), then stop
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -14,8 +15,8 @@ Phases (any failure exits non-zero and prints no result line):
    version, a one-call PyTorch yardstick and the bound, the share of the
    bound and the ratio to the yardstick (and for flash the TFLOP/s): flash
    attention at d = 64 bf16 (UNet, at 25 frames and at the image->video
-   app's 14; the wgmma + TMA kernel, plus the fp32 SIMT kernel timed at a
-   ragged length), d = 512 fp32 (the register-tiled SIMT kernel) and bf16
+   app's 14; the wgmma + TMA kernel, plus fp32 timed at a ragged length:
+   static max on its SIMT kernel, running max on the generic one), d = 512 fp32 (the register-tiled SIMT kernel) and bf16
    (the wgmma + TMA kernel) at the VAE mid-block's shapes (B = 4, 1 and 2
    at L = 9216, B = 4 at L = 2560, ragged 600 and 201), and d = 72
    bf16 (DiT-XL's joint3d and factorized sites, plus ragged bf16 lengths and
@@ -93,6 +94,25 @@ Phases (any failure exits non-zero and prints no result line):
    rank where there are two, else the ranks sharing cuda:0 over gloo. Each
    ``BENCHMARK_JSON`` line is printed and must carry the contract's keys, one
    positive allocator peak a rank and finite positive times.
+8. the slice of production, resume and the kernels' variants: (a) in phase
+   3, the generic flash kernel (every head dim up to 512 without a kernel of
+   its own) at d = 16, 40, 80, 128 and 256, bf16 and fp32, both softmax
+   modes, at a ragged L = 600 and at L = 2304 (timed), VDPP_FLASH_EXP=bf16
+   (running max) on the d = 64 wgmma and fp32 kernels, both d = 512 kernels
+   and the generic one (inputs whose rows peak at key 0, so that the fp32
+   limit sits below the flag's own effect), and the generic frame-attention
+   kernel at d = 16 and 40 with 14 frames, d = 64 with 48 and d = 33 with
+   25; (b) after the agreement checks, the
+   tiny SVD UNet (14 frames of 16x32) and the tiny DiT (8 frames of 32x64),
+   both at head dim 16, card against CPU as they are, switched and switched
+   with the bf16 exponent, every route's calls launching their kernel; (c)
+   last, the production mode as ``modes.production.main`` runs it, at
+   SVD-XT width and its default latent (14 frames of 40x72), CFG 3, 4 steps,
+   3 samples, 2 ranks sharing cuda:0 over gloo, ``--ticked --state-path
+   --state-every 1`` (10 flash launches a forward, the snapshots' bytes and
+   write times), then one spawned group at the API level that runs euler and
+   dpmpp2m uncut, snapshotting after tick 1 and resumed from it: the resumed
+   samples bit-equal to the uncut run's.
 
 The last two lines are the ``nvidia-smi`` name/power-limit line and the
 contract line ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
@@ -101,6 +121,7 @@ comes before them.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -120,6 +141,24 @@ VIDEOS = 1  # timed videos of the full-width run, after one warm-up video
 # room for the 1-2 ulp flips where the two sides' fp32 sums, taken in other
 # orders, round q', P or o the other way; a kernel off by a few percent fails.
 TOL = {"bf16": 2e-2, "fp32": 1e-5}
+# The generic flash kernel's head dims and shapes (B, L, H): a ragged length
+# and one at least 2304, which is timed.
+GENERIC_FLASH_DIMS = (16, 40, 80, 128, 256)
+GENERIC_FLASH_SHAPES = ((2, 600, 3), (1, 2304, 8))
+# VDPP_FLASH_EXP=bf16 against the plain version of the same form, on inputs
+# whose every row has its largest score at key 0 (exp_inputs), so that the
+# kernel's running max is the plain version's global max from the first key
+# tile on and both round the same s - m: fp32 then agrees to fp32 sums in
+# other orders, and EXP_TOL_FP32 lies between that and the flag's own effect
+# (the plain version with the flag against without it), which is checked to
+# exceed it. In bf16 the flag's effect is about one ulp of the output, so the
+# limit is TOL's; there the kernel's output with the flag must differ from its
+# output without it, and in fewer elements from the plain version's with the
+# flag than from the plain version's without it.
+EXP_TOL_FP32 = 1e-4
+# The generic frame-attention kernel's (head dim, frames); F d odd in the last
+# (a bf16 warp's staged rows are then 2 mod 4 bytes long).
+GENERIC_FRAME_CASES = ((16, 14), (40, 14), (64, 48), (33, 25))
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM, 700 W)
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores (the same data sheet)
 H100_HBM_BYTES = 3.35e12
@@ -163,6 +202,31 @@ PIPE_FORWARDS_PER_RANK = 2 * PIPE_SAMPLES * PIPE_STEPS // PIPE_STAGES
 # rank 0 takes the full step and rank 1 the cache step, so the cache crosses
 # the hand-off: 644 fp32 channels a sample (648 with dpmpp2m's x0_hat).
 PIPE_CASES = (("euler", 0), ("dpmpp2m", 0), ("euler_a", 2), ("dpmpp2m", 2))
+# (b) The tiny configs on the card, card against CPU: as they are, switched
+# (the fused GroupNorm+SiLU and frame attention, running-max flash), and
+# switched with VDPP_FLASH_EXP=bf16, each with the tolerance TINY_TOL on
+# max|diff| / max|CPU|: fp32 sums in other orders, no TF32. The flag's own
+# effect on these outputs (the CPU's switched runs with it against without it)
+# is printed beside it; phase (a) is what holds the flag's arithmetic.
+TINY_SWITCHED = {"VDPP_GN_FUSED": "1", "VDPP_TEMPORAL_ATTN": "pallas",
+                 "VDPP_FLASH_SOFTMAX": "running"}
+TINY_EXP = "switched, VDPP_FLASH_EXP=bf16"
+TINY_SETTINGS = (("as it is", {}), ("switched", TINY_SWITCHED),
+                 (TINY_EXP, {**TINY_SWITCHED, "VDPP_FLASH_EXP": "bf16"}))
+TINY_TOL = 1e-4
+TINY_FRAMES = 14
+# (c) The production mode at SVD-XT width and its default latent (14 frames
+# of 40x72), CFG 3 sequential, PROD_STEPS Euler steps, PROD_SAMPLES samples,
+# 2 ranks sharing cuda:0 over gloo. Self-attention takes flash at levels 0
+# (L = 2880) and 1 (L = 720), 2 down and 3 up sites each; level 2 (L = 180)
+# is plain. A rank runs PROD_STEPS / 2 steps of each sample, two forwards a
+# step.
+PROD_STEPS, PROD_SAMPLES, PROD_STAGES = 4, 3, 2
+PROD_LATENT = ("1", "4", "14", "40", "72")
+PROD_FLASH_PER_FORWARD = 10
+PROD_FORWARDS_PER_RANK = 2 * PROD_SAMPLES * PROD_STEPS // PROD_STAGES
+PROD_SNAP_TICK = 1
+PROD_SOLVERS = ("euler", "dpmpp2m")
 # A cache forward at split 1 runs conv_in, down level 0 (2 ResBlocks, 2
 # transformers; no downsample), up block 3 (3 ResBlocks, 3 transformers) and
 # the head: 5 flash sites (all at L = 9216), 5 temporal attentions, and
@@ -223,8 +287,9 @@ def check_flash(torch, fa, F) -> dict:
     """The flash kernel against its plain version at the UNet's three
     self-attention shapes (d = 64, bf16, full B*H: the plain version chunks
     its queries, so no reduction is needed) at the denoise's 25 frames and
-    the image->video app's 14, both softmax modes, plus a ragged length and
-    fp32. Every UNet shape is timed."""
+    the image->video app's 14, and the production mode's two (L = 2880 and
+    720), both softmax modes, plus a ragged length and fp32. Every UNet
+    shape is timed."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def inputs(b, l, h, dtype):
@@ -250,9 +315,11 @@ def check_flash(torch, fa, F) -> dict:
     max_err = 0.0
     shapes = []
     # (frames*batch, L, heads): UNet levels 0, 1, 2 at 72x128, at 25 frames
-    # (the denoise) and at APP_FRAMES (the image->video app).
+    # (the denoise) and at APP_FRAMES (the image->video app); then levels 0
+    # and 1 of the production mode's default 14 frames of 40x72.
     for b, l, h in [(f, l, h) for f in (25, APP_FRAMES)
-                    for l, h in ((9216, 5), (2304, 10), (576, 20))]:
+                    for l, h in ((9216, 5), (2304, 10), (576, 20))] + [(14, 2880, 5),
+                                                                       (14, 720, 10)]:
         q, k, v = inputs(b, l, h, torch.bfloat16)
         row = {"frames": b, "L": l, "BH": b * h}
         for static in (True, False):
@@ -290,9 +357,10 @@ def check_flash(torch, fa, F) -> dict:
 
 
 def time_flash_fp32(torch, fa, F, q, k, v, what: str) -> dict:
-    """The fp32 SIMT kernel at d = 64/72 (off the models' paths; the small
-    agreement configs use it) timed beside its plain version and SDPA in
-    fp32, with its bound: fp32 FMA at 67 TFLOP/s or the bytes."""
+    """fp32 flash at d = 64/72 (off the models' paths; the small agreement
+    configs use it: static max on its SIMT kernel, running max on the
+    generic one) timed beside its plain version and SDPA in fp32, with its
+    bound: fp32 FMA at 67 TFLOP/s or the bytes."""
     b, l, h, d = q.shape
     row = {"site": what, "B": b, "L": l, "H": h, "D": d}
     row["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, static_max=True))
@@ -335,21 +403,24 @@ def rates_text(row: dict) -> str:
 
 
 # Kernel templates of each source, as ptxas names them, and the words for
-# their bool arguments.
-KERNEL_NAMES = {"flash_attention": (r"flash_fwd_\w+?", ("running", "static")),
-                "frame_attention": (r"frame_attn\w*?", ("false", "true")),
-                "group_norm_silu": (r"gn_\w+?", ("false", "true"))}
+# their bool arguments in order (the last pair for any further bool).
+KERNEL_NAMES = {"flash_attention": (r"flash_fwd_\w+?", (("running", "static"),
+                                                        ("exp_f32", "exp_bf16"))),
+                "frame_attention": (r"frame_attn\w*?", (("false", "true"),)),
+                "group_norm_silu": (r"gn_\w+?", (("false", "true"),))}
 
 
-def template_args(mangled: str, flags: tuple[str, str]) -> str:
-    """``Li64ELb1E`` -> ``64, static``: the template arguments of a mangled
-    kernel name (ints, bools, ``float`` and ``__nv_bfloat16``)."""
+def template_args(mangled: str, flags: tuple[tuple[str, str], ...]) -> str:
+    """``Li64ELb1ELb0E`` -> ``64, static, exp_f32``: the template arguments of
+    a mangled kernel name (ints, bools, ``float`` and ``__nv_bfloat16``)."""
     out = []
+    nbool = 0
     for m in re.finditer(r"Li(\d+)E|Lb([01])E|13__nv_bfloat16|f", mangled):
         if m.group(1):
             out.append(m.group(1))
         elif m.group(2):
-            out.append(flags[int(m.group(2))])
+            out.append(flags[min(nbool, len(flags) - 1)][int(m.group(2))])
+            nbool += 1
         else:
             out.append("f32" if m.group(0) == "f" else "bf16")
     return ", ".join(out)
@@ -525,11 +596,11 @@ def check_frame_attention(torch, ta, F) -> dict:
           "(fp32 softmax on both sides, sums in other orders); "
           f"fp32 {TOL['fp32']} x max|plain|")
     max_err = 0.0
-    shapes = []
-    cases = [(9216, 5, torch.bfloat16), (2304, 10, torch.bfloat16), (576, 20, torch.bfloat16),
-             (144, 20, torch.bfloat16), (512, 4, torch.float32)]
-    for l, h, dtype in cases:
-        f = 25 if dtype == torch.bfloat16 else 3
+    shapes, fp32_rows = [], []
+    cases = [(9216, 5, 25, torch.bfloat16), (2304, 10, 25, torch.bfloat16),
+             (576, 20, 25, torch.bfloat16), (144, 20, 25, torch.bfloat16),
+             (512, 4, 3, torch.float32), (2304, 10, 25, torch.float32)]
+    for l, h, f, dtype in cases:
         q, k, v = (torch.randn(1, f, l, h, 64, generator=g, device="cuda").to(dtype)
                    for _ in range(3))
         before = ta.launches
@@ -546,6 +617,7 @@ def check_frame_attention(torch, ta, F) -> dict:
         if not math.isfinite(err) or err > tol:
             fail(f"frame_attention L={l} H={h}: max|diff| {err} > {tol}")
         if dtype != torch.bfloat16:
+            fp32_rows.append(time_frame_fp32(torch, ta, F, q, k, v))
             continue
         max_err = max(max_err, err)
         row = {"L": l, "H": h, "F": f, "ref_max": ref_max}
@@ -557,14 +629,36 @@ def check_frame_attention(torch, ta, F) -> dict:
                       for t in (q, k, v))
         row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         row["bound_ms"], row["bound_by"] = bound(l * h * 4 * f * f * 64, 4 * f * l * h * 64 * 2,
-                                                 H100_FP32_FLOPS)
+                                                 H100_BF16_FLOPS)
         add_shares(row)
         print(f"frame_attention L={l} H={h}: kernel_ms {row['ms']:.4f}, plain_ms "
               f"{row['plain_ms']:.3f}, library_ms (SDPA on a (L, H, F, D) copy) "
               f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
               f"{shares_text(row, 'SDPA')}", flush=True)
         shapes.append(row)
-    return {"max_abs_err": max_err, "shapes": shapes}
+    return {"max_abs_err": max_err, "shapes": shapes, "fp32": fp32_rows}
+
+
+def time_frame_fp32(torch, ta, F, q, k, v) -> dict:
+    """An fp32 frame-attention launch (the SIMT kernels; off the models'
+    paths) timed beside its plain version and SDPA in fp32, with its bound:
+    fp32 FMA at 67 TFLOP/s or the bytes."""
+    b, f, l, h, d = q.shape
+    row = {"B": b, "F": f, "L": l, "H": h, "D": d}
+    row["ms"] = time_ms(torch, lambda: ta.frame_attention(q, k, v))
+    row["plain_ms"] = time_ms(torch, lambda: ta.frame_attention_plain(q, k, v), iters=3,
+                              warmup=1)
+    qt, kt, vt = (t.permute(0, 2, 3, 1, 4).reshape(b * l, h, f, d).contiguous()
+                  for t in (q, k, v))
+    row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    row["bound_ms"], row["bound_by"] = bound(b * l * h * 4 * f * f * d, 4 * b * f * l * h * d * 4,
+                                             H100_FP32_FLOPS)
+    add_shares(row)
+    print(f"frame_attention fp32 d={d} F={f} L={l} H={h}: kernel_ms {row['ms']:.4f}, plain_ms "
+          f"{row['plain_ms']:.3f}, library_ms (SDPA fp32 on a (L, H, F, D) copy) "
+          f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.5f} ({row['bound_by']}); "
+          f"{shares_text(row, 'SDPA')}", flush=True)
+    return row
 
 
 def check_flash_72(torch, fa, F) -> dict:
@@ -633,7 +727,7 @@ def check_frame_attention_72(torch, ta, F) -> dict:
     print("frame attention d=72 tolerance: bf16 one bf16 ulp at max|plain|, "
           f"fp32 {TOL['fp32']} x max|plain| (as at d = 64)")
     max_err = 0.0
-    shapes = []
+    shapes, fp32_rows = [], []
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (torch.randn(1, 8, 640, 16, 72, generator=g, device="cuda").to(dtype)
                    for _ in range(3))
@@ -651,6 +745,7 @@ def check_frame_attention_72(torch, ta, F) -> dict:
         if not math.isfinite(err) or err > tol:
             fail(f"frame_attention d=72 {dtype}: max|diff| {err} > {tol}")
         if dtype != torch.bfloat16:
+            fp32_rows.append(time_frame_fp32(torch, ta, F, q, k, v))
             continue
         max_err = err
         row = {"L": 640, "H": 16, "F": 8, "ref_max": ref_max}
@@ -661,13 +756,216 @@ def check_frame_attention_72(torch, ta, F) -> dict:
                       for t in (q, k, v))
         row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         row["bound_ms"], row["bound_by"] = bound(640 * 16 * 4 * 8 * 8 * 72,
-                                                 4 * 8 * 640 * 16 * 72 * 2, H100_FP32_FLOPS)
+                                                 4 * 8 * 640 * 16 * 72 * 2, H100_BF16_FLOPS)
         add_shares(row)
         print(f"frame_attention d=72 F=8 L=640 H=16: kernel_ms {row['ms']:.4f}, plain_ms "
               f"{row['plain_ms']:.3f}, library_ms (SDPA on a (L, H, F, D) copy) "
               f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
               f"{shares_text(row, 'SDPA')}", flush=True)
         shapes.append(row)
+    return {"max_abs_err": max_err, "shapes": shapes, "fp32": fp32_rows}
+
+
+def compare_flash(torch, fa, what: str, q, k, v, static: bool, exp_bf16: bool,
+                  tol: float) -> tuple[float, float]:
+    """One flash launch (counted by the wrapper) against the plain version on
+    the same inputs; fails past ``tol`` x max|plain|. Returns (max|diff|,
+    max|plain|)."""
+    before = fa.launches.total()
+    got = fa.flash_attention(q, k, v, static_max=static, exp_bf16=exp_bf16)
+    torch.cuda.synchronize()
+    if fa.launches.total() != before + 1:
+        fail(f"flash {what}: the wrapper did not count its launch")
+    ref = fa.flash_attention_plain(q, k, v, static, exp_bf16).float()
+    torch.cuda.synchronize()
+    err = (got.float() - ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    mode = "static" if static else "running" + (" exp_bf16" if exp_bf16 else "")
+    print(f"flash {what} {mode}: max|diff| {err:.3g}, max|plain| {ref_max:.3g}, limit {tol} x "
+          f"max|plain| = {tol * ref_max:.3g}", flush=True)
+    if not math.isfinite(err) or err > tol * ref_max:
+        fail(f"flash {what} {mode}: max|diff| {err} > {tol} x {ref_max}")
+    return err, ref_max
+
+
+def time_flash_row(torch, fa, F, q, k, v, row: dict, exp_bf16: bool = False) -> dict:
+    """Kernel, plain and SDPA milliseconds of ``q, k, v`` into ``row``, with
+    the bound: the tensor cores' bf16 rate for bf16, the SIMT fp32 rate for
+    fp32 (the tensor cores would round to TF32), or the bytes. With
+    ``exp_bf16`` the kernel and the plain version run that form (running max)."""
+    b, l, h, d = q.shape
+    static = not exp_bf16
+    row["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, static, exp_bf16), iters=5,
+                        warmup=1)
+    row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, static, exp_bf16),
+                              iters=3, warmup=1)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                                iters=5, warmup=1)
+    flops = 4 * b * h * l * l * d
+    peak = H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_FP32_FLOPS
+    row["bound_ms"], row["bound_by"] = bound(flops, 4 * b * h * l * d * q.element_size(), peak)
+    add_rates(row, flops)
+    return row
+
+
+def check_flash_generic(torch, fa, F) -> dict:
+    """The generic flash kernel (every head dim up to 512 without a kernel of
+    its own) at d = 16 (the tiny SVD UNet's and DiT's), 40, 80, 128 and 256,
+    bf16 and fp32, both softmax modes, at a ragged L = 600 (B = 2, 3 heads)
+    and at L = 2304 (B = 1, 8 heads), which is timed."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    print(f"flash generic tolerance: as at d = 64, {TOL['bf16']} x max|plain| in bf16, "
+          f"{TOL['fp32']} x max|plain| in fp32")
+    max_err = 0.0
+    shapes = []
+    for d in GENERIC_FLASH_DIMS:
+        for b, l, h in GENERIC_FLASH_SHAPES:
+            base = [torch.randn(b, l, h, d, generator=g, device="cuda") for _ in range(3)]
+            for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+                q, k, v = (t.to(dtype) for t in base)
+                for static in (True, False):
+                    err, ref_max = compare_flash(torch, fa, f"generic d={d} {name} B={b} L={l} "
+                                                 f"H={h}", q, k, v, static, False, TOL[name])
+                    max_err = max(max_err, err)
+                if l < 2304:
+                    continue
+                row = time_flash_row(torch, fa, F, q, k, v,
+                                     {"D": d, "B": b, "L": l, "H": h, "dtype": name,
+                                      "ref_max": ref_max})
+                print(f"flash generic d={d} {name} B={b} L={l} H={h}: kernel_ms "
+                      f"{row['ms']:.4f}, plain_ms {row['plain_ms']:.3f}, library_ms (SDPA "
+                      f"{name}) {row['library_ms']:.4f}, bound_ms {row['bound_ms']:.5f} "
+                      f"({row['bound_by']}); {rates_text(row)}", flush=True)
+                shapes.append(row)
+    return {"max_abs_err": max_err, "shapes": shapes}
+
+
+def exp_inputs(torch, g, b, l, h, d, dtype):
+    """N(0, 1) q, k, v in ``dtype`` whose every row has its largest score at
+    key 0: q's column 0 is 1, k's is 0 but for key 0, whose other columns are
+    0 and whose column 0 is 8 sqrt(d), so that s_0 = 8 against N(0, 1) scores
+    of the other keys (checked)."""
+    q, k, v = (torch.randn(b, l, h, d, generator=g, device="cuda") for _ in range(3))
+    q[..., 0] = 1.0
+    k[..., 0] = 0.0
+    k[:, 0] = 0.0
+    k[:, 0, :, 0] = 8.0 * math.sqrt(d)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    s = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float())
+    if not bool((s[..., 0] > s[..., 1:].amax(dim=-1)).all()):
+        fail(f"exp_inputs d={d} L={l}: a row's largest score is not at key 0")
+    return q, k, v
+
+
+def check_flash_exp(torch, fa, F) -> dict:
+    """VDPP_FLASH_EXP=bf16 (running max, s - m and its exponential rounded to
+    bf16) on every kernel that has a running-max form: d = 64 bf16 (wgmma)
+    and fp32, d = 512 bf16 (wgmma) and fp32, and the generic kernel at d = 16
+    and 80, on ``exp_inputs``; the d = 64 bf16 site at L = 2304 is timed."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    print(f"flash VDPP_FLASH_EXP=bf16 tolerance: fp32 {EXP_TOL_FP32} x max|plain|, below the "
+          f"flag's own effect (checked); bf16 {TOL['bf16']} x max|plain| as without the flag, "
+          f"the kernel's output with the flag differing from its output without it, and "
+          f"in fewer elements from the plain version's with the flag than without it")
+    max_err = 0.0
+    shapes = []
+    for d, b, l, h, dtype in ((64, 1, 2304, 10, torch.bfloat16), (64, 2, 600, 3, torch.bfloat16),
+                              (64, 2, 600, 3, torch.float32), (512, 1, 2560, 1, torch.bfloat16),
+                              (512, 1, 2560, 1, torch.float32), (16, 2, 600, 3, torch.bfloat16),
+                              (16, 2, 600, 3, torch.float32), (80, 1, 2304, 8, torch.bfloat16),
+                              (80, 1, 2304, 8, torch.float32)):
+        q, k, v = exp_inputs(torch, g, b, l, h, d, dtype)
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        what = f"d={d} {name} B={b} L={l} H={h}"
+        tol = EXP_TOL_FP32 if name == "fp32" else TOL["bf16"]
+        before = fa.exp_bf16_launches.total()
+        err, ref_max = compare_flash(torch, fa, what, q, k, v, False, True, tol)
+        if fa.exp_bf16_launches.total() != before + 1:
+            fail(f"flash {what}: the bf16-exponent launch was not counted")
+        with_flag = fa.flash_attention(q, k, v, False, True)
+        without = fa.flash_attention(q, k, v, False, False)
+        plain_with = fa.flash_attention_plain(q, k, v, False, True)
+        plain_without = fa.flash_attention_plain(q, k, v, False, False)
+        changed = (with_flag != without).float().mean().item()
+        off_with = (with_flag != plain_with).float().mean().item()
+        off_without = (with_flag != plain_without).float().mean().item()
+        effect = (plain_with.float() - plain_without.float()).abs().max().item()
+        print(f"flash exp_bf16 {what}: the flag's own effect (plain with it against without "
+              f"it) max|diff| {effect:.3g} = {effect / ref_max:.3g} x max|plain|; the kernel's "
+              f"outputs with and without it differ in {changed:.3%} of the elements; the "
+              f"kernel's output with it differs from the plain version's with it in "
+              f"{off_with:.3%}, without it in {off_without:.3%}", flush=True)
+        if changed == 0.0:
+            fail(f"flash exp_bf16 {what}: the kernel gave the same output without the flag")
+        if name == "fp32" and effect <= tol * ref_max:
+            fail(f"flash exp_bf16 {what}: the flag's own effect {effect} is within the limit")
+        if name == "bf16" and off_with >= off_without:
+            fail(f"flash exp_bf16 {what}: the kernel is nearer the plain version without the "
+                 f"flag ({off_without:.3%} of the elements differ) than with it ({off_with:.3%})")
+        max_err = max(max_err, err)
+        if (d, l, dtype) == (64, 2304, torch.bfloat16):
+            row = time_flash_row(torch, fa, F, q, k, v,
+                                 {"D": d, "B": b, "L": l, "H": h, "dtype": name,
+                                  "ref_max": ref_max}, exp_bf16=True)
+            row["running_ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, False, False),
+                                        iters=5, warmup=1)
+            print(f"flash exp_bf16 {what}: kernel_ms {row['ms']:.4f} "
+                  f"(running max without it {row['running_ms']:.4f}), plain_ms "
+                  f"{row['plain_ms']:.3f}, library_ms (SDPA) {row['library_ms']:.4f}, "
+                  f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']}); {rates_text(row)}",
+                  flush=True)
+            shapes.append(row)
+    return {"max_abs_err": max_err, "shapes": shapes}
+
+
+def check_frame_generic(torch, ta, F) -> dict:
+    """The generic frame-attention kernel (every head dim but 64 and 72, and
+    more than 32 frames) at d = 16 and 40 with F = 14 (the tiny configs' head
+    dim at the image->video app's frame count) and d = 64 with F = 48: B = 1,
+    L = 1024, 4 heads, bf16 and fp32; the bf16 cases are timed."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    print("frame attention generic tolerance: bf16 one bf16 ulp at max|plain|, "
+          f"fp32 {TOL['fp32']} x max|plain| (as at d = 64)")
+    max_err = 0.0
+    shapes = []
+    l, h = 1024, 4
+    for d, f in GENERIC_FRAME_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(1, f, l, h, d, generator=g, device="cuda").to(dtype)
+                       for _ in range(3))
+            before = ta.launches
+            got = ta.frame_attention(q, k, v)
+            torch.cuda.synchronize()
+            if ta.launches != before + 1:
+                fail("the frame-attention wrapper did not count its launch")
+            ref = ta.frame_attention_plain(q, k, v)
+            err = (got.float() - ref.float()).abs().max().item()
+            ref_max = ref.float().abs().max().item()
+            tol = bf16_ulp(ref_max) if dtype == torch.bfloat16 else TOL["fp32"] * ref_max
+            print(f"frame_attention generic d={d} F={f} L={l} H={h} {dtype}: max|diff| "
+                  f"{err:.3g}, max|plain| {ref_max:.3g}, limit {tol:.3g}", flush=True)
+            if not math.isfinite(err) or err > tol:
+                fail(f"frame_attention generic d={d} F={f} {dtype}: max|diff| {err} > {tol}")
+            max_err = max(max_err, err)
+            if dtype != torch.bfloat16:
+                continue
+            row = {"D": d, "F": f, "L": l, "H": h, "ref_max": ref_max}
+            row["ms"] = time_ms(torch, lambda: ta.frame_attention(q, k, v))
+            row["plain_ms"] = time_ms(torch, lambda: ta.frame_attention_plain(q, k, v), iters=3,
+                                      warmup=1)
+            qt, kt, vt = (t.permute(0, 2, 3, 1, 4).reshape(l, h, f, d).contiguous()
+                          for t in (q, k, v))
+            row["library_ms"] = time_ms(torch,
+                                        lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            row["bound_ms"], row["bound_by"] = bound(l * h * 4 * f * f * d, 4 * f * l * h * d * 2,
+                                                     H100_BF16_FLOPS)
+            add_shares(row)
+            print(f"frame_attention generic d={d} F={f} L={l} H={h}: kernel_ms {row['ms']:.4f}, "
+                  f"plain_ms {row['plain_ms']:.3f}, library_ms (SDPA on a (L, H, F, D) copy) "
+                  f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.5f} ({row['bound_by']}); "
+                  f"{shares_text(row, 'SDPA')}", flush=True)
+            shapes.append(row)
     return {"max_abs_err": max_err, "shapes": shapes}
 
 
@@ -1435,6 +1733,304 @@ def run_benchmark_modes(torch, fa, nk, ta, smi: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def route_counts():
+    """Calls that reach each kernel's wrapper through the models' routes
+    (``ops/attention.py``'s flash and frame attention, ``ops/normalization.py``'s
+    fused GroupNorm+SiLU), counted on any device: on the CPU they take the
+    plain versions, on the card every one must launch its kernel."""
+    from vdpp_tpu_torch.ops import attention as tattn
+    from vdpp_tpu_torch.ops import normalization as tnorm
+
+    calls = {"flash": 0, "frame": 0, "gn": 0}
+    sites = ((tattn, "flash_attention", "flash"), (tattn, "frame_attention", "frame"),
+             (tnorm, "group_norm_silu_fused", "gn"))
+    real = {key: getattr(mod, name) for mod, name, key in sites}
+
+    def counted(key):
+        def call(*args, **kwargs):
+            calls[key] += 1
+            return real[key](*args, **kwargs)
+        return call
+
+    for mod, name, key in sites:
+        setattr(mod, name, counted(key))
+    try:
+        yield calls
+    finally:
+        for mod, name, key in sites:
+            setattr(mod, name, real[key])
+
+
+def check_tiny_models(torch, fa, nk, ta) -> dict:
+    """(b) ``SVDUNetConfig.tiny()`` (head dim 16) at TINY_FRAMES frames of a
+    16x32 latent, whose level 0 has 512 tokens, and ``DiTVideoConfig.tiny()``
+    (factorized, head dim 16) at 8 frames of 32x64 (512 patch tokens a
+    frame): a forward and one CFG Euler step on the card against the same
+    weights and inputs on the CPU, in each of TINY_SETTINGS. The head dim
+    takes the generic flash and frame-attention kernels. The launch counts
+    are set to 0 before and read after each card run, and must equal the
+    calls that reached the kernel routes (counted the same way on the CPU),
+    every flash launch at d = 16. Returns the card's counts by model and
+    setting."""
+    import dataclasses
+
+    from vdpp_tpu_torch.models.dit import DiTVideo, DiTVideoConfig, DiTVideoWrapper
+    from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
+    from vdpp_tpu_torch.models.svd_wrapper import (
+        StableVideoUNet,
+        make_dummy_conditioning,
+        make_guidance_ramp,
+    )
+    from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
+
+    g = torch.Generator().manual_seed(20)
+    svd_state = SVDUNet(SVDUNetConfig.tiny(), device="cpu").init_weights(g).state_dict()
+    cond = make_dummy_conditioning(g, 1, TINY_FRAMES, 16, 32, cross_dim=48, guidance_scale=3.0)
+    svd_x = torch.randn(1, 1, TINY_FRAMES, 16, 32, 4, generator=g)
+    dit_cfg = DiTVideoConfig.tiny()
+    dit_state = DiTVideo(dit_cfg, device="cpu").init_weights(g).state_dict()
+    dit_lat = torch.randn(1, 8, 32, 64, 4, generator=g)
+    dit_ctx = torch.randn(1, 7, dit_cfg.cross_attention_dim, generator=g)
+
+    def svd_run(dev):
+        wrapper = StableVideoUNet(SVDUNetConfig.tiny(), num_steps=4, device=dev)
+        unet = SVDUNet(wrapper.config, device=dev)
+        unet.load_state_dict(svd_state)
+        c = dataclasses.replace(cond, **{f.name: getattr(cond, f.name).to(dev)
+                                         for f in dataclasses.fields(cond)})
+        xd = (svd_x * wrapper.init_noise_sigma).to(dev)
+        lat = torch.cat([xd[0], c.image_latents], dim=-1)
+        fwd = unet(lat, 0.5, c.image_embeddings, c.added_time_ids)
+        step = run_reference_single_device(wrapper.pipeline_step_fn(), (unet, c), xd, 1)
+        return fwd, step
+
+    def dit_run(dev):
+        wrapper = DiTVideoWrapper(dit_cfg, num_steps=4, device=dev)
+        dit = DiTVideo(dit_cfg, device=dev)
+        dit.load_state_dict(dit_state)
+        bundle = (dit, dit_ctx.to(dev), make_guidance_ramp(6.0, 8, device=dev))
+        fwd = dit(dit_lat.to(dev), 0.3, dit_ctx.to(dev))
+        step = run_reference_single_device(wrapper.pipeline_step_fn(), bundle,
+                                           (dit_lat * wrapper.init_noise_sigma).to(dev)[None], 1)
+        return fwd, step
+
+    counts = {}
+    for model, run in (("svd_tiny", svd_run), ("dit_tiny", dit_run)):
+        cpu_outs = {}
+        for setting, switches in TINY_SETTINGS:
+            outs, routes = {}, {}
+            with kernel_switches(switches), route_counts() as calls:
+                for dev in ("cpu", "cuda"):
+                    for key in calls:
+                        calls[key] = 0
+                    reset_counts(fa, nk, ta)
+                    fa.exp_bf16_launches.clear()
+                    with torch.inference_mode():
+                        outs[dev] = [t.cpu() for t in run(dev)]
+                    routes[dev] = dict(calls)
+            got = {"flash": fa.launches.total(), "flash_d16": fa.launches[16],
+                   "flash_exp_bf16": fa.exp_bf16_launches.total(), "gn": nk.launches,
+                   "frame": ta.launches}
+            what = f"{model} {setting}"
+            print(f"tiny {what}: routes on the CPU {routes['cpu']}, on the card "
+                  f"{routes['cuda']}; card launches {got}", flush=True)
+            if routes["cpu"] != routes["cuda"]:
+                fail(f"tiny {what}: the CPU and the card took other routes")
+            expect(f"tiny {what}: flash at d = 16", got["flash_d16"], routes["cuda"]["flash"])
+            expect(f"tiny {what}: flash", got["flash"], routes["cuda"]["flash"])
+            expect(f"tiny {what}: GroupNorm+SiLU", got["gn"], routes["cuda"]["gn"])
+            expect(f"tiny {what}: frame attention", got["frame"], routes["cuda"]["frame"])
+            expect(f"tiny {what}: flash with the bf16 exponent", got["flash_exp_bf16"],
+                   got["flash"] if "VDPP_FLASH_EXP" in switches else 0)
+            if not got["flash"] or (switches and not got["frame"]):
+                fail(f"tiny {what}: the generic kernels did not run: {got}")
+            cpu_outs[setting] = outs["cpu"]
+            for name, i in (("forward", 0), ("CFG Euler step", 1)):
+                ref = outs["cpu"][i]
+                rel = ((outs["cuda"][i] - ref).abs().max() / ref.abs().max()).item()
+                effect = ""
+                if setting == TINY_EXP:
+                    off = cpu_outs["switched"][i]
+                    effect = (f"; the flag's own effect on the CPU "
+                              f"{((ref - off).abs().max() / off.abs().max()).item():.3g}")
+                print(f"agreement card vs CPU, tiny {what} ({name}): max|diff|/max|ref| "
+                      f"{rel:.3g} (tolerance {TINY_TOL}){effect}", flush=True)
+                if not math.isfinite(rel) or rel > TINY_TOL:
+                    fail(f"card and CPU disagree on tiny {what} ({name}): {rel}")
+            counts[what] = got
+    return counts
+
+
+def production_rank(stage, tmpdir: str) -> dict:
+    """One rank of phase (c)'s API-level group: for each of PROD_SOLVERS, the
+    production path's pieces at its default shape (SVD-XT from seed 0, the
+    conditioning from seed 1, PROD_SAMPLES noise draws x init_noise_sigma
+    from seed 2, packed) through ``run_ticked`` three times: uncut, again
+    snapshotting after tick PROD_SNAP_TICK, and resumed from that file. The
+    launch counts are set to 0 before and read after each run; the last rank
+    returns the outputs, the tick seconds and the snapshot's bytes and write
+    seconds."""
+    import torch
+
+    from vdpp_tpu_torch.models.svd_unet import SVDUNetConfig
+    from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet, make_dummy_conditioning
+    from vdpp_tpu_torch.ops import flash_attention as fa
+    from vdpp_tpu_torch.ops import norm_kernel as nk
+    from vdpp_tpu_torch.ops import temporal_attention_kernel as ta
+    from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+    from vdpp_tpu_torch.utils.resume import load_pipeline_state, save_pipeline_state
+
+    exact_libraries(torch)
+    dev = stage.device
+    config = SVDUNetConfig.svd_xt()
+    b, _, f, h, w = (int(v) for v in PROD_LATENT)
+    out = {"rank": stage.rank}
+    unet = None
+    for solver in PROD_SOLVERS:
+        wrapper = StableVideoUNet(config, num_steps=PROD_STEPS, solver=solver, device=dev)
+        if unet is None:
+            unet = wrapper.init(torch.Generator(device=dev).manual_seed(0))
+        cond = make_dummy_conditioning(torch.Generator(device=dev).manual_seed(1), b, f, h, w,
+                                       cross_dim=config.cross_attention_dim, guidance_scale=3.0)
+        noise = torch.randn(PROD_SAMPLES, b, f, h, w, 4, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(2))
+        inputs = wrapper.pack_initial(noise * wrapper.init_noise_sigma)
+        pipe = StepPipeline(stage, wrapper.pipeline_step_fn(),
+                            PipelineConfig(PROD_STEPS, stage.num_stages))
+        path = os.path.join(tmpdir, f"{solver}.npz")
+        writes = []
+
+        def on_tick(t, buf, path=path, writes=writes, pipe=pipe, solver=solver):
+            if t == PROD_SNAP_TICK:
+                t0 = time.perf_counter()
+                save_pipeline_state(path, t, buf, meta={"solver": solver})
+                writes.append({"seconds": time.perf_counter() - t0,
+                               "bytes": os.path.getsize(path), "slots": buf.shape[0],
+                               "gather_seconds": pipe.gather_seconds[-1]})
+
+        runs = {}
+        for name in ("full", "snapshot", "resumed"):
+            kw = {}
+            if name == "snapshot":
+                kw = {"on_tick": on_tick, "on_tick_every": 1}
+            elif name == "resumed":
+                tick, buf, _ = load_pipeline_state(path)
+                kw = {"start_tick": tick + 1, "initial_buf": buf}
+            reset_counts(fa, nk, ta)
+            res = pipe.run_ticked((unet, cond), inputs, **kw)
+            runs[name] = {"counts": {"flash": dict(fa.launches), "gn": nk.launches,
+                                     "frame": ta.launches}}
+            if res is not None:
+                runs[name].update(outputs=res[0].cpu(), ticks=res[1])
+        out[solver] = {"runs": runs, "writes": writes}
+    return out
+
+
+def run_production(torch, fa, nk, ta, smi: str) -> dict:
+    """(c) The production mode. First as its entry point
+    ``modes.production.main`` runs it (parse the flags, set up logging,
+    ``run``), keeping ``run``'s result: SVD-XT at its default latent (1, 4, 14, 40,
+    72), CFG 3, PROD_STEPS steps, PROD_SAMPLES samples, 2 ranks sharing
+    cuda:0 over gloo, ``--ticked --state-path ... --state-every 1``: the
+    outputs finite, each rank's flash launches at d = 64 those of its
+    forwards, a snapshot after every tick, the last one read back. Then one
+    spawned group at the API level (``production_rank``) with euler and
+    dpmpp2m: the resumed run's samples bit-equal to the uncut run's."""
+    import tempfile
+
+    from vdpp_tpu_torch.modes import production
+    from vdpp_tpu_torch.parallel.mesh import make_pipeline_mesh, run_stages
+    from vdpp_tpu_torch.utils.logging import setup_logging
+    from vdpp_tpu_torch.utils.resume import load_pipeline_state
+
+    devices = ["cuda:0"] * PROD_STAGES
+    want_flash = PROD_FLASH_PER_FORWARD * PROD_FORWARDS_PER_RANK
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_production_") as tmp:
+        state = os.path.join(tmp, "state.npz")
+        argv = ["--latent-shape", *PROD_LATENT, "--guidance-scale", "3", "--total-steps",
+                str(PROD_STEPS), "--num-samples", str(PROD_SAMPLES), "--devices", *devices,
+                "--ticked", "--state-path", state, "--state-every", "1"]
+        # What production.main does, keeping run's result.
+        args = production.build_parser().parse_args(argv)
+        setup_logging(args.log_level)
+        t0 = time.perf_counter()
+        result = production.run(args)
+        wall = time.perf_counter() - t0
+        tick, buf, meta = load_pipeline_state(state)
+        what = (f"production (SVD-XT bf16, latent {'x'.join(PROD_LATENT)}, CFG 3, "
+                f"{PROD_STEPS} Euler steps, {PROD_SAMPLES} samples, {PROD_STAGES} ranks on "
+                f"cuda:0 over gloo, --ticked --state-every 1)")
+        out = result["out"]
+        print(f"{what}: {wall:.3f} s with the spawned ranks, output "
+              f"{tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}, tick seconds "
+              f"{[round(t, 4) for t in result['ticks']]} ({smi})", flush=True)
+        for snap in result["snapshots"]:
+            print(f"{what}: snapshot after tick {snap['tick']}: {snap['bytes']} bytes "
+                  f"({snap['bytes'] / PROD_STAGES / 1e6:.3f} MB a slot) gathered in "
+                  f"{snap['gather_seconds'] * 1e3:.3f} ms, written in "
+                  f"{snap['seconds'] * 1e3:.3f} ms ({smi})", flush=True)
+        b, _, f, h, w = (int(v) for v in PROD_LATENT)
+        want_shape = (PROD_SAMPLES, b, f, h, w, 4)
+        if tuple(out.shape) != want_shape or not torch.isfinite(out).all():
+            fail(f"{what} gave {tuple(out.shape)} or non-finite values")
+        n_ticks = PROD_SAMPLES + PROD_STAGES - 1
+        if len(result["ticks"]) != n_ticks or [s["tick"] for s in result["snapshots"]] != \
+                list(range(n_ticks)):
+            fail(f"{what}: {len(result['ticks'])} ticks, snapshots {result['snapshots']}")
+        if tick != n_ticks - 1 or tuple(buf.shape) != (PROD_STAGES, *want_shape[1:]) or \
+                len(meta) != 15:
+            fail(f"{what}: the last snapshot holds tick {tick}, {tuple(buf.shape)}, "
+                 f"{len(meta)} keys")
+        for r, counts in enumerate(result["launches"]):
+            expect(f"{what}, rank {r}: flash at d = 64", counts["flash"].get(64, 0), want_flash)
+            if set(counts["flash"]) - {64} or counts["group_norm_silu"] or \
+                    counts["frame_attention"]:
+                fail(f"{what}, rank {r} launched {counts}")
+        main_run = {"wall_s": wall, "ticks": result["ticks"], "snapshots": result["snapshots"],
+                    "launches": result["launches"]}
+
+        mesh = make_pipeline_mesh(devices=devices)
+        t0 = time.perf_counter()
+        try:
+            ranks = run_stages(mesh, production_rank, tmp, timeout=900)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"the production API-level group failed: {e}")
+        wall_api = time.perf_counter() - t0
+    last = ranks[-1]
+    already = PROD_SNAP_TICK + 1 - (PROD_STAGES - 1)
+    api = {"wall_s": wall_api}
+    for solver in PROD_SOLVERS:
+        runs = last[solver]["runs"]
+        full, rest = runs["full"]["outputs"], runs["resumed"]["outputs"]
+        equal = same_bits(torch, rest, full[already:])
+        snap_equal = same_bits(torch, runs["snapshot"]["outputs"], full)
+        write = last[solver]["writes"][0]
+        name = f"production {solver} ({PROD_STAGES} ranks on cuda:0 over gloo, run_ticked)"
+        print(f"{name}: uncut ticks {[round(t, 4) for t in runs['full']['ticks']]}, "
+              f"snapshotting ticks {[round(t, 4) for t in runs['snapshot']['ticks']]}, "
+              f"resumed at tick {PROD_SNAP_TICK + 1}: ticks "
+              f"{[round(t, 4) for t in runs['resumed']['ticks']]}; snapshot after tick "
+              f"{PROD_SNAP_TICK}: {write['bytes']} bytes ("
+              f"{write['bytes'] / write['slots'] / 1e6:.3f} MB a slot) gathered in "
+              f"{write['gather_seconds'] * 1e3:.3f} ms, written in "
+              f"{write['seconds'] * 1e3:.3f} ms; resumed samples "
+              f"{already}..{PROD_SAMPLES - 1} equal bit for bit to the uncut run's {equal}, "
+              f"snapshotting run equal to the uncut one {snap_equal} ({smi})", flush=True)
+        if not (equal and snap_equal) or tuple(rest.shape)[0] != PROD_SAMPLES - already:
+            fail(f"{name}: the resumed samples differ from the uncut run's")
+        for r in ranks:
+            counts = r[solver]["runs"]["full"]["counts"]
+            expect(f"{name}, rank {r['rank']}: flash at d = 64 (uncut)",
+                   counts["flash"].get(64, 0), want_flash)
+        api[solver] = {"ticks": {k: v["ticks"] for k, v in runs.items()}, "write": write,
+                       "launches": {f"rank{r['rank']}": {k: v["counts"]
+                                                         for k, v in r[solver]["runs"].items()}
+                                    for r in ranks}}
+    return {"main": main_run, "api": api}
+
+
 def reset_counts(fa, nk, ta) -> None:
     """Every kernel's launch count set to 0."""
     fa.launches.clear()
@@ -1447,7 +2043,12 @@ def expect(what: str, got: int, want: int) -> None:
         fail(f"{what}: {got} launches, expected {want}")
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description="On-card smoke test of the port, one GPU.")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="build the kernels, hold each against its plain version and time "
+                             "it (phases 1-3 and 8 (a)), then stop without the result lines")
+    args = parser.parse_args(argv)
     try:
         import torch
         import torch.nn.functional as F
@@ -1497,7 +2098,7 @@ def main() -> int:
               + f", {r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B spill loads, "
               f"{r.get('static_smem')} B static shared memory"
               + (f", {r['dynamic_smem']} B dynamic shared memory per CTA" if d_bf16 else ""))
-    for new in ("flash_fwd_d512_bf16", "flash_fwd_d512_f32"):
+    for new in ("flash_fwd_d512_bf16", "flash_fwd_d512_f32", "flash_fwd_any"):
         if built["flash_attention"]["seconds"] and not any(k.startswith(new) for k in ptxas):
             fail(f"no ptxas report for {new}")
     if not ptxas:
@@ -1523,11 +2124,21 @@ def main() -> int:
     frame = check_frame_attention(torch, ta, F)
     flash72 = check_flash_72(torch, fa, F)
     frame72 = check_frame_attention_72(torch, ta, F)
+    # (a) The generic flash kernel, the bf16 exponent, the generic frame
+    # attention.
+    flash_generic = check_flash_generic(torch, fa, F)
+    flash_exp = check_flash_exp(torch, fa, F)
+    frame_generic = check_frame_generic(torch, ta, F)
+    if args.kernels_only:
+        print(f"kernel phases done in {time.perf_counter() - t_start:.1f} s ({smi})")
+        return 0
     check_agreement(torch, switches=False)
     check_agreement(torch, switches=True)
     check_vae_agreement(torch, fa)
     check_dit_agreement(torch, fa, ta)
     check_encoder_agreement(torch, fa)
+    # (b) The tiny configs (head dim 16) on the card.
+    tiny = check_tiny_models(torch, fa, nk, ta)
 
     forwards = 2 * STEPS * (VIDEOS + 1)
     reset_counts(fa, nk, ta)
@@ -1653,6 +2264,16 @@ def main() -> int:
     modes = run_benchmark_modes(torch, fa, nk, ta, smi)
     bench_counts = modes["counts"]
 
+    # (c) The production mode through its entry point, then snapshot and
+    # resume at the API level.
+    prod = run_production(torch, fa, nk, ta, smi)
+    prod_flash = {f"production_main_rank{r}": c["flash"].get(64, 0)
+                  for r, c in enumerate(prod["main"]["launches"])}
+    prod_flash.update({f"production_{solver}_{rank}_{run}": c["flash"].get(64, 0)
+                       for solver in PROD_SOLVERS
+                       for rank, runs in prod["api"][solver]["launches"].items()
+                       for run, c in runs.items()})
+
     def entry(name, source, replaces, launches, check, row, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": check["max_abs_err"], "ms": row["ms"],
@@ -1669,7 +2290,7 @@ def main() -> int:
         entry("flash_attention", flash_src, flash_tpu,
               flash_launches + app["flash"][64] + restyle["flash"][64] + long_app["flash"][64]
               + deepcache["schedule"]["flash"] + sum(pipe_flash.values())
-              + bench_counts["flash"], flash,
+              + bench_counts["flash"] + sum(prod_flash.values()), flash,
               flash["shapes"][0], ptxas=ptxas,
               fp32_d64_d72=[flash["fp32"], flash72["fp32"]],
               launches_per_forward={"full": deepcache["counts"]["full"][0],
@@ -1680,7 +2301,9 @@ def main() -> int:
                                 "long_app_deepcache2": long_app["flash"][64],
                                 "dpmpp2m_deepcache2_switched": deepcache["schedule"]["flash"],
                                 **pipe_flash,
-                                "benchmark_mode_1stage_switched": bench_counts["flash"]}),
+                                "benchmark_mode_1stage_switched": bench_counts["flash"],
+                                **prod_flash},
+              production_launches_per_forward=PROD_FLASH_PER_FORWARD),
         entry("flash_attention_d512", flash_src, flash_tpu,
               decode_flash + dit_decode_flash + app["flash"][512] + restyle["flash"][512]
               + long_app["flash"][512], flash512,
@@ -1707,7 +2330,7 @@ def main() -> int:
         entry("frame_attention", frame_src, frame_tpu,
               switched["frame"] + deepcache["schedule"]["frame"] + sum(pipe_frame.values())
               + bench_counts["frame"], frame, frame["shapes"][0],
-              ptxas=other_ptxas["frame_attention"],
+              ptxas=other_ptxas["frame_attention"], fp32_d64_d72=frame["fp32"] + frame72["fp32"],
               launches_per_forward={"full": deepcache["counts"]["full"][2],
                                     "deepcache_split1": deepcache["counts"]["cache"][2]},
               launches_by_path={"svd_xt_denoise_switched": switched["frame"],
@@ -1718,6 +2341,18 @@ def main() -> int:
               flash72, flash72["shapes"][0]),
         entry("frame_attention_d72", frame_src, frame_tpu, fact["frame"], frame72,
               frame72["shapes"][0]),
+        entry("flash_attention_generic", flash_src, flash_tpu,
+              sum(c["flash"] for c in tiny.values()), flash_generic,
+              next(r for r in flash_generic["shapes"] if r["D"] == 16 and r["dtype"] == "fp32"),
+              launches_by_path={k: c["flash"] for k, c in tiny.items()}),
+        entry("flash_attention_exp_bf16", flash_src, flash_tpu,
+              sum(c["flash_exp_bf16"] for c in tiny.values()), flash_exp,
+              flash_exp["shapes"][0],
+              launches_by_path={k: c["flash_exp_bf16"] for k, c in tiny.items()}),
+        entry("frame_attention_generic", frame_src, frame_tpu,
+              sum(c["frame"] for c in tiny.values()), frame_generic,
+              frame_generic["shapes"][0],
+              launches_by_path={k: c["frame"] for k, c in tiny.items()}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

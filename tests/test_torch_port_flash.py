@@ -137,3 +137,43 @@ def test_flash_d72_matches_jax(l, static_max, dtype):
     got, want = _both(_qkv(15, 1, l, 2, 72, dtype), dtype, static_max)
     atol = TOL[dtype] * (np.abs(want).max() if dtype == torch.bfloat16 else 1.0)
     np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("static_max", [True, False])
+@pytest.mark.parametrize("d", [16, 256])
+def test_flash_matches_jax_at_other_head_dims(d, static_max, dtype):
+    """d = 16 (the tiny SVD UNet's and DiT's) and 256
+    (tests/test_ops.py::test_flash_attention_large_head_dim's): the reference
+    pads V to _aug_width(d), the port's CUDA side has a generic kernel; on the
+    CPU both are held to the same arithmetic. Tolerances as above."""
+    got, want = _both(_qkv(21 + d, 1, 200, 2, d, dtype), dtype, static_max)
+    atol = TOL[dtype] * (np.abs(want).max() if dtype == torch.bfloat16 else 1.0)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+
+
+# VDPP_FLASH_EXP=bf16: s - m rounded to bf16 moves each p by up to about 1 %
+# at these logit spreads, and the reference's running max (tile by tile) and
+# the plain version's global max round different arguments: 5e-2 x max|want|.
+EXP_TOL = 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64])
+def test_flash_exp_bf16_matches_jax(d, dtype, monkeypatch):
+    """``VDPP_FLASH_EXP=bf16`` with ``VDPP_FLASH_SOFTMAX=running`` on both
+    sides (read at call time by both wrappers); static max ignores it on both
+    (bitwise the same as without it here)."""
+    monkeypatch.setenv("VDPP_FLASH_EXP", "bf16")
+    arrs = _qkv(31 + d, 2, 300, 2, d, dtype)
+    t = [torch.from_numpy(a).to(dtype) for a in arrs]
+    j = [jnp.asarray(a, JNP_DTYPE[dtype]) for a in arrs]
+    monkeypatch.setenv("VDPP_FLASH_SOFTMAX", "running")
+    got = fa.flash_attention(*t).float().numpy()
+    want = np.asarray(jax_flash(*j, block_q=128, block_k_major=128, block_k=128)
+                      .astype(jnp.float32))
+    np.testing.assert_allclose(got, want, atol=EXP_TOL * np.abs(want).max(), rtol=0)
+    exact = fa.flash_attention(*t, exp_bf16=False).float().numpy()
+    assert np.abs(got - exact).max() > 0  # the rounding is there
+    monkeypatch.setenv("VDPP_FLASH_SOFTMAX", "static")
+    assert torch.equal(fa.flash_attention(*t), fa.flash_attention(*t, exp_bf16=False))

@@ -33,7 +33,7 @@ JNP_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 def test_frame_attention_matches_jax(shape, dtype):
     """tile_l=32 forces the reference to pad L (48 and 40 are not multiples
     of it); 25 frames at d = 64 is the SVD-XT case, 8 frames at d = 72 the
-    factorized DiT-XL's; 32 frames is the most the CUDA kernel takes, and one
+    factorized DiT-XL's; 32 frames is the most the TMA kernel takes, and one
     frame the least (a softmax over one key)."""
     rng = np.random.default_rng(11)
     arrs = [rng.standard_normal(shape).astype(NP_DTYPE[dtype]).astype(np.float32)
@@ -57,3 +57,21 @@ def test_frame_attention_wrapper_checks():
     meta = q.to("meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tak.frame_attention(meta, meta, meta)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 14, 40, 2, 16), (1, 40, 24, 1, 64)])
+def test_frame_attention_matches_jax_at_any_head_dim_and_frame_count(shape, dtype):
+    """d = 16 (the tiny configs', at the image->video app's 14 frames) and 40
+    frames at d = 64, past the TMA kernel's 32: the reference takes any d and
+    F (it pads only L), and so does the port's generic CUDA kernel; on the
+    CPU both are held to the same arithmetic. Tolerances as above."""
+    rng = np.random.default_rng(12)
+    arrs = [rng.standard_normal(shape).astype(NP_DTYPE[dtype]).astype(np.float32)
+            for _ in range(3)]
+    got = tak.frame_attention(*(torch.from_numpy(a).to(dtype) for a in arrs))
+    want = jax_frame_attention(*(jnp.asarray(a, JNP_DTYPE[dtype]) for a in arrs), tile_l=32)
+    want = np.asarray(want.astype(jnp.float32))
+    top = np.abs(want).max()
+    atol = 2e-6 if dtype == torch.float32 else float(np.spacing(np.float32(top))) * 2 ** 16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=0)

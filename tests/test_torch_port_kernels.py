@@ -74,8 +74,8 @@ def test_flash_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
 
 @pytest.mark.gpu
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 16, 1, 80, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="d=80"):
+    q = torch.zeros(1, 16, 1, 640, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="d=640"):
         fa.flash_attention(q, q, q)
     q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -131,7 +131,7 @@ def test_flash_d512_kernel_leaves_rows_past_lq_alone(cuda, static_max, dtype):
     lib = fa._kernel_lib()
     rc = lib.vdpp_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), int(dtype == torch.bfloat16),
-        1, 1, lq, lq, 512, int(static_max), fa.LOG2E / math.sqrt(512),
+        1, 1, lq, lq, 512, int(static_max), 0, fa.LOG2E / math.sqrt(512),
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
@@ -228,14 +228,11 @@ def test_new_kernels_never_take_the_plain_version(cuda, monkeypatch):
 
 @pytest.mark.gpu
 def test_new_kernels_reject_what_they_do_not_take(cuda):
-    q = torch.zeros(1, 4, 8, 2, 80, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="d=80"):
+    q = torch.zeros(1, 20000, 1, 1, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="frames"):
         tak.frame_attention(q, q, q)
-    q = torch.zeros(1, 33, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="at most 32 frames"):
-        tak.frame_attention(q, q, q)
-    q = torch.zeros(1, 16, 1, 128, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="d=128"):
+    q = torch.zeros(1, 16, 1, 1024, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="d=1024"):
         fa.flash_attention(q, q, q)
     x = torch.zeros(2, 24, 8192, device=cuda)
     with pytest.raises(ValueError, match="C <= 4096"):
@@ -399,3 +396,98 @@ def test_deepcache_pipeline_over_nccl_matches_single_device(cuda, monkeypatch, s
     devices = [f"cuda:{i}" for i in range(min(count, 4))] if count >= 2 else [cuda, cuda]
     _pipeline_against_single_device(cuda, devices, steps=4, samples=3, solver=solver,
                                     deepcache_interval=2, sampler_seed=11)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("static_max", [True, False])
+@pytest.mark.parametrize("l", [31, 200, 600])
+@pytest.mark.parametrize("d", [16, 40, 80, 128, 256, 320])
+def test_flash_generic_kernel_matches_plain(cuda, d, l, static_max, dtype):
+    """The generic kernel (every head dim up to 512 without a kernel of its
+    own): ragged lengths, a part-filled last key tile, Lq != Lk."""
+    q, k, v = _qkv(cuda, 2, l, 3, d, dtype, d + l)
+    k, v = k[:, : l - 7].contiguous(), v[:, : l - 7].contiguous()
+    before = fa.launches[d]
+    got = fa.flash_attention(q, k, v, static_max=static_max)
+    torch.cuda.synchronize()
+    assert fa.launches[d] == before + 1
+    ref = fa.flash_attention_plain(q, k, v, static_max).float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= TOL[dtype] * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+# VDPP_FLASH_EXP=bf16, on inputs whose every row has its largest score at key
+# 0, so that the kernel's running max is the plain version's global max from
+# the first key tile on and both round the same s - m. fp32 then agrees to
+# fp32 sums in other orders, and EXP_TOL_FP32 lies below the flag's own effect
+# (about 1e-3 x max|ref| on these inputs), which the test checks. In bf16 the
+# flag's effect is about one ulp of the output, so the limit is TOL's; the
+# output with the flag must differ from the output without it, and in fewer
+# elements from the plain version's with the flag than from its without.
+EXP_TOL_FP32 = 1e-4
+
+
+def _exp_qkv(device, b, l, h, d, dtype, seed):
+    q, k, v = _qkv(device, b, l, h, d, torch.float32, seed)
+    q[..., 0] = 1.0
+    k[..., 0] = 0.0
+    k[:, 0] = 0.0
+    k[:, 0, :, 0] = 8.0 * math.sqrt(d)  # s_0 = 8 against N(0, 1) scores
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    s = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float())
+    assert (s[..., 0] > s[..., 1:].amax(dim=-1)).all()
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,l,h", [(16, 600, 3), (64, 600, 3), (64, 2304, 10), (72, 640, 4),
+                                   (512, 2560, 1)])
+def test_flash_exp_bf16_kernel_matches_plain(cuda, d, l, h, dtype, monkeypatch):
+    """``VDPP_FLASH_EXP=bf16`` in running-max mode on every kernel that has
+    that mode, held tighter than the flag's own effect in fp32 and changing
+    the kernel's output in both types; static max ignores it."""
+    monkeypatch.setenv("VDPP_FLASH_EXP", "bf16")
+    q, k, v = _exp_qkv(cuda, 1, l, h, d, dtype, d)
+    before = fa.exp_bf16_launches[d]
+    got = fa.flash_attention(q, k, v, static_max=False)
+    torch.cuda.synchronize()
+    assert fa.exp_bf16_launches[d] == before + 1
+    ref = fa.flash_attention_plain(q, k, v, False, True).float()
+    ref_max = ref.abs().max().item()
+    tol = EXP_TOL_FP32 if dtype == torch.float32 else TOL[dtype]
+    err = (got.float() - ref).abs().max().item()
+    assert err <= tol * ref_max, (err, ref_max)
+    assert not torch.equal(got, fa.flash_attention(q, k, v, static_max=False, exp_bf16=False))
+    ref_without = fa.flash_attention_plain(q, k, v, False, False)
+    if dtype == torch.float32:
+        effect = (ref_without.float() - ref).abs().max()
+        assert effect.item() > tol * ref_max, (effect.item(), ref_max)
+    else:
+        off_with = (got != ref.to(dtype)).float().mean().item()
+        off_without = (got != ref_without).float().mean().item()
+        assert off_with < off_without, (off_with, off_without)
+    assert torch.equal(fa.flash_attention(q, k, v, static_max=True),
+                       fa.flash_attention(q, k, v, static_max=True, exp_bf16=False))
+    assert fa.exp_bf16_launches[d] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 14, 40, 2, 16), (2, 14, 24, 3, 40), (1, 48, 40, 2, 64),
+                                   (1, 40, 24, 1, 72), (1, 3, 40, 2, 96), (1, 8, 8, 1, 520),
+                                   (1, 25, 24, 2, 33)])
+def test_frame_attention_generic_kernel_matches_plain(cuda, shape, dtype):
+    """The generic frame-attention kernel: other head dims (with d > 256, a
+    second pass of columns), more than 32 frames, and F d odd (in bf16 a
+    warp's staged rows are then 2 mod 4 bytes long)."""
+    g = torch.Generator(device=cuda).manual_seed(shape[1] + shape[-1])
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
+    before = tak.launches
+    got = tak.frame_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tak.launches == before + 1
+    ref = tak.frame_attention_plain(q, k, v)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= _one_rounding_tol(ref), err

@@ -219,15 +219,22 @@ def test_temporal_self_attention_pallas(frames, l, monkeypatch):
 
 
 def test_unported_attention_switches_raise(monkeypatch):
-    attn = tattn.Attention(16)
+    """The switches this test once found refused are ported: the temporal
+    forms ``einsum`` and ``transpose`` and the long-sequence routes ``xla``
+    and ``naive`` now run and give the reference's result (each switch has
+    its own cases in tests/test_torch_port_switches.py)."""
+    attn = randomize(tattn.Attention(16), 27)
+    jp = jax_params(attn, _conv_attention)
+    x = _x(28, 2, 4, 16)
     for impl in ("einsum", "transpose"):
         monkeypatch.setenv("VDPP_TEMPORAL_ATTN", impl)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tattn.temporal_self_attention(attn, torch.zeros(2, 4, 16), 2, 1, 2)
+        _check(tattn.temporal_self_attention(attn, torch.from_numpy(x), 2, 1, 2),
+               jattn.temporal_self_attention(jp, jnp.asarray(x), 2, 1, 2))
+    x = _x(29, 1, 512, 16)
     for impl in ("xla", "naive"):
         monkeypatch.setenv("VDPP_ATTN_IMPL", impl)
-        with pytest.raises(NotImplementedError):
-            tattn.attention(torch.zeros(1, 512, 16), attn, 2)
+        _check(tattn.attention(torch.from_numpy(x), attn, 2),
+               jattn.attention(jnp.asarray(x), jp, 2))
 
 
 @pytest.mark.parametrize("impl", ["pallas", "splash"])

@@ -111,3 +111,21 @@ def test_bench_tiny_on_cpu(capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["unit"] == "s/video" and line["value"] > 0
     assert line["metric"].startswith("sec/video single cpu SVD 3f 16x16")
+
+
+def test_production_and_resume_keep_the_rules(monkeypatch):
+    """``modes/production.py`` and ``utils/resume.py`` import neither JAX nor
+    the JAX package; production's ``--device`` defaults to ``cuda`` and,
+    with no card, it raises before anything runs."""
+    from vdpp_tpu_torch.modes import production
+    from vdpp_tpu_torch.utils import resume
+
+    for mod in (production, resume):
+        path = Path(mod.__file__)
+        assert path in PORT_FILES and not FORBIDDEN.search(path.read_text())
+    assert production.build_parser().parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in ([], ["--preset", "tiny", "--num-stages", "2", "--total-steps", "4"],
+                 ["--devices", "cuda:0", "cuda:0", "--total-steps", "4"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            production.main(argv)

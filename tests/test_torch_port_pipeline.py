@@ -247,9 +247,15 @@ def test_pipeline_config_errors():
                        lambda p, x, k: x[..., :4], PipelineConfig(2, 1))
     with pytest.raises(ValueError, match="payload"):  # a step must keep the payload's shape
         one.run(None, torch.zeros(1, 2, 8))
-    for kw in ({"start_tick": 1}, {"initial_buf": torch.zeros(1)}, {"on_tick": print}):
-        with pytest.raises(NotImplementedError, match="A11"):
-            one.run_ticked(None, torch.zeros(1, 4), **kw)
+    # The resume arguments, refused until A11 was ported: a start past the
+    # last tick, a buffer of the wrong shape, a hook after every tick.
+    out, ticks = one.run_ticked(None, torch.zeros(1, 4), start_tick=1)
+    assert out.shape == (0, 4) and ticks == []
+    with pytest.raises(ValueError, match="initial_buf shape"):
+        one.run_ticked(None, torch.zeros(1, 4), initial_buf=torch.zeros(1))
+    seen = []
+    one.run_ticked(None, torch.zeros(1, 4), on_tick=lambda t, buf: seen.append((t, buf.shape)))
+    assert seen == [(0, (1, 4))]
     with pytest.raises(NotImplementedError, match="A16"):
         one.stream(None, (4,))
     two_d = tmesh.make_2d_mesh(2, 2, device="cpu")  # the (stage, data) mesh, since A11

@@ -23,6 +23,26 @@ def random_state_dict(module: torch.nn.Module, seed: int,
     return sd
 
 
+def tiny_svd_weights(seed: int = 0):
+    """``(JAX params, port state dict)`` of ``SVDUNetConfig.tiny()`` holding
+    the same weights: :func:`random_state_dict` (mix factors near 0.5)
+    through the JAX package's converter, and back into the port's names
+    through ``from_jax_params``. JAX is imported here, not at module level:
+    spawned ranks import this module."""
+    import jax
+    import jax.numpy as jnp
+
+    from vdpp_tpu.utils.weights import convert_unet_state_dict
+    from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
+    from vdpp_tpu_torch.utils.weights import from_jax_params
+
+    sd = random_state_dict(SVDUNet(SVDUNetConfig.tiny(), device="meta"), seed, mix_base=0.5)
+    params = jax.tree_util.tree_map(
+        np.asarray, convert_unet_state_dict(sd, num_levels=2, layers_per_block=1,
+                                            dtype=jnp.float32))
+    return params, from_jax_params(params)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """One intra-op thread for the module's tests: their CPU tensors are
@@ -152,4 +172,38 @@ def runner_cases(stage, cases: list) -> dict:
             pipe = StepPipeline(stage, step_fn, PipelineConfig(total, stage.num_stages))
             results[name] = (pipe.run(params, inputs) if kind == "pipeline"
                              else pipe.run_ticked(params, inputs))
+    return results
+
+
+def resume_cases(stage, cases: list) -> dict:
+    """Rank job: every ``(name, build, inputs, total_steps, kw)`` case through
+    ``StepPipeline.run_ticked(params, inputs, **kw)``, where ``build(device)``
+    gives ``(step_fn, params)``. Besides ``run_ticked``'s own arguments ``kw``
+    may hold ``gather`` (keep every buffer ``on_tick`` gets), ``snap_path``
+    (also write each one to ``snap_path % t`` with ``save_pipeline_state``)
+    and ``resume_path`` (start after that snapshot's tick, from its buffer;
+    every rank reads it). Returns on the last rank ``{name: (outputs, tick
+    count, [(t, buf)])}``, on the others ``{name: None}``."""
+    from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+    from vdpp_tpu_torch.utils.resume import load_pipeline_state, save_pipeline_state
+
+    results = {}
+    for name, build, inputs, total, kw in cases:
+        kw = dict(kw)
+        step_fn, params = build(stage.device)
+        pipe = StepPipeline(stage, step_fn, PipelineConfig(total, stage.num_stages))
+        seen = []
+        snap_path = kw.pop("snap_path", None)
+        resume_path = kw.pop("resume_path", None)
+        if resume_path is not None:
+            tick, buf, _ = load_pipeline_state(resume_path)
+            kw.update(start_tick=tick + 1, initial_buf=buf)
+        if kw.pop("gather", False) or snap_path is not None:
+            def on_tick(t, buf, name=name, snap_path=snap_path, seen=seen):
+                seen.append((t, buf.clone()))
+                if snap_path is not None:
+                    save_pipeline_state(snap_path % t, t, buf, meta={"case": name})
+            kw["on_tick"] = on_tick
+        res = pipe.run_ticked(params, inputs, **kw)
+        results[name] = None if res is None else (res[0], len(res[1]), seen)
     return results

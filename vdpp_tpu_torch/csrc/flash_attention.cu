@@ -17,7 +17,7 @@
 // an all-zero row of the ones-augmented V there, so it adds exactly 0 to both
 // O and l. Here keys past L_k get p = 0, which is the same sum.
 //
-// bf16, head dims 64 (the SVD UNet) and 72 (DiT-XL): flash_fwd_bf16<D, STATIC_MAX>.
+// bf16, head dims 64 (the SVD UNet) and 72 (DiT-XL): flash_fwd_bf16<D, STATIC_MAX, EXP_BF16>.
 // What bounds it: operations at every site. 4 * B*H * Lq * Lk * D flops against
 // 989 TFLOP/s dense bf16, beside 4 * B*H * L * D * 2 bytes of q, k, v, o at
 // 3.35 TB/s: at L = 9216 (d = 64, B*H = 125) 2.748 ms of operations against
@@ -94,14 +94,16 @@
 // loads in the running-max kernel at d = 72.
 //
 // fp32 inputs at d = 64 and 72 take a plain SIMT kernel (one query row per
-// thread): the tensor cores would round fp32 operands to TF32, and fp32 is off
-// the models' paths (the small agreement configs use it).
+// thread) in static max, and the generic kernel below in running max, where
+// it measured 26-31 % faster (it was 14-16 % slower in static max; PERF.md):
+// the tensor cores would round fp32 operands to TF32, and fp32 is off the
+// models' paths (the small agreement configs use it).
 //
 // Head dim 512 (the VAE decoder's mid-block attention: one head, L = 72 * 128 =
 // 9216 for SVD and 40 * 64 = 2560 for DiT, B = the frames of a decode chunk,
 // 4, or 1 for the last chunk of 25 frames) has a kernel for each dtype.
 //
-// bf16: flash_fwd_d512_bf16<STATIC_MAX>. One call at B = 4, L = 9216 is
+// bf16: flash_fwd_d512_bf16<STATIC_MAX, EXP_BF16>. One call at B = 4, L = 9216 is
 // 4 * 4 * 9216^2 * 512 = 696 GFLOP, 0.70 ms at 989 TFLOP/s, against 0.05 ms
 // of bytes: bound by operations, so both products run on wgmma, with the
 // parts of flash_fwd_bf16 (4-D tensor maps, mbarriers with TMA byte counts,
@@ -145,7 +147,7 @@
 //     from L2 (64 FLOP a byte, 10.9 GB of L2 reads at B = 4, L = 9216), and
 //     576 CTAs are 4.36 waves of 132 SMs (144 CTAs at B = 1, 1.09 waves).
 //
-// fp32: flash_fwd_d512_f32<STATIC_MAX>, exact fp32 on the SIMT cores (the
+// fp32: flash_fwd_d512_f32<STATIC_MAX, EXP_BF16>, exact fp32 on the SIMT cores (the
 // tensor cores would round to TF32; the check is 1e-5 x max|plain|): the same
 // 696 GFLOP take 10.4 ms at 67 TFLOP/s, against 0.09 ms of bytes. The SM
 // issues 4 warp FMAs a clock against one 128-byte shared-memory wavefront, so
@@ -177,6 +179,30 @@
 //     and 1.09 at B = 1; 48-row CTAs are 5.82 and 1.45, and measured faster
 //     at all three path shapes (PERF.md).
 
+// Every other head dim up to 512 (the tiny SVD UNet's and DiT's 16, 40, 80,
+// 128, 256; the reference pads V to _aug_width(d) and takes any d), bf16 and
+// fp32, and fp32 running max at d = 64 and 72: flash_fwd_any<T, DPL,
+// STATIC_MAX, EXP_BF16>, a simple SIMT kernel (making it fast is later
+// work). A warp owns 4 query rows, a CTA 4 warps; K
+// and V come through shared memory in tiles of 32 keys, converted to fp32 as
+// they are staged, with q' = q * qscale rounded to T staged once:
+//   * S: lane j scores key j of the tile against the warp's rows, a dot
+//     product over d from K's row (pitch d | 1 floats: odd, so the 32 lanes'
+//     rows start in distinct banks) against q' rows read as broadcasts;
+//   * softmax per row: static max clamps and takes exp2; running max reduces
+//     the tile's max over the lanes by shuffles and rescales O and l. P is
+//     rounded to T and each lane sums its share of l from those values;
+//   * O += P V: lane c holds columns c, c + 32, ... (DPL = ceil(d / 32)
+//     rounded up to a power of two, so d = 512 takes 16 registers a row),
+//     takes key j's p from lane j by a shuffle and V's row j from shared
+//     memory; keys past L_k have p = 0, rows past L_q are not stored.
+// Head dims above 512 are not taken.
+//
+// VDPP_FLASH_EXP=bf16 (the reference's exp_bf16, running max only) is the
+// EXP_BF16 flag of every kernel beside STATIC_MAX: s - m is rounded to bf16
+// before exp2 and the exponential to bf16 after it (the reference's exp2 of a
+// bf16 array is a bf16 array).
+//
 // C interface (bound with ctypes, see vdpp_tpu_torch/ops/flash_attention.py):
 // returns a cudaError_t after the launch, launches on the given stream,
 // allocates nothing and does not synchronise.
@@ -199,6 +225,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// VDPP_FLASH_EXP=bf16 (running max only, as in the reference): s - m is
+// rounded to bf16 before exp2, and the exponential comes out as a bf16 value
+// (the reference's exp2 of a bf16 array is bf16; the bf16 kernels round P to
+// bf16 anyway, the fp32 ones do it here).
+template <bool EXP_BF16>
+__device__ __forceinline__ float exp_arg(float x) { return EXP_BF16 ? round_bf16(x) : x; }
+template <bool EXP_BF16>
+__device__ __forceinline__ float exp_val(float e) { return EXP_BF16 ? round_bf16(e) : e; }
 
 // ---------------------------------------------------------------------------
 // bf16, d = 64 and 72: TMA + mbarrier ring + wgmma, warp-specialised.
@@ -426,7 +465,7 @@ __device__ __forceinline__ float ex2(float x) {
 // Running max: the new row max goes into m and the factor l and O are to be
 // rescaled by into alpha (l is rescaled here, O by the caller once the P V in
 // flight has landed). Keys >= Lk get p = 0 and stay out of the max.
-template <bool STATIC_MAX, bool MASKED, int NS>
+template <bool STATIC_MAX, bool EXP_BF16, bool MASKED, int NS>
 __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2], float (&lp)[4],
                                              float (&alpha)[2], int k0, int Lk, int t) {
   float mr[2] = {0.f, 0.f};  // the row max subtracted (running max only)
@@ -455,7 +494,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2], floa
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int i = 2 * u + c;
-      const float x = STATIC_MAX ? fminf(fmaxf(s[i], S_CLAMP_LO), S_CLAMP) : s[i] - mr[u & 1];
+      const float x = STATIC_MAX ? fminf(fmaxf(s[i], S_CLAMP_LO), S_CLAMP)
+                                 : exp_arg<EXP_BF16>(s[i] - mr[u & 1]);
       e[c] = ex2(x);
       if (MASKED && k0 + 8 * (i >> 2) + 2 * t + c >= Lk) e[c] = 0.f;
     }
@@ -467,13 +507,13 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2], floa
 
 // A tile of 2 * NS keys (NS accumulators of S a thread: 128 keys at d = 64/72,
 // 64 at d = 512).
-template <bool STATIC_MAX, int NS>
+template <bool STATIC_MAX, bool EXP_BF16, int NS>
 __device__ __forceinline__ void softmax(float (&s)[NS], float (&m)[2], float (&lp)[4],
                                         float (&alpha)[2], int k0, int Lk, int t) {
   if (k0 + 2 * NS <= Lk) {
-    softmax_tile<STATIC_MAX, false>(s, m, lp, alpha, k0, Lk, t);
+    softmax_tile<STATIC_MAX, EXP_BF16, false>(s, m, lp, alpha, k0, Lk, t);
   } else {
-    softmax_tile<STATIC_MAX, true>(s, m, lp, alpha, k0, Lk, t);
+    softmax_tile<STATIC_MAX, EXP_BF16, true>(s, m, lp, alpha, k0, Lk, t);
   }
 }
 
@@ -498,7 +538,7 @@ __device__ __forceinline__ void scale_q8(uint4& x, float qscale) {
 // are issued together; the softmax of tile j runs while P V does; once P V
 // has landed O is rescaled (running max), stage j - 1 is freed and p takes
 // tile j's P.
-template <int D, bool STATIC_MAX>
+template <int D, bool STATIC_MAX, bool EXP_BF16>
 __device__ __forceinline__ void tile_step(int j, float (&s)[64], uint32_t (&pa)[32],
                                           float (&acc)[32], float (&acct)[8],
                                           float (&m)[2], float (&lp)[4], float (&alpha)[2],
@@ -520,7 +560,7 @@ __device__ __forceinline__ void tile_step(int j, float (&s)[64], uint32_t (&pa)[
   pingpong_pass<L::PINGPONG>(wg);
   wg_wait<1>();  // S of tile j has landed; P V of tile j - 1 may still run
   fence_regs(s);
-  softmax<STATIC_MAX>(s, m, lp, alpha, j * WG_BK, Lk, threadIdx.x & 3);
+  softmax<STATIC_MAX, EXP_BF16>(s, m, lp, alpha, j * WG_BK, Lk, threadIdx.x & 3);
   fence_regs(s);  // the softmax stays ahead of the wait below
   wg_wait<0>();
   fence_regs(acc);
@@ -555,7 +595,7 @@ __device__ __forceinline__ void last_pv(float (&acc)[32], float (&acct)[8], uint
   fence_regs(p);
 }
 
-template <int D, bool STATIC_MAX>
+template <int D, bool STATIC_MAX, bool EXP_BF16>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap k_map,
@@ -658,7 +698,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
     pingpong_pass<L::PINGPONG>(wg);
     wg_wait<0>();
     fence_regs(s);
-    softmax<STATIC_MAX>(s, m, lp, alpha, 0, Lk, t);
+    softmax<STATIC_MAX, EXP_BF16>(s, m, lp, alpha, 0, Lk, t);
     take_p(p, s);
 
     const uint32_t stage0 = base + L::STAGE0;
@@ -670,7 +710,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
     // otherwise, and every wgmma then waits for the one before it).
     if (L::TAIL) {
       for (int j = 1; j < nk; ++j) {
-        tile_step<D, STATIC_MAX>(j, s, p, acc, acct, m, lp, alpha, stage0, dq, dqt, full0,
+        tile_step<D, STATIC_MAX, EXP_BF16>(j, s, p, acc, acct, m, lp, alpha, stage0, dq, dqt, full0,
                                  empty0, Lk, wg);
       }
       last_pv<D>(acc, acct, p, stage0 + ((nk - 1) % WG_STAGES) * L::STAGE_BYTES, wg);
@@ -679,7 +719,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
     } else {
       int j = 1;
       do {
-        tile_step<D, STATIC_MAX>(j, s, p, acc, acct, m, lp, alpha, stage0, dq, dqt, full0,
+        tile_step<D, STATIC_MAX, EXP_BF16>(j, s, p, acc, acct, m, lp, alpha, stage0, dq, dqt, full0,
                                  empty0, Lk, wg);
       } while (++j < nk);
       last_pv<D>(acc, acct, p, stage0 + ((nk - 1) % WG_STAGES) * L::STAGE_BYTES, wg);
@@ -723,13 +763,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
-// fp32, d = 64 and 72: SIMT, one query row a thread.
+// fp32, d = 64 and 72, static max: SIMT, one query row a thread.
 
 constexpr int BK = 64;          // keys per shared-memory tile
 constexpr int THREADS = 128;    // 4 warps
 constexpr int BQ_F32 = THREADS; // query rows per block (1 per thread)
 
-template <int D, bool STATIC_MAX>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int H, int Lq, int Lk,
@@ -755,7 +795,6 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     qr[d] = r < Lq ? qb[r * rs + d] * qscale : 0.f;
     acc[d] = 0.f;
   }
-  float m = MASK_VALUE;
   float l = 0.f;
 
   for (int k0 = 0; k0 < Lk; k0 += BK) {
@@ -778,26 +817,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     const int nk = min(BK, Lk - k0);
-    if (!STATIC_MAX) {
-      float mt = MASK_VALUE;
-      for (int j = 0; j < nk; ++j) {
-        float s = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) s = fmaf(qr[d], Ks[j * D + d], s);
-        mt = fmaxf(mt, s);
-      }
-      const float m_new = fmaxf(m, mt);
-      const float alpha = exp2f(m - m_new);
-      m = m_new;
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
-    }
     for (int j = 0; j < nk; ++j) {
       float s = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) s = fmaf(qr[d], Ks[j * D + d], s);
-      const float p = STATIC_MAX ? exp2f(fminf(fmaxf(s, S_CLAMP_LO), S_CLAMP)) : exp2f(s - m);
+      const float p = exp2f(fminf(fmaxf(s, S_CLAMP_LO), S_CLAMP));
       l += p;
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] = fmaf(p, Vs[j * D + d], acc[d]);
@@ -990,7 +1014,7 @@ __device__ __forceinline__ void load_tile512(uint32_t dst, const CUtensorMap* ma
   }
 }
 
-template <bool STATIC_MAX>
+template <bool STATIC_MAX, bool EXP_BF16>
 __global__ void __launch_bounds__(X_THREADS, 1)
 flash_fwd_d512_bf16(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
@@ -1072,7 +1096,7 @@ flash_fwd_d512_bf16(const __grid_constant__ CUtensorMap q_map,
     fence_regs(s);
     exchange_s(s, xch, wg, j, tw);
     if (leader && j + 1 < nk) load_tile512(base + X_K, &k_map, full_k, h, (j + 1) * X_BK, b);
-    softmax<STATIC_MAX>(s, m, lp, alpha, j * X_BK, Lk, t);
+    softmax<STATIC_MAX, EXP_BF16>(s, m, lp, alpha, j * X_BK, Lk, t);
     if (!STATIC_MAX) {
 #pragma unroll
       for (int i = 0; i < 128; ++i) acc[i] *= alpha[(i >> 1) & 1];
@@ -1227,7 +1251,7 @@ __device__ __forceinline__ void store_row(float* ob, long rs, int q0, int Lq, in
   }
 }
 
-template <bool STATIC_MAX>
+template <bool STATIC_MAX, bool EXP_BF16>
 __global__ void __launch_bounds__(F_THREADS, 1)
 flash_fwd_d512_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ o, int H, int Lq, int Lk,
@@ -1364,7 +1388,7 @@ flash_fwd_d512_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int c = 0; c < F_SC; ++c) {
         const int key = sx + 16 * c;
         float pv = STATIC_MAX ? exp2f(fminf(fmaxf(s[r][c], S_CLAMP_LO), S_CLAMP))
-                              : exp2f(s[r][c] - mr);
+                              : exp_val<EXP_BF16>(exp2f(exp_arg<EXP_BF16>(s[r][c] - mr)));
         if (k0 + key >= Lk) pv = 0.f;
         lpart[r] += pv;
         PT[key * F_PROW + srow + 2 * r] = pv;
@@ -1439,14 +1463,26 @@ flash_fwd_d512_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < F_RB; ++r) store_row(ob, rs, q0, Lq, 32 + F_RB * oy + r, ocol, l_s, acc_b[r]);
 }
 
-template <bool STATIC_MAX>
+// The softmax forms each kernel is instantiated for: static max, running max,
+// and running max with VDPP_FLASH_EXP=bf16. Static max ignores the exponent
+// switch, as the reference does. f(std::bool_constant<STATIC_MAX>,
+// std::bool_constant<EXP_BF16>) launches one of them.
+template <typename F>
+cudaError_t by_softmax(int static_max, int exp_bf16, F&& f) {
+  if (static_max) return f(std::true_type{}, std::false_type{});
+  if (exp_bf16) return f(std::false_type{}, std::true_type{});
+  return f(std::false_type{}, std::false_type{});
+}
+
+template <bool STATIC_MAX, bool EXP_BF16>
 cudaError_t launch_d512_f32(const void* q, const void* k, const void* v, void* o, int bh, int H,
                             int Lq, int Lk, float qscale, cudaStream_t st) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_d512_f32<STATIC_MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
+  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_d512_f32<STATIC_MAX, EXP_BF16>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)F_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + F_BQ - 1) / F_BQ, bh);
-  flash_fwd_d512_f32<STATIC_MAX><<<grid, F_THREADS, F_SMEM, st>>>(
+  flash_fwd_d512_f32<STATIC_MAX, EXP_BF16><<<grid, F_THREADS, F_SMEM, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), H, Lq, Lk, qscale);
   return cudaGetLastError();
@@ -1454,17 +1490,12 @@ cudaError_t launch_d512_f32(const void* q, const void* k, const void* v, void* o
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int H,
-                       int Lq, int Lk, int static_max, float qscale, cudaStream_t st) {
+                       int Lq, int Lk, float qscale, cudaStream_t st) {
   const dim3 grid((Lq + BQ_F32 - 1) / BQ_F32, bh);
-  const auto* qp = static_cast<const float*>(q);
-  const auto* kp = static_cast<const float*>(k);
-  const auto* vp = static_cast<const float*>(v);
-  auto* op = static_cast<float*>(o);
-  if (static_max) {
-    flash_fwd_f32<D, true><<<grid, THREADS, 0, st>>>(qp, kp, vp, op, H, Lq, Lk, qscale);
-  } else {
-    flash_fwd_f32<D, false><<<grid, THREADS, 0, st>>>(qp, kp, vp, op, H, Lq, Lk, qscale);
-  }
+  flash_fwd_f32<D><<<grid, THREADS, 0, st>>>(static_cast<const float*>(q),
+                                             static_cast<const float*>(k),
+                                             static_cast<const float*>(v),
+                                             static_cast<float*>(o), H, Lq, Lk, qscale);
   return cudaGetLastError();
 }
 
@@ -1483,15 +1514,15 @@ bool tensor_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int D, 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool STATIC_MAX>
+template <int D, bool STATIC_MAX, bool EXP_BF16>
 cudaError_t launch_bf16(const CUtensorMap (&maps)[6], void* o, int bh, int H, int Lq, int Lk,
                         float qscale, cudaStream_t st) {
   constexpr int smem = WgLayout<D>::SMEM;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<D, STATIC_MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<D, STATIC_MAX, EXP_BF16>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + WG_BQ - 1) / WG_BQ, bh);
-  flash_fwd_bf16<D, STATIC_MAX><<<grid, WG_THREADS, smem, st>>>(
+  flash_fwd_bf16<D, STATIC_MAX, EXP_BF16><<<grid, WG_THREADS, smem, st>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], static_cast<__nv_bfloat16*>(o), H,
       Lq, Lk, qscale);
   return cudaGetLastError();
@@ -1499,7 +1530,8 @@ cudaError_t launch_bf16(const CUtensorMap (&maps)[6], void* o, int bh, int H, in
 
 template <int D>
 cudaError_t launch_d_bf16(const void* q, const void* k, const void* v, void* o, int batch, int H,
-                          int Lq, int Lk, int static_max, float qscale, cudaStream_t st) {
+                          int Lq, int Lk, int static_max, int exp_bf16, float qscale,
+                          cudaStream_t st) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   // q, k, v main boxes (columns 0-63), then their tails (columns 64-79, d = 72).
@@ -1520,24 +1552,27 @@ cudaError_t launch_d_bf16(const void* q, const void* k, const void* v, void* o, 
     }
   }
   const int bh = batch * H;
-  return static_max ? launch_bf16<D, true>(maps, o, bh, H, Lq, Lk, qscale, st)
-                    : launch_bf16<D, false>(maps, o, bh, H, Lq, Lk, qscale, st);
+  return by_softmax(static_max, exp_bf16, [&](auto sm, auto eb) {
+    return launch_bf16<D, decltype(sm)::value, decltype(eb)::value>(maps, o, bh, H, Lq, Lk,
+                                                                     qscale, st);
+  });
 }
 
-template <bool STATIC_MAX>
+template <bool STATIC_MAX, bool EXP_BF16>
 cudaError_t launch_d512_bf16_maps(const CUtensorMap (&maps)[3], void* o, int bh, int H, int Lq,
                                   int Lk, float qscale, cudaStream_t st) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_d512_bf16<STATIC_MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, X_SMEM);
+  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_d512_bf16<STATIC_MAX, EXP_BF16>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               X_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + X_BQ - 1) / X_BQ, bh);
-  flash_fwd_d512_bf16<STATIC_MAX><<<grid, X_THREADS, X_SMEM, st>>>(
+  flash_fwd_d512_bf16<STATIC_MAX, EXP_BF16><<<grid, X_THREADS, X_SMEM, st>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), H, Lq, Lk, qscale);
   return cudaGetLastError();
 }
 
 cudaError_t launch_d512_bf16(const void* q, const void* k, const void* v, void* o, int batch,
-                             int H, int Lq, int Lk, int static_max, float qscale,
+                             int H, int Lq, int Lk, int static_max, int exp_bf16, float qscale,
                              cudaStream_t st) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
@@ -1552,49 +1587,259 @@ cudaError_t launch_d512_bf16(const void* q, const void* k, const void* v, void* 
     }
   }
   const int bh = batch * H;
-  return static_max ? launch_d512_bf16_maps<true>(maps, o, bh, H, Lq, Lk, qscale, st)
-                    : launch_d512_bf16_maps<false>(maps, o, bh, H, Lq, Lk, qscale, st);
+  return by_softmax(static_max, exp_bf16, [&](auto sm, auto eb) {
+    return launch_d512_bf16_maps<decltype(sm)::value, decltype(eb)::value>(maps, o, bh, H, Lq, Lk,
+                                                                           qscale, st);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// Any other head dim d <= 512, bf16 or fp32, and fp32 running max at d = 64
+// and 72: flash_fwd_any<T, DPL, STATIC_MAX, EXP_BF16>, SIMT. (The design is
+// in the note at the top of the file.)
+
+constexpr int ANY_R = 4;                    // query rows a warp
+constexpr int ANY_WARPS = 4;                // warps a CTA
+constexpr int ANY_BQ = ANY_R * ANY_WARPS;   // query rows a CTA
+constexpr int ANY_BK = 32;                  // keys a tile: one a lane for S
+constexpr int ANY_THREADS = 32 * ANY_WARPS;
+constexpr int ANY_MAX_D = 512;
+
+// Row pitch of a staged K tile, in floats: odd, so that the 32 lanes' rows
+// start in 32 distinct banks.
+__host__ __device__ constexpr int any_kpitch(int d) { return d | 1; }
+
+// Dynamic shared memory of a CTA at head dim d: Q' (ANY_BQ rows), a K tile
+// (padded rows) and a V tile, all fp32.
+__host__ __device__ constexpr int any_smem(int d) {
+  return (int)sizeof(float) * (ANY_BQ * d + ANY_BK * any_kpitch(d) + ANY_BK * d);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f32(float x, float* out) { *out = x; }
+__device__ __forceinline__ void from_f32(float x, __nv_bfloat16* out) {
+  *out = __float2bfloat16_rn(x);
+}
+// x rounded to T's precision, as an fp32 value.
+template <typename T>
+__device__ __forceinline__ float in_dtype(float x) {
+  return std::is_same<T, float>::value ? x : round_bf16(x);
+}
+
+template <typename T, int DPL, bool STATIC_MAX, bool EXP_BF16>
+__global__ void __launch_bounds__(ANY_THREADS)
+flash_fwd_any(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              T* __restrict__ o, int H, int D, int Lq, int Lk, float qscale) {
+  extern __shared__ __align__(16) float any_smem_f[];
+  const int kp = any_kpitch(D);
+  float* Qs = any_smem_f;          // ANY_BQ x D: q' = q * qscale rounded to T
+  float* Ks = Qs + ANY_BQ * D;     // ANY_BK x kp
+  float* Vs = Ks + ANY_BK * kp;    // ANY_BK x D
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const long rs = (long)H * D;
+  const T* qb = q + ((long)b * Lq * H + h) * D;
+  const T* kb = k + ((long)b * Lk * H + h) * D;
+  const T* vb = v + ((long)b * Lk * H + h) * D;
+  T* ob = o + ((long)b * Lq * H + h) * D;
+  const int q0 = blockIdx.x * ANY_BQ;
+
+  for (int i = tid; i < ANY_BQ * D; i += ANY_THREADS) {
+    const int r = i / D;
+    const int c = i - r * D;
+    Qs[i] = q0 + r < Lq ? in_dtype<T>(to_f32(qb[(q0 + r) * rs + c]) * qscale) : 0.f;
+  }
+  const float* qw = Qs + warp * ANY_R * D;  // this warp's rows
+
+  float acc[ANY_R][DPL];  // O(row, lane + 32 i)
+  float m[ANY_R];
+  float l[ANY_R];         // this lane's share of the row's l
+#pragma unroll
+  for (int r = 0; r < ANY_R; ++r) {
+    m[r] = MASK_VALUE;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < Lk; k0 += ANY_BK) {
+    __syncthreads();  // the last tile has been read (and Q' staged, the first time)
+    for (int i = tid; i < ANY_BK * D; i += ANY_THREADS) {
+      const int j = i / D;
+      const int c = i - j * D;
+      const bool in = k0 + j < Lk;
+      Ks[j * kp + c] = in ? to_f32(kb[(k0 + j) * rs + c]) : 0.f;
+      Vs[i] = in ? to_f32(vb[(k0 + j) * rs + c]) : 0.f;
+    }
+    __syncthreads();
+
+    // S: lane j scores key k0 + j against the warp's rows.
+    float s[ANY_R];
+#pragma unroll
+    for (int r = 0; r < ANY_R; ++r) s[r] = 0.f;
+    const float* kr = Ks + lane * kp;
+    for (int c = 0; c < D; ++c) {
+      const float kc = kr[c];
+#pragma unroll
+      for (int r = 0; r < ANY_R; ++r) s[r] = fmaf(qw[r * D + c], kc, s[r]);
+    }
+    const bool live = k0 + lane < Lk;
+
+    // P, rounded to T, and l from the rounded values; running max: the
+    // tile's max over the lanes, O and l rescaled.
+    float p[ANY_R];
+#pragma unroll
+    for (int r = 0; r < ANY_R; ++r) {
+      float e;
+      if (STATIC_MAX) {
+        e = exp2f(fminf(fmaxf(s[r], S_CLAMP_LO), S_CLAMP));
+      } else {
+        float mt = live ? s[r] : MASK_VALUE;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+        }
+        const float m_new = fmaxf(m[r], mt);
+        const float alpha = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha;
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
+        e = exp_val<EXP_BF16>(exp2f(exp_arg<EXP_BF16>(s[r] - m_new)));
+      }
+      p[r] = live ? in_dtype<T>(e) : 0.f;
+      l[r] += p[r];
+    }
+
+    // O += P V: key j's p from lane j, V's row j from shared memory.
+    const int nk = min(ANY_BK, Lk - k0);
+    for (int j = 0; j < nk; ++j) {
+      float pj[ANY_R];
+#pragma unroll
+      for (int r = 0; r < ANY_R; ++r) pj[r] = __shfl_sync(0xffffffffu, p[r], j);
+      const float* vr = Vs + j * D;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int c = lane + 32 * i;
+        const float vc = c < D ? vr[c] : 0.f;
+#pragma unroll
+        for (int r = 0; r < ANY_R; ++r) acc[r][i] = fmaf(pj[r], vc, acc[r][i]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < ANY_R; ++r) {
+    float lr = l[r];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) lr += __shfl_xor_sync(0xffffffffu, lr, off);
+    const float inv = lr == 0.f ? 1.f : 1.f / lr;
+    const int row = q0 + warp * ANY_R + r;
+    if (row < Lq) {
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int c = lane + 32 * i;
+        if (c < D) from_f32(acc[r][i] * inv, ob + row * rs + c);
+      }
+    }
+  }
+}
+
+template <typename T, int DPL>
+cudaError_t launch_any_dpl(const void* q, const void* k, const void* v, void* o, int bh, int H,
+                           int D, int Lq, int Lk, int static_max, int exp_bf16, float qscale,
+                           cudaStream_t st) {
+  const int smem = any_smem(D);
+  const dim3 grid((Lq + ANY_BQ - 1) / ANY_BQ, bh);
+  return by_softmax(static_max, exp_bf16, [&](auto sm, auto eb) {
+    const auto kernel = flash_fwd_any<T, DPL, decltype(sm)::value, decltype(eb)::value>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, ANY_THREADS, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                            static_cast<const T*>(v), static_cast<T*>(o), H, D,
+                                            Lq, Lk, qscale);
+    return cudaGetLastError();
+  });
+}
+
+// DPL, the columns of O a lane holds: ceil(d / 32) rounded up to a power of two.
+template <typename T>
+cudaError_t launch_any(const void* q, const void* k, const void* v, void* o, int bh, int H, int D,
+                       int Lq, int Lk, int static_max, int exp_bf16, float qscale,
+                       cudaStream_t st) {
+  const auto go = [&](auto dpl) {
+    return launch_any_dpl<T, decltype(dpl)::value>(q, k, v, o, bh, H, D, Lq, Lk, static_max,
+                                                   exp_bf16, qscale, st);
+  };
+  if (D <= 32) return go(std::integral_constant<int, 1>{});
+  if (D <= 64) return go(std::integral_constant<int, 2>{});
+  if (D <= 128) return go(std::integral_constant<int, 4>{});
+  if (D <= 256) return go(std::integral_constant<int, 8>{});
+  return go(std::integral_constant<int, 16>{});
 }
 
 }  // namespace
 
 // q, o: (batch, lq, heads, head_dim); k, v: (batch, lk, heads, head_dim); all
-// contiguous and 16-byte aligned, all bf16 (is_bf16 = 1) or all fp32; head_dim
-// 64, 72 or 512. qscale = log2(e) / sqrt(head_dim).
+// contiguous and 16-byte aligned, all bf16 (is_bf16 = 1) or all fp32; any
+// head_dim from 1 to 512. static_max selects static max; otherwise exp_bf16
+// rounds s - m to bf16 before exp2 (VDPP_FLASH_EXP=bf16). qscale =
+// log2(e) / sqrt(head_dim).
 extern "C" int vdpp_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                         int is_bf16, int batch, int heads, int lq, int lk,
-                                        int head_dim, int static_max, float qscale,
+                                        int head_dim, int static_max, int exp_bf16, float qscale,
                                         void* stream) {
-  if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0 || (long)batch * heads > 65535) {
+  if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0 || (long)batch * heads > 65535 ||
+      head_dim <= 0 || head_dim > ANY_MAX_D) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
   if (head_dim == X_D) {
     if (is_bf16) {
-      return (int)launch_d512_bf16(q, k, v, o, batch, heads, lq, lk, static_max, qscale, st);
+      return (int)launch_d512_bf16(q, k, v, o, batch, heads, lq, lk, static_max, exp_bf16, qscale,
+                                   st);
     }
-    return (int)(static_max ? launch_d512_f32<true>(q, k, v, o, bh, heads, lq, lk, qscale, st)
-                            : launch_d512_f32<false>(q, k, v, o, bh, heads, lq, lk, qscale, st));
+    return (int)by_softmax(static_max, exp_bf16, [&](auto sm, auto eb) {
+      return launch_d512_f32<decltype(sm)::value, decltype(eb)::value>(q, k, v, o, bh, heads, lq,
+                                                                       lk, qscale, st);
+    });
   }
-  if (head_dim == 64) {
-    return (int)(is_bf16 ? launch_d_bf16<64>(q, k, v, o, batch, heads, lq, lk, static_max, qscale,
-                                             st)
-                         : launch_f32<64>(q, k, v, o, bh, heads, lq, lk, static_max, qscale, st));
+  if (is_bf16 && head_dim == 64) {
+    return (int)launch_d_bf16<64>(q, k, v, o, batch, heads, lq, lk, static_max, exp_bf16, qscale,
+                                  st);
   }
-  if (head_dim == 72) {
-    return (int)(is_bf16 ? launch_d_bf16<72>(q, k, v, o, batch, heads, lq, lk, static_max, qscale,
-                                             st)
-                         : launch_f32<72>(q, k, v, o, bh, heads, lq, lk, static_max, qscale, st));
+  if (is_bf16 && head_dim == 72) {
+    return (int)launch_d_bf16<72>(q, k, v, o, batch, heads, lq, lk, static_max, exp_bf16, qscale,
+                                  st);
   }
-  return (int)cudaErrorInvalidValue;
+  if (static_max && head_dim == 64) {
+    return (int)launch_f32<64>(q, k, v, o, bh, heads, lq, lk, qscale, st);
+  }
+  if (static_max && head_dim == 72) {
+    return (int)launch_f32<72>(q, k, v, o, bh, heads, lq, lk, qscale, st);
+  }
+  return (int)(is_bf16 ? launch_any<__nv_bfloat16>(q, k, v, o, bh, heads, head_dim, lq, lk,
+                                                   static_max, exp_bf16, qscale, st)
+                       : launch_any<float>(q, k, v, o, bh, heads, head_dim, lq, lk, static_max,
+                                           exp_bf16, qscale, st));
 }
 
 // Dynamic shared memory of one CTA of the kernel that takes head_dim in bf16
-// (is_bf16 = 1) or fp32, for reports: 0 for the fp32 kernel at d = 64/72,
-// which has only static shared memory, and for head dims no kernel takes.
+// (is_bf16 = 1) or fp32, for reports: 0 for the fp32 kernel at d = 64/72
+// (static max), which has only static shared memory.
 extern "C" int vdpp_flash_attention_smem(int head_dim, int is_bf16) {
   if (head_dim == X_D) return is_bf16 ? X_SMEM : (int)F_SMEM;
-  if (!is_bf16) return 0;
-  return head_dim == 64 ? WgLayout<64>::SMEM : head_dim == 72 ? WgLayout<72>::SMEM : 0;
+  if (head_dim == 64 || head_dim == 72) {
+    if (!is_bf16) return 0;
+    return head_dim == 64 ? WgLayout<64>::SMEM : WgLayout<72>::SMEM;
+  }
+  return head_dim > 0 && head_dim <= ANY_MAX_D ? any_smem(head_dim) : 0;
 }

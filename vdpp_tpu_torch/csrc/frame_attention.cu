@@ -68,6 +68,19 @@
 // outputs in registers, and reads the k and v rows as broadcasts. The output
 // goes back through shared memory so the stores are whole rows.
 //
+// Any other head dim or frame count (the tiny UNet's and DiT's d = 16, F > 32;
+// the reference pads only L and takes any d and F), bf16 and fp32:
+// frame_attn_any<T>, a simple SIMT kernel (making it fast is later work). A
+// warp per item, lane c holding columns c, c + 32, ... of d. The item's F rows
+// of q, k and v are staged in the warp's shared memory when four warps' worth
+// fits a CTA, else read where they lie. For each query frame f, two passes over
+// the key frames, as the reference's kernel makes them: pass 1 takes s_g =
+// (q_f / sqrt(d)) . k_g in fp32 (each lane's columns, then the warp's sum by
+// a butterfly of shuffles, so every lane holds the same bits), keeps it in the
+// warp's F scores in shared memory and takes the max; pass 2 sums p = exp(s_g
+// - max) into the denominator and p v_g into O, in blocks of 256 columns, and
+// stores O / denom rounded once. Only the scores must fit: F up to 14,524.
+//
 // C interface (bound with ctypes, see
 // vdpp_tpu_torch/ops/temporal_attention_kernel.py): returns a cudaError_t
 // after the launch, launches on the given stream, allocates nothing and does
@@ -82,7 +95,8 @@
 
 namespace {
 
-constexpr int FMAX = 32;  // frames
+constexpr int FMAX = 32;  // frames of the d = 64/72 kernels
+constexpr int ANY_MAX_SMEM = 232448;  // dynamic shared memory a CTA may have
 
 // ---------------------------------------------------------------------------
 // bf16: TMA ring + mma.sync.
@@ -602,6 +616,129 @@ int launch(const void* q, const void* k, const void* v, void* o, long items, int
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Any other head dim or frame count, bf16 or fp32: frame_attn_any<T>, SIMT, a
+// warp per item. (The design is in the note at the top of the file.)
+
+constexpr int ANY_WARPS = 4;  // items a CTA, one a warp
+constexpr int ANY_COLS = 8;   // columns of O a lane holds in one pass: 256 a warp
+
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Shared memory of a warp, in bytes: the F scores (rounded up to 16 bytes),
+// then, staged, the item's q, k and v rows (3 F D elements); the whole rounded
+// up to 16 bytes, so that every warp's scores start 16-byte aligned (a bf16
+// item with F D odd stages 6 F D = 2 mod 4 bytes).
+template <typename T>
+__host__ __device__ constexpr size_t any_scores_bytes(int F) {
+  return ((size_t)F * sizeof(float) + 15) / 16 * 16;
+}
+template <typename T>
+__host__ __device__ constexpr size_t any_warp_smem(int F, int D, bool staged) {
+  return (any_scores_bytes<T>(F) + (staged ? 3 * (size_t)F * D * sizeof(T) : 0) + 15) / 16 * 16;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ANY_WARPS * 32)
+frame_attn_any(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               T* __restrict__ o, long items, int F, int L, int H, int D, float scale,
+               int staged) {
+  extern __shared__ __align__(16) unsigned char any_raw[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long item = (long)blockIdx.x * ANY_WARPS + warp;
+  if (item >= items) return;  // whole warps only: no block-wide barrier below
+
+  unsigned char* mine = any_raw + warp * any_warp_smem<T>(F, D, staged != 0);
+  float* sc = reinterpret_cast<float*>(mine);
+  const long lh = (long)L * H;
+  const long b = item / lh;
+  const long rem = item - b * lh;  // = l * H + h
+  const long base = (b * F * lh + rem) * D;
+  const long fstride = lh * D;
+  const T* qr = q + base;  // row f of the item at qr + f * rows
+  const T* kr = k + base;
+  const T* vr = v + base;
+  long rows = fstride;
+  if (staged) {
+    T* st = reinterpret_cast<T*>(mine + any_scores_bytes<T>(F));
+    for (long i = lane; i < (long)F * D; i += 32) {
+      const long f = i / D;
+      const long c = i - f * D;
+      st[i] = q[base + f * fstride + c];
+      st[(long)F * D + i] = k[base + f * fstride + c];
+      st[2 * (long)F * D + i] = v[base + f * fstride + c];
+    }
+    __syncwarp();
+    qr = st;
+    kr = st + (long)F * D;
+    vr = st + 2 * (long)F * D;
+    rows = D;
+  }
+
+  for (int f = 0; f < F; ++f) {
+    // Pass 1: s_g = (q_f / sqrt(d)) . k_g in fp32, each lane's columns then
+    // the warp's sum (a butterfly: every lane gets the same bits), and the max.
+    const T* qf = qr + f * rows;
+    float m = -CUDART_INF_F;
+    for (int g = 0; g < F; ++g) {
+      const T* kg = kr + g * rows;
+      float a = 0.f;
+      for (int c = lane; c < D; c += 32) a = fmaf(to_f(qf[c]) * scale, to_f(kg[c]), a);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+      if (lane == 0) sc[g] = a;
+      m = fmaxf(m, a);
+    }
+    __syncwarp();
+    // Pass 2, over blocks of 32 * ANY_COLS columns: p = exp(s_g - max), the
+    // denominator, O += p v_g, all fp32; out = O / denom, rounded once.
+    for (int c0 = 0; c0 < D; c0 += 32 * ANY_COLS) {
+      float acc[ANY_COLS];
+#pragma unroll
+      for (int i = 0; i < ANY_COLS; ++i) acc[i] = 0.f;
+      float denom = 0.f;
+      for (int g = 0; g < F; ++g) {
+        const float p = expf(sc[g] - m);
+        denom += p;
+        const T* vg = vr + g * rows;
+#pragma unroll
+        for (int i = 0; i < ANY_COLS; ++i) {
+          const int c = c0 + lane + 32 * i;
+          if (c < D) acc[i] = fmaf(p, to_f(vg[c]), acc[i]);
+        }
+      }
+      T* of = o + base + f * fstride;
+#pragma unroll
+      for (int i = 0; i < ANY_COLS; ++i) {
+        const int c = c0 + lane + 32 * i;
+        if (c < D) of[c] = from_f<T>(acc[i] / denom);
+      }
+    }
+    __syncwarp();  // the scores are read before the next query frame's pass 1
+  }
+}
+
+template <typename T>
+int launch_any(const void* q, const void* k, const void* v, void* o, long items, int F, int L,
+               int H, int D, float scale, cudaStream_t st) {
+  // Stage the items' rows when four warps' worth fits an SM's shared memory.
+  int staged = ANY_WARPS * any_warp_smem<T>(F, D, true) <= (size_t)ANY_MAX_SMEM;
+  const size_t smem = ANY_WARPS * any_warp_smem<T>(F, D, staged != 0);
+  if (smem > (size_t)ANY_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      frame_attn_any<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (items + ANY_WARPS - 1) / ANY_WARPS;
+  frame_attn_any<T><<<(unsigned)blocks, ANY_WARPS * 32, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), items, F, L, H, D, scale, staged);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Dynamic shared memory of a bf16 CTA at head_dim 64 or 72 (0 otherwise).
@@ -610,22 +747,33 @@ extern "C" int vdpp_frame_attention_smem(int head_dim) {
 }
 
 // q, k, v, o: (batch, frames, L, heads, head_dim) contiguous, 16-byte aligned,
-// all bf16 (is_bf16 = 1) or all fp32; head_dim 64 or 72, 1 <= frames <= 32.
-// scale = 1 / sqrt(head_dim).
+// all bf16 (is_bf16 = 1) or all fp32; any head_dim and frame count whose
+// scores fit shared memory. scale = 1 / sqrt(head_dim).
 extern "C" int vdpp_frame_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                         int is_bf16, int batch, int frames, int L, int heads,
                                         int head_dim, float scale, void* stream) {
   const long lh = (long)L * heads;
   const long items = lh * batch;
-  if ((head_dim != 64 && head_dim != 72) || frames < 1 || frames > FMAX || batch <= 0 ||
-      L <= 0 || heads <= 0 || lh > 0x7fffffffL || (items + WARPS - 1) / WARPS > 0x7fffffffL) {
+  if (head_dim < 1 || frames < 1 || batch <= 0 || L <= 0 || heads <= 0 || lh > 0x7fffffffL ||
+      (items + WARPS - 1) / WARPS > 0x7fffffffL) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if ((head_dim != 64 && head_dim != 72) || frames > FMAX) {
+    return is_bf16 ? launch_any<__nv_bfloat16>(q, k, v, o, items, frames, L, heads, head_dim,
+                                               scale, st)
+                   : launch_any<float>(q, k, v, o, items, frames, L, heads, head_dim, scale, st);
+  }
   if (is_bf16) {
     return head_dim == 72 ? launch_bf16<72>(q, k, v, o, batch, frames, lh, scale, st)
                           : launch_bf16<64>(q, k, v, o, batch, frames, lh, scale, st);
   }
   return head_dim == 72 ? launch<float, 72>(q, k, v, o, items, frames, L, heads, scale, st)
                         : launch<float, 64>(q, k, v, o, items, frames, L, heads, scale, st);
+}
+
+// The largest frame count the kernels take (the generic kernel's scores must
+// fit one CTA's shared memory), for the wrapper's check.
+extern "C" int vdpp_frame_attention_max_frames() {
+  return (int)(ANY_MAX_SMEM / ANY_WARPS / sizeof(float)) - 4;
 }

@@ -14,6 +14,7 @@ accumulation.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -173,6 +174,8 @@ class STResBlock(nn.Module):
         """x: (B*F, H, W, C) -> same."""
         bf, hh, ww, _ = x.shape
         hs = self.spatial_res_block(x, emb)
+        if os.environ.get("VDPP_ABLATE_TEMPORAL_RESNET") == "1":  # profiling only
+            return hs
         c = hs.shape[-1]
         hs = hs.reshape(batch, frames, hh, ww, c)
         ht = self.temporal_res_block(hs, emb.reshape(batch, frames, -1))
@@ -263,10 +266,12 @@ class STTransformer(nn.Module):
 
         # Temporal cross-attention context: the first frame's embedding per batch element.
         time_ctx = ctx.reshape(batch, frames, *ctx.shape[1:])[:, 0]  # (B, 1, D)
+        ablate_temporal = os.environ.get("VDPP_ABLATE_TEMPORAL") == "1"  # profiling only
         for sp, tp in zip(self.transformer_blocks, self.temporal_transformer_blocks):
             h = sp(h, ctx, heads)
-            h_mix = tp(h + f_emb, time_ctx, heads, batch, frames)
-            h = self.time_mixer.blend(h, h_mix)
+            if not ablate_temporal:
+                h_mix = tp(h + f_emb, time_ctx, heads, batch, frames)
+                h = self.time_mixer.blend(h, h_mix)
         h = self.proj_out(h)
         return h.reshape(bf, hh, ww, c) + x
 

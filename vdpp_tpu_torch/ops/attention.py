@@ -5,14 +5,30 @@ Three regimes, chosen on shapes as in the reference:
 
 * one key (SVD's CLIP-image cross-attention): softmax over one key is 1, so
   the output is ``to_out(to_v(ctx))`` broadcast over the queries -- exact;
-* self-attention with L >= 512: the flash kernel
-  (:mod:`vdpp_tpu_torch.ops.flash_attention`), unless the caller passes
-  ``use_flash=False``;
+* self-attention with L >= ``VDPP_FLASH_MIN_L`` (default 512): the flash
+  kernel (:mod:`vdpp_tpu_torch.ops.flash_attention`), unless the caller
+  passes ``use_flash=False``;
 * otherwise plain dot-product attention with an fp32 softmax.
 
 ``temporal_self_attention`` attends over the frame axis; with
 ``VDPP_TEMPORAL_ATTN=pallas`` it takes the frame-attention kernel
 (:mod:`vdpp_tpu_torch.ops.temporal_attention_kernel`).
+
+The reference's routing switches, each read at call time as there:
+
+* ``VDPP_ATTN_IMPL`` for the long self-attention sites: ``pallas`` (default)
+  and ``splash`` take the flash kernel (the reference's splash is JAX's
+  library kernel, which the port maps onto its own); ``xla`` and ``naive``
+  are plain attention in the reference (XLA's attention, the materialized
+  scores), so :func:`sdpa_plain` on every device here; ``identity`` skips the
+  attention core (profiling only);
+* ``VDPP_FLASH_MIN_L``: the length from which self-attention takes that route;
+* ``VDPP_FUSE_QKV=1``: self-attention's three projections as one product
+  with the concatenated weight (the same contractions);
+* ``VDPP_TEMPORAL_ATTN``: ``vpu`` (default), ``pallas``, ``transpose`` or
+  ``einsum``, the reference's four forms of frame attention;
+* ``VDPP_ABLATE_TEMPORAL_ATTN=1``: the temporal block's attention core
+  skipped (``to_out(v)``; profiling only).
 
 Layouts follow the reference: ``(B, L, C)`` activations, ``(B, L, H, D)``
 heads.
@@ -27,18 +43,10 @@ import torch
 from torch import nn
 
 from vdpp_tpu_torch.ops.flash_attention import flash_attention
-from vdpp_tpu_torch.ops.linear import Linear
+from vdpp_tpu_torch.ops.linear import Linear, linear
 from vdpp_tpu_torch.ops.temporal_attention_kernel import frame_attention
 
-FLASH_MIN_Q_LEN = 512
-
-
-def _check_attn_impl() -> None:
-    """``VDPP_ATTN_IMPL``: "pallas" (default) and "splash" both take the
-    port's flash kernel; nothing else is ported."""
-    impl = os.environ.get("VDPP_ATTN_IMPL", "pallas")
-    if impl not in ("pallas", "splash"):
-        raise NotImplementedError(f"VDPP_ATTN_IMPL={impl!r} is not ported")
+FLASH_MIN_Q_LEN = 512  # unless VDPP_FLASH_MIN_L says otherwise
 
 
 class Attention(nn.Module):
@@ -65,6 +73,18 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def _self_qkv(x: torch.Tensor, p: Attention) -> tuple[torch.Tensor, ...]:
+    """``(q, k, v)`` of self-attention over ``x``: under ``VDPP_FUSE_QKV=1``
+    from one product with the three weights (and biases) concatenated, as
+    the reference's ``_qkv_fused``, when all three have a bias or none has."""
+    biases = {proj.bias is None for proj in (p.to_q, p.to_k, p.to_v)}
+    if os.environ.get("VDPP_FUSE_QKV", "0") == "1" and len(biases) == 1:
+        w = torch.cat([p.to_q.weight, p.to_k.weight, p.to_v.weight])
+        b = None if p.to_q.bias is None else torch.cat([p.to_q.bias, p.to_k.bias, p.to_v.bias])
+        return linear(x, w, b).chunk(3, dim=-1)
+    return p.to_q(x), p.to_k(x), p.to_v(x)
+
+
 def attention(
     x: torch.Tensor,
     p: Attention,
@@ -85,12 +105,21 @@ def attention(
         # broadcasting identical rows).
         out = p.to_out[0](p.to_v(ctx))  # (B, 1, C)
         return out.expand(b, l, c)
-    q = p.to_q(x).reshape(b, l, heads, d)
-    k = p.to_k(ctx).reshape(b, m, heads, d)
-    v = p.to_v(ctx).reshape(b, m, heads, d)
-    if use_flash and context is None and l >= FLASH_MIN_Q_LEN:
-        _check_attn_impl()
-        out = flash_attention(q, k, v)
+    if context is None:
+        q, k, v = (t.reshape(b, l, heads, d) for t in _self_qkv(x, p))
+    else:
+        q = p.to_q(x).reshape(b, l, heads, d)
+        k = p.to_k(ctx).reshape(b, m, heads, d)
+        v = p.to_v(ctx).reshape(b, m, heads, d)
+    impl = os.environ.get("VDPP_ATTN_IMPL", "pallas")
+    min_l = int(os.environ.get("VDPP_FLASH_MIN_L", FLASH_MIN_Q_LEN))
+    if use_flash and context is None and l >= min_l and impl != "naive":
+        if impl == "identity":  # profiling only: the projections without the core
+            out = v
+        elif impl == "xla":
+            out = sdpa_plain(q, k, v)
+        else:
+            out = flash_attention(q, k, v)
     else:
         out = sdpa_plain(q, k, v)
     return p.to_out[0](out.reshape(b, l, c))
@@ -103,33 +132,36 @@ def temporal_self_attention(
 
     ``VDPP_TEMPORAL_ATTN`` is read at call time, as in the reference:
 
-    * ``vpu`` (default): fp32 logits over (frame, key-frame) pairs at each
-      location and head, fp32 softmax over the key frames, fp32 weighted sum
-      of fp32 values, cast back at the end. The reference writes the
-      contraction as a broadcast-multiply-reduce that XLA fuses; written
-      literally in eager PyTorch it would build a ``(B, F, F, L, H, D)`` fp32
-      tensor (7.4 GB at the SVD-XT level-0 site), so here it is the same fp32
-      contraction as batched matmuls over ``(B, L, H)``;
+    * ``vpu`` (default, and any value the reference does not name): fp32
+      logits over (frame, key-frame) pairs at each location and head, fp32
+      softmax over the key frames, fp32 weighted sum of fp32 values, cast
+      back at the end. The reference writes the contraction as a
+      broadcast-multiply-reduce that XLA fuses; written literally in eager
+      PyTorch it would build a ``(B, F, F, L, H, D)`` fp32 tensor (7.4 GB at
+      the SVD-XT level-0 site), so here it is the same fp32 contraction as
+      batched matmuls over ``(B, L, H)``;
     * ``pallas``: the frame-attention kernel on the ``(B, F, L, H, D)``
-      projections as they are.
+      projections as they are;
+    * ``transpose`` and ``einsum``: fp32 logits and softmax, the weights
+      rounded to the values' dtype before the fp32-accumulated product. The
+      reference lays the same arithmetic out two ways (a copy to
+      ``(B*L, H, F, D)``, or batched products in place) for XLA's sake; here
+      it is one form, as batched matmuls over ``(B, L, H)``.
     """
-    impl = os.environ.get("VDPP_TEMPORAL_ATTN", "vpu")
-    if impl not in ("vpu", "pallas"):
-        raise NotImplementedError(f"VDPP_TEMPORAL_ATTN={impl!r} is not ported")
     bf, l, c = x.shape
     d = c // heads
+    q, k, v = (t.reshape(batch, frames, l, heads, d) for t in _self_qkv(x, p))
+    if os.environ.get("VDPP_ABLATE_TEMPORAL_ATTN") == "1":  # profiling only
+        return p.to_out[0](v.reshape(bf, l, c))
+    impl = os.environ.get("VDPP_TEMPORAL_ATTN", "vpu")
+    scale = 1.0 / math.sqrt(d)
     if impl == "pallas":
-        q, k, v = (proj(x).reshape(batch, frames, l, heads, d) for proj in (p.to_q, p.to_k, p.to_v))
-        return p.to_out[0](frame_attention(q, k, v).reshape(bf, l, c))
-
-    def frames_last(t: torch.Tensor) -> torch.Tensor:  # -> (B, L, H, F, D) fp32
-        return t.reshape(batch, frames, l, heads, d).permute(0, 2, 3, 1, 4).float()
-
-    q = frames_last(p.to_q(x))
-    k = frames_last(p.to_k(x))
-    v = frames_last(p.to_v(x))
-    logits = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(d))  # (B, L, H, F, G)
-    w = torch.softmax(logits, dim=-1)
-    out = torch.matmul(w, v)  # (B, L, H, F, D)
-    out = out.permute(0, 3, 1, 2, 4).to(x.dtype).reshape(bf, l, c)
-    return p.to_out[0](out)
+        out = frame_attention(q, k, v)
+    else:
+        # (B, L, H, F, D) views; the products batch over (B, L, H).
+        qf, kf, vf = (t.permute(0, 2, 3, 1, 4).float() for t in (q, k, v))
+        w = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+        if impl in ("transpose", "einsum"):
+            w = w.to(v.dtype).float()
+        out = torch.matmul(w, vf).to(x.dtype).permute(0, 3, 1, 2, 4)  # (B, F, L, H, D)
+    return p.to_out[0](out.reshape(bf, l, c))

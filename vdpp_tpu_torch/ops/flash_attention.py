@@ -7,16 +7,20 @@ Same arithmetic as the reference: q pre-scaled by log2(e)/sqrt(d) and rounded
 back to its dtype, base-2 softmax, static-max mode (log2-logits clipped to
 [-100, 100], no running max) by default or the classic running max, P rounded
 to the input dtype before P.V, l summed from those rounded values, fp32
-accumulation and ``l == 0 -> 1``.
+accumulation and ``l == 0 -> 1``. ``VDPP_FLASH_EXP=bf16`` (running max only,
+as in the reference) rounds s - m to bf16 before exp2 and the exponential to
+bf16 after it.
 
 Two implementations of that arithmetic live here:
 
-* the CUDA kernel ``vdpp_tpu_torch/csrc/flash_attention.cu`` (head dims 64,
-  the SVD UNet's, and 72, DiT-XL's: bf16 on the tensor cores through wgmma
-  with TMA loads, fp32 on the SIMT cores; head dim 512, the VAE decoder's
-  mid-block: bf16 on wgmma with the head dim split over two warpgroups, fp32
-  on a register-tiled SIMT kernel), which :func:`flash_attention` launches
-  for a CUDA tensor;
+* the CUDA kernels of ``vdpp_tpu_torch/csrc/flash_attention.cu`` (head dims
+  64, the SVD UNet's, and 72, DiT-XL's: bf16 on the tensor cores through
+  wgmma with TMA loads, fp32 static max on the SIMT cores; head dim 512,
+  the VAE decoder's mid-block: bf16 on wgmma with the head dim split over
+  two warpgroups, fp32 on a register-tiled SIMT kernel; every other head dim
+  up to 512, such as the tiny configs' 16, and fp32 running max at 64 and
+  72, on a simple SIMT kernel), which
+  :func:`flash_attention` launches for a CUDA tensor;
 * :func:`flash_attention_plain`, plain PyTorch that processes the queries in
   chunks, which :func:`flash_attention` runs for a CPU tensor and which the
   tests and ``chip_smoke.py`` hold the kernel against.
@@ -39,20 +43,18 @@ from vdpp_tpu_torch.utils import kernels
 LOG2E = math.log2(math.e)
 S_CLAMP = 100.0
 S_CLAMP_LO = -100.0
-# Head dims the CUDA kernel takes, with the dtypes it takes them in.
-KERNEL_HEAD_DIMS = {
-    64: (torch.bfloat16, torch.float32),
-    72: (torch.bfloat16, torch.float32),
-    512: (torch.bfloat16, torch.float32),
-}
+# The largest head dim the CUDA kernels take (bf16 or fp32).
+MAX_HEAD_DIM = 512
 # fp32 scores the plain version holds at once (query chunk x all keys x B*H).
 _PLAIN_SCORE_ELEMS = 1 << 26
 
 # Kernel launches by head dim since the count was last cleared (chip_smoke.py
 # reads it to show that the models' attention went through the kernel; a path
 # such as the image->video app runs several head dims); ``launches.total()``
-# is the count over all of them.
+# is the count over all of them. ``exp_bf16_launches`` counts, by head dim
+# too, the launches among them that ran the VDPP_FLASH_EXP=bf16 form.
 launches: Counter[int] = Counter()
+exp_bf16_launches: Counter[int] = Counter()
 
 _lib: ctypes.CDLL | None = None
 
@@ -62,7 +64,7 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = kernels.load("flash_attention")
         fn = lib.vdpp_flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -72,6 +74,12 @@ def default_static_max() -> bool:
     """``VDPP_FLASH_SOFTMAX=running`` selects the running-max kernel, as in
     the reference; anything else keeps static max."""
     return os.environ.get("VDPP_FLASH_SOFTMAX", "static") == "static"
+
+
+def default_exp_bf16() -> bool:
+    """``VDPP_FLASH_EXP=bf16`` selects the bf16 exponent in running-max mode,
+    as in the reference."""
+    return os.environ.get("VDPP_FLASH_EXP") == "bf16"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -86,34 +94,34 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         f"{k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
-    if os.environ.get("VDPP_FLASH_EXP") == "bf16":
-        raise NotImplementedError("VDPP_FLASH_EXP=bf16 (the bf16-exponent experiment) "
-                                  "is not ported")
 
 
 def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, static_max: bool | None = None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, static_max: bool | None = None,
+    exp_bf16: bool | None = None,
 ) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v over (B, L, H, D) tensors, non-causal.
 
-    ``static_max=None`` reads ``VDPP_FLASH_SOFTMAX`` (default static). Its
-    precondition is the reference's: log2-logits within +-100
-    (|q.k/sqrt(d)| <= ~69); beyond it the static form saturates and only
-    finiteness is guaranteed.
+    ``static_max=None`` reads ``VDPP_FLASH_SOFTMAX`` (default static), and
+    ``exp_bf16=None`` reads ``VDPP_FLASH_EXP``, which only the running-max
+    form honours. The static form's precondition is the reference's:
+    log2-logits within +-100 (|q.k/sqrt(d)| <= ~69); beyond it the static
+    form saturates and only finiteness is guaranteed.
     """
     _check(q, k, v)
     if static_max is None:
         static_max = default_static_max()
+    if exp_bf16 is None:
+        exp_bf16 = default_exp_bf16()
+    exp_bf16 = exp_bf16 and not static_max
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, static_max)
+        return flash_attention_plain(q, k, v, static_max, exp_bf16)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
     b, lq, h, d = q.shape
-    if q.dtype not in KERNEL_HEAD_DIMS.get(d, ()):
-        raise NotImplementedError(
-            f"the CUDA flash kernel takes head dims 64, 72 and 512 in bf16 or fp32; "
-            f"d={d} in {q.dtype} is not ported"
-        )
+    if d > MAX_HEAD_DIM:
+        raise NotImplementedError(f"the CUDA flash kernels take head dims up to "
+                                  f"{MAX_HEAD_DIM}; d={d} is not ported")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the CUDA flash kernel takes contiguous (B, L, H, D) tensors")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -127,18 +135,22 @@ def flash_attention(
         rc = lib.vdpp_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), b, h, lq, k.shape[1], d, int(static_max),
-            LOG2E / math.sqrt(d), stream,
+            int(exp_bf16), LOG2E / math.sqrt(d), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
     launches[d] += 1
+    if exp_bf16:
+        exp_bf16_launches[d] += 1
     return out
 
 
 def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, static_max: bool = True
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, static_max: bool = True,
+    exp_bf16: bool = False,
 ) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch, any head dim, on any device.
+    """The kernel's arithmetic in plain PyTorch, any head dim, on any device;
+    ``exp_bf16`` applies to the running-max form only.
 
     Processes the queries in chunks so that at most ``_PLAIN_SCORE_ELEMS`` fp32
     scores exist at once. Sums run over all keys in one product, where the
@@ -157,7 +169,11 @@ def flash_attention_plain(
         if static_max:
             p = torch.exp2(s.clamp_(S_CLAMP_LO, S_CLAMP))
         else:
-            p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+            x = s - s.amax(dim=-1, keepdim=True)
+            if exp_bf16:  # the reference's exp2 of a bf16 array: bf16 in and out
+                p = torch.exp2(x.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+            else:
+                p = torch.exp2(x)
         p = p.to(v.dtype).float()
         l = p.sum(dim=-1, keepdim=True)
         l_inv = torch.where(l == 0.0, 1.0, 1.0 / l)

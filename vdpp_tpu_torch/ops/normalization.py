@@ -6,11 +6,14 @@ the reference: the one-pass E[x^2] - mean^2 form was measured there at about
 2e-4 of CFG-amplified error. Results are cast back to the input dtype.
 ``group_norm_silu(fused=True)`` takes the fused GroupNorm+SiLU kernel
 (:mod:`vdpp_tpu_torch.ops.norm_kernel`) where the reference does.
+``VDPP_ABLATE_GROUPNORM=1`` (profiling only, as in the reference) keeps
+only ``group_norm``'s affine.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +42,8 @@ def group_norm(x: torch.Tensor, norm: Norm, num_groups: int = 32, eps: float = 1
     n, c = x.shape[0], x.shape[-1]
     if c % num_groups != 0:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    if os.environ.get("VDPP_ABLATE_GROUPNORM") == "1":  # profiling only
+        return (x.float() * norm.weight.float() + norm.bias.float()).to(x.dtype)
     xf = x.float().reshape(n, -1, num_groups, c // num_groups)
     xc = xf - xf.mean(dim=(1, 3), keepdim=True)
     var = xc.square().mean(dim=(1, 3), keepdim=True)

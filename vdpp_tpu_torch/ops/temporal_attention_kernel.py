@@ -10,11 +10,13 @@ weighted, into the output, ``out / denom``, one rounding to the dtype.
 
 Two implementations of that arithmetic live here:
 
-* the CUDA kernel ``vdpp_tpu_torch/csrc/frame_attention.cu`` (head dims 64
-  (SVD UNet) and 72 (DiT-XL), F <= 32; bf16 on the tensor cores, fed by TMA
-  through a ring of shared-memory tiles, fp32 on the SIMT cores), which
-  :func:`frame_attention` launches for a CUDA tensor; it reads q, k and v in
-  the layout the projections produce, with no transpose or padding copy;
+* the CUDA kernels of ``vdpp_tpu_torch/csrc/frame_attention.cu`` (head dims
+  64 (SVD UNet) and 72 (DiT-XL) with F <= 32: bf16 on the tensor cores, fed
+  by TMA through a ring of shared-memory tiles, fp32 on the SIMT cores; any
+  other head dim or frame count, such as the tiny configs' d = 16, on a
+  simple SIMT kernel), which :func:`frame_attention` launches for a CUDA
+  tensor; they read q, k and v in the layout the projections produce, with
+  no transpose or padding copy;
 * :func:`frame_attention_plain`, plain PyTorch, which :func:`frame_attention`
   runs for a CPU tensor and which the tests and ``chip_smoke.py`` hold the
   kernel against.
@@ -32,9 +34,6 @@ import torch
 
 from vdpp_tpu_torch.utils import kernels
 
-KERNEL_HEAD_DIMS = (64, 72)
-KERNEL_MAX_FRAMES = 32
-
 # Kernel launches since the count was last set to 0 (chip_smoke.py reads it to
 # show that the models' temporal attention went through the kernel).
 launches = 0
@@ -50,6 +49,8 @@ def _kernel_lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                    ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.vdpp_frame_attention_max_frames.argtypes = []
+        lib.vdpp_frame_attention_max_frames.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -70,17 +71,15 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if q.device.type != "cuda":
         raise ValueError(f"frame_attention runs on cuda or cpu tensors, not {q.device}")
     b, f, l, h, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"the CUDA frame-attention kernel takes head dims "
-                                  f"{KERNEL_HEAD_DIMS}, got d={d}")
-    if f > KERNEL_MAX_FRAMES:
-        raise ValueError(f"the CUDA frame-attention kernel takes at most "
-                         f"{KERNEL_MAX_FRAMES} frames, got {f}")
+    lib = _kernel_lib()
+    max_frames = lib.vdpp_frame_attention_max_frames()
+    if f > max_frames:
+        raise ValueError(f"the CUDA frame-attention kernels take at most {max_frames} frames "
+                         f"(their scores live in shared memory), got {f}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the CUDA frame-attention kernel takes contiguous tensors")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the CUDA frame-attention kernel takes 16-byte aligned tensors")
-    lib = _kernel_lib()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

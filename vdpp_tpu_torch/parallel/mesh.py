@@ -213,6 +213,28 @@ class Stage:
             w.wait()
         return None if buf is None else buf.to(self.device)
 
+    def gather_to_last(self, slot: torch.Tensor) -> torch.Tensor | None:
+        """Every rank's ``slot`` (one shape and dtype on all ranks), stacked in
+        rank order on the CPU of the last rank; None on the others. Point to
+        point, as the hand-off: each rank sends to the last one, which posts
+        a receive per rank, through host memory under gloo and card to card
+        under NCCL. One column only (a stage mesh)."""
+        if self.mesh.num_data != 1:
+            raise NotImplementedError("gathering the stage ring of a (stage, data) mesh")
+        last = self.mesh.world_size - 1
+        host = self.mesh.host_handoff
+        slot = slot.cpu() if host else slot.contiguous()
+        if self.rank != last:
+            for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, slot, last)]):
+                w.wait()
+            return None
+        bufs = [torch.empty_like(slot) for _ in range(last)]
+        if bufs:
+            ops = [dist.P2POp(dist.irecv, b, r) for r, b in enumerate(bufs)]
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+        return torch.stack([*bufs, slot]).cpu()
+
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:
         """``obj`` from rank ``src`` on every rank (pickled; put tensors on
         the CPU first)."""

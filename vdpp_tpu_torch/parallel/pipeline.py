@@ -27,6 +27,7 @@ from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from vdpp_tpu_torch.parallel.mesh import Stage
@@ -122,26 +123,63 @@ class StepPipeline:
         return torch.stack(outputs) if self.stage.is_last else None
 
     def run_ticked(self, params, inputs: torch.Tensor, on_sample=None, start_tick: int = 0,
-                   initial_buf=None, on_tick=None):
+                   initial_buf=None, on_tick=None, on_tick_every: int = 1):
         """Host-stepped run: every rank advances one tick at a time, with a
         barrier at the end of each (after its device work has finished).
 
-        Returns ``(outputs, tick_seconds)`` on the last rank, with
-        ``len(tick_seconds) == num_ticks(N)``, and None on the others.
-        ``on_sample(i, latent)`` fires on the last rank, in order, the moment
-        sample ``i`` finishes (tick ``i + S - 1``). On a (stage, data) mesh
+        Returns ``(outputs, tick_seconds)`` on the last rank and None on the
+        others: ``outputs`` stacks the samples that finish at ticks >=
+        ``max(start_tick, S - 1)`` (all N from tick 0; sample i finishes at
+        tick i + S - 1), and ``tick_seconds`` has ``num_ticks(N) -
+        start_tick`` entries. ``on_sample(i, latent)`` fires on the last rank,
+        in order, the moment sample ``i`` finishes. On a (stage, data) mesh
         each column runs its block of N / D samples, ``i`` counting within
         it, and the barrier spans every column.
+
+        Snapshot and resume (``utils/resume.py``), on a stage mesh only. The
+        state after tick t is the JAX package's ring ``buf (S, *payload)``:
+        slot s >= 1 is the payload stage s steps at tick t + 1 (what rank s
+        received in tick t, sample t + 1 - s), written as zeros unless 0 <= t
+        + 1 - s < N; slot 0 is zeros (the JAX ring's last-to-first edge
+        carries nothing that is read, and is not ported). ``on_tick(t, buf)``
+        fires on the last rank with ``buf`` on the CPU after every tick t
+        with ``(t + 1) % on_tick_every == 0``; every rank sends its slot
+        there then. The gather is collective, so every rank must know which
+        ticks gather: that is what ``on_tick_every`` (not in the JAX
+        package, whose ring is one array) says, so that a large payload
+        (593.5 MB a slot under DeepCache at SVD-XT) crosses only on the ticks
+        that are kept. ``start_tick``/``initial_buf`` resume after a
+        snapshot: every rank takes its own slot of ``initial_buf`` (numpy or
+        torch, ``(S, *payload)``; zeros when None), and a resume at or past
+        the last tick returns an empty ``(0, *payload)`` and ``[]``.
+        ``self.gather_seconds`` then holds this rank's host seconds of each
+        gather (outside ``tick_seconds``; the last rank's include the wait
+        for every send).
         """
-        if start_tick or initial_buf is not None or on_tick is not None:
-            raise NotImplementedError("resuming a ticked run (start_tick, initial_buf, "
-                                      "on_tick) comes with utils/resume.py and the "
-                                      "production mode (ROADMAP A11)")
+        resuming = start_tick or initial_buf is not None or on_tick is not None
+        if resuming and self.stage.mesh.num_data > 1:
+            raise NotImplementedError("start_tick, initial_buf and on_tick drive the stage "
+                                      "mesh; a (stage, data) mesh runs without them, as the "
+                                      "JAX package's run_ticked refuses a data axis")
+        if on_tick_every < 1:
+            raise ValueError(f"on_tick_every must be >= 1, got {on_tick_every}")
         inputs = self.stage.column_shard(inputs)
+        s, S, N = self.stage.index, self.config.num_stages, len(inputs)
+        payload = tuple(inputs.shape[1:])
         dev = self.stage.device
-        outputs, ticks, x = [], [], None
+        x = None
+        if initial_buf is not None and tuple(initial_buf.shape) != (S, *payload):
+            raise ValueError(f"initial_buf shape {tuple(initial_buf.shape)} != {(S, *payload)}")
+        if s > 0 and 0 <= start_tick - s < N:  # this rank steps a sample at start_tick
+            slot = (torch.zeros(payload, dtype=inputs.dtype) if initial_buf is None
+                    else initial_buf[s])
+            if not isinstance(slot, torch.Tensor):
+                slot = torch.from_numpy(np.array(slot))
+            x = slot.to(dev, inputs.dtype)
+        outputs, ticks = [], []
+        self.gather_seconds = []
         with torch.inference_mode():
-            for t in range(self.config.num_ticks(len(inputs))):
+            for t in range(start_tick, self.config.num_ticks(N)):
                 t0 = time.perf_counter()
                 x, done = self._tick(params, inputs, t, x)
                 if dev.type == "cuda":
@@ -151,8 +189,22 @@ class StepPipeline:
                 if done is not None:
                     outputs.append(done)
                     if on_sample is not None:
-                        on_sample(len(outputs) - 1, done)
-        return (torch.stack(outputs), ticks) if self.stage.is_last else None
+                        on_sample(t - (S - 1), done)
+                if on_tick is not None and (t + 1) % on_tick_every == 0:
+                    # x: what this rank received in tick t, None unless sample t + 1 - s
+                    # exists (and always on rank 0)
+                    slot = x if x is not None else torch.zeros(payload, dtype=inputs.dtype,
+                                                               device=dev)
+                    t1 = time.perf_counter()
+                    buf = self.stage.gather_to_last(slot)
+                    self.gather_seconds.append(time.perf_counter() - t1)
+                    if buf is not None:
+                        on_tick(t, buf)
+        if not self.stage.is_last:
+            return None
+        if not outputs:  # a resume at or past the last tick: nothing is left
+            return torch.zeros((0, *payload), dtype=inputs.dtype), ticks
+        return torch.stack(outputs), ticks
 
     def stream(self, params, latent_shape: tuple, dtype=torch.float32):
         """The streaming executor for serving is not ported."""
