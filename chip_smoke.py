@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 and 8 (a), then stop
+    python3 chip_smoke.py --intra-only     # the build and phase 9, then stop
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -113,6 +114,22 @@ Phases (any failure exits non-zero and prints no result line):
    write times), then one spawned group at the API level that runs euler and
    dpmpp2m uncut, snapshotting after tick 1 and resumed from it: the resumed
    samples bit-equal to the uncut run's.
+9. intra-sample parallelism (in phase 3: the bf16 flash kernel at the
+   (Lq, Lk) that seq sharding gives the UNet at 14 frames of 72x128, seq 2
+   (4608, 9216), (1152, 2304) and seq 4 (2304, 9216), (576, 2304), timed
+   with its bound and SDPA, plus ragged unequal lengths at d = 64 and 72;
+   frame attention at a seq-2 rank's local L), then last: full-width
+   SVD-XT bf16, 14 frames of 72x128, CFG 3, 2 Euler steps, one sample,
+   VDPP_TEMPORAL_ATTN=pallas, against the one-process run of the same
+   steps: (a) 2 ranks sharing cuda:0 over gloo, seq 2 (within INTRA_TOL;
+   10 flash launches a forward at those (Lq, Lk), 16 frame attention), frame
+   2 (within INTRA_TOL; 15 flash, 0 frame attention, 16 fallbacks to the
+   default form), cfg 2 (bit for bit; 15 flash, one forward a step); (b) 4
+   ranks (NCCL with four cards, else cuda:0 over gloo), stage 2 x seq 2 and
+   stage 2 x cfg 2, each bit-equal to (a)'s; each run's collectives and
+   bytes are printed; (c) the image->video app with ``--seq-parallel 2
+   --num-stages 1`` on two ranks sharing cuda:0, whose files must hold 14
+   frames of 1024x576.
 
 The last two lines are the ``nvidia-smi`` name/power-limit line and the
 contract line ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
@@ -198,6 +215,24 @@ FLASH_PER_APP = {64: FLASH_PER_FORWARD * 2 * APP_STEPS, 512: 1 + -(-APP_FRAMES /
 # each sample, two UNet forwards a step (CFG sequential).
 PIPE_STAGES, PIPE_STEPS, PIPE_SAMPLES = 2, 2, 2
 PIPE_FORWARDS_PER_RANK = 2 * PIPE_SAMPLES * PIPE_STEPS // PIPE_STAGES
+# Phase 9, intra-sample parallelism: full-width SVD-XT, INTRA_FRAMES frames
+# of 72x128, CFG ramp to 3 (sequential), INTRA_STEPS Euler steps, one sample,
+# with VDPP_TEMPORAL_ATTN=pallas. Under seq 2 a rank holds 64 of the 128
+# columns: self-attention takes flash at levels 0 and 1, 5 sites each, with
+# its local queries against the gathered keys, (Lq, Lk) = (72 * 64, 72 * 128)
+# and (36 * 32, 36 * 64); level 2 (Lq = 288 < 512) is plain, as in the
+# reference; the 16 temporal sites run the frame-attention kernel at the
+# local L. Under frame 2 every site runs as unsharded on 7 frames (15 flash)
+# and frame attention takes the default form (0 launches, 16 fallbacks a
+# forward). Under cfg 2 a rank runs one forward a step, as unsharded.
+INTRA_FRAMES, INTRA_STEPS = 14, 2
+INTRA_SEQ2_SHAPES = {(4608, 9216): 5, (1152, 2304): 5}
+INTRA_PER_FORWARD = {  # case: (flash, frame attention, fallbacks, forwards a step)
+    "seq2": (10, 16, 0, 2), "frame2": (15, 0, 16, 2), "cfg2": (15, 16, 0, 1)}
+# seq and frame against the one-process run: max|diff| <= INTRA_TOL x
+# max|one process| (written in PERF.md before the first run: the bf16 UNet's
+# sums taken in other orders flip roundings site by site).
+INTRA_TOL = 5e-2
 # The pipeline phase's cases: (solver, DeepCache interval). With interval 2
 # rank 0 takes the full step and rank 1 the cache step, so the cache crosses
 # the hand-off: 644 fp32 channels a sample (648 with dpmpp2m's x0_hat).
@@ -590,7 +625,9 @@ def check_group_norm(torch, nk, F) -> dict:
 
 def check_frame_attention(torch, ta, F) -> dict:
     """Frame attention against its plain version at the UNet's four temporal
-    attention shapes (B = 1, F = 25, d = 64, bf16), plus fp32."""
+    attention shapes (B = 1, F = 25, d = 64, bf16), at the four a seq-2
+    rank runs at INTRA_FRAMES frames of 72x128 (its local L: 72 * 64 = 4608
+    at level 0, then 1152, 288, 72), plus fp32."""
     g = torch.Generator(device="cuda").manual_seed(3)
     print("frame attention tolerance: bf16 max|kernel - plain| <= one bf16 ulp at max|plain| "
           "(fp32 softmax on both sides, sums in other orders); "
@@ -599,6 +636,8 @@ def check_frame_attention(torch, ta, F) -> dict:
     shapes, fp32_rows = [], []
     cases = [(9216, 5, 25, torch.bfloat16), (2304, 10, 25, torch.bfloat16),
              (576, 20, 25, torch.bfloat16), (144, 20, 25, torch.bfloat16),
+             *((l, h, INTRA_FRAMES, torch.bfloat16)
+               for l, h in ((4608, 5), (1152, 10), (288, 20), (72, 20))),
              (512, 4, 3, torch.float32), (2304, 10, 25, torch.float32)]
     for l, h, f, dtype in cases:
         q, k, v = (torch.randn(1, f, l, h, 64, generator=g, device="cuda").to(dtype)
@@ -718,6 +757,65 @@ def check_flash_72(torch, fa, F) -> dict:
               f"{rates_text(row)}", flush=True)
         shapes.append(row)
     return {"max_abs_err": max_err, "shapes": shapes, "fp32": fp32_row}
+
+
+def check_flash_seq_sharded(torch, fa, F) -> dict:
+    """The bf16 wgmma kernel at Lq != Lk: the SVD-XT UNet's self-attention
+    under seq sharding at INTRA_FRAMES frames of 72x128, the local queries
+    of levels 0 and 1 against the keys gathered from every shard (seq 2:
+    (4608, 9216), (1152, 2304); seq 4: (2304, 9216), (576, 2304)), both
+    softmax modes, each timed beside its plain version and SDPA with its
+    bound; then ragged unequal lengths at d = 64 and 72."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def inputs(b, lq, lk, h, d):
+        q = torch.randn(b, lq, h, d, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(b, lk, h, d, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        return q, k, v
+
+    def compare(what, q, k, v, static):
+        got = fa.flash_attention(q, k, v, static_max=static)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, static_max=static).float()
+        err = (got.float() - ref).abs().max().item()
+        ref_max = ref.abs().max().item()
+        mode = "static" if static else "running"
+        print(f"flash {what} {mode}: max|diff| {err:.3g}, max|plain| {ref_max:.3g}, limit "
+              f"{TOL['bf16']} x max|plain| = {TOL['bf16'] * ref_max:.3g}", flush=True)
+        if not math.isfinite(err) or err > TOL["bf16"] * ref_max:
+            fail(f"flash {what} {mode}: max|diff| {err} > {TOL['bf16']} x {ref_max}")
+        return err
+
+    max_err, shapes = 0.0, []
+    for seq, lq, lk, h in ((2, 4608, 9216, 5), (2, 1152, 2304, 10), (4, 2304, 9216, 5),
+                           (4, 576, 2304, 10)):
+        b, d = INTRA_FRAMES, 64
+        q, k, v = inputs(b, lq, lk, h, d)
+        what = f"bf16 seq {seq} Lq={lq} Lk={lk} B*H={b * h}"
+        row = {"seq": seq, "frames": b, "Lq": lq, "Lk": lk, "BH": b * h, "D": d}
+        for static in (True, False):
+            err = compare(what, q, k, v, static)
+            row["err_static" if static else "err_running"] = err
+            max_err = max(max_err, err)
+        row["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, static_max=True))
+        row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, True),
+                                  iters=3, warmup=1)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        flops = 4 * b * h * lq * lk * d
+        row["bound_ms"], row["bound_by"] = bound(flops, 2 * b * h * d * 2 * (lq + lk),
+                                                 H100_BF16_FLOPS)
+        add_rates(row, flops)
+        print(f"flash {what}: kernel_ms {row['ms']:.4f}, plain_ms {row['plain_ms']:.3f}, "
+              f"library_ms (SDPA) {row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} "
+              f"({row['bound_by']}); {rates_text(row)}", flush=True)
+        shapes.append(row)
+    for d in (64, 72):  # ragged: neither length on a tile, the keys past the last
+        q, k, v = inputs(2, 601, 1203, 3, d)
+        for static in (True, False):
+            max_err = max(max_err, compare(f"bf16 d={d} Lq=601 Lk=1203", q, k, v, static))
+    return {"max_abs_err": max_err, "shapes": shapes}
 
 
 def check_frame_attention_72(torch, ta, F) -> dict:
@@ -2031,6 +2129,214 @@ def run_production(torch, fa, nk, ta, smi: str) -> dict:
     return {"main": main_run, "api": api}
 
 
+def intra_case(torch, device):
+    """What phase 9's ranks and its one-process run build alike on
+    ``device``: the wrapper (SVD-XT bf16, INTRA_STEPS Euler steps, CFG
+    sequential), the UNet from seed 0, random conditioning for INTRA_FRAMES
+    frames of 72x128 with a CFG ramp to 3, and one noise draw."""
+    from vdpp_tpu_torch.models.svd_unet import SVDUNetConfig
+    from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet, make_dummy_conditioning
+
+    config = SVDUNetConfig.svd_xt()
+    wrapper = StableVideoUNet(config, num_steps=INTRA_STEPS, cfg_mode="sequential",
+                              device=device)
+    unet = wrapper.init(torch.Generator(device=device).manual_seed(0))
+    cond = make_dummy_conditioning(torch.Generator(device=device).manual_seed(1), 1,
+                                   INTRA_FRAMES, 72, 128, cross_dim=config.cross_attention_dim,
+                                   guidance_scale=3.0)
+    noise = torch.randn(1, 1, INTRA_FRAMES, 72, 128, 4, device=device,
+                        generator=torch.Generator(device=device).manual_seed(2))
+    return wrapper, (unet, cond), noise * wrapper.init_noise_sigma
+
+
+def intra_rank(stage, cases) -> dict:
+    """One rank of phase 9: each ``(name, axes)`` of ``cases`` on this group
+    laid out with those inner axes (``seq``, ``frame``, ``cfg``; the stage
+    count follows), through ``StepPipeline.run``. For each run the launch
+    counts, the frame-attention fallbacks and the collectives' counts are
+    set to 0 just before and read just after; flash's (Lq, Lk) are recorded.
+    The mesh's last rank also returns the outputs."""
+    import collections
+    import dataclasses
+
+    import torch
+
+    from vdpp_tpu_torch.ops import attention
+    from vdpp_tpu_torch.ops import flash_attention as fa
+    from vdpp_tpu_torch.ops import norm_kernel as nk
+    from vdpp_tpu_torch.ops import temporal_attention_kernel as ta
+    from vdpp_tpu_torch.parallel import collectives
+    from vdpp_tpu_torch.parallel.mesh import Stage
+    from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+
+    exact_libraries(torch)
+    wrapper, params, inputs = intra_case(torch, stage.device)
+    shapes = collections.Counter()
+    flash = attention.flash_attention
+
+    def recorded(q, k, v, *args, **kw):
+        shapes[f"{q.shape[1]},{k.shape[1]}"] += 1
+        return flash(q, k, v, *args, **kw)
+
+    attention.flash_attention = recorded
+    out = {"rank": stage.rank, "device": str(stage.device)}
+    for name, axes in cases:
+        st = Stage(dataclasses.replace(stage.mesh, **{"seq": 1, "frame": 1, "cfg": 1, **axes}),
+                   stage.rank)
+        pipe = StepPipeline(st, wrapper.pipeline_step_fn(**st.axes),
+                            PipelineConfig(INTRA_STEPS, st.num_stages))
+        torch.cuda.synchronize(stage.device)
+        torch.cuda.reset_peak_memory_stats(stage.device)
+        reset_counts(fa, nk, ta)
+        attention.frame_axis_fallbacks = 0
+        collectives.clear_counts()
+        shapes.clear()
+        t0 = time.perf_counter()
+        res = pipe.run(params, inputs)
+        torch.cuda.synchronize(stage.device)
+        seconds = time.perf_counter() - t0
+        out[name] = {
+            "seconds": seconds, "stage": st.index, "stages": st.num_stages,
+            "counts": {"flash": dict(fa.launches), "gn": nk.launches, "frame": ta.launches,
+                       "fallbacks": attention.frame_axis_fallbacks,
+                       "flash_shapes": dict(shapes)},
+            "collectives": dict(collectives.counts), "bytes": dict(collectives.nbytes),
+            "peak": torch.cuda.max_memory_allocated(stage.device),
+            "outputs": res.cpu() if res is not None and st.is_last_rank else None}
+    return out
+
+
+def run_intra_sample(torch, smi: str) -> dict:
+    """Phase 9, intra-sample parallelism at full width: the one-process run
+    of INTRA_STEPS steps on cuda:0; (a) 2 ranks sharing cuda:0 over gloo, in
+    turn seq 2, frame 2 and cfg 2; (b) 4 ranks (NCCL with four cards, else
+    sharing cuda:0 over gloo), stage 2 x seq 2 and stage 2 x cfg 2, each
+    bit-equal to (a)'s run of the same axis; (c) the image->video app with
+    ``--seq-parallel 2 --num-stages 1``, whose files must hold 14 frames of
+    1024x576. cfg 2 must equal the one-process run bit for bit, seq 2 and
+    frame 2 within INTRA_TOL; every rank's launches must match
+    INTRA_PER_FORWARD. All with VDPP_TEMPORAL_ATTN=pallas."""
+    import shutil
+    import tempfile
+
+    from vdpp_tpu_torch.apps import generate_video
+    from vdpp_tpu_torch.parallel.mesh import make_pipeline_mesh, run_stages
+    from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
+
+    saved = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.cuda.empty_cache()
+    out: dict = {}
+    with kernel_switches(TEMPORAL_SWITCH):
+        exact_libraries(torch)
+        wrapper, params, inputs = intra_case(torch, torch.device("cuda:0"))
+        run_reference_single_device(wrapper.pipeline_step_fn(), params, inputs, 1)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = run_reference_single_device(wrapper.pipeline_step_fn(), params, inputs,
+                                          INTRA_STEPS)
+        torch.cuda.synchronize()
+        out["one_process_s"] = time.perf_counter() - t0
+        ref = ref.cpu()
+        del wrapper, params, inputs
+        torch.cuda.empty_cache()
+        four = torch.cuda.device_count() >= 4
+        meshes = {"a": (make_pipeline_mesh(devices=["cuda:0"] * 2),
+                        [("seq2", {"seq": 2}), ("frame2", {"frame": 2}), ("cfg2", {"cfg": 2})]),
+                  "b": (make_pipeline_mesh(4, device="cuda") if four
+                        else make_pipeline_mesh(devices=["cuda:0"] * 4),
+                        [("stage2_seq2", {"seq": 2}), ("stage2_cfg2", {"cfg": 2})])}
+        for part, (mesh, cases) in meshes.items():
+            t0 = time.perf_counter()
+            try:
+                out[part] = run_stages(mesh, intra_rank, cases, timeout=900)
+            except (RuntimeError, TimeoutError) as e:
+                fail(f"phase 9 ({part}) failed: {e}")
+            out[part + "_wall_s"] = time.perf_counter() - t0
+            out[part + "_backend"] = mesh.backend
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+
+    ref_max = ref.abs().max().item()
+    print(f"intra-sample: one-process run, SVD-XT bf16, {INTRA_FRAMES} frames at 72x128, CFG 3 "
+          f"sequential, {INTRA_STEPS} Euler steps, VDPP_TEMPORAL_ATTN=pallas: "
+          f"{out['one_process_s']:.3f} s, max|latent| {ref_max:.4g} ({smi})", flush=True)
+    results, a_outputs = {}, {}
+    for part, (_, cases) in meshes.items():
+        ranks = out[part]
+        how = (f"{len(ranks)} ranks, {out[part + '_backend']}"
+               + (", sharing cuda:0" if out[part + "_backend"] == "gloo" else ""))
+        for name, _ in cases:
+            base = name.replace("stage2_", "")
+            flash_n, frame_n, fallback_n, per_step = INTRA_PER_FORWARD[base]
+            got = ranks[-1][name]["outputs"]
+            err = (got - ref).abs().max().item()
+            if base == "cfg2":
+                ok = torch.equal(got, ref)
+            else:
+                ok = math.isfinite(err) and err <= INTRA_TOL * ref_max
+            equal_a = None if part == "a" else torch.equal(got, a_outputs[base])
+            print(f"intra-sample {name} ({how}): {ranks[-1][name]['seconds']:.3f} s on the last "
+                  f"rank, output {tuple(got.shape)}, max|diff| to the one-process run {err:.4g} "
+                  f"({err / ref_max:.3g} of max|latent|; "
+                  + ("bit for bit " if base == "cfg2" else f"limit {INTRA_TOL} x max, ")
+                  + f"equal {torch.equal(got, ref)})"
+                  + ("" if equal_a is None else f", bit-equal to (a)'s {base} {equal_a}")
+                  + f" ({smi})", flush=True)
+            if not ok or (equal_a is False) or not torch.isfinite(got).all():
+                fail(f"intra-sample {name} ({how}) disagrees: max|diff| {err}, equal to (a) "
+                     f"{equal_a}")
+            for r in ranks:
+                res = r[name]
+                forwards = per_step * INTRA_STEPS // res["stages"]
+                c = res["counts"]
+                print(f"intra-sample {name}, rank {r['rank']} (stage {res['stage']}): launches "
+                      f"{ {k: v for k, v in c.items() if k != 'flash_shapes'} }, flash (Lq, Lk) "
+                      f"{c['flash_shapes']}, collectives {res['collectives']}, bytes "
+                      f"{res['bytes']}, peak allocated {res['peak'] / 2**30:.2f} GiB ({smi})")
+                expect(f"intra-sample {name}, rank {r['rank']}: flash at d = 64",
+                       c["flash"].get(64, 0), flash_n * forwards)
+                expect(f"intra-sample {name}, rank {r['rank']}: frame attention", c["frame"],
+                       frame_n * forwards)
+                expect(f"intra-sample {name}, rank {r['rank']}: frame-attention fallbacks",
+                       c["fallbacks"], fallback_n * forwards)
+                if base == "seq2" and c["flash_shapes"] != {
+                        f"{lq},{lk}": n * forwards for (lq, lk), n in INTRA_SEQ2_SHAPES.items()}:
+                    fail(f"intra-sample {name}: flash at {c['flash_shapes']}")
+            if part == "a":
+                a_outputs[base] = got
+            results[name] = {
+                "seconds": ranks[-1][name]["seconds"], "max_abs_err": err,
+                "rel_err": err / ref_max, "backend": out[part + "_backend"],
+                "per_rank": [{"launches": r[name]["counts"], "collectives": r[name]["collectives"],
+                              "bytes": r[name]["bytes"], "peak_gb": r[name]["peak"] / 2**30}
+                             for r in ranks]}
+
+    # (c) The image->video app at full width over 2 seq ranks on one card.
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_intra_app_")
+    try:
+        t0 = time.perf_counter()
+        with kernel_switches(TEMPORAL_SWITCH):
+            rc = generate_video.main(["--random-weights", "--steps", str(APP_STEPS),
+                                      "--seq-parallel", "2", "--num-stages", "1", "--devices",
+                                      "cuda:0", "cuda:0", "--output-dir", out_dir])
+        wall = time.perf_counter() - t0
+        files = {os.path.splitext(n)[1]: os.path.join(out_dir, n) for n in os.listdir(out_dir)}
+        if rc != 0 or ".y4m" not in files or ".gif" not in files:
+            fail(f"the image->video app with --seq-parallel 2 returned {rc}, wrote "
+                 f"{sorted(files)}")
+        video, gif = y4m_frames(files[".y4m"]), gif_frames(files[".gif"])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    want = (APP_FRAMES, APP_W, APP_H)
+    print(f"image->video app --seq-parallel 2 (2 ranks sharing cuda:0 over gloo): y4m {video}, "
+          f"gif {gif} (expected {want}), {wall:.3f} s in main ({smi})", flush=True)
+    if video != want or gif != want:
+        fail(f"the app with --seq-parallel 2 wrote y4m {video} and gif {gif}, expected {want}")
+    results["app_seq2"] = {"wall_s": wall, "y4m": video}
+    results["one_process_s"] = out["one_process_s"]
+    results["walls"] = {p: out[p + "_wall_s"] for p in meshes}
+    return results
+
+
 def reset_counts(fa, nk, ta) -> None:
     """Every kernel's launch count set to 0."""
     fa.launches.clear()
@@ -2048,6 +2354,10 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--kernels-only", action="store_true",
                         help="build the kernels, hold each against its plain version and time "
                              "it (phases 1-3 and 8 (a)), then stop without the result lines")
+    parser.add_argument("--intra-only", action="store_true",
+                        help="build the kernels, then only phase 9 (the flash kernel at the "
+                             "seq-sharded lengths and the intra-sample axes at full width), "
+                             "and stop without the result lines")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -2117,12 +2427,18 @@ def main(argv: list[str] | None = None) -> int:
         if built[src]["seconds"] and not report:
             fail(f"no ptxas report for {src}.cu")
 
+    if args.intra_only:
+        check_flash_seq_sharded(torch, fa, F)
+        run_intra_sample(torch, smi)
+        print(f"intra-sample phases done in {time.perf_counter() - t_start:.1f} s ({smi})")
+        return 0
     flash = check_flash(torch, fa, F)
     flash512 = check_flash_512(torch, fa, F, torch.float32)
     flash512_bf16 = check_flash_512(torch, fa, F, torch.bfloat16)
     gn = check_group_norm(torch, nk, F)
     frame = check_frame_attention(torch, ta, F)
     flash72 = check_flash_72(torch, fa, F)
+    flash_seq = check_flash_seq_sharded(torch, fa, F)
     frame72 = check_frame_attention_72(torch, ta, F)
     # (a) The generic flash kernel, the bf16 exponent, the generic frame
     # attention.
@@ -2274,6 +2590,19 @@ def main(argv: list[str] | None = None) -> int:
                        for rank, runs in prod["api"][solver]["launches"].items()
                        for run, c in runs.items()})
 
+    # 9. Intra-sample parallelism: seq, frame and cfg ranks inside a stage.
+    intra = run_intra_sample(torch, smi)
+
+    def intra_launches(cases, get):
+        return {f"intra_{case}_rank{r}": get(res["launches"])
+                for case in cases for r, res in enumerate(intra[case]["per_rank"])}
+
+    intra_seq_flash = intra_launches(("seq2", "stage2_seq2"), lambda c: c["flash"].get(64, 0))
+    intra_flash = intra_launches(("frame2", "cfg2", "stage2_cfg2"),
+                                 lambda c: c["flash"].get(64, 0))
+    intra_frame = intra_launches(("seq2", "cfg2", "stage2_seq2", "stage2_cfg2"),
+                                 lambda c: c["frame"])
+
     def entry(name, source, replaces, launches, check, row, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": check["max_abs_err"], "ms": row["ms"],
@@ -2290,7 +2619,8 @@ def main(argv: list[str] | None = None) -> int:
         entry("flash_attention", flash_src, flash_tpu,
               flash_launches + app["flash"][64] + restyle["flash"][64] + long_app["flash"][64]
               + deepcache["schedule"]["flash"] + sum(pipe_flash.values())
-              + bench_counts["flash"] + sum(prod_flash.values()), flash,
+              + bench_counts["flash"] + sum(prod_flash.values()) + sum(intra_flash.values()),
+              flash,
               flash["shapes"][0], ptxas=ptxas,
               fp32_d64_d72=[flash["fp32"], flash72["fp32"]],
               launches_per_forward={"full": deepcache["counts"]["full"][0],
@@ -2302,7 +2632,7 @@ def main(argv: list[str] | None = None) -> int:
                                 "dpmpp2m_deepcache2_switched": deepcache["schedule"]["flash"],
                                 **pipe_flash,
                                 "benchmark_mode_1stage_switched": bench_counts["flash"],
-                                **prod_flash},
+                                **prod_flash, **intra_flash},
               production_launches_per_forward=PROD_FLASH_PER_FORWARD),
         entry("flash_attention_d512", flash_src, flash_tpu,
               decode_flash + dit_decode_flash + app["flash"][512] + restyle["flash"][512]
@@ -2329,16 +2659,23 @@ def main(argv: list[str] | None = None) -> int:
                                 "benchmark_mode_1stage_switched": bench_counts["gn"]}),
         entry("frame_attention", frame_src, frame_tpu,
               switched["frame"] + deepcache["schedule"]["frame"] + sum(pipe_frame.values())
-              + bench_counts["frame"], frame, frame["shapes"][0],
+              + bench_counts["frame"] + sum(intra_frame.values()), frame, frame["shapes"][0],
               ptxas=other_ptxas["frame_attention"], fp32_d64_d72=frame["fp32"] + frame72["fp32"],
               launches_per_forward={"full": deepcache["counts"]["full"][2],
                                     "deepcache_split1": deepcache["counts"]["cache"][2]},
               launches_by_path={"svd_xt_denoise_switched": switched["frame"],
                                 "dpmpp2m_deepcache2_switched": deepcache["schedule"]["frame"],
                                 **pipe_frame,
-                                "benchmark_mode_1stage_switched": bench_counts["frame"]}),
+                                "benchmark_mode_1stage_switched": bench_counts["frame"],
+                                **intra_frame}),
         entry("flash_attention_d72", flash_src, flash_tpu, joint["flash"] + fact["flash"],
               flash72, flash72["shapes"][0]),
+        entry("flash_attention_seq_sharded", flash_src, flash_tpu,
+              sum(intra_seq_flash.values()), flash_seq, flash_seq["shapes"][0],
+              launches_by_path=intra_seq_flash,
+              launches_per_forward={f"seq2 Lq={lq} Lk={lk}": n
+                                    for (lq, lk), n in INTRA_SEQ2_SHAPES.items()},
+              intra_sample=intra),
         entry("frame_attention_d72", frame_src, frame_tpu, fact["frame"], frame72,
               frame72["shapes"][0]),
         entry("flash_attention_generic", flash_src, flash_tpu,

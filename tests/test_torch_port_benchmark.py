@@ -258,9 +258,9 @@ def test_bad_split_and_indivisible_samples_are_refused(capsys):
 
 
 UNPORTED = [
-    (["--model", "svd_tiny", "--cfg-parallel", "--guidance-scale", "3"], "A13"),
-    (["--model", "svd_tiny", "--seq-parallel", "2"], "A13"),
-    (["--model", "svd_tiny", "--frame-parallel", "2"], "A13"),
+    (["--model", "dit3d_tiny", "--cfg-parallel", "--guidance-scale", "3"], "A13 part 2"),
+    (["--model", "dit3d_tiny", "--seq-parallel", "2"], "A13 part 2"),
+    (["--model", "dit_tiny", "--seq-parallel", "2"], "A13 part 2"),
     (["--model", "svd_tiny", "--weights-int8"], "A14"),
     (["--model", "dit3d_tiny", "--weights-w8a8"], "A14"),
     (["--model", "dit3d_moe_tiny"], "A15"),

@@ -38,6 +38,7 @@ from vdpp_tpu.utils.weights import convert_unet_state_dict
 
 from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
 from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet, make_conditioning
+from vdpp_tpu_torch.parallel.collectives import Axis
 from vdpp_tpu_torch.parallel.mesh import Stage, make_pipeline_mesh, run_stages
 from vdpp_tpu_torch.parallel.pipeline import (
     PipelineConfig,
@@ -355,7 +356,8 @@ def test_padding_and_interval_one_change_nothing(tiny, solver):
 def test_invalid_compositions_rejected():
     """As the reference: heun with DeepCache, a split the architecture has no
     level for or cannot pack, a non-fp32 payload, a bad cache shape; the
-    sharded cached forward raises and names A13."""
+    sharded cached forward refuses a width its seq shards do not split
+    evenly at every level, before any collective."""
     tiny_cfg = SVDUNetConfig.tiny()
     with pytest.raises(ValueError, match="heun"):
         StableVideoUNet(tiny_cfg, deepcache_interval=2, solver="heun", device="cpu")
@@ -374,5 +376,6 @@ def test_invalid_compositions_rejected():
     x, ctx, ids = torch.zeros(B, F, H, W, 8), torch.zeros(B, 1, 48), torch.zeros(B, 3)
     with pytest.raises(ValueError, match="cache shape"):
         unet.apply_cached(x, 0.0, ctx, ids, torch.zeros(B, F, H, W, 32), False)
-    with pytest.raises(NotImplementedError, match="A13"):
-        unet.apply_cached(x, 0.0, ctx, ids, torch.zeros(B, F, H, W, 64), False, seq_axis="seq")
+    three = Axis("seq", 3, 0, (0, 1, 2), group=None)  # W = 8 is not a multiple of 3 x 2
+    with pytest.raises(ValueError, match="not divisible"):
+        unet.apply_cached(x, 0.0, ctx, ids, torch.zeros(B, F, H, W, 64), False, seq_axis=three)

@@ -304,6 +304,32 @@ def test_flash_wgmma_kernel_matches_plain(cuda, d, static_max, b, lq, lk, h):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [64, 72])
+@pytest.mark.parametrize("static_max", [True, False])
+@pytest.mark.parametrize("b,lq,lk,h", [
+    (2, 4608, 9216, 5),   # seq 2, level 0 of SVD-XT at 72x128: local queries, gathered keys
+    (2, 1152, 2304, 10),  # seq 2, level 1
+    (2, 2304, 9216, 5),   # seq 4, level 0
+    (2, 576, 2304, 10),   # seq 4, level 1
+    (1, 1001, 2304, 3),   # a ragged local length against whole key tiles
+])
+def test_flash_wgmma_kernel_at_seq_sharded_lengths(cuda, d, static_max, b, lq, lk, h):
+    """The bf16 wgmma + TMA kernel at the (Lq, Lk) that sequence sharding
+    gives the UNet's self-attention (Lq = L / shards, Lk = L), and a ragged
+    Lq, against its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(lq + 3 * lk + d)
+    q = torch.randn(b, lq, h, d, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(b, lk, h, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+    before = fa.launches.total()
+    got = fa.flash_attention(q, k, v, static_max=static_max)
+    torch.cuda.synchronize()
+    assert fa.launches.total() == before + 1
+    ref = fa.flash_attention_plain(q, k, v, static_max).float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= TOL[torch.bfloat16] * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 72])
 def test_flash_wgmma_kernel_large_logits(cuda, d):
     """As tests/test_ops.py's static-max cases: with queries x 8 (log2-logits
     up to about 40) both modes match their plain versions and each other;

@@ -36,6 +36,7 @@ from vdpp_tpu.utils.weights import convert_unet_state_dict
 from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
 from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet, make_conditioning
 from vdpp_tpu_torch.ops import flash_attention as fa
+from vdpp_tpu_torch.parallel.collectives import Axis
 from vdpp_tpu_torch.parallel.mesh import make_pipeline_mesh, run_stages
 from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
 from vdpp_tpu_torch.utils.weights import from_jax_params
@@ -200,10 +201,13 @@ def test_state_dict_survives_jax_conversion_and_back(tiny):
 
 
 def test_unported_options_raise(monkeypatch):
-    # The cached forward over sequence or frame shards is A13's.
+    # The cached forward over sequence or frame shards refuses, before any
+    # collective, a width (8) that 3 seq shards x 2 do not divide and 3
+    # frames that 2 frame shards do not.
     unet = SVDUNet(SVDUNetConfig.tiny(), device="cpu")
-    for kw in ({"seq_axis": "seq"}, {"frame_axis": "frame"}):
-        with pytest.raises(NotImplementedError, match="A13"):
+    for kw in ({"seq_axis": Axis("seq", 3, 0, (0, 1, 2), group=None)},
+               {"frame_axis": Axis("frame", 2, 0, (0, 1), group=None)}):
+        with pytest.raises(ValueError, match="not divisible"):
             unet.apply_cached(torch.zeros(1, 3, 8, 8, 8), 0.0, torch.zeros(1, 1, 48),
                               torch.zeros(1, 3), torch.zeros(1, 3, 8, 8, 64), True, **kw)
     # VDPP_GN_FUSED=1 is ported; a UNet built without it cannot run under it

@@ -152,10 +152,14 @@ def test_production_mode_resume_flag_consistency(flags, message, monkeypatch):
         production.main(argv + flags)
 
 
-@pytest.mark.parametrize("flags", [["--auto-topology", "latency"], ["--seq-parallel", "2"],
-                                   ["--frame-parallel", "2"],
-                                   ["--cfg-parallel", "--guidance-scale", "3"]])
+@pytest.mark.parametrize("flags", [["--auto-topology", "latency"],
+                                   ["--auto-topology", "throughput"],
+                                   ["--auto-topology", "latency", "--guidance-scale", "3"],
+                                   ["--auto-topology", "throughput", "--deepcache", "2"]])
 def test_production_unported_axes_raise_naming_a13(flags):
+    """The mesh planner (ROADMAP A13 part 2) raises when no stage count or
+    axis flag is given (with one, the reference ignores it); the seq, frame
+    and cfg axes themselves run (tests/test_torch_port_cfg_parallel.py)."""
     argv = ["--device", "cpu", "--preset", "tiny", "--latent-shape", "1", "4", "2", "16", "16"]
     with pytest.raises(NotImplementedError, match="A13"):
         production.main(argv + flags)

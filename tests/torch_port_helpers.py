@@ -68,9 +68,10 @@ def dummy_build(model_kw: dict, state: dict, device):
 
 
 def svd_build(config, solver: str, num_steps: int, pad_steps_to, state: dict, cond, device,
-              **wrapper_kw):
+              axes: dict | None = None, **wrapper_kw):
     """``(step_fn, params)`` of the SVD wrapper's step over an SVDUNet
-    holding ``state``, with the conditioning ``cond`` (CPU tensors);
+    holding ``state``, with the conditioning ``cond`` (CPU tensors), over
+    ``axes`` (a Stage's ``axes``: its seq, frame and cfg axes) when given;
     ``wrapper_kw`` goes to the wrapper (DeepCache, CFG mode, noise)."""
     import dataclasses
 
@@ -86,7 +87,7 @@ def svd_build(config, solver: str, num_steps: int, pad_steps_to, state: dict, co
     cond = dataclasses.replace(cond, **{f.name: getattr(cond, f.name).to(device)
                                         for f in dataclasses.fields(cond)
                                         if getattr(cond, f.name) is not None})
-    return wrapper.pipeline_step_fn(), (unet, cond)
+    return wrapper.pipeline_step_fn(**(axes or {})), (unet, cond)
 
 
 def dit_build(config, num_steps: int, state: dict, context, guidance, device, **wrapper_kw):
@@ -207,3 +208,114 @@ def resume_cases(stage, cases: list) -> dict:
         res = pipe.run_ticked(params, inputs, **kw)
         results[name] = None if res is None else (res[0], len(res[1]), seen)
     return results
+
+
+# ---- intra-sample axes (tests/test_torch_port_{seq,frame,cfg}_parallel.py) ---- #
+
+
+def relayout(stage, **axes):
+    """This rank's Stage of another layout of the same group: ``axes`` gives
+    ``seq``, ``frame`` and ``cfg`` (the rest 1; the stage count follows). All
+    the group's ranks call it alike, so they create the same subgroups."""
+    import dataclasses
+
+    from vdpp_tpu_torch.parallel.mesh import Stage
+
+    mesh = dataclasses.replace(stage.mesh, **{"seq": 1, "frame": 1, "cfg": 1, **axes})
+    return Stage(mesh, stage.rank)
+
+
+def _shard(x, axis, dim: int):
+    """This rank's contiguous block of ``x`` along ``dim``."""
+    n = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.index * n, n)
+
+
+def _op_case(stage, op: str, x, state: dict, kw: dict):
+    """One sharded op on this rank's block of ``x`` (the whole input, the
+    same on every rank), gathered whole again: ``conv2d_halo`` (W split over
+    seq), ``conv_temporal_halo`` (frames over frame), ``group_norm`` (W over
+    seq), ``attention`` (tokens over seq) and ``temporal_self_attention``
+    (frames over frame; ``env`` set around it). Modules are built from
+    ``state``."""
+    import os
+
+    from vdpp_tpu_torch.ops import attention as tattn
+    from vdpp_tpu_torch.ops import conv as tconv
+    from vdpp_tpu_torch.ops import normalization as tnorm
+    from vdpp_tpu_torch.parallel.collectives import all_gather
+
+    def module(cls, *args):
+        m = cls(*args)
+        m.load_state_dict(state)
+        return m
+
+    seq, frame = stage.seq, stage.frame
+    if op == "conv2d_halo":
+        conv = module(tconv.Conv2d, x.shape[-1], kw["out"], 3)
+        return all_gather(tconv.conv2d_halo(_shard(x, seq, 2), conv, seq, stride=kw["stride"]),
+                          seq, 2)
+    if op == "conv_temporal_halo":
+        conv = module(tconv.ConvTemporal, x.shape[-1], kw["out"], 3)
+        return all_gather(tconv.conv_temporal_halo(_shard(x, frame, 1), conv, frame), frame, 1)
+    if op == "group_norm":
+        norm = module(tnorm.Norm, x.shape[-1])
+        return all_gather(tnorm.group_norm(_shard(x, seq, 2), norm, kw["groups"],
+                                           psum_axis=seq), seq, 2)
+    if op == "attention":
+        attn = module(tattn.Attention, x.shape[-1])
+        return all_gather(tattn.attention(_shard(x, seq, 1), attn, kw["heads"], seq_axis=seq),
+                          seq, 1)
+    if op == "temporal_self_attention":
+        attn = module(tattn.Attention, x.shape[-1])
+        b, f = kw["batch"], kw["frames"]
+        xl = _shard(x.reshape(b, f, *x.shape[1:]), frame, 1).reshape(-1, *x.shape[1:])
+        saved = {k: os.environ.get(k) for k in kw.get("env", {})}
+        os.environ.update(kw.get("env", {}))
+        before = tattn.frame_axis_fallbacks
+        try:
+            out = tattn.temporal_self_attention(attn, xl, kw["heads"], b, f // frame.size,
+                                                frame_axis=frame)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        out = all_gather(out.reshape(b, f // frame.size, *x.shape[1:]), frame, 1)
+        return out.reshape(x.shape), tattn.frame_axis_fallbacks - before
+    raise ValueError(op)
+
+
+def intra_cases(stage, cases: list) -> dict:
+    """Rank job: each ``(name, layout, kind, args)`` on this group laid out
+    as ``layout`` (:func:`relayout`). ``kind`` is ``"op"`` (``args``:
+    :func:`_op_case`'s), ``"pipeline"`` (``args``: ``(build, inputs,
+    total_steps)``, ``build(device, axes)`` giving ``(step_fn, params)``,
+    through ``StepPipeline.run``), or ``"cfg_runner"`` (the same through
+    ``CFGParallelRunner``, one sample at a time). A model case's result is
+    ``(outputs, the collectives' call counts)``. Returns every case's result
+    on the mesh's last rank and ``{name: None}`` on the others."""
+    from vdpp_tpu_torch.parallel import collectives
+    from vdpp_tpu_torch.parallel.cfg_parallel import CFGParallelRunner
+    from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+
+    results = {}
+    for name, layout, kind, args in cases:
+        st = relayout(stage, **layout)
+        collectives.clear_counts()
+        with torch.inference_mode():
+            if kind == "op":
+                out = _op_case(st, *args)
+            else:
+                build, inputs, total = args
+                step_fn, params = build(st.device, st.axes)
+                if kind == "pipeline":
+                    pipe = StepPipeline(st, step_fn, PipelineConfig(total, st.num_stages))
+                    out = (pipe.run(params, inputs), dict(collectives.counts))
+                else:
+                    runner = CFGParallelRunner(st, step_fn, total)
+                    out = (torch.stack([runner.run(params, x) for x in inputs]),
+                           dict(collectives.counts))
+        results[name] = out
+    return results if stage.is_last_rank else dict.fromkeys(results)

@@ -34,9 +34,11 @@ builds CLIP and the VAE encoder, encodes and broadcasts the conditioning;
 every rank builds the UNet from the same checkpoint or seed and runs its
 slice of the steps; the last rank frees its UNet, builds the decoder,
 decodes and writes the files, the same byte for byte for any stage count.
-``--seq-parallel``, ``--frame-parallel`` and ``--decode-devices`` are not
-ported yet: they raise and name ROADMAP A13. The encode, denoise and decode
-pieces here are shared with ``apps.restyle_video`` and
+``--seq-parallel N`` and ``--frame-parallel N`` make each stage a block of
+ranks that split each UNet forward over the latent's W axis and its frames
+(``make_axes_mesh``); the last rank decodes. ``--decode-devices`` (the
+overlapped decode) comes with ROADMAP A13 part 2 and raises. The encode,
+denoise and decode pieces here are shared with ``apps.restyle_video`` and
 ``apps.generate_video_long``.
 Without a CUDA device the app fails unless ``--device cpu`` is asked for.
 The ``tiny`` preset is a CPU preset: its UNet's head dim 16 (and its VAE's
@@ -68,7 +70,7 @@ from vdpp_tpu_torch.models.svd_wrapper import (
     make_conditioning,
 )
 from vdpp_tpu_torch.models.vae import TemporalVAEDecoder, VAEConfig, VAEEncoder
-from vdpp_tpu_torch.parallel.mesh import Stage, make_pipeline_mesh, run_stages
+from vdpp_tpu_torch.parallel.mesh import Stage, make_axes_mesh, run_stages
 from vdpp_tpu_torch.parallel.pipeline import (
     PipelineConfig,
     StepPipeline,
@@ -118,13 +120,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--motion-bucket-id", type=int, default=127)
     p.add_argument("--noise-aug-strength", type=float, default=0.02)
     p.add_argument("--decode-chunk-frames", type=int, default=4)
-    p.add_argument("--seq-parallel", type=int, default=1)
-    p.add_argument("--frame-parallel", type=int, default=1)
-    p.add_argument("--decode-devices", type=int, default=0)
+    p.add_argument("--seq-parallel", type=int, default=1,
+                   help="halo-exchange W sharding width per stage (latent W must divide by "
+                        "sp x 2^(levels-1))")
+    p.add_argument("--frame-parallel", type=int, default=1,
+                   help="frame sharding width per stage (--num-frames must divide by it)")
+    p.add_argument("--decode-devices", type=int, default=0,
+                   help="the overlapped decode (not ported: ROADMAP A13 part 2)")
     p.add_argument("--vae-dtype", default="float32", choices=["float32", "bfloat16"],
                    help="VAE compute dtype (bfloat16 halves decode memory)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--devices", nargs="+", default=None, metavar="DEV",
+                   help="an explicit device per rank, in rank order; a card named more than "
+                        "once is shared by its ranks over gloo")
     p.add_argument("--log-level", default="INFO")
     return p
 
@@ -292,10 +301,23 @@ def image_to_video(models: dict, wrapper: StableVideoUNet, image, clip_pixels, a
     return videos, times
 
 
-def _check_ported(args: argparse.Namespace) -> None:
-    if args.seq_parallel != 1 or args.frame_parallel != 1 or args.decode_devices:
-        raise NotImplementedError("--seq-parallel, --frame-parallel and --decode-devices come "
-                                  "with intra-sample parallelism (ROADMAP A13)")
+def check_axes(args: argparse.Namespace, unet_cfg: SVDUNetConfig, lat_w: int) -> bool:
+    """The reference's checks of the intra-sample flags (each logs an error
+    and the app returns 1); ``--decode-devices`` raises, naming its ROADMAP
+    item."""
+    if args.decode_devices:
+        raise NotImplementedError("--decode-devices (the overlapped decode) comes with "
+                                  "ROADMAP A13 part 2")
+    sp, fp = args.seq_parallel, args.frame_parallel
+    if sp > 1 and lat_w % unet_cfg.seq_min_divisor(sp) != 0:
+        LOGGER.error("--seq-parallel %d: latent width %d must divide by sp x 2^(levels-1) = %d",
+                     sp, lat_w, unet_cfg.seq_min_divisor(sp))
+        return False
+    if fp > 1 and args.num_frames % fp != 0:
+        LOGGER.error("--frame-parallel %d: --num-frames %d must divide by it", fp,
+                     args.num_frames)
+        return False
+    return True
 
 
 def model_configs(args: argparse.Namespace):
@@ -430,10 +452,13 @@ def main(argv: list[str] | None = None) -> int:
     if not args.checkpoint and not args.random_weights:
         LOGGER.error("provide --checkpoint or --random-weights")
         return 1
-    _check_ported(args)
-    mesh = make_pipeline_mesh(args.num_stages, device=args.device)
+    unet_cfg, _, _, lat_hw = _configs(args)
+    if not check_axes(args, unet_cfg, lat_hw[1]):
+        return 1
+    mesh = make_axes_mesh(args.num_stages, seq=args.seq_parallel, frame=args.frame_parallel,
+                          device=args.device, devices=args.devices)
     PipelineConfig(args.steps, mesh.num_stages)  # a bad split fails before any rank starts
-    if mesh.num_stages == 1:
+    if mesh.world_size == 1:
         _stage_main(Stage(mesh, 0), args, t_start)
     else:
         run_stages(mesh, _stage_main, args, t_start)
@@ -446,8 +471,8 @@ def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float) -> list[
     rank denoises its slice of the steps, and the last rank frees its UNet,
     builds the decoder, decodes and writes the files (whose paths it
     returns)."""
-    if stage.num_stages > 1:  # a spawned rank starts with no logging set up
-        _logging(args.log_level, f"rank {stage.rank}/{stage.num_stages} ")
+    if stage.mesh.world_size > 1:  # a spawned rank starts with no logging set up
+        _logging(args.log_level, f"rank {stage.rank}/{stage.mesh.world_size} ")
     dev = stage.device
     unet_cfg, vae_cfg, clip_cfg, lat_hw = _configs(args)
     if stage.rank == 0:
@@ -482,12 +507,12 @@ def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float) -> list[
 
     t0 = time.perf_counter()
     noise = wrapper.pack_initial(_latent_noise(args, lat_hw, dev) * wrapper.init_noise_sigma)
-    pipe = StepPipeline(stage, wrapper.pipeline_step_fn(),
+    pipe = StepPipeline(stage, wrapper.pipeline_step_fn(**stage.axes),
                         PipelineConfig(wrapper.num_steps, stage.num_stages))
     latents = pipe.run((models.pop("unet"), cond), noise)
     _free(dev)
     _sync(dev)
-    if not stage.is_last:
+    if not stage.is_last_rank:
         return None
     t_diffusion = time.perf_counter() - t0
     LOGGER.info("diffusion [%d stage(s)]: %.3fs (%d samples)", stage.num_stages, t_diffusion,

@@ -24,8 +24,8 @@ this process, S stages one process each (``parallel/mesh.py``). Rank 0 runs
 T5 and broadcasts the context, every rank builds the DiT from the same
 checkpoint or seed, and the last rank builds the decoder, decodes and writes
 the files, the same byte for byte for any stage count. ``--seq-parallel``
-above 1 raises (ROADMAP A13). Without a CUDA device the app fails unless
-``--device cpu`` is asked for.
+above 1 (the DiT's sequence parallelism) raises (ROADMAP A13 part 2).
+Without a CUDA device the app fails unless ``--device cpu`` is asked for.
 """
 
 from __future__ import annotations
@@ -230,8 +230,8 @@ def main(argv: list[str] | None = None) -> int:
                      args.guidance_scale)
         return 1
     if args.seq_parallel != 1:
-        raise NotImplementedError("--seq-parallel above 1 comes with intra-sample parallelism "
-                                  "(ROADMAP A13)")
+        raise NotImplementedError("--seq-parallel above 1 comes with the DiT's sequence "
+                                  "parallelism (ROADMAP A13 part 2)")
     t5_cfg, dit_cfg, vae_cfg, lat_hw = _configs(args)
     if lat_hw[0] % dit_cfg.patch_size or lat_hw[1] % dit_cfg.patch_size:
         LOGGER.error("latent %dx%d not divisible by patch size", *lat_hw)

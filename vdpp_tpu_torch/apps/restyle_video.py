@@ -15,9 +15,13 @@ the step pipeline, then decode and write MP4 and GIF. A tail that does not
 divide over the stages is padded with identity steps (``pad_steps_to``),
 which change nothing. ``--solver``, ``--deepcache`` and ``--num-stages``
 are the image->video app's, whose encode, denoise and decode pieces this
-app shares. ``--seq-parallel`` and ``--frame-parallel`` above 1 raise
-(ROADMAP A13). Without a CUDA device the app fails unless ``--device cpu``
-is asked for.
+app shares. ``--seq-parallel`` and ``--frame-parallel`` make each stage a
+block of ranks that split each UNet forward over the latent's W axis and its
+frames; with DeepCache over more than one stage the stages must take the
+cache's full and cache steps together (``StepPipeline`` refuses a padded
+tail or a stage slice off the cadence, as the reference does; one stage is
+exempt). Without a CUDA device the app fails unless ``--device cpu`` is
+asked for.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from vdpp_tpu_torch.apps.generate_video import (
 )
 from vdpp_tpu_torch.models.clip_encoder import preprocess_image
 from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet
-from vdpp_tpu_torch.parallel.mesh import Stage, make_pipeline_mesh, run_stages
+from vdpp_tpu_torch.parallel.mesh import Stage, make_axes_mesh, run_stages
 from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
 from vdpp_tpu_torch.utils.video_io import read_y4m
 
@@ -86,6 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fps", type=int, default=None, help="output fps (default: the input's)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--devices", nargs="+", default=None, metavar="DEV",
+                   help="an explicit device per rank, in rank order; a card named more than "
+                        "once is shared by its ranks over gloo")
     p.add_argument("--log-level", default="INFO")
     return p
 
@@ -153,13 +160,13 @@ def restyle(stage: Stage, models: dict, wrapper: StableVideoUNet, frames_u8: np.
     cond, latent0, times["encode"] = _share(stage, sent)
 
     t0 = time.perf_counter()
-    pipe = StepPipeline(stage, wrapper.pipeline_step_fn(),
+    pipe = StepPipeline(stage, wrapper.pipeline_step_fn(**stage.axes),
                         PipelineConfig(wrapper.num_steps, stage.num_stages))
     latents = pipe.run((models.pop("unet"), cond), wrapper.pack_initial(latent0))
     _free(dev)
     _sync(dev)
     times["diffusion"] = time.perf_counter() - t0
-    if not stage.is_last:
+    if not stage.is_last_rank:
         return None
     t0 = time.perf_counter()
     video = _decode(models["vae_decoder"], wrapper.unpack_final(latents),
@@ -179,20 +186,27 @@ def main(argv: list[str] | None = None) -> int:
     if not 0.0 < args.strength <= 1.0:
         LOGGER.error("--strength must be in (0, 1], got %s", args.strength)
         return 1
-    if args.seq_parallel != 1 or args.frame_parallel != 1:
-        raise NotImplementedError("--seq-parallel and --frame-parallel come with intra-sample "
-                                  "parallelism (ROADMAP A13)")
     frames_u8, in_fps = read_y4m(args.input)
     if args.num_frames:
         frames_u8 = frames_u8[: args.num_frames]
-    _, vae_cfg, _ = model_configs(args)
+    unet_cfg, vae_cfg, _ = model_configs(args)
     down = 2 ** (len(vae_cfg.block_out_channels) - 1)
     if frames_u8.shape[1] % down or frames_u8.shape[2] % down:
         LOGGER.error("input %dx%d not divisible by the VAE factor %d", frames_u8.shape[2],
                      frames_u8.shape[1], down)
         return 1
-    mesh = make_pipeline_mesh(args.num_stages, device=args.device)
-    if mesh.num_stages == 1:
+    sp, fp = args.seq_parallel, args.frame_parallel
+    lat_w, f = frames_u8.shape[2] // down, frames_u8.shape[0]
+    if sp > 1 and lat_w % unet_cfg.seq_min_divisor(sp) != 0:
+        LOGGER.error("--seq-parallel %d: latent width %d must divide by %d", sp, lat_w,
+                     unet_cfg.seq_min_divisor(sp))
+        return 1
+    if fp > 1 and f % fp != 0:
+        LOGGER.error("--frame-parallel %d: %d input frames must divide by it", fp, f)
+        return 1
+    mesh = make_axes_mesh(args.num_stages, seq=sp, frame=fp, device=args.device,
+                          devices=args.devices)
+    if mesh.world_size == 1:
         _stage_main(Stage(mesh, 0), args, t_start, frames_u8, in_fps)
     else:
         run_stages(mesh, _stage_main, args, t_start, frames_u8, in_fps)
@@ -203,8 +217,8 @@ def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float, frames_u
                 in_fps: int) -> list[str] | None:
     """One stage of the run (see :func:`restyle`); the last rank writes the
     files and returns their paths."""
-    if stage.num_stages > 1:  # a spawned rank starts with no logging set up
-        _logging(args.log_level, f"rank {stage.rank}/{stage.num_stages} ")
+    if stage.mesh.world_size > 1:  # a spawned rank starts with no logging set up
+        _logging(args.log_level, f"rank {stage.rank}/{stage.mesh.world_size} ")
     dev = stage.device
     unet_cfg, vae_cfg, clip_cfg = model_configs(args)
     fps = args.fps or in_fps
@@ -216,7 +230,7 @@ def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float, frames_u
                     frames_u8.shape[0], args.strength, wrapper.num_steps, args.steps,
                     wrapper.sigma_start, stage.num_stages, dev)
     names = (["clip", "vae_encoder"] if stage.rank == 0 else []) + ["unet"] + (
-        ["vae_decoder"] if stage.is_last else [])
+        ["vae_decoder"] if stage.is_last_rank else [])
     models = _load_models(args, wrapper, vae_cfg, clip_cfg, names)
     _sync(dev)
     t_load = time.perf_counter() - t0

@@ -206,7 +206,7 @@ class DiTVideo(nn.Module):
         optional ``(B, M, cross_dim)`` conditioning tokens."""
         if seq_axis is not None or expert_axis is not None or moe_dispatch != "dense":
             raise NotImplementedError("sequence and expert parallelism and MoE dispatch are "
-                                      "not ported yet (ROADMAP A13, A15)")
+                                      "not ported yet (ROADMAP A13 part 2, A15)")
         cfg = self.config
         b, f, hh, ww, cch = latent.shape
         p = cfg.patch_size
@@ -335,7 +335,8 @@ class DiTVideoWrapper:
         """One denoising step; ``context`` may be a ``(neg_ctx, pos_ctx)``
         tuple for negative-prompt CFG."""
         if cfg_axis is not None:
-            raise NotImplementedError("CFG parallelism is not ported yet (ROADMAP A13)")
+            raise NotImplementedError("the DiT's CFG parallelism is not ported yet (ROADMAP A13 "
+                                      "part 2)")
         neg_context = None
         if isinstance(context, tuple):
             neg_context, context = context
@@ -372,8 +373,8 @@ class DiTVideoWrapper:
         """``step_fn(bundle, latent, step)`` with ``bundle = (dit, context,
         guidance)``."""
         if seq_axis is not None or cfg_axis is not None or expert_axis is not None:
-            raise NotImplementedError("sequence, CFG and expert parallelism are not ported yet "
-                                      "(ROADMAP A13, A15)")
+            raise NotImplementedError("the DiT's sequence, CFG and expert parallelism are not "
+                                      "ported yet (ROADMAP A13 part 2, A15)")
 
         def step_fn(bundle, latent: torch.Tensor, step_idx: int) -> torch.Tensor:
             params, context, guidance = bundle

@@ -1,7 +1,7 @@
 """Spatio-temporal conditioned video UNet (SVD architecture) in PyTorch.
 
 Port of ``vdpp_tpu/models/svd_unet.py`` (``SVDUNet.apply``, ``apply_cached`` and their blocks,
-without the sequence/frame-sharding and int8 arguments). Modules carry the
+with the sequence and frame sharding, without the int8 arguments). Modules carry the
 diffusers ``UNetSpatioTemporalConditionModel`` parameter names, so
 ``state_dict()`` has exactly the keys of a diffusers checkpoint (1428 at
 SVD-XT). Activations stay channels-last as in the reference:
@@ -10,6 +10,15 @@ SVD-XT). Activations stay channels-last as in the reference:
 Precision policy as in the reference: model-dtype (bf16) weights and
 activations, fp32 norm statistics, sinusoids and softmax, fp32 matmul
 accumulation.
+
+Intra-sample parallelism, as in the reference: under ``seq_axis`` the
+latent's W axis is split over the ranks of that axis (every 3x3 conv
+exchanges a one-column halo, the spatial and temporal GroupNorm statistics
+are averaged across the shards, spatial self-attention gathers K/V); under
+``frame_axis`` the frame axis is split (temporal convs exchange an edge
+frame, temporal attention gathers K/V over frames, the temporal GroupNorm
+statistics are averaged); the two compose. The latent enters whole on every
+rank and the output is gathered whole again.
 """
 
 from __future__ import annotations
@@ -22,10 +31,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from vdpp_tpu_torch.ops.attention import Attention, attention, temporal_self_attention
-from vdpp_tpu_torch.ops.conv import Conv2d, ConvTemporal, conv2d, conv_temporal, upsample_nearest_2x
+from vdpp_tpu_torch.ops.conv import (
+    Conv2d,
+    ConvTemporal,
+    conv2d,
+    conv2d_halo,
+    conv_temporal,
+    conv_temporal_halo,
+    upsample_nearest_2x,
+)
 from vdpp_tpu_torch.ops.embeddings import TimestepEmbedding, sinusoidal_embedding
 from vdpp_tpu_torch.ops.linear import FeedForward, Linear, geglu_ff
 from vdpp_tpu_torch.ops.normalization import Norm, group_norm, group_norm_silu, layer_norm
+from vdpp_tpu_torch.parallel.collectives import Axis, all_gather
 from vdpp_tpu_torch.utils.device import resolve_device
 
 
@@ -61,6 +79,12 @@ class SVDUNetConfig:
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
 
+    def seq_min_divisor(self, shards: int) -> int:
+        """Under W-halo sequence parallelism the latent width must divide by
+        ``shards * 2^(levels-1)``, so that every level's local width stays
+        even for the stride-2 downsample grid."""
+        return shards * 2 ** (self.num_levels - 1)
+
     @classmethod
     def svd_xt(cls, dtype: torch.dtype = torch.bfloat16) -> SVDUNetConfig:
         return cls(dtype=dtype)
@@ -88,6 +112,25 @@ def cache_feature_shape(cfg: SVDUNetConfig, batch: int, frames: int, height: int
         raise ValueError(f"deepcache split must be in [1, {cfg.num_levels - 1}], got {split}")
     r = 2 ** (split - 1)
     return (batch, frames, height // r, width // r, cfg.block_out_channels[split])
+
+
+def _conv3(x: torch.Tensor, conv: Conv2d, seq: Axis | None, stride: int = 1) -> torch.Tensor:
+    """A 3x3 site of the UNet (one pixel of zero padding on each side, the
+    downsample's stride 2 included): ``conv2d``, or its halo form under a W
+    split."""
+    if seq is not None:
+        return conv2d_halo(x, conv, seq, stride=stride)
+    return conv2d(x, conv, stride=stride, padding=((1, 1), (1, 1)))
+
+
+@dataclass(frozen=True)
+class _Shards:
+    """How a forward is split: the W axis over ``seq``, the frames over
+    ``frame``, this rank's first frame ``frame_offset``."""
+
+    seq: Axis | None = None
+    frame: Axis | None = None
+    frame_offset: int = 0
 
 
 class AlphaBlender(nn.Module):
@@ -121,17 +164,20 @@ class SpatialResnet(nn.Module):
         self.conv2 = Conv2d(out_ch, out_ch, 3, **kw)
         self.conv_shortcut = Conv2d(in_ch, out_ch, 1, **kw) if in_ch != out_ch else None
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        """x: (BF, H, W, C), emb: (BF, time_embed_dim)."""
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                seq: Axis | None = None) -> torch.Tensor:
+        """x: (BF, H, W, C), emb: (BF, time_embed_dim). Under ``seq`` (W
+        split) the 3x3 convs exchange halos and the GroupNorm statistics are
+        averaged across the shards; the 1x1 shortcut stays local."""
         cfg = self.cfg
         h = group_norm_silu(x, self.norm1, cfg.norm_num_groups, cfg.resnet_eps,
-                            fused=cfg.fused_groupnorm)
-        h = conv2d(h, self.conv1)
+                            fused=cfg.fused_groupnorm, psum_axis=seq)
+        h = _conv3(h, self.conv1, seq)
         temb = self.time_emb_proj(F.silu(emb.float()).to(emb.dtype))
         h = h + temb[:, None, None, :]
         h = group_norm_silu(h, self.norm2, cfg.norm_num_groups, cfg.resnet_eps,
-                            fused=cfg.fused_groupnorm)
-        h = conv2d(h, self.conv2)
+                            fused=cfg.fused_groupnorm, psum_axis=seq)
+        h = _conv3(h, self.conv2, seq)
         shortcut = x if self.conv_shortcut is None else conv2d(x, self.conv_shortcut)
         return shortcut + h
 
@@ -146,17 +192,27 @@ class TemporalResnet(nn.Module):
         self.norm2 = Norm(ch, **kw)
         self.conv2 = ConvTemporal(ch, ch, 3, **kw)
 
-    def forward(self, x: torch.Tensor, emb_bf: torch.Tensor) -> torch.Tensor:
-        """x: (B, F, H, W, C), emb_bf: (B, F, time_embed_dim)."""
+    def forward(self, x: torch.Tensor, emb_bf: torch.Tensor, seq: Axis | None = None,
+                frame: Axis | None = None) -> torch.Tensor:
+        """x: (B, F, H, W, C), emb_bf: (B, F, time_embed_dim). The (k, 1, 1)
+        convs touch no spatial neighbour, so under ``seq`` only the GroupNorm
+        statistics are averaged; under ``frame`` the convs exchange an edge
+        frame with each neighbour and the statistics, which span the
+        frames, are averaged over that axis too."""
         cfg = self.cfg
+        axes = tuple(a for a in (seq, frame) if a is not None) or None
+
+        def ct(h, conv):
+            return conv_temporal(h, conv) if frame is None else conv_temporal_halo(h, conv, frame)
+
         h = group_norm_silu(x, self.norm1, cfg.norm_num_groups, cfg.resnet_eps,
-                            fused=cfg.fused_groupnorm)
-        h = conv_temporal(h, self.conv1)
+                            fused=cfg.fused_groupnorm, psum_axis=axes)
+        h = ct(h, self.conv1)
         temb = self.time_emb_proj(F.silu(emb_bf.float()).to(emb_bf.dtype))
         h = h + temb[:, :, None, None, :]
         h = group_norm_silu(h, self.norm2, cfg.norm_num_groups, cfg.resnet_eps,
-                            fused=cfg.fused_groupnorm)
-        h = conv_temporal(h, self.conv2)
+                            fused=cfg.fused_groupnorm, psum_axis=axes)
+        h = ct(h, self.conv2)
         return x + h
 
 
@@ -170,15 +226,17 @@ class STResBlock(nn.Module):
         self.temporal_res_block = TemporalResnet(cfg, out_ch, **kw)
         self.time_mixer = AlphaBlender(**kw)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor, batch: int, frames: int) -> torch.Tensor:
-        """x: (B*F, H, W, C) -> same."""
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, batch: int, frames: int,
+                seq: Axis | None = None, frame: Axis | None = None) -> torch.Tensor:
+        """x: (B*F, H, W, C) -> same; ``frames`` is the local count under
+        ``frame``."""
         bf, hh, ww, _ = x.shape
-        hs = self.spatial_res_block(x, emb)
+        hs = self.spatial_res_block(x, emb, seq)
         if os.environ.get("VDPP_ABLATE_TEMPORAL_RESNET") == "1":  # profiling only
             return hs
         c = hs.shape[-1]
         hs = hs.reshape(batch, frames, hh, ww, c)
-        ht = self.temporal_res_block(hs, emb.reshape(batch, frames, -1))
+        ht = self.temporal_res_block(hs, emb.reshape(batch, frames, -1), seq, frame)
         return self.time_mixer.blend(hs, ht).reshape(bf, hh, ww, c)
 
 
@@ -197,9 +255,12 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = Norm(dim, **kw)
         self.ff = FeedForward(dim, **kw)
 
-    def forward(self, h: torch.Tensor, ctx: torch.Tensor, heads: int) -> torch.Tensor:
-        """h: (BF, L, C), ctx: (BF, 1, cross_dim)."""
-        h = h + attention(layer_norm(h, self.norm1), self.attn1, heads)
+    def forward(self, h: torch.Tensor, ctx: torch.Tensor, heads: int,
+                seq: Axis | None = None) -> torch.Tensor:
+        """h: (BF, L, C), ctx: (BF, 1, cross_dim). Under ``seq`` L is the
+        local token shard: self-attention gathers K/V, the single-key
+        cross-attention and the feed-forward are token-local."""
+        h = h + attention(layer_norm(h, self.norm1), self.attn1, heads, seq_axis=seq)
         h = h + attention(layer_norm(h, self.norm2), self.attn2, heads, context=ctx)
         return h + geglu_ff(layer_norm(h, self.norm3), self.ff)
 
@@ -223,11 +284,12 @@ class TemporalBasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim, **kw)
 
     def forward(self, h: torch.Tensor, time_ctx_b: torch.Tensor, heads: int, batch: int,
-                frames: int) -> torch.Tensor:
-        """time_ctx_b: (B, 1, cross_dim)."""
+                frames: int, frame: Axis | None = None) -> torch.Tensor:
+        """time_ctx_b: (B, 1, cross_dim); ``frames`` is the local count under
+        ``frame`` (the attention gathers K/V over it)."""
         h = geglu_ff(layer_norm(h, self.norm_in), self.ff_in) + h
         h = h + temporal_self_attention(self.attn1, layer_norm(h, self.norm1), heads, batch,
-                                        frames)
+                                        frames, frame_axis=frame)
         cross = self.attn2.to_out[0](self.attn2.to_v(time_ctx_b))  # (B, 1, C)
         h = h + cross.repeat_interleave(frames, dim=0)
         return h + geglu_ff(layer_norm(h, self.norm3), self.ff)
@@ -253,14 +315,21 @@ class STTransformer(nn.Module):
         self.proj_out = Linear(dim, dim, **kw)
 
     def forward(self, x: torch.Tensor, ctx: torch.Tensor, heads: int, batch: int,
-                frames: int) -> torch.Tensor:
-        """x: (B*F, H, W, C); ctx: (B*F, 1, cross_dim)."""
+                frames: int, seq: Axis | None = None, frame: Axis | None = None,
+                frame_offset: int = 0) -> torch.Tensor:
+        """x: (B*F, H, W, C); ctx: (B*F, 1, cross_dim). Under ``frame``,
+        ``frames`` is the local count and ``frame_offset`` the shard's first
+        global frame: the frame-position embedding is global."""
         bf, hh, ww, c = x.shape
-        h = group_norm(x, self.norm, self.cfg.norm_num_groups, self.cfg.transformer_eps)
+        # The statistics are per (batch, frame) row, so only the W split needs
+        # them averaged.
+        h = group_norm(x, self.norm, self.cfg.norm_num_groups, self.cfg.transformer_eps,
+                       psum_axis=seq)
         h = self.proj_in(h.reshape(bf, hh * ww, c))
 
         # Frame-position embedding added before each temporal block.
-        frame_idx = torch.arange(frames, dtype=torch.float32, device=x.device).repeat(batch)
+        frame_idx = (torch.arange(frames, dtype=torch.float32, device=x.device).repeat(batch)
+                     + frame_offset)
         f_emb = sinusoidal_embedding(frame_idx, c).to(x.dtype)
         f_emb = self.time_pos_embed(f_emb)[:, None, :]  # (BF, 1, C)
 
@@ -268,9 +337,9 @@ class STTransformer(nn.Module):
         time_ctx = ctx.reshape(batch, frames, *ctx.shape[1:])[:, 0]  # (B, 1, D)
         ablate_temporal = os.environ.get("VDPP_ABLATE_TEMPORAL") == "1"  # profiling only
         for sp, tp in zip(self.transformer_blocks, self.temporal_transformer_blocks):
-            h = sp(h, ctx, heads)
+            h = sp(h, ctx, heads, seq)
             if not ablate_temporal:
-                h_mix = tp(h + f_emb, time_ctx, heads, batch, frames)
+                h_mix = tp(h + f_emb, time_ctx, heads, batch, frames, frame)
                 h = self.time_mixer.blend(h, h_mix)
         h = self.proj_out(h)
         return h.reshape(bf, hh, ww, c) + x
@@ -389,7 +458,7 @@ class SVDUNet(nn.Module):
         return emb_f, ctx_f
 
     def _down_path(self, x: torch.Tensor, emb_f: torch.Tensor, ctx_f: torch.Tensor, b: int,
-                   f: int, n_levels_to_run: int | None = None,
+                   f: int, sh: _Shards = _Shards(), n_levels_to_run: int | None = None,
                    run_last_downsample: bool = True) -> tuple[torch.Tensor, list]:
         """Down levels ``0..n-1`` on a post-``conv_in`` tensor. Returns ``(x,
         skips)``, the entry tensor first among the skips.
@@ -402,24 +471,26 @@ class SVDUNet(nn.Module):
         for i in range(n):
             block = self.down_blocks[i]
             for j, res in enumerate(block.resnets):
-                x = res(x, emb_f, b, f)
+                x = res(x, emb_f, b, f, sh.seq, sh.frame)
                 if i < n_levels - 1:
-                    x = block.attentions[j](x, ctx_f, heads[i], b, f)
+                    x = block.attentions[j](x, ctx_f, heads[i], b, f, sh.seq, sh.frame,
+                                            sh.frame_offset)
                 res_stack.append(x)
             if hasattr(block, "downsamplers") and (i < n - 1 or run_last_downsample):
-                x = conv2d(x, block.downsamplers[0].conv, stride=2, padding=((1, 1), (1, 1)))
+                x = _conv3(x, block.downsamplers[0].conv, sh.seq, stride=2)
                 res_stack.append(x)
         return x, res_stack
 
     def _mid(self, x: torch.Tensor, emb_f: torch.Tensor, ctx_f: torch.Tensor, b: int,
-             f: int) -> torch.Tensor:
+             f: int, sh: _Shards = _Shards()) -> torch.Tensor:
         mid = self.mid_block
-        x = mid.resnets[0](x, emb_f, b, f)
-        x = mid.attentions[0](x, ctx_f, self.config.num_attention_heads[-1], b, f)
-        return mid.resnets[1](x, emb_f, b, f)
+        x = mid.resnets[0](x, emb_f, b, f, sh.seq, sh.frame)
+        x = mid.attentions[0](x, ctx_f, self.config.num_attention_heads[-1], b, f, sh.seq,
+                              sh.frame, sh.frame_offset)
+        return mid.resnets[1](x, emb_f, b, f, sh.seq, sh.frame)
 
     def _up_path(self, x: torch.Tensor, res_stack: list, emb_f: torch.Tensor,
-                 ctx_f: torch.Tensor, b: int, f: int, start: int = 0,
+                 ctx_f: torch.Tensor, b: int, f: int, sh: _Shards = _Shards(), start: int = 0,
                  stop: int | None = None) -> torch.Tensor:
         """Up blocks ``start..stop-1``, popping their skips off ``res_stack``
         (so a second call goes on where the first stopped)."""
@@ -429,22 +500,66 @@ class SVDUNet(nn.Module):
             block = self.up_blocks[i]
             for j, res in enumerate(block.resnets):
                 x = torch.cat([x, res_stack.pop()], dim=-1)
-                x = res(x, emb_f, b, f)
+                x = res(x, emb_f, b, f, sh.seq, sh.frame)
                 if i > 0:
-                    x = block.attentions[j](x, ctx_f, rev_heads[i], b, f)
+                    x = block.attentions[j](x, ctx_f, rev_heads[i], b, f, sh.seq, sh.frame,
+                                            sh.frame_offset)
             if hasattr(block, "upsamplers"):
-                x = conv2d(upsample_nearest_2x(x), block.upsamplers[0].conv)
+                x = _conv3(upsample_nearest_2x(x), block.upsamplers[0].conv, sh.seq)
         return x
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, x: torch.Tensor, sh: _Shards = _Shards()) -> torch.Tensor:
         cfg = self.config
         x = group_norm_silu(x, self.conv_norm_out, cfg.norm_num_groups, cfg.out_norm_eps,
-                            fused=cfg.fused_groupnorm)
-        return conv2d(x, self.conv_out)
+                            fused=cfg.fused_groupnorm, psum_axis=sh.seq)
+        return _conv3(x, self.conv_out, sh.seq)
 
-    def _conv_in(self, sample: torch.Tensor) -> torch.Tensor:
+    def _shard(self, sample: torch.Tensor, seq_axis: Axis | None, frame_axis: Axis | None,
+               cache: torch.Tensor | None = None, split: int = 1):
+        """Check the split as the reference does, and take this rank's block
+        of ``sample (B, F, H, W, C_in)`` (its frames, then its columns) as
+        ``(B*F_local, H, W_local, C_in)`` in the model dtype, with the
+        :class:`_Shards` and the local frame count, and of ``cache`` (whose
+        grid is the latent's over ``2^(split-1)``) when given."""
+        cfg = self.config
         b, f, hh, ww, c_in = sample.shape
-        return conv2d(sample.to(self.config.dtype).reshape(b * f, hh, ww, c_in), self.conv_in)
+        if seq_axis is not None and ww % cfg.seq_min_divisor(seq_axis.size):
+            raise ValueError(f"latent width {ww} not divisible by seq_shards x 2^(levels-1) = "
+                             f"{cfg.seq_min_divisor(seq_axis.size)}")
+        if frame_axis is not None and f % frame_axis.size:
+            raise ValueError(f"frame count {f} not divisible by frame_shards {frame_axis.size}")
+        if cfg.fused_groupnorm and (seq_axis is not None or frame_axis is not None):
+            # The sharded statistics take the two-pass composition while the
+            # unsharded forward takes the kernel: the two would no longer agree.
+            raise ValueError("fused_groupnorm is incompatible with seq/frame sharding: "
+                             "construct the UNet with fused_groupnorm=False (or unset "
+                             "VDPP_GN_FUSED) for intra-sample-parallel runs")
+        xs = sample.to(cfg.dtype)
+        offset = 0
+        if frame_axis is not None:
+            f //= frame_axis.size
+            offset = frame_axis.index * f
+            xs = xs[:, offset:offset + f]
+            cache = None if cache is None else cache[:, offset:offset + f]
+        x = xs.reshape(b * f, hh, ww, c_in)
+        if seq_axis is not None:
+            wl = ww // seq_axis.size
+            x = x[:, :, seq_axis.index * wl:(seq_axis.index + 1) * wl]
+            if cache is not None:
+                wc = wl // 2 ** (split - 1)
+                cache = cache[:, :, :, seq_axis.index * wc:(seq_axis.index + 1) * wc]
+        return x, _Shards(seq_axis, frame_axis, offset), f, cache
+
+    @staticmethod
+    def _gather(x: torch.Tensor, sh: _Shards) -> torch.Tensor:
+        """A ``(B, F_local, H', W_local', C)`` block whole again: its columns
+        gathered over the seq shards, then its frames over the frame
+        shards."""
+        if sh.seq is not None:
+            x = all_gather(x, sh.seq, 3)
+        if sh.frame is not None:
+            x = all_gather(x, sh.frame, 1)
+        return x
 
     def forward(
         self,
@@ -452,6 +567,8 @@ class SVDUNet(nn.Module):
         timestep,
         encoder_hidden_states: torch.Tensor,
         added_time_ids: torch.Tensor,
+        seq_axis: Axis | None = None,
+        frame_axis: Axis | None = None,
     ) -> torch.Tensor:
         """Denoise one step.
 
@@ -460,16 +577,23 @@ class SVDUNet(nn.Module):
             timestep: scalar or (B,) continuous timestep (0.25 * ln(sigma)).
             encoder_hidden_states: (B, 1, cross_attention_dim) CLIP image embedding.
             added_time_ids: (B, 3) [fps-1, motion_bucket_id, noise_aug_strength].
+            seq_axis: split W over this axis (W must divide by
+                ``config.seq_min_divisor(seq_axis.size)``).
+            frame_axis: split the frames over this axis (F must divide by its
+                size). Every rank of both axes passes the whole ``sample``.
 
         Returns:
-            (B, F, H, W, C_out) v-prediction in the model dtype.
+            (B, F, H, W, C_out) v-prediction in the model dtype, whole on
+            every rank.
         """
         b, f, hh, ww, _ = sample.shape
-        emb_f, ctx_f = self._embeddings(timestep, added_time_ids, encoder_hidden_states, b, f)
-        x, res_stack = self._down_path(self._conv_in(sample), emb_f, ctx_f, b, f)
-        x = self._mid(x, emb_f, ctx_f, b, f)
-        x = self._up_path(x, res_stack, emb_f, ctx_f, b, f)
-        return self._head(x).reshape(b, f, hh, ww, self.config.out_channels)
+        x, sh, fl, _ = self._shard(sample, seq_axis, frame_axis)
+        emb_f, ctx_f = self._embeddings(timestep, added_time_ids, encoder_hidden_states, b, fl)
+        x, res_stack = self._down_path(_conv3(x, self.conv_in, sh.seq), emb_f, ctx_f, b, fl, sh)
+        x = self._mid(x, emb_f, ctx_f, b, fl, sh)
+        x = self._up_path(x, res_stack, emb_f, ctx_f, b, fl, sh)
+        x = self._head(x, sh)
+        return self._gather(x.reshape(b, fl, hh, x.shape[2], self.config.out_channels), sh)
 
     # ------------------- cached (DeepCache) forward ------------------- #
     def cache_feature_shape(self, batch: int, frames: int, height: int, width: int,
@@ -485,8 +609,8 @@ class SVDUNet(nn.Module):
         cache: torch.Tensor,
         use_full: bool,
         split: int = 1,
-        seq_axis: str | None = None,
-        frame_axis: str | None = None,
+        seq_axis: Axis | None = None,
+        frame_axis: Axis | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """One step with a deep-feature cache (DeepCache, Ma et al. 2023).
 
@@ -497,12 +621,14 @@ class SVDUNet(nn.Module):
         ..`` run, on the cached deep feature, which passes through unchanged.
         The branch is a host ``if``: a cache step does none of the deep work.
 
+        ``seq_axis``/``frame_axis`` split the step as in :meth:`forward`: the
+        sample and the cache enter whole, each rank takes its block of both
+        (the cache's grid splits as the latent's, at ``W / 2^(split-1)``),
+        and the v-prediction and the cache are gathered whole at the end.
+
         Returns ``(v_prediction (B, F, H, W, C_out), cache)``, the cache in the
         model dtype, of :meth:`cache_feature_shape`.
         """
-        if seq_axis is not None or frame_axis is not None:
-            raise NotImplementedError("the cached forward over sequence or frame shards comes "
-                                      "with intra-sample parallelism (ROADMAP A13)")
         cfg = self.config
         n_levels = cfg.num_levels
         b, f, hh, ww, _ = sample.shape
@@ -510,17 +636,21 @@ class SVDUNet(nn.Module):
         if tuple(cache.shape) != want:
             raise ValueError(f"cache shape {tuple(cache.shape)} != expected {want}")
         u_start = n_levels - split
-        emb_f, ctx_f = self._embeddings(timestep, added_time_ids, encoder_hidden_states, b, f)
-        x = self._conv_in(sample)
+        x, sh, fl, cache = self._shard(sample, seq_axis, frame_axis, cache, split)
+        want_local = (b, fl, *cache.shape[2:])
+        emb_f, ctx_f = self._embeddings(timestep, added_time_ids, encoder_hidden_states, b, fl)
+        x = _conv3(x, self.conv_in, sh.seq)
         if use_full:
-            x, res_stack = self._down_path(x, emb_f, ctx_f, b, f)
-            x = self._mid(x, emb_f, ctx_f, b, f)
-            x = self._up_path(x, res_stack, emb_f, ctx_f, b, f, stop=u_start)
-            cache = x.reshape(want).to(cfg.dtype)
+            x, res_stack = self._down_path(x, emb_f, ctx_f, b, fl, sh)
+            x = self._mid(x, emb_f, ctx_f, b, fl, sh)
+            x = self._up_path(x, res_stack, emb_f, ctx_f, b, fl, sh, stop=u_start)
+            cache = x.reshape(want_local).to(cfg.dtype)
         else:
-            _, res_stack = self._down_path(x, emb_f, ctx_f, b, f, n_levels_to_run=split,
+            _, res_stack = self._down_path(x, emb_f, ctx_f, b, fl, sh, n_levels_to_run=split,
                                            run_last_downsample=False)
             cache = cache.to(cfg.dtype)
-            x = cache.reshape(b * f, *want[2:])
-        x = self._up_path(x, res_stack, emb_f, ctx_f, b, f, start=u_start)
-        return self._head(x).reshape(b, f, hh, ww, cfg.out_channels), cache
+            x = cache.reshape(b * fl, *want_local[2:])
+        x = self._up_path(x, res_stack, emb_f, ctx_f, b, fl, sh, start=u_start)
+        x = self._head(x, sh)
+        out = x.reshape(b, fl, hh, x.shape[2], cfg.out_channels)
+        return self._gather(out, sh), self._gather(cache, sh)

@@ -1,6 +1,6 @@
 """Stable Video Diffusion denoise-step wrapper (port of
 ``vdpp_tpu/models/svd_wrapper.py``: the euler, euler_a, heun and dpmpp2m
-solvers and DeepCache, without the sharded axes).
+solvers, DeepCache, and the intra-sample axes).
 
 Owns the Euler/Karras schedule, the conditioning (CLIP image embedding,
 frame-repeated image latents, added time ids, per-frame guidance ramp),
@@ -15,6 +15,12 @@ whose previous ``x0_hat`` rides the pipeline payload along the channel
 axis). With DeepCache every ``interval``-th real step runs the whole UNet
 and the others only its shallow levels, on a deep feature cached per CFG
 branch that rides the payload too: ``[x | (old x0_hat) | cache_u | cache_c]``.
+
+The intra-sample axes (``parallel/mesh.py``'s ``Stage.axes``): ``seq_axis``
+and ``frame_axis`` split each UNet forward (``SVDUNet.forward``); on
+``cfg_axis``, a size-2 axis, rank 0 runs the uncond branch and rank 1 the
+cond one, and one swap gives both ranks both outputs (and under DeepCache
+both caches), so the payload stays the same on every rank of a stage.
 
 Latents are channels-last ``(B, F, H, W, 4)``. The UNet's weights travel as
 the ``params`` argument (an initialised :class:`SVDUNet`), as the reference's
@@ -40,6 +46,7 @@ from vdpp_tpu_torch.diffusion.scheduler import (
     heun_step_v_prediction,
 )
 from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig, cache_feature_shape
+from vdpp_tpu_torch.parallel.collectives import Axis, swap
 from vdpp_tpu_torch.utils.device import resolve_device
 
 
@@ -285,11 +292,17 @@ class StableVideoUNet:
                 "the UNet from the wrapper's config (init() or SVDUNet(wrapper.config))"
             )
 
-    def _cfg_calls(self, call, latent_scaled: torch.Tensor, cond: SVDConditioning, *caches):
+    def _cfg_calls(self, call, latent_scaled: torch.Tensor, cond: SVDConditioning, *caches,
+                   cfg_axis: Axis | None = None):
         """Run ``call(lat, image_latents, ctx, added_time_ids, *caches)`` for
         the CFG branches and blend in fp32. Returns ``(eps, outputs)``, where
         ``outputs`` holds the call's further outputs for (uncond, cond) each
-        (for the cond branch alone without guidance)."""
+        (for the cond branch alone without guidance).
+
+        ``cfg_axis``: this rank runs its own branch (rank 0 the uncond one,
+        with zeroed conditioning and ``caches[0]``; rank 1 the cond one), and
+        one swap a output gives it the other's, so both ranks blend the same
+        values. It overrides ``cfg_mode``."""
         atids = cond.added_time_ids
         if cond.guidance is None:
             eps, *rest = call(latent_scaled, cond.image_latents, cond.image_embeddings, atids,
@@ -297,7 +310,17 @@ class StableVideoUNet:
             return eps.float(), (None, rest)
         zeros_lat = torch.zeros_like(cond.image_latents)
         zeros_ctx = torch.zeros_like(cond.image_embeddings)
-        if self.cfg_mode == "sequential":
+        if cfg_axis is not None:
+            is_cond = cfg_axis.index == 1
+            local, *rest = call(latent_scaled,
+                                cond.image_latents if is_cond else zeros_lat,
+                                cond.image_embeddings if is_cond else zeros_ctx, atids,
+                                *caches[1:] if is_cond else caches[:1])
+            # Every rank swaps the outputs in the same order.
+            other, *rest_other = (swap(t, cfg_axis) for t in (local, *rest))
+            uncond, cond_p = (other, local) if is_cond else (local, other)
+            rest_u, rest_c = (rest_other, rest) if is_cond else (rest, rest_other)
+        elif self.cfg_mode == "sequential":
             # Two passes: half the activation memory of the batched form.
             uncond, *rest_u = call(latent_scaled, zeros_lat, zeros_ctx, atids, *caches[:1])
             cond_p, *rest_c = call(latent_scaled, cond.image_latents, cond.image_embeddings,
@@ -316,36 +339,45 @@ class StableVideoUNet:
         return uncond + cond.guidance.float() * (cond_p.float() - uncond), (rest_u, rest_c)
 
     def noise_pred(self, params: SVDUNet, latent_scaled: torch.Tensor, timestep,
-                   cond: SVDConditioning) -> torch.Tensor:
+                   cond: SVDConditioning, cfg_axis: Axis | None = None,
+                   seq_axis: Axis | None = None, frame_axis: Axis | None = None
+                   ) -> torch.Tensor:
         """UNet eval(s) incl. CFG on the pre-scaled latent; the guided blend
-        is fp32."""
+        is fp32. ``seq_axis``/``frame_axis`` split each forward, ``cfg_axis``
+        runs the two branches on its two ranks."""
         self._check_unet(params)
         md = self.config.dtype
 
         def unet_call(lat, image_latents, ctx, added_time_ids):
             x = torch.cat([lat.to(md), image_latents.to(md)], dim=-1)
-            return (params(x, timestep, ctx, added_time_ids),)
+            return (params(x, timestep, ctx, added_time_ids, seq_axis=seq_axis,
+                           frame_axis=frame_axis),)
 
         if cond.guidance is None:  # the model's dtype, as the reference returns it
             return unet_call(latent_scaled, cond.image_latents, cond.image_embeddings,
                              cond.added_time_ids)[0]
-        return self._cfg_calls(unet_call, latent_scaled, cond)[0]
+        return self._cfg_calls(unet_call, latent_scaled, cond, cfg_axis=cfg_axis)[0]
 
     def _noise_pred_cached(self, params: SVDUNet, latent_scaled: torch.Tensor, timestep,
                            cond: SVDConditioning, cache_u: torch.Tensor, cache_c: torch.Tensor,
-                           use_full: bool):
+                           use_full: bool, cfg_axis: Axis | None = None,
+                           seq_axis: Axis | None = None, frame_axis: Axis | None = None):
         """:meth:`noise_pred` through ``apply_cached``, a cache per CFG
         branch. Returns ``(eps, cache_u, cache_c)`` (fp32 eps); without
-        guidance only the cond cache is live."""
+        guidance only the cond cache is live. Under ``cfg_axis`` the
+        refreshed cache is swapped with the output, so both branches' caches
+        stay on both ranks."""
         self._check_unet(params)
         md = self.config.dtype
 
         def call(lat, image_latents, ctx, added_time_ids, cache):
             x = torch.cat([lat.to(md), image_latents.to(md)], dim=-1)
             return params.apply_cached(x, timestep, ctx, added_time_ids, cache, use_full,
-                                       split=self.deepcache_split)
+                                       split=self.deepcache_split, seq_axis=seq_axis,
+                                       frame_axis=frame_axis)
 
-        eps, (rest_u, rest_c) = self._cfg_calls(call, latent_scaled, cond, cache_u, cache_c)
+        eps, (rest_u, rest_c) = self._cfg_calls(call, latent_scaled, cond, cache_u, cache_c,
+                                                cfg_axis=cfg_axis)
         return eps, (cache_u if rest_u is None else rest_u[0]), rest_c[0]
 
     def _ancestral_noise(self, step_idx: int, shape) -> torch.Tensor:
@@ -373,16 +405,18 @@ class StableVideoUNet:
         return euler_step_v_prediction(x32, eps, sigma, sigma_next, out_dtype)
 
     def step(self, params: SVDUNet, latent: torch.Tensor, step_idx: int,
-             cond: SVDConditioning) -> torch.Tensor:
+             cond: SVDConditioning, cfg_axis: Axis | None = None,
+             seq_axis: Axis | None = None, frame_axis: Axis | None = None) -> torch.Tensor:
         """One denoising step: scale, UNet (+CFG), fp32 solver update, on the
         payload (``[x | (old x0_hat) | (cache_u | cache_c)]``); returns the
-        next payload."""
+        next payload. The axes go to every UNet call (heun's two included)."""
+        axes = dict(cfg_axis=cfg_axis, seq_axis=seq_axis, frame_axis=frame_axis)
         sigmas = self.schedule.sigmas
         sigma, sigma_next = sigmas[step_idx], sigmas[step_idx + 1]
         lat32 = latent.float()
         if self.solver == "heun":
             return heun_step_v_prediction(
-                lat32, lambda scaled, t: self.noise_pred(params, scaled, t, cond), sigma,
+                lat32, lambda scaled, t: self.noise_pred(params, scaled, t, cond, **axes), sigma,
                 sigma_next, latent.dtype)
         co = self.config.out_channels
         s0 = co * self.latent_channel_multiplier
@@ -391,7 +425,7 @@ class StableVideoUNet:
         timestep = 0.25 * torch.log(s)
         scaled = x32 * torch.rsqrt(s * s + 1.0)
         if not self.deepcache_interval:
-            eps = self.noise_pred(params, scaled, timestep, cond)
+            eps = self.noise_pred(params, scaled, timestep, cond, **axes)
             return self._update(x32, eps, old_den, step_idx, latent.dtype)
         h, w = latent.shape[-3:-1]
         kf = self._deepcache_packed_channels()
@@ -401,16 +435,30 @@ class StableVideoUNet:
         # step 0 (a full step), so padded and unpadded runs agree bit for bit.
         use_full = max(step_idx - self._n_pad, 0) % self.deepcache_interval == 0
         eps, cache_u, cache_c = self._noise_pred_cached(params, scaled, timestep, cond,
-                                                        cache_u, cache_c, use_full)
+                                                        cache_u, cache_c, use_full, **axes)
         return torch.cat([self._update(x32, eps, old_den, step_idx, latent.dtype),
                           self._pack_cache(cache_u, h, w), self._pack_cache(cache_c, h, w)],
                          dim=-1)
 
-    def pipeline_step_fn(self):
-        """``step_fn(bundle, latent, step)`` with ``bundle = (unet, cond)``."""
+    def pipeline_step_fn(self, cfg_axis: Axis | None = None, seq_axis: Axis | None = None,
+                         frame_axis: Axis | None = None):
+        """``step_fn(bundle, latent, step)`` with ``bundle = (unet, cond)``,
+        over the given intra-sample axes (``Stage.axes``: a rank's axes on a
+        (stage, seq, frame, cfg) mesh).
+
+        With DeepCache and a seq or frame axis, the full and the cache step
+        make different collectives; the step function then carries the
+        cadence and the schedule's padding (``collective_uniform_interval``,
+        ``collective_uniform_pad``), and ``StepPipeline`` refuses, as the
+        reference does, a split where the stages would not take the same
+        branch at the same tick."""
 
         def step_fn(bundle, latent: torch.Tensor, step_idx: int) -> torch.Tensor:
             params, cond = bundle
-            return self.step(params, latent, step_idx, cond)
+            return self.step(params, latent, step_idx, cond, cfg_axis=cfg_axis,
+                             seq_axis=seq_axis, frame_axis=frame_axis)
 
+        if self.deepcache_interval and (seq_axis is not None or frame_axis is not None):
+            step_fn.collective_uniform_interval = self.deepcache_interval
+            step_fn.collective_uniform_pad = self._n_pad
         return step_fn

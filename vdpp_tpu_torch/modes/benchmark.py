@@ -40,10 +40,15 @@ weights were loaded (``utils/memory.py``); on the CPU 0.0 with the source
 ``"unavailable"``. ``--profile-dir`` writes each rank's ``torch.profiler``
 trace of its warm-up and measured runs, closed before the JSON line.
 
+``--seq-parallel N``, ``--frame-parallel N`` and ``--cfg-parallel`` make each
+stage a block of ranks on those axes (``make_axes_mesh``; an svd model's
+step splits its forwards over them), and the mode string grows
+``_x_spN``, ``_x_fpN`` and ``_x_cfg`` as in the JAX package.
+
 Flags of parallel axes that are not ported raise, naming their ROADMAP
-item: ``--cfg-parallel``, ``--seq-parallel`` and ``--frame-parallel``
-(A13), ``--weights-int8`` and ``--weights-w8a8`` (A14), ``dit3d_moe_tiny``
-and ``--expert-parallel`` (A15).
+item: ``--seq-parallel`` and ``--cfg-parallel`` with a DiT (A13 part 2),
+``--weights-int8`` and ``--weights-w8a8`` (A14), ``dit3d_moe_tiny`` and
+``--expert-parallel`` (A15).
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ from vdpp_tpu_torch.parallel.data_parallel import FSDPRunner
 from vdpp_tpu_torch.parallel.mesh import (
     Stage,
     make_2d_mesh,
+    make_axes_mesh,
     make_data_mesh,
     make_pipeline_mesh,
     run_stages,
@@ -105,11 +111,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(stage x data) mesh: each of the D data columns runs its own "
                         "pipeline over its block of the samples (implies --fused)")
     p.add_argument("--cfg-parallel", action="store_true",
-                   help="CFG branch parallelism (not ported: ROADMAP A13)")
+                   help="CFG branches on a size-2 cfg axis per stage (svd models)")
     p.add_argument("--seq-parallel", type=int, default=1,
-                   help="token-axis sharding per stage (not ported: ROADMAP A13)")
+                   help="W-axis (halo) sharding width per stage (svd models)")
     p.add_argument("--frame-parallel", type=int, default=1,
-                   help="frame-axis sharding per stage (not ported: ROADMAP A13)")
+                   help="frame-axis sharding width per stage (svd models)")
     p.add_argument("--expert-parallel", type=int, default=1,
                    help="expert-axis width per stage (not ported: ROADMAP A15)")
     p.add_argument("--deepcache", type=int, default=0, metavar="N",
@@ -166,13 +172,15 @@ def _dummy_step(model, x: torch.Tensor, step: int) -> torch.Tensor:
     return model(x, step)
 
 
-def _svd_build(config, wrapper_kw: dict, cond, state: dict, device: torch.device):
+def _svd_build(config, wrapper_kw: dict, cond, state: dict, device: torch.device,
+               axes: dict | None = None):
+    """``axes``: a rank's ``Stage.axes`` (its seq, frame and cfg axes)."""
     from vdpp_tpu_torch.models.svd_unet import SVDUNet
     from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet
 
     wrapper = StableVideoUNet(config, device=device, **wrapper_kw)
     unet = _loaded(SVDUNet(wrapper.config, device="meta"), state)
-    return wrapper.pipeline_step_fn(), (unet, _cond_to(cond, device))
+    return wrapper.pipeline_step_fn(**(axes or {})), (unet, _cond_to(cond, device))
 
 
 def _dit_build(config, total_steps: int, context, guidance, state: dict,
@@ -326,18 +334,35 @@ def check_flags(args: argparse.Namespace) -> None:
     if args.model == "dit3d_moe_tiny" or ep > 1:
         raise NotImplementedError("the MoE DiT and --expert-parallel come with expert "
                                   "parallelism (ROADMAP A15)")
-    if args.cfg_parallel or sp > 1 or fp > 1:
-        raise NotImplementedError("--cfg-parallel, --seq-parallel and --frame-parallel come "
-                                  "with intra-sample parallelism (ROADMAP A13)")
+    if args.model.startswith("dit") and (args.cfg_parallel or sp > 1):
+        raise NotImplementedError("--cfg-parallel and --seq-parallel on a DiT come with the "
+                                  "DiT's intra-sample parallelism (ROADMAP A13 part 2)")
     if args.weights_int8 or args.weights_w8a8:
         raise NotImplementedError("--weights-int8 and --weights-w8a8 come with int8 "
                                   "quantization (ROADMAP A14)")
+    if sp > 1 and args.model.startswith("svd"):
+        from vdpp_tpu_torch.models.svd_unet import SVDUNetConfig
+
+        config = SVDUNetConfig.tiny() if args.model == "svd_tiny" else SVDUNetConfig.svd_xt()
+        w = args.latent_shape[4]
+        if w % config.seq_min_divisor(sp):
+            raise SystemExit(f"--seq-parallel {sp}: latent width {w} must be divisible by sp x "
+                             f"2^(levels-1) = {config.seq_min_divisor(sp)} (halo-exchange W "
+                             "sharding)")
+
+
+def inner_axes(args: argparse.Namespace) -> dict[str, int]:
+    """The intra-sample axes of the flags, sizes above 1 only."""
+    axes = {"seq": args.seq_parallel, "frame": args.frame_parallel,
+            "cfg": 2 if args.cfg_parallel else 1}
+    return {k: n for k, n in axes.items() if n > 1}
 
 
 def _mesh(args: argparse.Namespace):
     """The mesh of the mode: a data mesh for FSDP, (stage, data) for
-    ``--data-parallel-size`` > 1, else the stage axis. A bad split or an
-    indivisible sample count raises here, before any rank starts."""
+    ``--data-parallel-size`` > 1, (stage, seq, frame, cfg) with an
+    intra-sample axis, else the stage axis. A bad split or an indivisible
+    sample count raises here, before any rank starts."""
     dp, total_n = args.data_parallel_size, args.num_samples + args.warmup_samples
     kw = dict(device=args.device, devices=args.devices)
     if args.fsdp:
@@ -357,6 +382,8 @@ def _mesh(args: argparse.Namespace):
             raise SystemExit(f"--num-samples + --warmup-samples ({total_n}) must be "
                              f"divisible by --data-parallel-size ({dp})")
         mesh = make_2d_mesh(args.num_stages, dp, **kw)
+    elif inner_axes(args):
+        mesh = make_axes_mesh(args.num_stages, **inner_axes(args), **kw)
     else:
         mesh = make_pipeline_mesh(args.num_stages, **kw)
     PipelineConfig(args.total_steps, mesh.num_stages)
@@ -468,7 +495,8 @@ def rank_main(stage: Stage, job: Job) -> dict:
     if stage.mesh.world_size > 1:  # a spawned rank starts with no logging set up
         setup_logging(job.log_level)
     log = stage_logger(LOGGER.name, stage.rank)
-    step_fn, params = job.build(rank_state(job.state), stage.device)
+    axes = {"axes": stage.axes} if stage.mesh.inner > 1 else {}
+    step_fn, params = job.build(rank_state(job.state), stage.device, **axes)
     runner = None
     if job.mode == "fsdp":
         runner = FSDPRunner(stage, step_fn, job.total_steps)
@@ -533,6 +561,10 @@ def main(argv: list[str] | None = None) -> int:
         world = mesh.num_stages
         steps_per_device = args.total_steps // world
         mode_name = "pipeline" if dp == 1 else "pipeline_x_dp"
+        inner = inner_axes(args)
+        mode_name += "".join(f"_x_{tag}{inner[k] if k != 'cfg' else ''}"
+                             for k, tag in (("seq", "sp"), ("frame", "fp"), ("cfg", "cfg"))
+                             if k in inner)
         if mode == "fused":
             first, steady, throughput, per_sample_ms = fused_accounting(
                 max(r["first"] for r in ranks if "first" in r),

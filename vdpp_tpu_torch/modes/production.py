@@ -20,10 +20,13 @@ the last rank and written there, in the JAX package's file format), and
 for bit as the uncut run does. A snapshot whose recorded run configuration
 differs from this run's is refused.
 
-Each stage is a process (``parallel/mesh.py``); one stage runs in this
+Each rank is a process (``parallel/mesh.py``); one rank runs in this
 process. ``--device``/``--devices`` take the place of ``--backend``.
-``--auto-topology``, ``--seq-parallel`` > 1, ``--frame-parallel`` > 1 and
-``--cfg-parallel`` come with intra-sample parallelism (ROADMAP A13) and raise.
+``--seq-parallel``, ``--frame-parallel`` and ``--cfg-parallel`` make each
+stage a block of ranks on those axes (``make_axes_mesh``), the snapshot and
+resume included (a stage's ranks hold the same slot). ``--auto-topology``,
+the mesh planner, comes with ROADMAP A13 part 2 and raises; with an explicit
+``--num-stages`` or axis flag it is ignored, as in the reference.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ from vdpp_tpu_torch.modes.benchmark import (
     run_ranks,
     ship_state,
 )
-from vdpp_tpu_torch.parallel.mesh import Stage, make_pipeline_mesh
+from vdpp_tpu_torch.parallel.mesh import Stage, make_axes_mesh
 from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
 from vdpp_tpu_torch.utils.logging import setup_logging
 from vdpp_tpu_torch.utils.resume import load_pipeline_state, save_pipeline_state
@@ -89,13 +92,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sampler-seed", type=int, default=0,
                    help="euler_a only: seed of the per-step injected noise")
     p.add_argument("--seq-parallel", type=int, default=1,
-                   help="W sharding per stage (not ported: ROADMAP A13)")
+                   help="halo-exchange W sharding width per stage (latent W must divide by "
+                        "sp x 2^(levels-1))")
     p.add_argument("--frame-parallel", type=int, default=1,
-                   help="frame sharding per stage (not ported: ROADMAP A13)")
+                   help="frame sharding width per stage (frames must divide by it)")
     p.add_argument("--auto-topology", default=None, choices=["latency", "throughput"],
-                   help="mesh planner (not ported: ROADMAP A13)")
+                   help="mesh planner (not ported: ROADMAP A13 part 2)")
     p.add_argument("--cfg-parallel", action="store_true",
-                   help="CFG branches on a cfg axis (not ported: ROADMAP A13)")
+                   help="the CFG branches on a size-2 cfg axis per stage")
     p.add_argument("--ticked", action="store_true",
                    help="host-stepped schedule with per-tick timing")
     p.add_argument("--state-path", default=None,
@@ -120,8 +124,9 @@ def _config(args: argparse.Namespace) -> SVDUNetConfig:
 
 def check_flags(args: argparse.Namespace) -> None:
     """The JAX package's argument checks, with its messages, before any model
-    is built or weight loaded; then the flags of unported axes, each raising
-    and naming its ROADMAP item."""
+    is built or weight loaded; the mesh planner raises, naming its ROADMAP
+    item, unless an explicit stage count or axis flag makes the reference
+    ignore it."""
     b, c, f, h, w = args.latent_shape
     if args.state_path and not args.ticked:
         raise SystemExit("--state-path needs --ticked (StepPipeline.run runs the whole "
@@ -143,10 +148,11 @@ def check_flags(args: argparse.Namespace) -> None:
         raise SystemExit(f"--frame-parallel {fp}: frame count {f} must divide by it")
     if args.cfg_parallel and args.guidance_scale is None:
         raise SystemExit("--cfg-parallel needs --guidance-scale")
-    if args.auto_topology or sp > 1 or fp > 1 or args.cfg_parallel:
-        raise NotImplementedError("--auto-topology, --seq-parallel, --frame-parallel and "
-                                  "--cfg-parallel come with intra-sample parallelism "
-                                  "(ROADMAP A13)")
+    if args.auto_topology and not (args.num_stages or sp > 1 or fp > 1 or args.cfg_parallel):
+        raise NotImplementedError("--auto-topology (the mesh planner, parallel/topology.py) "
+                                  "comes with ROADMAP A13 part 2")
+    if args.auto_topology:
+        LOGGER.info("auto-topology ignored: explicit axis flags given")
 
 
 def run_meta(args: argparse.Namespace, total_steps: int, stages: int) -> dict:
@@ -231,7 +237,7 @@ def rank_main(stage: Stage, job: Job) -> dict:
     wrapper = StableVideoUNet(job.config, device=stage.device, **job.wrapper_kw)
     unet = _loaded(SVDUNet(wrapper.config, device="meta"), rank_state(job.state))
     bundle = (unet.to(stage.device), _cond_to(job.cond, stage.device))
-    pipe = StepPipeline(stage, wrapper.pipeline_step_fn(),
+    pipe = StepPipeline(stage, wrapper.pipeline_step_fn(**stage.axes),
                         PipelineConfig(wrapper.num_steps, stage.num_stages))
     snapshots: list[dict] = []
 
@@ -273,7 +279,9 @@ def run(args: argparse.Namespace, state: dict | None = None,
     on), the tick seconds, the snapshots written and the run's seconds."""
     check_flags(args)
     b, c, f, h, w = args.latent_shape
-    mesh = make_pipeline_mesh(args.num_stages, device=args.device, devices=args.devices)
+    sp, fp = args.seq_parallel, args.frame_parallel
+    mesh = make_axes_mesh(args.num_stages, sp, fp, 2 if args.cfg_parallel else 1,
+                          device=args.device, devices=args.devices)
     stages = mesh.num_stages
     dev = mesh.devices[0]
     config = _config(args)
@@ -283,8 +291,9 @@ def run(args: argparse.Namespace, state: dict | None = None,
                       deepcache_split=args.deepcache_split)
     wrapper = StableVideoUNet(config, device="cpu", **wrapper_kw)
     PipelineConfig(wrapper.num_steps, stages)  # a bad split raises before any weight is drawn
-    LOGGER.info("production: %d stages (%s), %d steps, latent (B,C,F,H,W)=%s, preset=%s, CFG=%s",
-                stages, mesh.backend, args.total_steps, tuple(args.latent_shape), args.preset,
+    LOGGER.info("production: %d stages (%s; seq %d, frame %d, cfg %d a stage), %d steps, latent "
+                "(B,C,F,H,W)=%s, preset=%s, CFG=%s", stages, mesh.backend, mesh.seq, mesh.frame,
+                mesh.cfg, args.total_steps, tuple(args.latent_shape), args.preset,
                 args.guidance_scale)
     if wrapper.num_steps != args.total_steps:
         LOGGER.info("schedule padded %d -> %d steps (exact identity steps) for %d stages",

@@ -14,6 +14,14 @@ Three regimes, chosen on shapes as in the reference:
 ``VDPP_TEMPORAL_ATTN=pallas`` it takes the frame-attention kernel
 (:mod:`vdpp_tpu_torch.ops.temporal_attention_kernel`).
 
+Under intra-sample parallelism the queries stay local and the keys and
+values are gathered (``parallel/collectives.py``): ``attention(seq_axis=)``
+over the token shards of self-attention, ``temporal_self_attention(
+frame_axis=)`` over the frame shards. The routes are chosen on the local
+query length, as in the reference; under a frame axis the frame-attention
+kernel (square frame attention) gives way to the default form, as there,
+and ``frame_axis_fallbacks`` counts those calls.
+
 The reference's routing switches, each read at call time as there:
 
 * ``VDPP_ATTN_IMPL`` for the long self-attention sites: ``pallas`` (default)
@@ -45,8 +53,14 @@ from torch import nn
 from vdpp_tpu_torch.ops.flash_attention import flash_attention
 from vdpp_tpu_torch.ops.linear import Linear, linear
 from vdpp_tpu_torch.ops.temporal_attention_kernel import frame_attention
+from vdpp_tpu_torch.parallel.collectives import Axis, all_gather
 
 FLASH_MIN_Q_LEN = 512  # unless VDPP_FLASH_MIN_L says otherwise
+
+# Calls of temporal_self_attention under a frame axis that asked for the
+# frame-attention kernel (VDPP_TEMPORAL_ATTN=pallas) and took the default
+# form, as the reference routes them.
+frame_axis_fallbacks = 0
 
 
 class Attention(nn.Module):
@@ -91,22 +105,31 @@ def attention(
     heads: int,
     context: torch.Tensor | None = None,
     use_flash: bool = True,
+    seq_axis: Axis | None = None,
 ) -> torch.Tensor:
     """Multi-head attention over ``(B, L, C)``; ``context (B, M, Ckv)`` makes
     it cross-attention. ``use_flash=False`` keeps self-attention on the plain
-    path at any length (the CLIP tower's, as in the reference)."""
+    path at any length (the CLIP tower's, as in the reference).
+
+    ``seq_axis``: L is split over that axis; self-attention gathers K and V
+    over it, so the local queries attend over every key (the keys in shard
+    order: softmax does not depend on their order). Cross-attention needs
+    nothing (the context is whole on every rank)."""
     b, l, c = x.shape
     ctx = x if context is None else context
     m = ctx.shape[1]
     d = c // heads
-    if m == 1:
+    if m == 1 and (context is not None or seq_axis is None):
         # Softmax over one key is 1: the output is v for every query. to_out
         # runs on the single row before the broadcast (linear commutes with
-        # broadcasting identical rows).
+        # broadcasting identical rows). Not for a one-token shard of
+        # self-attention, which still attends over the gathered keys.
         out = p.to_out[0](p.to_v(ctx))  # (B, 1, C)
         return out.expand(b, l, c)
     if context is None:
         q, k, v = (t.reshape(b, l, heads, d) for t in _self_qkv(x, p))
+        if seq_axis is not None:
+            k, v = all_gather(k, seq_axis, 1), all_gather(v, seq_axis, 1)
     else:
         q = p.to_q(x).reshape(b, l, heads, d)
         k = p.to_k(ctx).reshape(b, m, heads, d)
@@ -126,9 +149,14 @@ def attention(
 
 
 def temporal_self_attention(
-    p: Attention, x: torch.Tensor, heads: int, batch: int, frames: int
+    p: Attention, x: torch.Tensor, heads: int, batch: int, frames: int,
+    frame_axis: Axis | None = None,
 ) -> torch.Tensor:
     """Self-attention over the FRAME axis of ``(B*F, L, C)``.
+
+    ``frame_axis``: the frames are split over that axis (``frames`` is the
+    local count); K and V are gathered over it, so the local frames attend
+    over every frame.
 
     ``VDPP_TEMPORAL_ATTN`` is read at call time, as in the reference:
 
@@ -141,19 +169,26 @@ def temporal_self_attention(
       the SVD-XT level-0 site), so here it is the same fp32 contraction as
       batched matmuls over ``(B, L, H)``;
     * ``pallas``: the frame-attention kernel on the ``(B, F, L, H, D)``
-      projections as they are;
+      projections as they are; under a frame axis the ``vpu`` form instead
+      (the kernel attends square), counted in ``frame_axis_fallbacks``;
     * ``transpose`` and ``einsum``: fp32 logits and softmax, the weights
       rounded to the values' dtype before the fp32-accumulated product. The
       reference lays the same arithmetic out two ways (a copy to
       ``(B*L, H, F, D)``, or batched products in place) for XLA's sake; here
       it is one form, as batched matmuls over ``(B, L, H)``.
     """
+    global frame_axis_fallbacks
     bf, l, c = x.shape
     d = c // heads
     q, k, v = (t.reshape(batch, frames, l, heads, d) for t in _self_qkv(x, p))
     if os.environ.get("VDPP_ABLATE_TEMPORAL_ATTN") == "1":  # profiling only
         return p.to_out[0](v.reshape(bf, l, c))
+    if frame_axis is not None:
+        k, v = all_gather(k, frame_axis, 1), all_gather(v, frame_axis, 1)
     impl = os.environ.get("VDPP_TEMPORAL_ATTN", "vpu")
+    if impl == "pallas" and frame_axis is not None:
+        impl = "vpu"
+        frame_axis_fallbacks += 1
     scale = 1.0 / math.sqrt(d)
     if impl == "pallas":
         out = frame_attention(q, k, v)

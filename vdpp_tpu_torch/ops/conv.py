@@ -1,7 +1,10 @@
 """Convolutions over channels-last tensors (port of ``vdpp_tpu/ops/conv.py``).
 
 Spatial convs run per frame on ``(N, H, W, C)``; temporal convs run a
-``(k, 1, 1)`` kernel over the frame axis of ``(B, F, H, W, C)``. Weights keep
+``(k, 1, 1)`` kernel over the frame axis of ``(B, F, H, W, C)``. Their halo
+forms (``conv2d_halo``, ``conv_temporal_halo``) run on a shard of the W or
+the frame axis and exchange the edge a kernel needs with the neighbouring
+shards (``parallel/collectives.py``). Weights keep
 PyTorch's layouts (``(O, I, kh, kw)`` and ``(O, I, k, 1, 1)``). The
 channels-last tensor is handed to ``torch.nn.functional.conv2d`` as the NCHW
 view it already is in ``channels_last`` memory format, so no copy is made.
@@ -14,6 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vdpp_tpu_torch.parallel.collectives import Axis, halo_exchange
 
 
 class Conv(nn.Module):
@@ -89,6 +94,43 @@ def conv_temporal(x: torch.Tensor, conv: ConvTemporal) -> torch.Tensor:
     xv = x.reshape(b, f, h * w, c).permute(0, 3, 1, 2)
     y = F.conv2d(xv, weight, conv.bias, padding=((k - 1) // 2, 0))
     return y.permute(0, 2, 3, 1).reshape(b, f, h, w, -1)
+
+
+def conv2d_halo(x: torch.Tensor, conv: Conv, axis: Axis, stride: int = 1) -> torch.Tensor:
+    """3x3 conv of the local ``(N, H, W_local, C)`` shard of an input whose W
+    axis is split over ``axis`` in contiguous blocks: one edge column
+    exchanged with each neighbour (zeros at the chain's ends, the unsharded
+    conv's SAME padding), then the conv with one pixel of padding in H and
+    none in W. Equal to the unsharded ``conv2d`` where that pads one pixel
+    on each side: the 3x3 sites at stride 1 and the downsample's ``((1, 1),
+    (1, 1))`` at stride 2, whose windows stay on the global grid while every
+    shard's width is even (``SVDUNetConfig.seq_min_divisor``)."""
+    xh = halo_exchange(x, axis, dim=2, halo=1)
+    y = F.conv2d(xh.permute(0, 3, 1, 2), conv.weight, conv.bias, stride=stride, padding=(1, 0))
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv_temporal_halo(x: torch.Tensor, conv: ConvTemporal, axis: Axis) -> torch.Tensor:
+    """Temporal conv of the local ``(B, F_local, H, W, C)`` shard of an input
+    whose frame axis is split over ``axis`` in contiguous blocks: ``(k - 1)
+    // 2`` edge frames exchanged with each neighbour (zeros at the chain's
+    ends, the unsharded conv's SAME padding), then the conv with no frame
+    padding. An even kernel (whose SAME output the halo form cannot give)
+    and a shard shorter than the halo (a one-hop exchange reaches only the
+    next shard) raise, as in the reference."""
+    k = conv.weight.shape[2]
+    if k % 2 == 0:
+        raise ValueError(f"conv_temporal_halo requires odd kernel, got {k}")
+    halo = (k - 1) // 2
+    if halo == 0:
+        return conv_temporal(x, conv)
+    if x.shape[1] < halo:
+        raise ValueError(f"local frame shard {x.shape[1]} smaller than the kernel halo {halo}")
+    xh = halo_exchange(x, axis, dim=1, halo=halo)
+    b, f, h, w, c = xh.shape
+    weight = conv.weight.reshape(*conv.weight.shape[:3], 1)
+    y = F.conv2d(xh.reshape(b, f, h * w, c).permute(0, 3, 1, 2), weight, conv.bias)
+    return y.permute(0, 2, 3, 1).reshape(b, f - 2 * halo, h, w, -1)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

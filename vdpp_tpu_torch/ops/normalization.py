@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vdpp_tpu_torch.ops.norm_kernel import _row_chunk, group_norm_silu_fused
+from vdpp_tpu_torch.parallel.collectives import Axis, pmean
 
 
 class Norm(nn.Module):
@@ -36,36 +37,50 @@ class Norm(nn.Module):
         self.bias.zero_()
 
 
-def group_norm(x: torch.Tensor, norm: Norm, num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+def group_norm(x: torch.Tensor, norm: Norm, num_groups: int = 32, eps: float = 1e-6,
+               psum_axis: Axis | tuple[Axis, ...] | None = None) -> torch.Tensor:
     """GroupNorm over the trailing channel axis of ``(N, ..., C)``; statistics
-    per (N, group) over every other axis."""
+    per (N, group) over every other axis.
+
+    ``psum_axis``: the axis (or axes, such as seq and frame together) over
+    which the non-batch axes of ``x`` are split in equal shards. The mean is
+    then averaged across them, and the variance about that mean too, so the
+    statistics are the unsharded ones (two passes, as in the reference)."""
     n, c = x.shape[0], x.shape[-1]
     if c % num_groups != 0:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
     if os.environ.get("VDPP_ABLATE_GROUPNORM") == "1":  # profiling only
         return (x.float() * norm.weight.float() + norm.bias.float()).to(x.dtype)
     xf = x.float().reshape(n, -1, num_groups, c // num_groups)
-    xc = xf - xf.mean(dim=(1, 3), keepdim=True)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    if psum_axis is not None:
+        mean = pmean(mean, psum_axis)
+    xc = xf - mean
     var = xc.square().mean(dim=(1, 3), keepdim=True)
+    if psum_axis is not None:
+        var = pmean(var, psum_axis)
     xn = (xc * torch.rsqrt(var + eps)).reshape(x.shape)
     return (xn * norm.weight.float() + norm.bias.float()).to(x.dtype)
 
 
 def group_norm_silu(
-    x: torch.Tensor, norm: Norm, num_groups: int = 32, eps: float = 1e-6, fused: bool = False
+    x: torch.Tensor, norm: Norm, num_groups: int = 32, eps: float = 1e-6, fused: bool = False,
+    psum_axis: Axis | tuple[Axis, ...] | None = None,
 ) -> torch.Tensor:
     """``silu(group_norm(x))``, the norm rounded to ``x.dtype`` before the
     fp32 SiLU as in the reference's unfused form.
 
     ``fused=True`` takes :func:`~vdpp_tpu_torch.ops.norm_kernel.group_norm_silu_fused`
-    under the reference's own shape rule: ``C % G == 0`` and a row extent
-    with an 8-aligned chunking (``_row_chunk``). Every other shape takes the
-    composition, as in the reference, so the two choose the same sites."""
-    if fused:
+    under the reference's own shape rule: unsharded statistics (``psum_axis
+    is None``: the kernel reduces locally only), ``C % G == 0`` and a row
+    extent with an 8-aligned chunking (``_row_chunk``). Every other case
+    takes the composition, as in the reference, so the two choose the same
+    sites."""
+    if fused and psum_axis is None:
         c = x.shape[-1]
         if c % num_groups == 0 and _row_chunk(math.prod(x.shape[1:-1]), c):
             return group_norm_silu_fused(x, norm, num_groups, eps, silu=True)
-    h = group_norm(x, norm, num_groups, eps)
+    h = group_norm(x, norm, num_groups, eps, psum_axis=psum_axis)
     return F.silu(h.float()).to(x.dtype)
 
 

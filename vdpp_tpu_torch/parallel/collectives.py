@@ -1,0 +1,150 @@
+"""The collectives of intra-sample parallelism: what ``jax.lax`` gives the
+JAX package's sharded ops (``axis_index``, ``psum(1, axis)``,
+``all_gather(tiled=True)``, ``pmean`` and ``ppermute``), over the process
+subgroups of ``parallel/mesh.py``.
+
+An :class:`Axis` is one rank's view of one inner mesh axis (``seq``,
+``frame`` or ``cfg``): its size, this rank's index along it, the global
+ranks along it in axis order and their process group. The sharded ops take
+it where the JAX package takes an axis name.
+
+Two rules hold for every call:
+
+* the results are the same bits on every rank of the axis and on both
+  backends: a mean gathers the per-shard partial means and sums them in
+  shard order on each rank (a ring all-reduce sums in an order that depends
+  on the rank and the backend);
+* under gloo a tensor on a card is staged through host memory on each side
+  of the call, as the pipeline's hand-off is (gloo's CUDA collectives are
+  limited); under NCCL it goes card to card.
+
+Point-to-point exchanges (the halo, the cfg swap) post their sends and
+receives at once with ``batch_isend_irecv``, so a chain of ranks cannot wait
+on each other. ``counts`` and ``nbytes`` tally each kind of call and the
+bytes of this rank's part in it (``chip_smoke.py`` and the modes read
+them).
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from collections.abc import Sequence
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+# Calls by kind ("halo", "all_gather", "mean", "swap") and the bytes of this
+# rank's part in them (a halo's slices sent, a gather's or a mean's shard, a
+# swap's tensor), since the counters were last cleared.
+counts: Counter[str] = Counter()
+nbytes: Counter[str] = Counter()
+
+
+def clear_counts() -> None:
+    counts.clear()
+    nbytes.clear()
+
+
+@dataclass(frozen=True)
+class Axis:
+    """One inner mesh axis as one rank sees it. ``ranks`` are the global
+    ranks along the axis in axis order (``ranks[index]`` is this rank);
+    ``host`` says the backend is gloo, which stages card tensors through
+    host memory."""
+
+    name: str
+    size: int
+    index: int
+    ranks: tuple[int, ...]
+    group: Any = field(repr=False, compare=False)
+    host: bool = True
+
+    def _out(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the backend sends it."""
+        return (x.detach().cpu() if self.host else x).contiguous()
+
+    def _buf(self, x: torch.Tensor) -> torch.Tensor:
+        """An empty receive buffer of ``x``'s shape and dtype."""
+        return torch.empty(x.shape, dtype=x.dtype, device="cpu" if self.host else x.device)
+
+
+def _tally(kind: str, x: torch.Tensor) -> None:
+    counts[kind] += 1
+    nbytes[kind] += x.numel() * x.element_size()
+
+
+def _gather_list(x: torch.Tensor, axis: Axis) -> list[torch.Tensor]:
+    """Every rank's ``x`` (one shape and dtype on all), in axis order, on
+    ``x``'s device."""
+    sent = axis._out(x)
+    parts = [axis._buf(x) for _ in range(axis.size)]
+    dist.all_gather(parts, sent, group=axis.group)
+    return [p.to(x.device) for p in parts]
+
+
+def all_gather(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """The shards of ``x`` concatenated along ``dim`` in axis order:
+    ``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``."""
+    _tally("all_gather", x)
+    return torch.cat(_gather_list(x, axis), dim=dim)
+
+
+def pmean(x: torch.Tensor, axes: Axis | Sequence[Axis]) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``axes`` (one axis or several, in
+    turn): each axis's per-rank values gathered and summed in axis order,
+    then divided by its size, so every rank holds the same bits."""
+    for axis in (axes,) if isinstance(axes, Axis) else axes:
+        _tally("mean", x)
+        parts = _gather_list(x, axis)
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        x = acc / axis.size
+    return x
+
+
+def _exchange(axis: Axis, sends: list[tuple[torch.Tensor, int]],
+              recvs: list[tuple[torch.Tensor, int]]) -> None:
+    """Post every send and receive at once (peers as indices on ``axis``)
+    and wait for all of them."""
+    ops = [dist.P2POp(dist.isend, t, axis.ranks[i], group=axis.group) for t, i in sends]
+    ops += [dist.P2POp(dist.irecv, t, axis.ranks[i], group=axis.group) for t, i in recvs]
+    for w in dist.batch_isend_irecv(ops) if ops else ():
+        w.wait()
+
+
+def swap(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The other rank's ``x`` on a size-2 axis: ``ppermute [(0, 1), (1, 0)]``."""
+    if axis.size != 2:
+        raise ValueError(f"a swap needs an axis of 2 ranks, {axis.name} has {axis.size}")
+    _tally("swap", x)
+    buf = axis._buf(x)
+    peer = 1 - axis.index
+    _exchange(axis, [(axis._out(x), peer)], [(buf, peer)])
+    return buf.to(x.device)
+
+
+def halo_exchange(x: torch.Tensor, axis: Axis, dim: int, halo: int) -> torch.Tensor:
+    """``x`` with its neighbours' ``halo`` edge slices along ``dim``
+    concatenated on each side: the left neighbour's last slices before, the
+    right neighbour's first slices after; zeros at the chain's two ends,
+    which is the unsharded op's SAME zero padding (the JAX package's two
+    one-hop ``ppermute``s, whose zero fill plays that part)."""
+    lo = x.narrow(dim, 0, halo)
+    hi = x.narrow(dim, x.shape[dim] - halo, halo)
+    i, n = axis.index, axis.size
+    sends, recvs = [], []
+    if i > 0:  # my first slices go left; the left neighbour's last come back
+        sends.append((axis._out(lo), i - 1))
+        recvs.append((axis._buf(hi), i - 1))
+    if i < n - 1:
+        sends.append((axis._out(hi), i + 1))
+        recvs.append((axis._buf(lo), i + 1))
+    counts["halo"] += 1
+    nbytes["halo"] += len(sends) * lo.numel() * lo.element_size()
+    _exchange(axis, sends, recvs)
+    from_left = recvs[0][0].to(x.device) if i > 0 else torch.zeros_like(hi)
+    from_right = recvs[-1][0].to(x.device) if i < n - 1 else torch.zeros_like(lo)
+    return torch.cat([from_left, x, from_right], dim=dim)

@@ -1,16 +1,23 @@
-"""Rank processes for the step pipeline and the data-parallel modes (the
-port's counterpart of ``vdpp_tpu/parallel/mesh.py``: ``make_pipeline_mesh``,
-``make_data_mesh`` and ``make_2d_mesh``).
+"""Rank processes for the step pipeline, the data-parallel modes and the
+intra-sample axes (the port's counterpart of ``vdpp_tpu/parallel/mesh.py``:
+``make_pipeline_mesh``, ``make_data_mesh``, ``make_2d_mesh`` and
+``make_axes_mesh``, which also stands for the reference's ``make_seq_mesh``,
+``make_stage_seq_mesh`` and ``make_cfg_mesh``).
 
-The JAX package runs its modes as one SPMD program over mesh axes ``"stage"``
-and ``"data"``. The port takes the original system's shape instead: one OS
-process per rank, each holding the whole model (or, under FSDP, its shards),
-all joined by one ``torch.distributed`` process group. A mesh says where the
-ranks run and how they talk: S stages of D data columns, rank ``s * D + d``
-being stage s of column d, as the JAX package lays out a ``(stage, data)``
-mesh. :func:`run_stages` starts the ranks (``spawn``: a parent that already
-holds a CUDA context cannot fork) and returns what each rank's function
-returned; each rank gets a :class:`Stage`, its view of the group.
+The JAX package runs its modes as one SPMD program over mesh axes
+``"stage"``, ``"data"``, ``"seq"``, ``"frame"`` and ``"cfg"``. The port takes
+the original system's shape instead: one OS process per rank, each holding
+the whole model (or, under FSDP, its shards), all joined by one
+``torch.distributed`` process group. A mesh says where the ranks run and how
+they talk: S stages, each a group of ranks laid out row-major as the JAX
+package's ``make_axes_mesh`` lays out its devices. A stage is either D data
+columns (rank ``s * D + d``) or a (seq, frame, cfg) block of the intra-sample
+axes (rank ``((s * SEQ + i) * FRAME + j) * CFG + c``); the two do not mix,
+as in the JAX package. :func:`run_stages` starts the ranks (``spawn``: a
+parent that already holds a CUDA context cannot fork) and returns what each
+rank's function returned; each rank gets a :class:`Stage`, its view of the
+group, which holds one process subgroup for each inner axis it lies on
+(``parallel/collectives.py`` runs the sharded ops' collectives over them).
 
 The backend follows from the layout and is not a choice:
 
@@ -18,8 +25,8 @@ The backend follows from the layout and is not a choice:
 * ``gloo`` on the CPU, and on cards that ranks share, which a caller asks for
   with an explicit device list (``devices=["cuda:0", "cuda:0"]``), as the
   original's simulator ran its ranks on one shared GPU (NCCL refuses two ranks
-  on one card). The payload is copied to host memory on each side of the
-  hand-off.
+  on one card). The payload, and every inner-axis collective, is copied to
+  host memory on each side.
 
 One rank needs no process group: :class:`Stage` then makes no collective
 call, so a one-rank run goes in the caller's own process.
@@ -27,6 +34,7 @@ call, so a one-rank run goes in the caller's own process.
 
 from __future__ import annotations
 
+import math
 import multiprocessing
 import os
 import pickle
@@ -41,34 +49,61 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from vdpp_tpu_torch.parallel.collectives import Axis
 from vdpp_tpu_torch.utils.device import resolve_device
+
+# The intra-sample axes, in the order the ranks of a stage are laid out.
+INNER_AXES = ("seq", "frame", "cfg")
+
 
 @dataclass(frozen=True)
 class PipelineMesh:
     """Where the ranks run and how they talk: ``devices[r]`` is rank r's
     device and ``backend`` the process group's.
 
-    The ranks form a (stage, data) grid laid out as the JAX package's
-    ``make_axes_mesh(stage=S, data=D)`` lays out its devices, row-major: rank
-    ``r`` is stage ``r // D`` of data column ``r % D``. A pipeline mesh has one
-    column, a data mesh one stage."""
+    Each stage is a group of ``group_size`` consecutive ranks: ``num_data``
+    data columns, or a ``seq x frame x cfg`` block of the intra-sample axes,
+    row-major, as the JAX package's ``make_axes_mesh(stage=S, seq=..., frame=
+    ..., cfg=...)`` lays out its devices. A pipeline mesh has groups of one,
+    a data mesh one stage."""
 
     devices: tuple[torch.device, ...]
     backend: str
     num_data: int = 1
+    seq: int = 1
+    frame: int = 1
+    cfg: int = 1
 
     def __post_init__(self) -> None:
-        if self.num_data < 1 or len(self.devices) % self.num_data:
-            raise ValueError(f"{len(self.devices)} ranks do not form columns of "
-                             f"{self.num_data}")
+        if min(self.num_data, self.seq, self.frame, self.cfg) < 1:
+            raise ValueError(f"axis sizes must be >= 1: data {self.num_data}, seq {self.seq}, "
+                             f"frame {self.frame}, cfg {self.cfg}")
+        if self.cfg not in (1, 2):
+            raise ValueError("the cfg axis has exactly 2 branches (uncond, cond)")
+        if self.num_data > 1 and self.inner > 1:
+            raise ValueError("the data axis composes with the stage axis only, not with the "
+                             "seq, frame or cfg axes")
+        if len(self.devices) % self.group_size:
+            raise ValueError(f"{len(self.devices)} ranks do not form stages of "
+                             f"{self.group_size}")
 
     @property
     def world_size(self) -> int:
         return len(self.devices)
 
     @property
+    def inner(self) -> int:
+        """Ranks of a stage's intra-sample block (seq x frame x cfg)."""
+        return self.seq * self.frame * self.cfg
+
+    @property
+    def group_size(self) -> int:
+        """Ranks a stage: its data columns or its intra-sample block."""
+        return self.num_data * self.inner
+
+    @property
     def num_stages(self) -> int:
-        return len(self.devices) // self.num_data
+        return len(self.devices) // self.group_size
 
     @property
     def host_handoff(self) -> bool:
@@ -109,10 +144,10 @@ def _devices(n: int | None, device, devices) -> tuple[torch.device, ...]:
     return devs
 
 
-def _mesh(devs: tuple[torch.device, ...], num_data: int = 1) -> PipelineMesh:
+def _mesh(devs: tuple[torch.device, ...], num_data: int = 1, **inner: int) -> PipelineMesh:
     """NCCL when every rank has a card of its own, else gloo."""
     own_cards = devs[0].type == "cuda" and len(set(devs)) == len(devs)
-    return PipelineMesh(devs, "nccl" if own_cards else "gloo", num_data)
+    return PipelineMesh(devs, "nccl" if own_cards else "gloo", num_data, **inner)
 
 
 def make_pipeline_mesh(num_stages: int | None = None, device: str | torch.device | None = None,
@@ -153,15 +188,77 @@ def make_2d_mesh(num_stages: int, num_data: int, device: str | torch.device | No
     return _mesh(_devices(num_stages * num_data, device, devices), num_data)
 
 
+def make_axes_mesh(stage: int | None = 1, seq: int = 1, frame: int = 1, cfg: int = 1,
+                   device: str | torch.device | None = None,
+                   devices: Sequence[str | torch.device] | None = None) -> PipelineMesh:
+    """The (stage, seq, frame, cfg) mesh: ``stage`` stages, each a block of
+    ``seq x frame x cfg`` ranks laid out row-major (rank ``((s * seq + i) *
+    frame + j) * cfg + c``), on card r or ``devices[r]``. ``stage=None``
+    takes as many stages as the named devices or the visible cards fill (one
+    on the CPU). The other arguments and the backend rule are
+    :func:`make_pipeline_mesh`'s."""
+    block = seq * frame * cfg
+    if stage is None:
+        if devices is not None:
+            stage = len(devices) // block
+        elif resolve_device(device).type == "cuda":
+            stage = torch.cuda.device_count() // block
+        else:
+            stage = 1
+    if stage < 1 or block < 1:
+        raise ValueError(f"a ({stage}, {seq}, {frame}, {cfg}) mesh")
+    return _mesh(_devices(stage * block, device, devices), seq=seq, frame=frame, cfg=cfg)
+
+
 class Stage:
-    """One rank's view of the mesh: its global rank, its stage and data
-    column, its device, and the collective calls the pipeline, the runners
-    and the apps make."""
+    """One rank's view of the mesh: its global rank, its stage, its data
+    column or its place on each intra-sample axis, its device, and the
+    collective calls the pipeline, the runners and the apps make.
+
+    ``seq``, ``frame`` and ``cfg`` are this rank's :class:`~vdpp_tpu_torch.
+    parallel.collectives.Axis` on each inner axis of size > 1, else None.
+    Building a Stage on a mesh with inner axes makes one process subgroup
+    for every line of ranks along each such axis: every rank of the group
+    builds the same Stage, so every rank calls ``new_group`` for every
+    subgroup in the same order."""
 
     def __init__(self, mesh: PipelineMesh, rank: int):
         self.mesh = mesh
         self.rank = rank
         self.device = mesh.devices[rank]
+        self.seq = self.frame = self.cfg = None
+        if mesh.inner > 1:
+            for name in INNER_AXES:
+                setattr(self, name, self._axis(name))
+
+    def _axis(self, name: str) -> Axis | None:
+        """This rank's Axis along ``name``, after creating the subgroup of
+        every line of ranks along it (None, and no group, for size 1)."""
+        mesh = self.mesh
+        sizes = [getattr(mesh, a) for a in INNER_AXES]
+        k = INNER_AXES.index(name)
+        if sizes[k] == 1:
+            return None
+        stride = math.prod(sizes[k + 1:])
+        mine = None
+        for start in range(mesh.world_size):
+            # one line a start: the ranks whose coordinate on ``name`` is 0
+            if (start % mesh.inner) // stride % sizes[k]:
+                continue
+            ranks = tuple(start + i * stride for i in range(sizes[k]))
+            group = dist.new_group(list(ranks))
+            if self.rank in ranks:
+                mine = Axis(name, sizes[k], ranks.index(self.rank), ranks, group,
+                            host=mesh.host_handoff)
+                if mesh.backend == "nccl":  # NCCL's point-to-point calls want a collective first
+                    dist.barrier(group=group, device_ids=[self.device.index])
+        return mine
+
+    @property
+    def axes(self) -> dict[str, Axis | None]:
+        """``seq_axis``, ``frame_axis`` and ``cfg_axis`` for a wrapper's
+        ``pipeline_step_fn``."""
+        return {"seq_axis": self.seq, "frame_axis": self.frame, "cfg_axis": self.cfg}
 
     @property
     def num_stages(self) -> int:
@@ -170,16 +267,29 @@ class Stage:
     @property
     def index(self) -> int:
         """This rank's stage."""
-        return self.rank // self.mesh.num_data
+        return self.rank // self.mesh.group_size
 
     @property
     def column(self) -> int:
         """This rank's data column."""
-        return self.rank % self.mesh.num_data
+        return self.rank % self.mesh.group_size // self.mesh.inner
+
+    @property
+    def inner_rank(self) -> int:
+        """This rank's place in its stage's intra-sample block (0 without
+        inner axes)."""
+        return self.rank % self.mesh.inner
 
     @property
     def is_last(self) -> bool:
+        """This rank belongs to the last stage."""
         return self.index == self.num_stages - 1
+
+    @property
+    def is_last_rank(self) -> bool:
+        """The mesh's last rank: of the ranks of the last stage, which all
+        hold the finished samples, the one that writes them out."""
+        return self.rank == self.mesh.world_size - 1
 
     def column_shard(self, inputs: torch.Tensor) -> torch.Tensor:
         """This column's contiguous block of the samples ``inputs (N, ...)``,
@@ -193,15 +303,17 @@ class Stage:
 
     def handoff(self, out: torch.Tensor | None,
                 recv_like: torch.Tensor | None) -> torch.Tensor | None:
-        """Send ``out`` to the next stage of this column and receive from the
-        previous one a payload of ``recv_like``'s shape and dtype, both at
-        once (so a chain of blocking ranks cannot wait on each other); either
-        may be None. Returns the received payload on this rank's device.
+        """Send ``out`` to this rank's counterpart in the next stage (the same
+        column, or the same place in the intra-sample block) and receive from
+        the one in the previous stage a payload of ``recv_like``'s shape and
+        dtype, both at once (so a chain of blocking ranks cannot wait on each
+        other); either may be None. Returns the received payload on this
+        rank's device.
 
         Under NCCL ``wait`` orders the current stream after the transfer and
         does not block the host; the caller synchronises before it leaves
         the group (``StepPipeline.run`` does)."""
-        host, step = self.mesh.host_handoff, self.mesh.num_data
+        host, step = self.mesh.host_handoff, self.mesh.group_size
         ops, buf = [], None
         if out is not None:
             sent = out.cpu() if host else out.contiguous()
@@ -214,23 +326,26 @@ class Stage:
         return None if buf is None else buf.to(self.device)
 
     def gather_to_last(self, slot: torch.Tensor) -> torch.Tensor | None:
-        """Every rank's ``slot`` (one shape and dtype on all ranks), stacked in
-        rank order on the CPU of the last rank; None on the others. Point to
-        point, as the hand-off: each rank sends to the last one, which posts
-        a receive per rank, through host memory under gloo and card to card
-        under NCCL. One column only (a stage mesh)."""
+        """Each stage's ``slot`` (one shape and dtype on all ranks), stacked in
+        stage order on the CPU of the last rank; None on the others. The
+        ranks of a stage hold the same slot (the payload is replicated over
+        the intra-sample axes): the first rank of each stage sends it, the
+        last rank posts a receive from each and keeps its own for the last
+        stage. Point to point, as the hand-off, through host memory under
+        gloo and card to card under NCCL. Not on a (stage, data) mesh."""
         if self.mesh.num_data != 1:
             raise NotImplementedError("gathering the stage ring of a (stage, data) mesh")
-        last = self.mesh.world_size - 1
+        last, g = self.mesh.world_size - 1, self.mesh.group_size
         host = self.mesh.host_handoff
         slot = slot.cpu() if host else slot.contiguous()
         if self.rank != last:
-            for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, slot, last)]):
-                w.wait()
+            if self.inner_rank == 0 and not self.is_last:
+                for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, slot, last)]):
+                    w.wait()
             return None
-        bufs = [torch.empty_like(slot) for _ in range(last)]
+        bufs = [torch.empty_like(slot) for _ in range(self.num_stages - 1)]
         if bufs:
-            ops = [dist.P2POp(dist.irecv, b, r) for r, b in enumerate(bufs)]
+            ops = [dist.P2POp(dist.irecv, b, s * g) for s, b in enumerate(bufs)]
             for w in dist.batch_isend_irecv(ops):
                 w.wait()
         return torch.stack([*bufs, slot]).cpu()

@@ -17,7 +17,11 @@ A stage with no sample in a fill or drain tick computes nothing; the bubble
 fraction is still ``(S-1)/(N+S-1)`` of the stage-ticks. There is no edge
 from the last stage back to the first (the JAX ring's wrap-around carries
 only data nobody reads). On a (stage, data) mesh each of the D columns runs
-this schedule on its own block of N / D samples, as a JAX column does.
+this schedule on its own block of N / D samples, as a JAX column does. On a
+(stage, seq, frame, cfg) mesh each stage is a block of ranks that run its
+steps together (``step_fn`` splits each forward over the block's axes), the
+payload the same on every rank of the block, and each rank hands it to its
+counterpart in the next stage.
 """
 
 from __future__ import annotations
@@ -80,6 +84,23 @@ class StepPipeline:
         if stage.num_stages != config.num_stages:
             raise ValueError(f"mesh stage axis ({stage.num_stages}) != config.num_stages "
                              f"({config.num_stages})")
+        # A step_fn whose full and cache steps make different collectives
+        # (DeepCache over a seq or frame axis) declares its cadence: every
+        # rank must then take the same branch at every tick, which holds at
+        # one stage, or when each stage's steps start on the cadence and no
+        # identity step shifts them. The reference refuses the rest, since
+        # there they deadlock; the port refuses them alike.
+        interval = getattr(step_fn, "collective_uniform_interval", 0)
+        if interval and config.num_stages > 1:
+            pad = getattr(step_fn, "collective_uniform_pad", 0)
+            if pad or config.steps_per_stage % interval:
+                raise ValueError(
+                    f"step_fn declares branch-local collectives with cadence {interval} "
+                    f"(deepcache x intra-sample axis): pipelining needs steps_per_stage "
+                    f"({config.steps_per_stage}) % interval == 0 and an unpadded schedule "
+                    f"(pad={pad}), or stages take different cond branches in the same tick and "
+                    f"the branch collectives deadlock. Pick num_stages so "
+                    f"total_steps/num_stages is a multiple of {interval}.")
         self.stage = stage
         self.step_fn = step_fn
         self.config = config
@@ -107,8 +128,8 @@ class StepPipeline:
 
     def run(self, params, inputs: torch.Tensor) -> torch.Tensor | None:
         """Pipeline ``inputs (N, *payload)`` through all ``total_steps``.
-        Returns the finished ``(N, *payload)`` on the last rank (on its
-        device) and None on the others. On a (stage, data) mesh each column
+        Returns the finished ``(N, *payload)`` on the ranks of the last stage
+        (on their devices) and None on the others. On a (stage, data) mesh each column
         pipelines its block of N / D samples (:meth:`Stage.column_shard`) and
         returns them on its last stage."""
         inputs = self.stage.column_shard(inputs)
@@ -127,31 +148,34 @@ class StepPipeline:
         """Host-stepped run: every rank advances one tick at a time, with a
         barrier at the end of each (after its device work has finished).
 
-        Returns ``(outputs, tick_seconds)`` on the last rank and None on the
-        others: ``outputs`` stacks the samples that finish at ticks >=
+        Returns ``(outputs, tick_seconds)`` on the ranks of the last stage
+        and None on the others: ``outputs`` stacks the samples that finish at ticks >=
         ``max(start_tick, S - 1)`` (all N from tick 0; sample i finishes at
         tick i + S - 1), and ``tick_seconds`` has ``num_ticks(N) -
-        start_tick`` entries. ``on_sample(i, latent)`` fires on the last rank,
-        in order, the moment sample ``i`` finishes. On a (stage, data) mesh
+        start_tick`` entries. ``on_sample(i, latent)`` fires on the last stage's
+        ranks, in order, the moment sample ``i`` finishes. On a (stage, data) mesh
         each column runs its block of N / D samples, ``i`` counting within
         it, and the barrier spans every column.
 
-        Snapshot and resume (``utils/resume.py``), on a stage mesh only. The
+        Snapshot and resume (``utils/resume.py``), on a stage mesh, with or
+        without intra-sample axes (not on a (stage, data) mesh). The
         state after tick t is the JAX package's ring ``buf (S, *payload)``:
         slot s >= 1 is the payload stage s steps at tick t + 1 (what rank s
         received in tick t, sample t + 1 - s), written as zeros unless 0 <= t
         + 1 - s < N; slot 0 is zeros (the JAX ring's last-to-first edge
         carries nothing that is read, and is not ported). ``on_tick(t, buf)``
         fires on the last rank with ``buf`` on the CPU after every tick t
-        with ``(t + 1) % on_tick_every == 0``; every rank sends its slot
-        there then. The gather is collective, so every rank must know which
+        with ``(t + 1) % on_tick_every == 0``; the first rank of each stage
+        sends its slot there then (a stage's ranks hold the same payload).
+        The gather is collective, so every rank must know which
         ticks gather: that is what ``on_tick_every`` (not in the JAX
         package, whose ring is one array) says, so that a large payload
         (593.5 MB a slot under DeepCache at SVD-XT) crosses only on the ticks
         that are kept. ``start_tick``/``initial_buf`` resume after a
         snapshot: every rank takes its own slot of ``initial_buf`` (numpy or
         torch, ``(S, *payload)``; zeros when None), and a resume at or past
-        the last tick returns an empty ``(0, *payload)`` and ``[]``.
+        the last tick returns an empty ``(0, *payload)`` and ``[]``; every
+        rank of stage s takes slot s.
         ``self.gather_seconds`` then holds this rank's host seconds of each
         gather (outside ``tick_seconds``; the last rank's include the wait
         for every send).
