@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 and 8 (a), then stop
-    python3 chip_smoke.py --intra-only     # the build and phase 9, then stop
+    python3 chip_smoke.py --intra-only     # the build and phases 9 and 10, then stop
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -130,6 +130,35 @@ Phases (any failure exits non-zero and prints no result line):
    bytes are printed; (c) the image->video app with ``--seq-parallel 2
    --num-stages 1`` on two ranks sharing cuda:0, whose files must hold 14
    frames of 1024x576.
+10. the DiT's seq and cfg axes, the topology planner and the decode ranks
+   (in phase 3: the bf16 flash kernel at d = 72 where seq sharding puts
+   DiT-XL's joint3d queries, 16 heads, seq 2 (2560, 5120) and seq 4 (1280,
+   5120), timed with its bound and SDPA, plus a ragged (333, 5077); frame
+   attention at d = 72 at the factorized seq-2 rank's L = 320, F = 8, timed),
+   then last: DiT-XL bf16 (T5-XXL's cross width, random weights and a
+   random context from seeds), 8 frames of 40x64, CFG ramp to 6
+   (sequential), 2 Euler steps, one sample, against the one-process run of
+   the same steps: (a) 2 ranks sharing cuda:0 over gloo, joint3d seq 2
+   (within INTRA_TOL; 28 flash a forward at (2560, 5120), 57 gathers a
+   forward), joint3d cfg 2 (bit for bit; one forward a step) and
+   factorized seq 2 with VDPP_TEMPORAL_ATTN=pallas (within INTRA_TOL; 0
+   flash, the local Lq 320 taking the plain path, and 14 frame attention a
+   forward at L = 320); (b) 4 ranks (NCCL with four cards, else cuda:0 over
+   gloo), joint3d stage 2 x seq 2 and stage 2 x cfg 2, each bit-equal to
+   (a)'s, and seq 2 x cfg 2 (within INTRA_TOL); each run's collectives and
+   bytes a forward a rank are printed; (c) the text->video app with
+   ``--seq-parallel 2 --num-stages 1`` on two ranks sharing cuda:0, whose
+   files must hold 8 frames of 512x320; (d) ``modes.production`` with
+   ``--auto-topology latency --devices cuda:0 cuda:0`` at SVD-XT width (its
+   default latent, CFG 3, 2 steps): the plan and runner-ups it logs, cfg 2
+   chosen, its samples bit-equal to the run with ``--num-stages 1
+   --cfg-parallel``; (e) the image->video app (``apps.generate_video.run``,
+   2 samples of 14 frames at 1024x576, 2 steps) with a stage rank and a
+   decode rank on cuda:0 (``--decode-devices 1``), then in this process
+   with no decode rank, then over 2 stage ranks that split the decode: the
+   files byte-equal, the decode rank's flash launches at d = 512 4 a video
+   and the stage rank's none (from the denoise on), each run's TIMING split
+   printed.
 
 The last two lines are the ``nvidia-smi`` name/power-limit line and the
 contract line ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
@@ -233,6 +262,35 @@ INTRA_PER_FORWARD = {  # case: (flash, frame attention, fallbacks, forwards a st
 # max|one process| (written in PERF.md before the first run: the bf16 UNet's
 # sums taken in other orders flip roundings site by site).
 INTRA_TOL = 5e-2
+# Phase 10, the DiT's intra-sample axes: DiT-XL bf16 with T5-XXL's 4096-wide
+# cross-attention, DIT_FRAMES frames of DIT_LAT, CFG ramp to 6 (sequential),
+# STEPS Euler steps, one sample, a random context of DIT_CTX_TOKENS tokens,
+# against the one-process run of the same steps. joint3d seq 2: each rank's
+# queries are its 2560 of the 5120 tokens against every key (28 flash
+# launches a forward at (2560, 5120)); cfg 2: one unsharded forward a step
+# a rank (28 at (5120, 5120)); factorized seq 2: the spatial blocks' local
+# Lq = 320 < 512 takes the plain path, as in the reference (0 flash), and the
+# 14 temporal blocks frame attention at the local L = 320 under
+# VDPP_TEMPORAL_ATTN=pallas. name: (mode, inner axes, flash a forward, its
+# (Lq, Lk), frame attention a forward, forwards a step).
+DIT_CTX_TOKENS = 16
+DIT_INTRA = {
+    "joint3d_seq2": ("joint3d", {"seq": 2}, 28, (2560, 5120), 0, 2),
+    "joint3d_cfg2": ("joint3d", {"cfg": 2}, 28, (5120, 5120), 0, 1),
+    "factorized_seq2": ("factorized", {"seq": 2}, 0, None, 14, 2),
+    "joint3d_stage2_seq2": ("joint3d", {"seq": 2}, 28, (2560, 5120), 0, 2),
+    "joint3d_stage2_cfg2": ("joint3d", {"cfg": 2}, 28, (5120, 5120), 0, 1),
+    "joint3d_seq2_cfg2": ("joint3d", {"seq": 2, "cfg": 2}, 28, (2560, 5120), 0, 1),
+}
+# Predicted collectives a joint3d seq-2 forward a rank: K and V of each of the
+# 28 blocks and the head's output gathered, 57 calls; each K or V shard is
+# (1, 2560, 16, 72) bf16, so 56 x 5.9 MB = 0.33 GB of K/V.
+DIT_SEQ2_GATHERS = 2 * 28 + 1
+# (e) The image->video app with a reserved decode rank: DECODE_SAMPLES
+# samples, APP_STEPS steps, the 14 frames decoded in chunks of 4 (4 chunks,
+# 4 flash launches at d = 512 a video).
+DECODE_SAMPLES = 2
+FLASH_PER_APP_DECODE = -(-APP_FRAMES // 4)
 # The pipeline phase's cases: (solver, DeepCache interval). With interval 2
 # rank 0 takes the full step and rank 1 the cache step, so the cache crosses
 # the hand-off: 644 fp32 channels a sample (648 with dpmpp2m's x0_hat).
@@ -862,6 +920,79 @@ def check_frame_attention_72(torch, ta, F) -> dict:
               f"{shares_text(row, 'SDPA')}", flush=True)
         shapes.append(row)
     return {"max_abs_err": max_err, "shapes": shapes, "fp32": fp32_rows}
+
+
+def check_dit_sharded_kernels(torch, fa, ta, F) -> dict:
+    """Phase 10's kernel shapes: B1 bf16 at d = 72 where seq sharding puts
+    DiT-XL's joint3d queries (1 x 16 heads; seq 2 (2560, 5120), seq 4 (1280,
+    5120)), both softmax modes, each timed beside its plain version and SDPA
+    with its bound, plus a ragged (Lq, Lk); and B3 bf16 at d = 72 at the
+    factorized seq-2 rank's local L = 320 (F = 8, 16 heads), timed likewise."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+
+    def inputs(b, lq, lk, h, d):
+        q = torch.randn(b, lq, h, d, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(b, lk, h, d, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        return q, k, v
+
+    max_err, flash_rows = 0.0, []
+    for seq, lq, lk in ((2, 2560, 5120), (4, 1280, 5120), (0, 333, 5077)):
+        b, h, d = 1, 16, 72
+        q, k, v = inputs(b, lq, lk, h, d)
+        what = (f"d=72 bf16 {'ragged' if not seq else f'DiT joint3d seq {seq}'} Lq={lq} "
+                f"Lk={lk} B*H={b * h}")
+        row = {"seq": seq, "Lq": lq, "Lk": lk, "BH": b * h, "D": d}
+        for static in (True, False):
+            err, _ = compare_flash(torch, fa, what, q, k, v, static, False, TOL["bf16"])
+            row["err_static" if static else "err_running"] = err
+            max_err = max(max_err, err)
+        if not seq:
+            continue
+        row["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, static_max=True))
+        row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, True),
+                                  iters=3, warmup=1)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        flops = 4 * b * h * lq * lk * d
+        row["bound_ms"], row["bound_by"] = bound(flops, 2 * b * h * d * 2 * (lq + lk),
+                                                 H100_BF16_FLOPS)
+        add_rates(row, flops)
+        print(f"flash {what}: kernel_ms {row['ms']:.4f}, plain_ms {row['plain_ms']:.3f}, "
+              f"library_ms (SDPA) {row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} "
+              f"({row['bound_by']}); {rates_text(row)}", flush=True)
+        flash_rows.append(row)
+
+    fr, l, h, d = DIT_FRAMES, 320, 16, 72
+    q, k, v = (torch.randn(1, fr, l, h, d, generator=g, device="cuda").bfloat16()
+               for _ in range(3))
+    before = ta.launches
+    got = ta.frame_attention(q, k, v)
+    torch.cuda.synchronize()
+    if ta.launches != before + 1:
+        fail("the frame-attention wrapper did not count its launch")
+    ref = ta.frame_attention_plain(q, k, v).float()
+    err = (got.float() - ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    tol = bf16_ulp(ref_max)
+    print(f"frame_attention d=72 bf16 F={fr} L={l} H={h} (factorized seq 2): max|diff| {err:.3g}, "
+          f"max|plain| {ref_max:.3g}, limit {tol:.3g}", flush=True)
+    if not math.isfinite(err) or err > tol:
+        fail(f"frame_attention d=72 F={fr} L={l}: max|diff| {err} > {tol}")
+    row = {"L": l, "H": h, "F": fr, "D": d, "ref_max": ref_max, "err": err}
+    row["ms"] = time_ms(torch, lambda: ta.frame_attention(q, k, v))
+    row["plain_ms"] = time_ms(torch, lambda: ta.frame_attention_plain(q, k, v), iters=3, warmup=1)
+    qt, kt, vt = (t.permute(0, 2, 3, 1, 4).reshape(l, h, fr, d).contiguous() for t in (q, k, v))
+    row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    row["bound_ms"], row["bound_by"] = bound(l * h * 4 * fr * fr * d, 4 * fr * l * h * d * 2,
+                                             H100_BF16_FLOPS)
+    add_shares(row)
+    print(f"frame_attention d=72 F={fr} L={l} H={h}: kernel_ms {row['ms']:.4f}, plain_ms "
+          f"{row['plain_ms']:.3f}, library_ms (SDPA on a (L, H, F, D) copy) "
+          f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
+          f"{shares_text(row, 'SDPA')}", flush=True)
+    return {"flash": {"max_abs_err": max_err, "shapes": flash_rows},
+            "frame": {"max_abs_err": err, "shapes": [row]}}
 
 
 def compare_flash(torch, fa, what: str, q, k, v, static: bool, exp_bf16: bool,
@@ -2337,6 +2468,358 @@ def run_intra_sample(torch, smi: str) -> dict:
     return results
 
 
+def dit_intra_case(torch, device, mode: str):
+    """What phase 10's ranks and its one-process runs build alike on
+    ``device``: the wrapper (DiT-XL bf16 in ``mode``, T5-XXL's cross width,
+    STEPS Euler steps), the DiT from seed 1, a random context of
+    DIT_CTX_TOKENS tokens from seed 3 with a CFG ramp to 6 over DIT_FRAMES
+    frames, and one noise draw of DIT_FRAMES x DIT_LAT from seed 2."""
+    from vdpp_tpu_torch.models.dit import DiTVideoConfig, DiTVideoWrapper
+    from vdpp_tpu_torch.models.svd_wrapper import make_guidance_ramp
+
+    config = dataclasses.replace(DiTVideoConfig.latte_xl(), cross_attention_dim=4096,
+                                 attention_mode=mode)
+    wrapper = DiTVideoWrapper(config, num_steps=STEPS, device=device)
+    dit = wrapper.init(torch.Generator(device=device).manual_seed(1))
+    ctx = torch.randn(1, DIT_CTX_TOKENS, 4096, device=device,
+                      generator=torch.Generator(device=device).manual_seed(3))
+    noise = torch.randn(1, 1, DIT_FRAMES, *DIT_LAT, config.in_channels, device=device,
+                        generator=torch.Generator(device=device).manual_seed(2))
+    bundle = (dit, ctx, make_guidance_ramp(6.0, DIT_FRAMES, device=device))
+    return wrapper, bundle, noise * wrapper.init_noise_sigma
+
+
+def dit_intra_rank(stage, cases) -> dict:
+    """One rank of phase 10: each name of ``cases`` (keys of DIT_INTRA) on this
+    group laid out with its inner axes (the stage count follows), through
+    ``StepPipeline.run``, the factorized ones with VDPP_TEMPORAL_ATTN=pallas.
+    For each run the launch counts and the collectives' counts are set to 0
+    just before and read just after; flash's (Lq, Lk) are recorded. The
+    mesh's last rank also returns the outputs."""
+    import collections
+
+    import torch
+
+    from vdpp_tpu_torch.ops import attention
+    from vdpp_tpu_torch.ops import flash_attention as fa
+    from vdpp_tpu_torch.ops import norm_kernel as nk
+    from vdpp_tpu_torch.ops import temporal_attention_kernel as ta
+    from vdpp_tpu_torch.parallel import collectives
+    from vdpp_tpu_torch.parallel.mesh import Stage
+    from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+
+    exact_libraries(torch)
+    shapes = collections.Counter()
+    flash = attention.flash_attention
+
+    def recorded(q, k, v, *args, **kw):
+        shapes[f"{q.shape[1]},{k.shape[1]}"] += 1
+        return flash(q, k, v, *args, **kw)
+
+    attention.flash_attention = recorded
+    out = {"rank": stage.rank, "device": str(stage.device)}
+    built = {}
+    for name in cases:
+        mode, axes = DIT_INTRA[name][:2]
+        if mode not in built:
+            built.clear()  # one DiT-XL at a time
+            torch.cuda.empty_cache()
+            built[mode] = dit_intra_case(torch, stage.device, mode)
+        wrapper, params, inputs = built[mode]
+        st = Stage(dataclasses.replace(stage.mesh, **{"seq": 1, "frame": 1, "cfg": 1, **axes}),
+                   stage.rank)
+        pipe = StepPipeline(st, wrapper.pipeline_step_fn(**st.axes),
+                            PipelineConfig(STEPS, st.num_stages))
+        with kernel_switches(TEMPORAL_SWITCH if mode == "factorized" else {}):
+            torch.cuda.synchronize(stage.device)
+            torch.cuda.reset_peak_memory_stats(stage.device)
+            reset_counts(fa, nk, ta)
+            collectives.clear_counts()
+            shapes.clear()
+            t0 = time.perf_counter()
+            res = pipe.run(params, inputs)
+            torch.cuda.synchronize(stage.device)
+            seconds = time.perf_counter() - t0
+        out[name] = {
+            "seconds": seconds, "stage": st.index, "stages": st.num_stages,
+            "counts": {"flash": dict(fa.launches), "frame": ta.launches,
+                       "flash_shapes": dict(shapes)},
+            "collectives": dict(collectives.counts), "bytes": dict(collectives.nbytes),
+            "peak": torch.cuda.max_memory_allocated(stage.device),
+            "outputs": res.cpu() if res is not None and st.is_last_rank else None}
+    return out
+
+
+def run_dit_intra(torch, smi: str) -> dict:
+    """Phase 10 (a)-(b): the DiT's seq and cfg axes at DiT-XL width. The
+    one-process runs of STEPS steps on cuda:0 (joint3d; factorized with
+    VDPP_TEMPORAL_ATTN=pallas); (a) 2 ranks sharing cuda:0 over gloo: joint3d
+    seq 2, joint3d cfg 2, factorized seq 2; (b) 4 ranks (NCCL with four
+    cards, else cuda:0 over gloo): stage 2 x seq 2 and stage 2 x cfg 2, each
+    bit-equal to (a)'s run of the same axis, and seq 2 x cfg 2. cfg runs
+    must equal the one-process run bit for bit, seq runs lie within
+    INTRA_TOL; every rank's launches must match DIT_INTRA."""
+    from vdpp_tpu_torch.parallel.mesh import make_pipeline_mesh, run_stages
+    from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
+
+    saved = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.cuda.empty_cache()
+    refs, out = {}, {}
+    exact_libraries(torch)
+    for mode in ("joint3d", "factorized"):
+        with kernel_switches(TEMPORAL_SWITCH if mode == "factorized" else {}):
+            wrapper, params, inputs = dit_intra_case(torch, torch.device("cuda:0"), mode)
+            run_reference_single_device(wrapper.pipeline_step_fn(), params, inputs, 1)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            refs[mode] = run_reference_single_device(wrapper.pipeline_step_fn(), params, inputs,
+                                                     STEPS).cpu()
+            torch.cuda.synchronize()
+            out[f"one_process_{mode}_s"] = time.perf_counter() - t0
+        del wrapper, params, inputs
+        torch.cuda.empty_cache()
+    four = torch.cuda.device_count() >= 4
+    meshes = {"a": (make_pipeline_mesh(devices=["cuda:0"] * 2),
+                    ["joint3d_seq2", "joint3d_cfg2", "factorized_seq2"]),
+              "b": (make_pipeline_mesh(4, device="cuda") if four
+                    else make_pipeline_mesh(devices=["cuda:0"] * 4),
+                    ["joint3d_stage2_seq2", "joint3d_stage2_cfg2", "joint3d_seq2_cfg2"])}
+    for part, (mesh, cases) in meshes.items():
+        t0 = time.perf_counter()
+        try:
+            out[part] = run_stages(mesh, dit_intra_rank, cases, timeout=900)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"phase 10 ({part}) failed: {e}")
+        out[part + "_wall_s"] = time.perf_counter() - t0
+        out[part + "_backend"] = mesh.backend
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+
+    for mode, ref in refs.items():
+        print(f"DiT intra-sample: one-process run, DiT-XL {mode} bf16, {DIT_FRAMES} frames at "
+              f"{DIT_LAT[0]}x{DIT_LAT[1]}, CFG ramp to 6 sequential, {STEPS} Euler steps"
+              + (", VDPP_TEMPORAL_ATTN=pallas" if mode == "factorized" else "")
+              + f": {out[f'one_process_{mode}_s']:.3f} s, max|latent| "
+              f"{ref.abs().max().item():.4g} ({smi})", flush=True)
+    results, a_outputs = {}, {}
+    for part, (_, cases) in meshes.items():
+        ranks = out[part]
+        how = (f"{len(ranks)} ranks, {out[part + '_backend']}"
+               + (", sharing cuda:0" if out[part + "_backend"] == "gloo" else ""))
+        for name in cases:
+            mode, axes, flash_n, flash_shape, frame_n, per_step = DIT_INTRA[name]
+            ref = refs[mode]
+            ref_max = ref.abs().max().item()
+            got = ranks[-1][name]["outputs"]
+            err = (got - ref).abs().max().item()
+            exact = "seq" not in axes
+            ok = torch.equal(got, ref) if exact else (math.isfinite(err)
+                                                      and err <= INTRA_TOL * ref_max)
+            base = name.replace("stage2_", "")
+            equal_a = None if part == "a" or base not in a_outputs else torch.equal(
+                got, a_outputs[base])
+            print(f"DiT intra-sample {name} ({how}): {ranks[-1][name]['seconds']:.3f} s on the "
+                  f"last rank, output {tuple(got.shape)}, max|diff| to the one-process run "
+                  f"{err:.4g} ({err / ref_max:.3g} of max|latent|; "
+                  + ("bit for bit " if exact else f"limit {INTRA_TOL} x max, ")
+                  + f"equal {torch.equal(got, ref)})"
+                  + ("" if equal_a is None else f", bit-equal to (a)'s {base} {equal_a}")
+                  + f" ({smi})", flush=True)
+            if not ok or equal_a is False or not torch.isfinite(got).all():
+                fail(f"DiT intra-sample {name} ({how}) disagrees: max|diff| {err}, equal to "
+                     f"(a) {equal_a}")
+            for r in ranks:
+                res = r[name]
+                forwards = per_step * STEPS // res["stages"]
+                c = res["counts"]
+                per_fwd = {k: v / forwards for k, v in res["collectives"].items()}
+                bytes_fwd = {k: v / forwards for k, v in res["bytes"].items()}
+                print(f"DiT intra-sample {name}, rank {r['rank']} (stage {res['stage']}): "
+                      f"launches flash {c['flash']}, frame attention {c['frame']}, flash "
+                      f"(Lq, Lk) {c['flash_shapes']}; collectives a forward {per_fwd}, bytes a "
+                      f"forward {bytes_fwd}; peak allocated {res['peak'] / 2**30:.2f} GiB "
+                      f"({smi})")
+                expect(f"DiT intra-sample {name}, rank {r['rank']}: flash at d = 72",
+                       c["flash"].get(72, 0), flash_n * forwards)
+                expect(f"DiT intra-sample {name}, rank {r['rank']}: frame attention",
+                       c["frame"], frame_n * forwards)
+                want_shapes = ({} if flash_shape is None else
+                               {"{},{}".format(*flash_shape): flash_n * forwards})
+                if c["flash_shapes"] != want_shapes or set(c["flash"]) - {72}:
+                    fail(f"DiT intra-sample {name}: flash at {c['flash_shapes']}, head dims "
+                         f"{sorted(c['flash'])}")
+                if name == "joint3d_seq2" and per_fwd.get("all_gather") != DIT_SEQ2_GATHERS:
+                    fail(f"DiT intra-sample {name}: {per_fwd} collectives a forward, expected "
+                         f"{DIT_SEQ2_GATHERS} gathers")
+            if part == "a":
+                a_outputs[base] = got
+            results[name] = {
+                "seconds": ranks[-1][name]["seconds"], "max_abs_err": err,
+                "rel_err": err / ref_max, "backend": out[part + "_backend"],
+                "per_rank": [{"launches": r[name]["counts"], "collectives": r[name]["collectives"],
+                              "bytes": r[name]["bytes"], "peak_gb": r[name]["peak"] / 2**30}
+                             for r in ranks]}
+    results["one_process_s"] = {m: out[f"one_process_{m}_s"] for m in refs}
+    results["walls"] = {p: out[p + "_wall_s"] for p in meshes}
+    return results
+
+
+def app_files(out_dir: str) -> dict:
+    """``{(seed tag, extension): bytes}`` of an app's output directory (the
+    names carry a time stamp and the stage count; the seed tells the samples
+    apart)."""
+    files = {}
+    for n in os.listdir(out_dir):
+        with open(os.path.join(out_dir, n), "rb") as f:
+            files[n.split("_seed")[1]] = f.read()
+    return files
+
+
+def run_dit_intra_apps(torch, smi: str) -> dict:
+    """Phase 10 (c)-(e), through the entry points: (c) the text->video app
+    with --seq-parallel 2 on two ranks sharing cuda:0, whose files must hold
+    8 frames of 512x320; (d) the production mode with --auto-topology latency
+    on two ranks sharing cuda:0 at SVD-XT width (its default latent, CFG 3,
+    STEPS steps): the plan it chose, the runner-ups, and its samples bit-equal
+    to the run with the chosen flags given; (e) the image->video app with a
+    stage rank and a decode rank on cuda:0 (--decode-devices 1,
+    DECODE_SAMPLES samples), then with no decode rank in this process, then
+    over 2 stage ranks decoding chunk-parallel: the files byte-equal, the
+    decode rank's flash launches at d = 512 4 a video and the stage rank's 0
+    (from the denoise on), each run's TIMING split printed."""
+    import logging
+    import shutil
+    import tempfile
+
+    from vdpp_tpu_torch.apps import generate_video, generate_video_text
+    from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
+    from vdpp_tpu_torch.modes import production
+    from vdpp_tpu_torch.utils.logging import setup_logging
+
+    results = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dit_intra_")
+    try:
+        # (c) The text->video app over 2 seq ranks.
+        out_dir = os.path.join(tmp, "text")
+        t0 = time.perf_counter()
+        rc = generate_video_text.main(["--random-weights", "--steps", str(STEPS),
+                                       "--seq-parallel", "2", "--num-stages", "1", "--devices",
+                                       "cuda:0", "cuda:0", "--output-dir", out_dir])
+        wall = time.perf_counter() - t0
+        files = {os.path.splitext(n)[1]: os.path.join(out_dir, n) for n in os.listdir(out_dir)}
+        if rc != 0 or ".y4m" not in files or ".gif" not in files:
+            fail(f"the text->video app with --seq-parallel 2 returned {rc}, wrote {sorted(files)}")
+        video, gif = y4m_frames(files[".y4m"]), gif_frames(files[".gif"])
+        want = (DIT_FRAMES, 512, 320)
+        print(f"text->video app --seq-parallel 2 (2 ranks sharing cuda:0 over gloo): y4m {video}, "
+              f"gif {gif} (expected {want}), {wall:.3f} s in main ({smi})", flush=True)
+        if video != want or gif != want:
+            fail(f"the text app with --seq-parallel 2 wrote y4m {video} and gif {gif}")
+        results["text_app_seq2"] = {"wall_s": wall, "y4m": video}
+
+        # (d) The planner: production --auto-topology latency on two ranks.
+        lines: list[str] = []
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
+
+        keep = Keep()
+        prod_log = logging.getLogger("vdpp_torch.production")
+        base = ["--guidance-scale", "3", "--total-steps", str(STEPS), "--num-samples", "1",
+                "--devices", "cuda:0", "cuda:0"]
+        dev = torch.device("cuda:0")
+        state = production._cpu_state(SVDUNet(SVDUNetConfig.svd_xt(), device=dev).init_weights(
+            production._generator(dev, 42)))
+        torch.cuda.empty_cache()
+        runs = {}
+        for what, extra in (("auto", ["--auto-topology", "latency"]),
+                            ("explicit", ["--num-stages", "1", "--cfg-parallel"])):
+            args = production.build_parser().parse_args(base + extra)
+            setup_logging(args.log_level)
+            prod_log.addHandler(keep)
+            try:
+                t0 = time.perf_counter()
+                res = production.run(args, state=state)
+                runs[what] = {"out": res["out"], "wall_s": time.perf_counter() - t0,
+                              "launches": res["launches"],
+                              "flags": (args.num_stages, args.seq_parallel, args.frame_parallel,
+                                        args.cfg_parallel)}
+            finally:
+                prod_log.removeHandler(keep)
+        del state
+        plan = [ln for ln in lines if ln.startswith(("auto-topology", "  runner-up"))]
+        for ln in plan:
+            print(f"production --auto-topology latency, 2 ranks on cuda:0: {ln}")
+        same = torch.equal(runs["auto"]["out"], runs["explicit"]["out"])
+        print(f"production --auto-topology latency: stage, seq, frame, cfg = "
+              f"{runs['auto']['flags']}, {runs['auto']['wall_s']:.3f} s; explicit "
+              f"--num-stages 1 --cfg-parallel {runs['explicit']['wall_s']:.3f} s; samples "
+              f"{tuple(runs['auto']['out'].shape)} bit-equal {same} ({smi})", flush=True)
+        if not plan or runs["auto"]["flags"] != (1, 1, 1, True) or not same or \
+                not torch.isfinite(runs["auto"]["out"]).all():
+            fail(f"production --auto-topology: plan {plan}, flags {runs['auto']['flags']}, "
+                 f"bit-equal to the explicit run {same}")
+        for r, counts in enumerate(runs["auto"]["launches"]):
+            expect(f"production --auto-topology, rank {r}: flash at d = 64",
+                   counts["flash"].get(64, 0), PROD_FLASH_PER_FORWARD * STEPS)
+        results["auto_topology"] = {"plan": plan, "flags": runs["auto"]["flags"],
+                                    "walls": {k: v["wall_s"] for k, v in runs.items()},
+                                    "launches": runs["auto"]["launches"]}
+        del runs
+        torch.cuda.empty_cache()
+
+        # (e) The image->video app: a decode rank, none, and the decode split
+        # over 2 stage ranks.
+        app_runs = {}
+        for what, extra in (("decode1", ["--num-stages", "1", "--decode-devices", "1",
+                                         "--devices", "cuda:0", "cuda:0"]),
+                            ("one_rank", ["--num-stages", "1", "--device", "cuda"]),
+                            ("stages2", ["--num-stages", "2", "--devices", "cuda:0", "cuda:0"])):
+            out_dir = os.path.join(tmp, what)
+            t0 = time.perf_counter()
+            ranks = generate_video.run(["--random-weights", "--steps", str(APP_STEPS),
+                                        "--num-samples", str(DECODE_SAMPLES), "--output-dir",
+                                        out_dir, *extra])
+            wall = time.perf_counter() - t0
+            if ranks is None:
+                fail(f"the image->video app ({what}) refused its flags")
+            app_runs[what] = {"files": app_files(out_dir), "wall_s": wall, "ranks": ranks}
+            writer = next(r for r in ranks if r["outputs"])
+            print(f"image->video app {what}: {wall:.3f} s in run, TIMING {writer['timing']}, "
+                  f"launches from the denoise on by rank {[r['launches'] for r in ranks]} "
+                  f"({smi})", flush=True)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    one = app_runs["one_rank"]["files"]
+    if len(one) != 3 * DECODE_SAMPLES:
+        fail(f"the image->video app wrote {sorted(one)}")
+    for what in ("decode1", "stages2"):
+        same = app_runs[what]["files"] == one
+        print(f"image->video app {what}: files byte-equal to the one-rank run's {same}")
+        if not same:
+            fail(f"the image->video app's files with {what} differ from the one-rank run's")
+    fwd64 = FLASH_PER_FORWARD * 2 * APP_STEPS * DECODE_SAMPLES
+    d512 = FLASH_PER_APP_DECODE * DECODE_SAMPLES
+    stage_r, decode_r = app_runs["decode1"]["ranks"]
+    expect("image->video app --decode-devices 1, decode rank: flash at d = 512",
+           decode_r["launches"]["flash"].get(512, 0), d512)
+    expect("image->video app --decode-devices 1, decode rank: flash at d = 64",
+           decode_r["launches"]["flash"].get(64, 0), 0)
+    expect("image->video app --decode-devices 1, stage rank: flash at d = 512",
+           stage_r["launches"]["flash"].get(512, 0), 0)
+    expect("image->video app --decode-devices 1, stage rank: flash at d = 64",
+           stage_r["launches"]["flash"].get(64, 0), fwd64)
+    for r, res in enumerate(app_runs["stages2"]["ranks"]):
+        expect(f"image->video app --num-stages 2, rank {r}: flash at d = 512",
+               res["launches"]["flash"].get(512, 0), d512 // 2)
+    results["apps"] = {k: {"wall_s": v["wall_s"], "ranks": [
+        {"launches": r["launches"], "timing": r["timing"]} for r in v["ranks"]]}
+        for k, v in app_runs.items()}
+    results["decode_launches"] = {"decode_rank": d512, "stages2": d512}
+    return results
+
+
 def reset_counts(fa, nk, ta) -> None:
     """Every kernel's launch count set to 0."""
     fa.launches.clear()
@@ -2355,9 +2838,9 @@ def main(argv: list[str] | None = None) -> int:
                         help="build the kernels, hold each against its plain version and time "
                              "it (phases 1-3 and 8 (a)), then stop without the result lines")
     parser.add_argument("--intra-only", action="store_true",
-                        help="build the kernels, then only phase 9 (the flash kernel at the "
-                             "seq-sharded lengths and the intra-sample axes at full width), "
-                             "and stop without the result lines")
+                        help="build the kernels, then only phases 9 and 10 (the kernels at the "
+                             "seq-sharded shapes, the intra-sample axes at full width, the "
+                             "planner and the decode ranks), and stop without the result lines")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -2430,6 +2913,12 @@ def main(argv: list[str] | None = None) -> int:
     if args.intra_only:
         check_flash_seq_sharded(torch, fa, F)
         run_intra_sample(torch, smi)
+        t10 = time.perf_counter()
+        check_dit_sharded_kernels(torch, fa, ta, F)
+        run_dit_intra(torch, smi)
+        run_dit_intra_apps(torch, smi)
+        print(f"phase 10 (the DiT's axes, the planner, the decode ranks) done in "
+              f"{time.perf_counter() - t10:.1f} s ({smi})")
         print(f"intra-sample phases done in {time.perf_counter() - t_start:.1f} s ({smi})")
         return 0
     flash = check_flash(torch, fa, F)
@@ -2440,6 +2929,7 @@ def main(argv: list[str] | None = None) -> int:
     flash72 = check_flash_72(torch, fa, F)
     flash_seq = check_flash_seq_sharded(torch, fa, F)
     frame72 = check_frame_attention_72(torch, ta, F)
+    dit_kernels = check_dit_sharded_kernels(torch, fa, ta, F)
     # (a) The generic flash kernel, the bf16 exponent, the generic frame
     # attention.
     flash_generic = check_flash_generic(torch, fa, F)
@@ -2603,6 +3093,29 @@ def main(argv: list[str] | None = None) -> int:
     intra_frame = intra_launches(("seq2", "cfg2", "stage2_seq2", "stage2_cfg2"),
                                  lambda c: c["frame"])
 
+    # 10. The DiT's seq and cfg axes, the planner and the decode ranks.
+    t10 = time.perf_counter()
+    dit_intra = run_dit_intra(torch, smi)
+    dit_apps = run_dit_intra_apps(torch, smi)
+    print(f"phase 10 (the DiT's axes, the planner, the decode ranks) done in "
+          f"{time.perf_counter() - t10:.1f} s ({smi})")
+
+    def dit_launches(cases, get):
+        return {f"dit_{case}_rank{r}": get(res["launches"])
+                for case in cases for r, res in enumerate(dit_intra[case]["per_rank"])}
+
+    dit_seq_flash = dit_launches(("joint3d_seq2", "joint3d_stage2_seq2", "joint3d_seq2_cfg2"),
+                                 lambda c: c["flash"].get(72, 0))
+    dit_cfg_flash = dit_launches(("joint3d_cfg2", "joint3d_stage2_cfg2"),
+                                 lambda c: c["flash"].get(72, 0))
+    dit_frame = dit_launches(("factorized_seq2",), lambda c: c["frame"])
+    app_runs = {f"{k}_rank{r}": res["launches"]["flash"]
+                for k, v in dit_apps["apps"].items() for r, res in enumerate(v["ranks"])}
+    app_d64 = {k: c.get(64, 0) for k, c in app_runs.items()}
+    app_d512 = {k: c.get(512, 0) for k, c in app_runs.items()}
+    auto_flash = {f"auto_topology_rank{r}": c["flash"].get(64, 0)
+                  for r, c in enumerate(dit_apps["auto_topology"]["launches"])}
+
     def entry(name, source, replaces, launches, check, row, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": check["max_abs_err"], "ms": row["ms"],
@@ -2619,7 +3132,8 @@ def main(argv: list[str] | None = None) -> int:
         entry("flash_attention", flash_src, flash_tpu,
               flash_launches + app["flash"][64] + restyle["flash"][64] + long_app["flash"][64]
               + deepcache["schedule"]["flash"] + sum(pipe_flash.values())
-              + bench_counts["flash"] + sum(prod_flash.values()) + sum(intra_flash.values()),
+              + bench_counts["flash"] + sum(prod_flash.values()) + sum(intra_flash.values())
+              + sum(auto_flash.values()) + sum(app_d64.values()),
               flash,
               flash["shapes"][0], ptxas=ptxas,
               fp32_d64_d72=[flash["fp32"], flash72["fp32"]],
@@ -2632,18 +3146,21 @@ def main(argv: list[str] | None = None) -> int:
                                 "dpmpp2m_deepcache2_switched": deepcache["schedule"]["flash"],
                                 **pipe_flash,
                                 "benchmark_mode_1stage_switched": bench_counts["flash"],
-                                **prod_flash, **intra_flash},
+                                **prod_flash, **intra_flash, **auto_flash,
+                                **{f"image_to_video_app_{k}": n for k, n in app_d64.items()}},
               production_launches_per_forward=PROD_FLASH_PER_FORWARD),
         entry("flash_attention_d512", flash_src, flash_tpu,
               decode_flash + dit_decode_flash + app["flash"][512] + restyle["flash"][512]
-              + long_app["flash"][512], flash512,
+              + long_app["flash"][512] + sum(app_d512.values()), flash512,
               flash512["shapes"][0], encoder_site=flash512["shapes"][1],
               launches_by_path={"svd_decode": decode_flash, "dit_decode": dit_decode_flash,
                                 "image_to_video_app (1 encoder + 4 decode)":
                                     app["flash"][512],
                                 "restyle_app (5 encoder + 4 decode)": restyle["flash"][512],
                                 "long_app (2 x (1 encoder + 4 decode))":
-                                    long_app["flash"][512]}),
+                                    long_app["flash"][512],
+                                **{f"image_to_video_app_{k} (decode)": n
+                                   for k, n in app_d512.items()}}),
         entry("flash_attention_d512_bf16", flash_src, flash_tpu, decode16_flash, flash512_bf16,
               flash512_bf16["shapes"][0]),
         entry("group_norm_silu", "vdpp_tpu_torch/csrc/group_norm_silu.cu",
@@ -2668,8 +3185,20 @@ def main(argv: list[str] | None = None) -> int:
                                 **pipe_frame,
                                 "benchmark_mode_1stage_switched": bench_counts["frame"],
                                 **intra_frame}),
-        entry("flash_attention_d72", flash_src, flash_tpu, joint["flash"] + fact["flash"],
-              flash72, flash72["shapes"][0]),
+        entry("flash_attention_d72", flash_src, flash_tpu,
+              joint["flash"] + fact["flash"] + sum(dit_cfg_flash.values()),
+              flash72, flash72["shapes"][0],
+              launches_by_path={"dit_joint3d": joint["flash"], "dit_factorized": fact["flash"],
+                                **dit_cfg_flash}),
+        entry("flash_attention_dit_seq_sharded", flash_src, flash_tpu,
+              sum(dit_seq_flash.values()), dit_kernels["flash"], dit_kernels["flash"]["shapes"][0],
+              launches_by_path=dit_seq_flash,
+              launches_per_forward={"joint3d seq2 Lq=2560 Lk=5120": 28}, dit_intra=dit_intra,
+              planner_and_decode=dit_apps),
+        entry("frame_attention_dit_seq_sharded", frame_src, frame_tpu, sum(dit_frame.values()),
+              dit_kernels["frame"], dit_kernels["frame"]["shapes"][0],
+              launches_by_path=dit_frame,
+              launches_per_forward={"factorized seq2 L=320": 14}),
         entry("flash_attention_seq_sharded", flash_src, flash_tpu,
               sum(intra_seq_flash.values()), flash_seq, flash_seq["shapes"][0],
               launches_by_path=intra_seq_flash,

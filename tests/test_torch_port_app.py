@@ -546,8 +546,9 @@ def test_main_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     # (64 / 8 = 8) that 3 x 2 does not divide, frames (4) that 3 does not.
     assert app.main(run + ["--seq-parallel", "3"]) == 1
     assert app.main(run + ["--frame-parallel", "3"]) == 1
-    with pytest.raises(NotImplementedError, match="A13 part 2"):
-        app.main(run + ["--decode-devices", "1"])
+    # Two stages and a decode rank on two devices: oversubscribed.
+    with pytest.raises(ValueError, match="devices"):
+        app.main(run + ["--num-stages", "2", "--decode-devices", "1", "--devices", "cpu", "cpu"])
     monkeypatch.setitem(sys.modules, "PIL", None)  # Pillow missing: --image names it
     with pytest.raises(RuntimeError, match="Pillow"):
         app.load_and_preprocess_image(str(tmp_path / "x.png"), 64, 64)

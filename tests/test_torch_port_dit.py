@@ -231,12 +231,16 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A15"):
         tdit.DiTVideo(dataclasses.replace(tdit.DiTVideoConfig.tiny(), num_experts=4),
                       device="cpu")
+    # The seq and cfg axes run (tests/test_torch_port_dit_parallel.py); the
+    # expert axis and MoE dispatch do not, and the DiT has no frame axis.
     w = tdit.DiTVideoWrapper(tdit.DiTVideoConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        w.pipeline_step_fn(cfg_axis="cfg")
+    with pytest.raises(NotImplementedError, match="A15"):
+        w.pipeline_step_fn(expert_axis="expert")
+    with pytest.raises(ValueError, match="frame axis"):
+        w.pipeline_step_fn(frame_axis=object())
     model = w.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A13"):
-        model(torch.zeros(1, 2, 4, 4, 4), 0.0, seq_axis="seq")
+    with pytest.raises(NotImplementedError, match="A15"):
+        model(torch.zeros(1, 2, 4, 4, 4), 0.0, expert_axis="expert")
 
 
 def test_presets_match_jax():
@@ -306,8 +310,11 @@ def test_app_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     assert app.main(base) == 1  # neither --checkpoint nor --random-weights
     assert app.main(base + ["--random-weights", "--negative-prompt", "x",
                             "--guidance-scale", "1"]) == 1
-    with pytest.raises(NotImplementedError, match="A13"):
-        app.main(base + ["--random-weights", "--seq-parallel", "2"])
+    # --seq-parallel runs (tests/test_torch_port_dit_parallel.py); 2 stages of
+    # 2 seq ranks do not fit on 2 devices.
+    with pytest.raises(ValueError, match="devices"):
+        app.main(base + ["--random-weights", "--seq-parallel", "2", "--num-stages", "2",
+                         "--devices", "cpu", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         app.main(["--random-weights", "--preset", "tiny", "--output-dir", str(tmp_path)])

@@ -157,12 +157,23 @@ def test_production_mode_resume_flag_consistency(flags, message, monkeypatch):
                                    ["--auto-topology", "latency", "--guidance-scale", "3"],
                                    ["--auto-topology", "throughput", "--deepcache", "2"]])
 def test_production_unported_axes_raise_naming_a13(flags):
-    """The mesh planner (ROADMAP A13 part 2) raises when no stage count or
-    axis flag is given (with one, the reference ignores it); the seq, frame
-    and cfg axes themselves run (tests/test_torch_port_cfg_parallel.py)."""
-    argv = ["--device", "cpu", "--preset", "tiny", "--latent-shape", "1", "4", "2", "16", "16"]
-    with pytest.raises(NotImplementedError, match="A13"):
-        production.main(argv + flags)
+    """The mesh planner (ROADMAP A13 part 2, now ported) sets the stage count,
+    the axes and the schedule padding from the JAX planner's top plan for
+    the two devices, in the argument checks, before any model is built
+    (tests/test_torch_port_topology.py runs it)."""
+    from vdpp_tpu.parallel.topology import plan_topology as jax_plan
+
+    argv = ["--device", "cpu", "--preset", "tiny", "--latent-shape", "1", "4", "2", "16", "16",
+            "--devices", "cpu", "cpu"]
+    args = production.build_parser().parse_args(argv + flags)
+    production.check_flags(args)
+    best = jax_plan(2, total_steps=args.total_steps, frames=2, latent_w=16,
+                    num_samples=args.num_samples, seq_min_divisor_unit=2,
+                    guidance=args.guidance_scale is not None, objective=args.auto_topology,
+                    deepcache_interval=args.deepcache)[0]
+    assert (args.num_stages, args.seq_parallel, args.frame_parallel, args.cfg_parallel) == (
+        best.stage, best.seq, best.frame, best.cfg == 2)
+    assert args.pad_schedule == (best.padded_steps != args.total_steps)
 
 
 def test_production_run_meta_has_the_reference_keys():

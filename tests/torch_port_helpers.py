@@ -90,15 +90,32 @@ def svd_build(config, solver: str, num_steps: int, pad_steps_to, state: dict, co
     return wrapper.pipeline_step_fn(**(axes or {})), (unet, cond)
 
 
-def dit_build(config, num_steps: int, state: dict, context, guidance, device, **wrapper_kw):
+def dit_build(config, num_steps: int, state: dict, context, guidance, device,
+              axes: dict | None = None, **wrapper_kw):
     """``(step_fn, params)`` of the DiT wrapper's step over a DiTVideo
-    holding ``state``, with ``context`` and ``guidance`` (CPU tensors)."""
+    holding ``state``, with ``context`` (a tensor, a ``(neg, pos)`` tuple or
+    None) and ``guidance`` (or None), CPU tensors, over ``axes`` (a Stage's
+    ``axes``) when given."""
+    wrapper, params = dit_runner_build(config, num_steps, state, context, guidance, device,
+                                       **wrapper_kw)
+    return wrapper.pipeline_step_fn(**(axes or {})), params
+
+
+def dit_runner_build(config, num_steps: int, state: dict, context, guidance, device,
+                     **wrapper_kw):
+    """``(wrapper, (dit, context, guidance))`` as :func:`dit_build` builds
+    them, for a runner that takes the wrapper."""
     from vdpp_tpu_torch.models.dit import DiTVideo, DiTVideoWrapper
+
+    def to(t):
+        if isinstance(t, tuple):
+            return tuple(to(x) for x in t)
+        return None if t is None else t.to(device)
 
     wrapper = DiTVideoWrapper(config, num_steps=num_steps, device=device, **wrapper_kw)
     dit = DiTVideo(config, device=device)
     dit.load_state_dict(state)
-    return wrapper.pipeline_step_fn(), (dit, context.to(device), guidance.to(device))
+    return wrapper, (dit, to(context), to(guidance))
 
 
 class NoiseTable:
@@ -292,13 +309,17 @@ def intra_cases(stage, cases: list) -> dict:
     as ``layout`` (:func:`relayout`). ``kind`` is ``"op"`` (``args``:
     :func:`_op_case`'s), ``"pipeline"`` (``args``: ``(build, inputs,
     total_steps)``, ``build(device, axes)`` giving ``(step_fn, params)``,
-    through ``StepPipeline.run``), or ``"cfg_runner"`` (the same through
-    ``CFGParallelRunner``, one sample at a time). A model case's result is
-    ``(outputs, the collectives' call counts)``. Returns every case's result
-    on the mesh's last rank and ``{name: None}`` on the others."""
+    through ``StepPipeline.run``), ``"cfg_runner"`` (the same through
+    ``CFGParallelRunner``, one sample at a time) or ``"seq_runner"``
+    (``args``: ``(build, inputs)``, ``build(device)`` giving ``(wrapper,
+    (dit, context, guidance))``, through ``SequenceParallelRunner``, one
+    sample at a time). A model case's result is ``(outputs, the collectives'
+    call counts)``. Returns every case's result on the mesh's last rank and
+    ``{name: None}`` on the others."""
     from vdpp_tpu_torch.parallel import collectives
     from vdpp_tpu_torch.parallel.cfg_parallel import CFGParallelRunner
     from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+    from vdpp_tpu_torch.parallel.sequence_parallel import SequenceParallelRunner
 
     results = {}
     for name, layout, kind, args in cases:
@@ -307,6 +328,12 @@ def intra_cases(stage, cases: list) -> dict:
         with torch.inference_mode():
             if kind == "op":
                 out = _op_case(st, *args)
+            elif kind == "seq_runner":
+                build, inputs = args
+                wrapper, (params, ctx, guidance) = build(st.device)
+                runner = SequenceParallelRunner(st, wrapper)
+                out = (torch.stack([runner.run(params, x, ctx, guidance) for x in inputs]),
+                       dict(collectives.counts))
             else:
                 build, inputs, total = args
                 step_fn, params = build(st.device, st.axes)
@@ -319,3 +346,27 @@ def intra_cases(stage, cases: list) -> dict:
                            dict(collectives.counts))
         results[name] = out
     return results if stage.is_last_rank else dict.fromkeys(results)
+
+
+# ---- the chunk-parallel VAE decode (tests/test_torch_port_decode_parallel.py) ---- #
+
+
+def decode_cases(stage, state: dict, cases: list) -> dict:
+    """Rank job on a mesh with decode ranks: a tiny VAE decoder holding
+    ``state`` decodes each ``(name, latents, chunk_frames, over)`` with
+    ``decode_data_parallel`` over ``over``: ``"decode"`` (the decode ranks,
+    gathered to the first of them; the stage ranks sit it out) or ``"all"``
+    (every rank, gathered to rank 0). Returns ``{name: video}`` from each
+    case's root, None elsewhere."""
+    from vdpp_tpu_torch.models.vae import TemporalVAEDecoder, VAEConfig
+
+    dec = TemporalVAEDecoder(VAEConfig.tiny(), device=stage.device)
+    dec.load_state_dict(state)
+    results = {}
+    for name, latents, chunk, over in cases:
+        axis = stage.decode_axis if over == "decode" else stage.ranks_axis()
+        if over == "decode" and not stage.is_decode:
+            results[name] = None
+            continue
+        results[name] = dec.decode_data_parallel(latents, axis, chunk)
+    return results

@@ -32,12 +32,19 @@ pipeline: one stage runs in this process, S stages one process each
 (``parallel/mesh.py``: NCCL with a card per stage, gloo on the CPU). Rank 0
 builds CLIP and the VAE encoder, encodes and broadcasts the conditioning;
 every rank builds the UNet from the same checkpoint or seed and runs its
-slice of the steps; the last rank frees its UNet, builds the decoder,
-decodes and writes the files, the same byte for byte for any stage count.
+slice of the steps; every rank frees its UNet and builds the decoder, and
+the ranks decode the finished samples chunk-parallel
+(``TemporalVAEDecoder.decode_data_parallel``: chunk j on rank j mod R),
+gathered to the last rank, which writes the files.
 ``--seq-parallel N`` and ``--frame-parallel N`` make each stage a block of
 ranks that split each UNet forward over the latent's W axis and its frames
-(``make_axes_mesh``); the last rank decodes. ``--decode-devices`` (the
-overlapped decode) comes with ROADMAP A13 part 2 and raises. The encode,
+(``make_axes_mesh``). ``--decode-devices D`` reserves D decode ranks after
+the stage ranks (``make_pipeline_and_decode_mesh``): the ticked pipeline
+hands each sample, the moment it finishes, from the first rank of the last
+stage to the decode ranks, which decode it chunk-parallel while later
+samples denoise; decode rank 0 writes the files. The files are the same
+byte for byte for any stage count, axis and decode layout (each chunk is
+decoded alone, at the same shape, whatever rank takes it). The encode,
 denoise and decode pieces here are shared with ``apps.restyle_video`` and
 ``apps.generate_video_long``.
 Without a CUDA device the app fails unless ``--device cpu`` is asked for.
@@ -70,12 +77,14 @@ from vdpp_tpu_torch.models.svd_wrapper import (
     make_conditioning,
 )
 from vdpp_tpu_torch.models.vae import TemporalVAEDecoder, VAEConfig, VAEEncoder
-from vdpp_tpu_torch.parallel.mesh import Stage, make_axes_mesh, run_stages
+from vdpp_tpu_torch.parallel.collectives import broadcast
+from vdpp_tpu_torch.parallel.mesh import Stage, make_pipeline_and_decode_mesh, run_stages
 from vdpp_tpu_torch.parallel.pipeline import (
     PipelineConfig,
     StepPipeline,
     run_reference_single_device,
 )
+from vdpp_tpu_torch.utils.kernels import launch_counts, launches_since
 from vdpp_tpu_torch.utils.video_io import (
     build_output_name,
     frames_to_uint8,
@@ -126,7 +135,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frame-parallel", type=int, default=1,
                    help="frame sharding width per stage (--num-frames must divide by it)")
     p.add_argument("--decode-devices", type=int, default=0,
-                   help="the overlapped decode (not ported: ROADMAP A13 part 2)")
+                   help="reserve this many ranks (after the stage ranks) for the VAE decode, "
+                        "and decode each sample while the later ones denoise; 0 = decode after "
+                        "the diffusion on every rank")
     p.add_argument("--vae-dtype", default="float32", choices=["float32", "bfloat16"],
                    help="VAE compute dtype (bfloat16 halves decode memory)")
     p.add_argument("--seed", type=int, default=42)
@@ -303,11 +314,7 @@ def image_to_video(models: dict, wrapper: StableVideoUNet, image, clip_pixels, a
 
 def check_axes(args: argparse.Namespace, unet_cfg: SVDUNetConfig, lat_w: int) -> bool:
     """The reference's checks of the intra-sample flags (each logs an error
-    and the app returns 1); ``--decode-devices`` raises, naming its ROADMAP
-    item."""
-    if args.decode_devices:
-        raise NotImplementedError("--decode-devices (the overlapped decode) comes with "
-                                  "ROADMAP A13 part 2")
+    and the app returns 1)."""
     sp, fp = args.seq_parallel, args.frame_parallel
     if sp > 1 and lat_w % unet_cfg.seq_min_divisor(sp) != 0:
         LOGGER.error("--seq-parallel %d: latent width %d must divide by sp x 2^(levels-1) = %d",
@@ -400,13 +407,14 @@ def _latent_noise(args: argparse.Namespace, lat_hw, dev: torch.device):
 
 
 def _save(args: argparse.Namespace, videos, stages: int, prefix: str = "svd",
-          steps: int | None = None, fps: int | None = None) -> list[str]:
+          steps: int | None = None, fps: int | None = None, index: int = 0) -> list[str]:
     """Each ``(1, F, H, W, 3)`` video in [-1, 1] as MP4 (or its stand-in)
-    and GIF under ``--output-dir``; returns the MP4 paths."""
+    and GIF under ``--output-dir``, the first as sample ``index`` (its
+    seed's offset); returns the MP4 paths."""
     os.makedirs(args.output_dir, exist_ok=True)
     fps = args.fps if fps is None else fps
     outputs = []
-    for i, video in enumerate(videos):
+    for i, video in enumerate(videos, start=index):
         video = video[0]
         frames = frames_to_uint8(video.float().cpu().numpy() if torch.is_tensor(video) else video)
         name = build_output_name(prefix, num_frames=frames.shape[0],
@@ -431,13 +439,16 @@ def _share(stage: Stage, obj, src: int = 0):
 
 
 def _log_timing(t_load: float, t_encode: float, t_diffusion: float, t_decode: float,
-                total: float, outputs: list[str]) -> None:
+                total: float, outputs: list[str]) -> dict:
+    """Log the TIMING line and the outputs; returns the line's seconds."""
     LOGGER.info("=" * 60)
     LOGGER.info("TIMING  load %.3fs | encode %.3fs | diffusion %.3fs | decode+save %.3fs | "
                 "total %.3fs", t_load, t_encode, t_diffusion, t_decode, total)
     for p in outputs:
         LOGGER.info("output: %s", p)
     LOGGER.info("=" * 60)
+    return {"load": t_load, "encode": t_encode, "diffusion": t_diffusion,
+            "decode_save": t_decode, "total": total}
 
 
 def _logging(level: str, prefix: str = "") -> None:
@@ -446,43 +457,71 @@ def _logging(level: str, prefix: str = "") -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
+    return 1 if run(argv) is None else 0
+
+
+def run(argv: list[str] | None = None) -> list[dict] | None:
+    """What ``main`` runs: each rank's result in rank order (``outputs``, the
+    paths of the files on the rank that wrote them, else None; ``launches``,
+    the kernels it launched from the denoise on; ``timing``, the writer's
+    TIMING seconds), each rank's launches logged; None when the flags are
+    refused (logged)."""
     args = build_parser().parse_args(argv)
     _logging(args.log_level)
     t_start = time.perf_counter()
     if not args.checkpoint and not args.random_weights:
         LOGGER.error("provide --checkpoint or --random-weights")
-        return 1
+        return None
     unet_cfg, _, _, lat_hw = _configs(args)
     if not check_axes(args, unet_cfg, lat_hw[1]):
-        return 1
-    mesh = make_axes_mesh(args.num_stages, seq=args.seq_parallel, frame=args.frame_parallel,
-                          device=args.device, devices=args.devices)
+        return None
+    mesh = make_pipeline_and_decode_mesh(args.num_stages, args.decode_devices,
+                                         device=args.device, devices=args.devices,
+                                         seq=args.seq_parallel, frame=args.frame_parallel)
     PipelineConfig(args.steps, mesh.num_stages)  # a bad split fails before any rank starts
     if mesh.world_size == 1:
-        _stage_main(Stage(mesh, 0), args, t_start)
+        ranks = [_stage_main(Stage(mesh, 0), args, t_start)]
     else:
-        run_stages(mesh, _stage_main, args, t_start)
-    return 0
+        ranks = run_stages(mesh, _stage_main, args, t_start)
+    for r, res in enumerate(ranks):
+        LOGGER.info("rank %d (%s%s) launched from the denoise on: %s", r, mesh.devices[r],
+                    ", decode" if r >= mesh.stage_ranks else "", res["launches"])
+    return ranks
 
 
-def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float) -> list[str] | None:
-    """One stage of the run, in this process when there is one stage, else
-    in its own rank: rank 0 encodes and broadcasts the conditioning, every
-    rank denoises its slice of the steps, and the last rank frees its UNet,
-    builds the decoder, decodes and writes the files (whose paths it
-    returns)."""
+def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float) -> dict:
+    """One rank of the run, in this process when there is one rank, else in
+    its own: rank 0 encodes and broadcasts the conditioning, every stage rank
+    denoises its slice of the steps and frees its UNet. Without decode ranks
+    every rank then decodes its chunks of each finished sample and the last
+    rank writes the files; a decode rank decodes each sample as it arrives
+    and decode rank 0 writes them. Returns ``{"outputs", "launches",
+    "timing"}`` (see :func:`run`); the launches are counted after the
+    encode."""
+    before = None
+
+    def result(outputs: list[str] | None = None, timing: dict | None = None) -> dict:
+        return {"outputs": outputs, "launches": launches_since(before), "timing": timing}
+
     if stage.mesh.world_size > 1:  # a spawned rank starts with no logging set up
         _logging(args.log_level, f"rank {stage.rank}/{stage.mesh.world_size} ")
     dev = stage.device
+    if dev.type == "cuda":
+        # The same bits in every process: the files are byte-equal for any
+        # layout of the ranks.
+        torch.backends.cudnn.deterministic = True
     unet_cfg, vae_cfg, clip_cfg, lat_hw = _configs(args)
+    mesh = stage.mesh
     if stage.rank == 0:
-        LOGGER.info("generate: %dx%d, %d frames, %d steps on %s, CFG %.1f, %d stage(s)",
+        LOGGER.info("generate: %dx%d, %d frames, %d steps on %s, CFG %.1f, %d stage(s)%s",
                     args.width, args.height, args.num_frames, args.steps, dev,
-                    args.guidance_scale, stage.num_stages)
+                    args.guidance_scale, stage.num_stages,
+                    f", {mesh.decode} decode rank(s)" if mesh.decode else "")
     t0 = time.perf_counter()
     wrapper = make_wrapper(args, unet_cfg, dev)
-    models = _load_models(args, wrapper, vae_cfg, clip_cfg,
-                          ["unet", "clip", "vae_encoder"] if stage.rank == 0 else ["unet"])
+    names = (["vae_decoder"] if stage.is_decode else
+             ["unet", "clip", "vae_encoder"] if stage.rank == 0 else ["unet"])
+    models = _load_models(args, wrapper, vae_cfg, clip_cfg, names)
     _sync(dev)
     t_load = time.perf_counter() - t0
     LOGGER.info("models ready in %.3fs", t_load)
@@ -504,36 +543,111 @@ def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float) -> list[
                     "%.3fs)", t_encode, t_prep, times["clip"], times["vae_encode"])
         sent = (cond, t_encode)
     cond, t_encode = _share(stage, sent)
+    noise = wrapper.pack_initial(_latent_noise(args, lat_hw, dev) * wrapper.init_noise_sigma)
+    before = launch_counts()
+    if stage.is_decode:
+        return result(*_decode_rank(stage, args, wrapper, models.pop("vae_decoder"), noise,
+                                    (t_load, t_encode, t_start)))
 
     t0 = time.perf_counter()
-    noise = wrapper.pack_initial(_latent_noise(args, lat_hw, dev) * wrapper.init_noise_sigma)
     pipe = StepPipeline(stage, wrapper.pipeline_step_fn(**stage.axes),
                         PipelineConfig(wrapper.num_steps, stage.num_stages))
-    latents = pipe.run((models.pop("unet"), cond), noise)
+    params = (models.pop("unet"), cond)
+    if mesh.decode:
+        # The overlapped decode: each sample goes to the decode ranks the
+        # moment it finishes; the sends are waited on after the last tick.
+        pending: list = []
+
+        def on_sample(i: int, latent: torch.Tensor) -> None:
+            if stage.is_decode_sender:
+                pending.extend(stage.send_to_decode(latent))
+
+        pipe.run_ticked(params, noise, on_sample=on_sample)
+        for work, _ in pending:
+            work.wait()
+        del params
+        _free(dev)
+        _sync(dev)
+        if stage.is_last_rank:
+            LOGGER.info("diffusion [%d stage(s)]: %.3fs (%d samples, decoded on %d rank(s))",
+                        stage.num_stages, time.perf_counter() - t0, args.num_samples,
+                        mesh.decode)
+        return result()
+    latents = pipe.run(params, noise)
+    del params
     _free(dev)
     _sync(dev)
-    if not stage.is_last_rank:
-        return None
     t_diffusion = time.perf_counter() - t0
-    LOGGER.info("diffusion [%d stage(s)]: %.3fs (%d samples)", stage.num_stages, t_diffusion,
-                args.num_samples)
+    if stage.is_last_rank:
+        LOGGER.info("diffusion [%d stage(s)]: %.3fs (%d samples)", stage.num_stages,
+                    t_diffusion, args.num_samples)
 
+    # The decode over every rank the diffusion used (chunk j on rank j mod R),
+    # gathered to the last rank, which writes the files.
     t0 = time.perf_counter()
     vae_dec = _load_models(args, wrapper, vae_cfg, clip_cfg, ["vae_decoder"])["vae_decoder"]
     _sync(dev)
     t_load += time.perf_counter() - t0
     t0 = time.perf_counter()
+    axis = stage.ranks_axis() if mesh.world_size > 1 else None
+    root = mesh.world_size - 1
+    if axis is not None:  # the latents from the last rank, which holds them
+        latents = broadcast(latents if stage.is_last_rank else noise, axis, root)
     with torch.inference_mode():
-        videos = _decode(vae_dec, wrapper.unpack_final(latents), args.decode_chunk_frames)
+        videos = [vae_dec.decode_data_parallel(lat / vae_dec.config.scaling_factor, axis,
+                                               args.decode_chunk_frames, root)
+                  for lat in wrapper.unpack_final(latents)]
     _sync(dev)
+    if not stage.is_last_rank:
+        return result()
     t_decode = time.perf_counter() - t0
     t0 = time.perf_counter()
     outputs = _save(args, videos, stage.num_stages)
     t_save = time.perf_counter() - t0
-    LOGGER.info("decoded in %.3fs, saved in %.3fs", t_decode, t_save)
-    _log_timing(t_load, t_encode, t_diffusion, t_decode + t_save, time.perf_counter() - t_start,
-                outputs)
-    return outputs
+    LOGGER.info("decoded in %.3fs on %d rank(s), saved in %.3fs", t_decode, mesh.world_size,
+                t_save)
+    timing = _log_timing(t_load, t_encode, t_diffusion, t_decode + t_save,
+                         time.perf_counter() - t_start, outputs)
+    return result(outputs, timing)
+
+
+def _decode_rank(stage: Stage, args: argparse.Namespace, wrapper: StableVideoUNet,
+                 vae_dec: TemporalVAEDecoder, noise: torch.Tensor,
+                 times: tuple[float, float, float]) -> tuple[list[str] | None, dict | None]:
+    """A reserved decode rank: receive each finished sample from the stage
+    ranks, decode it chunk-parallel over the decode ranks and, on decode rank
+    0, write its files. The TIMING line's diffusion is the wait for the last
+    sample (the earlier samples' decodes overlap it), its decode+save what
+    follows. Returns the files' paths and the TIMING seconds, with
+    ``overlapped``, the decode and save seconds spent while the stage ranks
+    denoised, on decode rank 0; (None, None) on the others."""
+    t_load, t_encode, t_start = times
+    axis = stage.decode_axis
+    writer = axis.index == 0
+    t0 = time.perf_counter()
+    busy, outputs = 0.0, []
+    for i in range(args.num_samples):
+        latent = stage.receive_sample(noise[i])
+        t_got = time.perf_counter()
+        with torch.inference_mode():
+            lat = wrapper.unpack_final(latent)
+            video = vae_dec.decode_data_parallel(lat / vae_dec.config.scaling_factor, axis,
+                                                 args.decode_chunk_frames)
+        _sync(stage.device)
+        if writer:
+            outputs += _save(args, [video], stage.num_stages, index=i)
+        busy += time.perf_counter() - t_got
+        if i == args.num_samples - 1:
+            t_diffusion = t_got - t0
+            t_tail = time.perf_counter() - t_got
+    if not writer:
+        return None, None
+    LOGGER.info("decode ranks: %d sample(s) decoded and saved in %.3fs on %d rank(s), %.3fs of "
+                "it while the stage ranks denoised", args.num_samples, busy, axis.size,
+                busy - t_tail)
+    timing = _log_timing(t_load, t_encode, t_diffusion, t_tail, time.perf_counter() - t_start,
+                         outputs)
+    return outputs, {**timing, "overlapped": busy - t_tail}
 
 
 if __name__ == "__main__":

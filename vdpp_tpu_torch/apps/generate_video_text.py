@@ -23,9 +23,13 @@ as the reference's does. The denoise is the step pipeline: one stage runs in
 this process, S stages one process each (``parallel/mesh.py``). Rank 0 runs
 T5 and broadcasts the context, every rank builds the DiT from the same
 checkpoint or seed, and the last rank builds the decoder, decodes and writes
-the files, the same byte for byte for any stage count. ``--seq-parallel``
-above 1 (the DiT's sequence parallelism) raises (ROADMAP A13 part 2).
-Without a CUDA device the app fails unless ``--device cpu`` is asked for.
+the files, the same byte for byte for any stage count. ``--seq-parallel N``
+splits each DiT forward's tokens over N ranks (``DiTVideo.forward(
+seq_axis=)``): with ``--num-stages`` above 1 each stage is a block of N seq
+ranks of the step pipeline, otherwise ``SequenceParallelRunner`` runs each
+sample's whole schedule on the N ranks. ``--devices`` names a device a rank
+(a card named twice is shared over gloo). Without a CUDA device the app
+fails unless ``--device cpu`` is asked for.
 """
 
 from __future__ import annotations
@@ -44,8 +48,9 @@ from vdpp_tpu_torch.models.dit import DiTVideo, DiTVideoConfig, DiTVideoWrapper
 from vdpp_tpu_torch.models.svd_wrapper import make_guidance_ramp
 from vdpp_tpu_torch.models.t5_encoder import T5EncoderConfig, T5TextEncoder, hash_tokenize
 from vdpp_tpu_torch.models.vae import TemporalVAEDecoder, VAEConfig
-from vdpp_tpu_torch.parallel.mesh import Stage, make_pipeline_mesh, run_stages
+from vdpp_tpu_torch.parallel.mesh import Stage, make_axes_mesh, run_stages
 from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+from vdpp_tpu_torch.parallel.sequence_parallel import SequenceParallelRunner
 from vdpp_tpu_torch.utils.video_io import (
     build_output_name,
     frames_to_uint8,
@@ -93,7 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="flowmatch only: resolution shift of the sigma schedule")
     p.add_argument("--num-stages", type=int, default=None,
                    help="pipeline stages, one process each (default: every card; 1 on the CPU)")
-    p.add_argument("--seq-parallel", type=int, default=1)
+    p.add_argument("--seq-parallel", type=int, default=1,
+                   help="token sharding width per stage: each DiT forward's tokens split over "
+                        "this many ranks")
     p.add_argument("--num-samples", type=int, default=1)
     p.add_argument("--guidance-scale", type=float, default=6.0)
     p.add_argument("--fps", type=int, default=8)
@@ -102,6 +109,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sampler-seed", type=int, default=0,
                    help="euler_a only: seed of the per-step injected noise")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--devices", nargs="+", default=None, metavar="DEV",
+                   help="an explicit device per rank, in rank order; a card named more than "
+                        "once is shared by its ranks over gloo")
     p.add_argument("--log-level", default="INFO")
     return p
 
@@ -229,16 +239,18 @@ def main(argv: list[str] | None = None) -> int:
         LOGGER.error("--negative-prompt needs CFG: set --guidance-scale > 1.0 (got %s)",
                      args.guidance_scale)
         return 1
-    if args.seq_parallel != 1:
-        raise NotImplementedError("--seq-parallel above 1 comes with the DiT's sequence "
-                                  "parallelism (ROADMAP A13 part 2)")
     t5_cfg, dit_cfg, vae_cfg, lat_hw = _configs(args)
     if lat_hw[0] % dit_cfg.patch_size or lat_hw[1] % dit_cfg.patch_size:
         LOGGER.error("latent %dx%d not divisible by patch size", *lat_hw)
         return 1
-    mesh = make_pipeline_mesh(args.num_stages, device=args.device)
+    # With --seq-parallel and neither --num-stages nor --devices one stage of
+    # seq ranks runs, as in the reference.
+    stages = args.num_stages
+    if stages is None and args.seq_parallel > 1 and args.devices is None:
+        stages = 1
+    mesh = make_axes_mesh(stages, seq=args.seq_parallel, device=args.device, devices=args.devices)
     PipelineConfig(args.steps, mesh.num_stages)  # a bad split fails before any rank starts
-    if mesh.num_stages == 1:
+    if mesh.world_size == 1:
         _stage_main(Stage(mesh, 0), args, t_start)
     else:
         run_stages(mesh, _stage_main, args, t_start)
@@ -246,12 +258,13 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float) -> list[str] | None:
-    """One stage of the run, in this process when there is one stage, else
-    in its own rank: rank 0 runs T5 and broadcasts the context, every rank
-    denoises its slice of the steps, and the last rank builds the decoder,
-    decodes and writes the files (whose paths it returns)."""
-    if stage.num_stages > 1:  # a spawned rank starts with no logging set up
-        _logging(args.log_level, f"rank {stage.rank}/{stage.num_stages} ")
+    """One rank of the run, in this process when there is one rank, else in
+    its own: rank 0 runs T5 and broadcasts the context, every rank denoises
+    (its stage's slice of the steps, its share of the tokens), and the last
+    rank builds the decoder, decodes and writes the files (whose paths it
+    returns)."""
+    if stage.mesh.world_size > 1:  # a spawned rank starts with no logging set up
+        _logging(args.log_level, f"rank {stage.rank}/{stage.mesh.world_size} ")
     dev = stage.device
     t5_cfg, dit_cfg, vae_cfg, lat_hw = _configs(args)
     t0 = time.perf_counter()
@@ -280,16 +293,23 @@ def _stage_main(stage: Stage, args: argparse.Namespace, t_start: float) -> list[
     guidance = make_guidance_ramp(args.guidance_scale, args.num_frames, device=dev)
 
     t0 = time.perf_counter()
-    pipe = StepPipeline(stage, wrapper.pipeline_step_fn(),
-                        PipelineConfig(args.steps, stage.num_stages))
-    latents = pipe.run((dit, ctx, guidance), _noise(args, wrapper, lat_hw, dev))
+    noise = _noise(args, wrapper, lat_hw, dev)
+    sp = args.seq_parallel
+    if sp > 1 and stage.num_stages == 1:
+        runner = SequenceParallelRunner(stage, wrapper)
+        latents = torch.stack([runner.run(dit, x, ctx, guidance) for x in noise])
+        mode = f"sp{sp}"
+    else:
+        pipe = StepPipeline(stage, wrapper.pipeline_step_fn(**stage.axes),
+                            PipelineConfig(args.steps, stage.num_stages))
+        latents = pipe.run((dit, ctx, guidance), noise)
+        mode = f"pp{stage.num_stages}" + (f" x sp{sp}" if sp > 1 else "")
     del dit
     _sync(dev)
-    if not stage.is_last:
+    if not stage.is_last_rank:
         return None
     t_diffusion = time.perf_counter() - t0
-    LOGGER.info("diffusion [%d stage(s)]: %.1fs (%d samples)", stage.num_stages, t_diffusion,
-                args.num_samples)
+    LOGGER.info("diffusion [%s]: %.1fs (%d samples)", mode, t_diffusion, args.num_samples)
 
     t0 = time.perf_counter()
     vae = _load(args, "vae_decoder", TemporalVAEDecoder(vae_cfg, device=dev), args.seed + 2)

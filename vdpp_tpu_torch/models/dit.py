@@ -1,8 +1,8 @@
 """Latte/CogVideoX-style video Diffusion Transformer (DiT) in PyTorch.
 
 Port of ``vdpp_tpu/models/dit.py`` (``DiTVideo.apply`` and
-``DiTVideoWrapper``) without the sequence-, CFG- and expert-parallel
-arguments and without MoE feed-forwards:
+``DiTVideoWrapper``) with its sequence and CFG axes, without the
+expert-parallel argument and MoE feed-forwards (ROADMAP A15):
 
 * a 2x2 spatial patchify of the ``(B, F, H, W, C)`` latent into per-frame
   tokens, fp32 sinusoidal spatial and temporal position embeddings;
@@ -21,6 +21,17 @@ app's 512x320, 8 frames), 14 per factorized forward (the spatial blocks,
 L = 640). Under ``VDPP_TEMPORAL_ATTN=pallas`` the factorized temporal blocks
 take the frame-attention kernel (14 per forward). Cross-attention over the
 text tokens stays plain, as in the reference.
+
+Sequence parallelism (``forward(seq_axis=)``): after the patch embedding
+each rank of the axis keeps its contiguous slice of the tokens (joint3d: of
+all F * N; factorized: of each frame's N, so temporal attention stays
+local), self-attention gathers K and V over the axis, everything else is
+token-local, and the head's output is gathered whole once. The flash route
+is chosen on the local query length, as in the reference: at DiT-XL's 8
+frames of 40x64, joint3d seq 2 launches flash at (Lq, Lk) = (2560, 5120),
+factorized seq 2 (Lq = 320) takes the plain path. CFG parallelism
+(``step(cfg_axis=)``): rank 0 of a size-2 axis runs the uncond branch,
+rank 1 the cond one, and one swap gives both ranks both outputs.
 
 Module names follow the reference's parameter tree (``patch_embed``,
 ``t_embed.linear_1``, ``blocks.{i}.attn.to_q``, ``blocks.{i}.ada``, ...);
@@ -50,6 +61,7 @@ from vdpp_tpu_torch.ops.attention import Attention, attention, temporal_self_att
 from vdpp_tpu_torch.ops.embeddings import TimestepEmbedding, sinusoidal_embedding
 from vdpp_tpu_torch.ops.linear import Linear
 from vdpp_tpu_torch.ops.normalization import Norm, layer_norm
+from vdpp_tpu_torch.parallel.collectives import Axis, all_gather, swap
 from vdpp_tpu_torch.utils.device import resolve_device
 
 
@@ -134,11 +146,12 @@ class DiTBlock(nn.Module):
         return x + gate[:, None, :] * self.mlp_out(h)
 
     def forward(self, x: torch.Tensor, c_emb: torch.Tensor, ctx: torch.Tensor | None,
-                heads: int) -> torch.Tensor:
-        """x ``(B', L, D)``; c_emb ``(B', D)``; ctx ``(B', M, Dc)`` or None."""
+                heads: int, seq_axis: Axis | None = None) -> torch.Tensor:
+        """x ``(B', L, D)``; c_emb ``(B', D)``; ctx ``(B', M, Dc)`` or None;
+        ``seq_axis``: L is this rank's shard, self-attention gathers K/V."""
         sh1, sc1, g1, sh2, sc2, g2 = self._ada_chunks(c_emb)
         h = _modulate(layer_norm(x, self.norm1), sh1, sc1)
-        x = x + g1[:, None, :] * attention(h, self.attn, heads)
+        x = x + g1[:, None, :] * attention(h, self.attn, heads, seq_axis=seq_axis)
         if hasattr(self, "cross_attn") and ctx is not None:
             h = layer_norm(x, self.norm_cross)
             x = x + attention(h, self.cross_attn, heads, context=ctx)
@@ -200,13 +213,18 @@ class DiTVideo(nn.Module):
         return self.final_proj(_modulate(layer_norm(x, self.final_norm), shift, scale))
 
     def forward(self, latent: torch.Tensor, timestep, context: torch.Tensor | None = None,
-                seq_axis: str | None = None, expert_axis: str | None = None,
+                seq_axis: Axis | None = None, expert_axis: str | None = None,
                 moe_dispatch: str = "dense") -> torch.Tensor:
         """latent ``(B, F, H, W, C)`` -> ``(B, F, H, W, C_out)``; context:
-        optional ``(B, M, cross_dim)`` conditioning tokens."""
-        if seq_axis is not None or expert_axis is not None or moe_dispatch != "dense":
-            raise NotImplementedError("sequence and expert parallelism and MoE dispatch are "
-                                      "not ported yet (ROADMAP A13 part 2, A15)")
+        optional ``(B, M, cross_dim)`` conditioning tokens.
+
+        ``seq_axis``: the tokens are split over that axis after the patch
+        embedding (factorized: each frame's tokens; joint3d: all F * N) and
+        gathered whole before the unpatchify, so every rank of the axis
+        returns the whole output. The token count must divide by its size."""
+        if expert_axis is not None or moe_dispatch != "dense":
+            raise NotImplementedError("expert parallelism and MoE dispatch are not ported yet "
+                                      "(ROADMAP A15)")
         cfg = self.config
         b, f, hh, ww, cch = latent.shape
         p = cfg.patch_size
@@ -229,24 +247,45 @@ class DiTVideo(nn.Module):
         if cfg.attention_mode == "joint3d":
             # One set of F * N tokens, the temporal position added up front.
             x = (x.reshape(b, f, n, d) + pos_t[None, :, None, :].to(x.dtype)).reshape(b, f * n, d)
+            x = _shard_tokens(x, seq_axis)
             for blk in self.blocks:
-                x = blk(x, c_emb, ctx, heads)
-            x = self._final_head(x, c_emb).reshape(b * f, n, -1)
+                x = blk(x, c_emb, ctx, heads, seq_axis)
+            # The head in the (B, L, D) layout (the modulation is per batch
+            # element), then the tokens gathered whole.
+            x = _gather_tokens(self._final_head(x, c_emb), seq_axis).reshape(b * f, n, -1)
         else:
+            x = _shard_tokens(x, seq_axis)  # each frame's tokens
             c_f = c_emb.repeat_interleave(f, dim=0)  # (B*F, D)
             ctx_f = None if ctx is None else ctx.repeat_interleave(f, dim=0)
             for i, blk in enumerate(self.blocks):
                 if i % 2 == 0:
-                    x = blk(x, c_f, ctx_f, heads)
+                    x = blk(x, c_f, ctx_f, heads, seq_axis)
                 else:
                     if i == 1:  # the temporal position, before the first temporal block
-                        x = (x.reshape(b, f, n, d) + pos_t[None, :, None, :].to(x.dtype)
-                             ).reshape(b * f, n, d)
+                        nl = x.shape[1]  # this rank's tokens a frame
+                        x = (x.reshape(b, f, nl, d) + pos_t[None, :, None, :].to(x.dtype)
+                             ).reshape(b * f, nl, d)
                     x = blk.temporal(x, c_emb, heads, b, f)
-            x = self._final_head(x, c_f)
+            x = _gather_tokens(self._final_head(x, c_f), seq_axis)
 
         x = x.reshape(b * f, gh, gw, p, p, cfg.out_channels)
         return x.permute(0, 1, 3, 2, 4, 5).reshape(b, f, hh, ww, cfg.out_channels)
+
+
+def _shard_tokens(x: torch.Tensor, axis: Axis | None) -> torch.Tensor:
+    """This rank's contiguous slice of the token axis (dim 1), the order the
+    gather puts back together."""
+    if axis is None:
+        return x
+    ln = x.shape[1]
+    if ln % axis.size:
+        raise ValueError(f"token axis {ln} not divisible by seq_shards {axis.size}")
+    loc = ln // axis.size
+    return x[:, axis.index * loc:(axis.index + 1) * loc]
+
+
+def _gather_tokens(x: torch.Tensor, axis: Axis | None) -> torch.Tensor:
+    return x if axis is None else all_gather(x, axis, 1)
 
 
 class DiTVideoWrapper:
@@ -263,7 +302,8 @@ class DiTVideoWrapper:
     scaling, timestep ``sigma * 1000``, fp32 velocity update. CFG blends in
     fp32 with per-frame ``guidance``; the uncond branch gets zeros, or the
     negative prompt's tokens when ``context`` is a ``(neg_ctx, pos_ctx)``
-    tuple.
+    tuple. ``seq_axis`` splits every forward's tokens over that axis,
+    ``cfg_axis`` (a size-2 axis) runs one branch a rank.
     """
 
     def __init__(
@@ -320,23 +360,41 @@ class DiTVideoWrapper:
         return DiTVideo(self.config, device=self.device).init_weights(generator)
 
     def _eps(self, params: DiTVideo, scaled: torch.Tensor, timestep, context, neg_context,
-             guidance) -> torch.Tensor:
-        """The model output at one point, CFG-blended in fp32 when guided."""
+             guidance, seq_axis: Axis | None = None,
+             cfg_axis: Axis | None = None) -> torch.Tensor:
+        """The model output at one point, CFG-blended in fp32 when guided.
+
+        ``cfg_axis``: rank 0 of the axis runs the uncond branch, rank 1 the
+        cond one, and one swap gives each the other's output, so both blend
+        the two outputs that sequential CFG computes."""
+        def fwd(ctx):
+            return params(scaled, timestep, ctx, seq_axis=seq_axis)
+
         if guidance is None or context is None:
-            return params(scaled, timestep, context)
-        uncond = params(scaled, timestep,
-                        torch.zeros_like(context) if neg_context is None else neg_context)
-        cond = params(scaled, timestep, context).float()
-        uncond = uncond.float()
+            return fwd(context)
+        uncond_ctx = torch.zeros_like(context) if neg_context is None else neg_context
+        if cfg_axis is not None:
+            if neg_context is not None and neg_context.shape != context.shape:
+                raise ValueError(f"cfg-axis CFG needs neg/pos contexts of equal shape, got "
+                                 f"{tuple(neg_context.shape)} vs {tuple(context.shape)} (pad "
+                                 "token ids to a common length)")
+            is_cond = cfg_axis.index == 1
+            local = fwd(context if is_cond else uncond_ctx)
+            other = swap(local, cfg_axis)
+            uncond, cond = (other, local) if is_cond else (local, other)
+        else:
+            uncond = fwd(uncond_ctx)
+            cond = fwd(context)
+        cond, uncond = cond.float(), uncond.float()
         return uncond + guidance.float() * (cond - uncond)
 
     def step(self, params: DiTVideo, latent: torch.Tensor, step_idx: int, context=None,
-             guidance: torch.Tensor | None = None, cfg_axis: str | None = None) -> torch.Tensor:
+             guidance: torch.Tensor | None = None, seq_axis: Axis | None = None,
+             cfg_axis: Axis | None = None) -> torch.Tensor:
         """One denoising step; ``context`` may be a ``(neg_ctx, pos_ctx)``
-        tuple for negative-prompt CFG."""
-        if cfg_axis is not None:
-            raise NotImplementedError("the DiT's CFG parallelism is not ported yet (ROADMAP A13 "
-                                      "part 2)")
+        tuple for negative-prompt CFG. The axes go to every model call
+        (heun's two included)."""
+        axes = dict(seq_axis=seq_axis, cfg_axis=cfg_axis)
         neg_context = None
         if isinstance(context, tuple):
             neg_context, context = context
@@ -345,16 +403,17 @@ class DiTVideoWrapper:
         lat32 = latent.float()
         s = torch.as_tensor(sigma, dtype=torch.float32, device=latent.device)
         if self.solver == "flowmatch":
-            v = self._eps(params, lat32, s * 1000.0, context, neg_context, guidance)
+            v = self._eps(params, lat32, s * 1000.0, context, neg_context, guidance, **axes)
             return flowmatch_step(lat32, v, sigma, sigma_next, latent.dtype)
         if self.solver == "heun":
             return heun_step_v_prediction(
-                lat32, lambda x, t: self._eps(params, x, t, context, neg_context, guidance),
+                lat32, lambda x, t: self._eps(params, x, t, context, neg_context, guidance, **axes),
                 sigma, sigma_next, latent.dtype)
         if self.solver == "dpmpp2m":
             lat32, old_den = lat32.chunk(2, dim=-1)
         scaled = lat32 * torch.rsqrt(s * s + 1.0)
-        eps = self._eps(params, scaled, 0.25 * torch.log(s), context, neg_context, guidance)
+        eps = self._eps(params, scaled, 0.25 * torch.log(s), context, neg_context, guidance,
+                        **axes)
         if self.solver == "dpmpp2m":
             x_next, denoised = dpmpp2m_step_v_prediction(
                 lat32, eps, old_den, self.schedule.sigmas[max(step_idx - 1, 0)], sigma,
@@ -368,16 +427,20 @@ class DiTVideoWrapper:
                                                      latent.dtype)
         return euler_step_v_prediction(lat32, eps, sigma, sigma_next, latent.dtype)
 
-    def pipeline_step_fn(self, seq_axis: str | None = None, cfg_axis: str | None = None,
-                         expert_axis: str | None = None):
+    def pipeline_step_fn(self, seq_axis: Axis | None = None, cfg_axis: Axis | None = None,
+                         expert_axis: str | None = None, frame_axis: Axis | None = None):
         """``step_fn(bundle, latent, step)`` with ``bundle = (dit, context,
-        guidance)``."""
-        if seq_axis is not None or cfg_axis is not None or expert_axis is not None:
-            raise NotImplementedError("the DiT's sequence, CFG and expert parallelism are not "
-                                      "ported yet (ROADMAP A13 part 2, A15)")
+        guidance)``, over the given intra-sample axes (``Stage.axes``: a
+        rank's axes on a (stage, seq, cfg) mesh). The DiT has no frame axis."""
+        if expert_axis is not None:
+            raise NotImplementedError("the DiT's expert parallelism is not ported yet "
+                                      "(ROADMAP A15)")
+        if frame_axis is not None:
+            raise ValueError("the DiT has no frame axis (--frame-parallel needs an svd model)")
 
         def step_fn(bundle, latent: torch.Tensor, step_idx: int) -> torch.Tensor:
             params, context, guidance = bundle
-            return self.step(params, latent, step_idx, context, guidance)
+            return self.step(params, latent, step_idx, context, guidance, seq_axis=seq_axis,
+                             cfg_axis=cfg_axis)
 
         return step_fn

@@ -39,6 +39,7 @@ from vdpp_tpu_torch.models.svd_unet import AlphaBlender, _Block, _Resample
 from vdpp_tpu_torch.ops.attention import Attention, attention
 from vdpp_tpu_torch.ops.conv import Conv2d, ConvTemporal, conv2d, conv_temporal, upsample_nearest_2x
 from vdpp_tpu_torch.ops.normalization import Norm, group_norm, group_norm_silu
+from vdpp_tpu_torch.parallel.collectives import Axis, gather_to
 from vdpp_tpu_torch.utils.device import resolve_device
 
 
@@ -301,3 +302,45 @@ class TemporalVAEDecoder(_VAEModule):
             return self.apply(latents)
         return torch.cat([self.apply(latents[:, s:s + chunk_frames])
                           for s in range(0, f, chunk_frames)], dim=1)
+
+    @torch.inference_mode()
+    def decode_data_parallel(self, latents: torch.Tensor, axis: Axis | None,
+                             chunk_frames: int = 4, root: int = 0) -> torch.Tensor | None:
+        """:meth:`decode_chunked` with its chunks split over the ranks of
+        ``axis`` (a decode group), every rank of it calling with the same
+        ``latents``. The chunks are independent, so the result equals
+        :meth:`decode_chunked`'s element by element: the full chunks of
+        ``chunk_frames`` frames go to the ranks in turn (chunk j to rank j mod
+        D), the trailing partial chunk is decoded at its true length as one
+        more chunk, and the frames are gathered in order, point to point, to
+        rank ``root`` of the axis (the group's first rank by default).
+        Returns the video there and None on the other ranks; without an axis,
+        :meth:`decode_chunked`."""
+        if axis is None or axis.size == 1:
+            return self.decode_chunked(latents, chunk_frames)
+        b, f, hh, ww, _ = latents.shape
+        starts = list(range(0, f, chunk_frames))
+        mine = starts[axis.index::axis.size]
+        out = (torch.cat([self.apply(latents[:, s:s + chunk_frames]) for s in mine], dim=1)
+               if mine else None)
+        up = 2 ** (len(self.config.block_out_channels) - 1)
+
+        def frames_of(i: int) -> int:
+            return sum(min(chunk_frames, f - s) for s in starts[i::axis.size])
+
+        shapes = [(b, frames_of(i), hh * up, ww * up, self.config.in_channels)
+                  if frames_of(i) else None for i in range(axis.size)]
+        parts = gather_to(out, axis, shapes, self.config.dtype, latents.device, root)
+        if parts is None:
+            return None
+        # Rank i holds chunks i, i + D, ...: put them back in chunk order.
+        pieces = {}
+        for i, part in enumerate(parts):
+            if part is None:
+                continue
+            at = 0
+            for s in starts[i::axis.size]:
+                n = min(chunk_frames, f - s)
+                pieces[s] = part[:, at:at + n]
+                at += n
+        return torch.cat([pieces[s] for s in starts], dim=1)

@@ -42,11 +42,11 @@ trace of its warm-up and measured runs, closed before the JSON line.
 
 ``--seq-parallel N``, ``--frame-parallel N`` and ``--cfg-parallel`` make each
 stage a block of ranks on those axes (``make_axes_mesh``; an svd model's
-step splits its forwards over them), and the mode string grows
-``_x_spN``, ``_x_fpN`` and ``_x_cfg`` as in the JAX package.
+step splits its forwards over them, a DiT's over seq and cfg, as it has no
+frame axis), and the mode string grows ``_x_spN``, ``_x_fpN`` and
+``_x_cfg`` as in the JAX package.
 
-Flags of parallel axes that are not ported raise, naming their ROADMAP
-item: ``--seq-parallel`` and ``--cfg-parallel`` with a DiT (A13 part 2),
+Flags that are not ported raise, naming their ROADMAP item:
 ``--weights-int8`` and ``--weights-w8a8`` (A14), ``dit3d_moe_tiny`` and
 ``--expert-parallel`` (A15).
 """
@@ -111,9 +111,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(stage x data) mesh: each of the D data columns runs its own "
                         "pipeline over its block of the samples (implies --fused)")
     p.add_argument("--cfg-parallel", action="store_true",
-                   help="CFG branches on a size-2 cfg axis per stage (svd models)")
+                   help="CFG branches on a size-2 cfg axis per stage (svd and dit models)")
     p.add_argument("--seq-parallel", type=int, default=1,
-                   help="W-axis (halo) sharding width per stage (svd models)")
+                   help="sharding width per stage: the latent's W axis with halo exchanges "
+                        "(svd models) or the tokens (dit models)")
     p.add_argument("--frame-parallel", type=int, default=1,
                    help="frame-axis sharding width per stage (svd models)")
     p.add_argument("--expert-parallel", type=int, default=1,
@@ -184,13 +185,14 @@ def _svd_build(config, wrapper_kw: dict, cond, state: dict, device: torch.device
 
 
 def _dit_build(config, total_steps: int, context, guidance, state: dict,
-               device: torch.device):
+               device: torch.device, axes: dict | None = None):
+    """``axes``: a rank's ``Stage.axes`` (its seq and cfg axes)."""
     from vdpp_tpu_torch.models.dit import DiTVideo, DiTVideoWrapper
 
     wrapper = DiTVideoWrapper(config, num_steps=total_steps, device=device)
     dit = _loaded(DiTVideo(config, device="meta"), state)
-    return wrapper.pipeline_step_fn(), (dit, context.to(device),
-                                        None if guidance is None else guidance.to(device))
+    return wrapper.pipeline_step_fn(**(axes or {})), (
+        dit, context.to(device), None if guidance is None else guidance.to(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -304,8 +306,8 @@ def _cond_to(cond, device):
 
 def check_flags(args: argparse.Namespace) -> None:
     """The JAX package's argument checks, with its messages, then the flags
-    whose parallel axes are not ported: each raises naming its ROADMAP item,
-    before any rank starts."""
+    that are not ported: each raises naming its ROADMAP item, before any
+    rank starts."""
     sp, fp, ep = args.seq_parallel, args.frame_parallel, args.expert_parallel
     f = args.latent_shape[2]
     if args.deepcache and args.model not in ("svd_tiny", "svd"):
@@ -334,9 +336,6 @@ def check_flags(args: argparse.Namespace) -> None:
     if args.model == "dit3d_moe_tiny" or ep > 1:
         raise NotImplementedError("the MoE DiT and --expert-parallel come with expert "
                                   "parallelism (ROADMAP A15)")
-    if args.model.startswith("dit") and (args.cfg_parallel or sp > 1):
-        raise NotImplementedError("--cfg-parallel and --seq-parallel on a DiT come with the "
-                                  "DiT's intra-sample parallelism (ROADMAP A13 part 2)")
     if args.weights_int8 or args.weights_w8a8:
         raise NotImplementedError("--weights-int8 and --weights-w8a8 come with int8 "
                                   "quantization (ROADMAP A14)")

@@ -24,8 +24,10 @@ Each rank is a process (``parallel/mesh.py``); one rank runs in this
 process. ``--device``/``--devices`` take the place of ``--backend``.
 ``--seq-parallel``, ``--frame-parallel`` and ``--cfg-parallel`` make each
 stage a block of ranks on those axes (``make_axes_mesh``), the snapshot and
-resume included (a stage's ranks hold the same slot). ``--auto-topology``,
-the mesh planner, comes with ROADMAP A13 part 2 and raises; with an explicit
+resume included (a stage's ranks hold the same slot). ``--auto-topology
+latency|throughput`` lets the mesh planner (``parallel/topology.py``) choose
+the stage, seq, frame and cfg sizes (and ``--pad-schedule``) for
+``len(--devices)`` ranks, or every visible card; with an explicit
 ``--num-stages`` or axis flag it is ignored, as in the reference.
 """
 
@@ -59,6 +61,9 @@ from vdpp_tpu_torch.modes.benchmark import (
 )
 from vdpp_tpu_torch.parallel.mesh import Stage, make_axes_mesh
 from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+from vdpp_tpu_torch.parallel.topology import plan_topology
+from vdpp_tpu_torch.utils.device import resolve_device
+from vdpp_tpu_torch.utils.kernels import launch_counts, launches_since
 from vdpp_tpu_torch.utils.logging import setup_logging
 from vdpp_tpu_torch.utils.resume import load_pipeline_state, save_pipeline_state
 
@@ -97,7 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frame-parallel", type=int, default=1,
                    help="frame sharding width per stage (frames must divide by it)")
     p.add_argument("--auto-topology", default=None, choices=["latency", "throughput"],
-                   help="mesh planner (not ported: ROADMAP A13 part 2)")
+                   help="pick the (stage, seq, frame, cfg) mesh for this objective "
+                        "(parallel/topology.py); explicit --num-stages/--seq-parallel/"
+                        "--frame-parallel/--cfg-parallel override it")
     p.add_argument("--cfg-parallel", action="store_true",
                    help="the CFG branches on a size-2 cfg axis per stage")
     p.add_argument("--ticked", action="store_true",
@@ -122,11 +129,46 @@ def _config(args: argparse.Namespace) -> SVDUNetConfig:
     return SVDUNetConfig.tiny() if args.preset == "tiny" else SVDUNetConfig.svd_xt()
 
 
+def device_count(args: argparse.Namespace) -> int:
+    """The ranks the devices give: ``len(--devices)``, else every visible
+    card (one rank on the CPU)."""
+    if args.devices is not None:
+        return len(args.devices)
+    return torch.cuda.device_count() if resolve_device(args.device).type == "cuda" else 1
+
+
+def auto_topology(args: argparse.Namespace) -> list:
+    """``--auto-topology``: the planner's plans for this run, best first, the
+    top one applied to ``args`` (stage count, axes, ``--pad-schedule``) and
+    logged with two runner-ups; [] when an explicit stage count or axis flag
+    makes it ignored, as in the reference."""
+    if not args.auto_topology:
+        return []
+    if args.num_stages or args.seq_parallel > 1 or args.frame_parallel > 1 or args.cfg_parallel:
+        LOGGER.info("auto-topology ignored: explicit axis flags given")
+        return []
+    b, c, f, h, w = args.latent_shape
+    plans = plan_topology(
+        device_count(args), total_steps=args.total_steps, frames=f, latent_w=w,
+        num_samples=args.num_samples, seq_min_divisor_unit=_config(args).seq_min_divisor(1),
+        guidance=args.guidance_scale is not None, objective=args.auto_topology,
+        deepcache_interval=args.deepcache)
+    best = plans[0]
+    LOGGER.info("auto-topology (%s): %s", args.auto_topology, best.describe())
+    for alt in plans[1:3]:
+        LOGGER.info("  runner-up: %s", alt.describe())
+    args.num_stages = best.stage
+    args.seq_parallel = best.seq
+    args.frame_parallel = best.frame
+    args.cfg_parallel = best.cfg == 2
+    if best.padded_steps != args.total_steps:
+        args.pad_schedule = True
+    return plans
+
+
 def check_flags(args: argparse.Namespace) -> None:
     """The JAX package's argument checks, with its messages, before any model
-    is built or weight loaded; the mesh planner raises, naming its ROADMAP
-    item, unless an explicit stage count or axis flag makes the reference
-    ignore it."""
+    is built or weight loaded; ``--auto-topology`` sets the axes first."""
     b, c, f, h, w = args.latent_shape
     if args.state_path and not args.ticked:
         raise SystemExit("--state-path needs --ticked (StepPipeline.run runs the whole "
@@ -135,6 +177,7 @@ def check_flags(args: argparse.Namespace) -> None:
         raise SystemExit("--resume needs --state-path (where should the snapshot come from?)")
     if args.state_every is not None and not args.state_path:
         raise SystemExit("--state-every needs --state-path")
+    auto_topology(args)
     if c != 4:
         # The UNet denoises 4 latent channels (the other 4 of its input are
         # the conditioning concat).
@@ -148,11 +191,6 @@ def check_flags(args: argparse.Namespace) -> None:
         raise SystemExit(f"--frame-parallel {fp}: frame count {f} must divide by it")
     if args.cfg_parallel and args.guidance_scale is None:
         raise SystemExit("--cfg-parallel needs --guidance-scale")
-    if args.auto_topology and not (args.num_stages or sp > 1 or fp > 1 or args.cfg_parallel):
-        raise NotImplementedError("--auto-topology (the mesh planner, parallel/topology.py) "
-                                  "comes with ROADMAP A13 part 2")
-    if args.auto_topology:
-        LOGGER.info("auto-topology ignored: explicit axis flags given")
 
 
 def run_meta(args: argparse.Namespace, total_steps: int, stages: int) -> dict:
@@ -209,21 +247,6 @@ class Job:
     log_level: str
 
 
-def kernel_launches() -> dict:
-    """The kernel wrappers' launch counts in this process: flash by head
-    dim, GroupNorm+SiLU and frame attention."""
-    from vdpp_tpu_torch.ops import flash_attention, norm_kernel, temporal_attention_kernel
-
-    return {"flash": dict(flash_attention.launches), "group_norm_silu": norm_kernel.launches,
-            "frame_attention": temporal_attention_kernel.launches}
-
-
-def _launched(before: dict, after: dict) -> dict:
-    flash = {d: n - before["flash"].get(d, 0) for d, n in after["flash"].items()}
-    return {"flash": {d: n for d, n in flash.items() if n},
-            **{k: after[k] - before[k] for k in ("group_norm_silu", "frame_attention")}}
-
-
 def rank_main(stage: Stage, job: Job) -> dict:
     """One rank: build the wrapper and the UNet, run the pipeline. Every rank
     returns the kernels it launched in the run; the last rank also the
@@ -250,7 +273,7 @@ def rank_main(stage: Stage, job: Job) -> dict:
 
     initial_buf = load_pipeline_state(job.resume_path)[1] if job.resume_path else None
     stage.barrier()
-    before = kernel_launches()
+    before = launch_counts()
     t0 = time.perf_counter()
     ticks = None
     if job.ticked:
@@ -262,7 +285,7 @@ def rank_main(stage: Stage, job: Job) -> dict:
     else:
         out = pipe.run(bundle, job.inputs)
     seconds = time.perf_counter() - t0
-    launched = _launched(before, kernel_launches())
+    launched = launches_since(before)
     if not stage.is_last:
         return {"launches": launched}
     return {"launches": launched, "out": out.cpu(), "ticks": ticks, "snapshots": snapshots,

@@ -35,9 +35,11 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-# Calls by kind ("halo", "all_gather", "mean", "swap") and the bytes of this
-# rank's part in them (a halo's slices sent, a gather's or a mean's shard, a
-# swap's tensor), since the counters were last cleared.
+# Calls by kind ("halo", "all_gather", "mean", "swap", "broadcast", "gather")
+# and the bytes of this rank's part in them (a halo's slices sent, a gather's
+# or a mean's shard, a swap's tensor, a broadcast's tensor, what a rank sends
+# to a gather's root or the root receives), since the counters were last
+# cleared.
 counts: Counter[str] = Counter()
 nbytes: Counter[str] = Counter()
 
@@ -148,3 +150,34 @@ def halo_exchange(x: torch.Tensor, axis: Axis, dim: int, halo: int) -> torch.Ten
     from_left = recvs[0][0].to(x.device) if i > 0 else torch.zeros_like(hi)
     from_right = recvs[-1][0].to(x.device) if i < n - 1 else torch.zeros_like(lo)
     return torch.cat([from_left, x, from_right], dim=dim)
+
+
+def broadcast(x: torch.Tensor, axis: Axis, root: int = 0) -> torch.Tensor:
+    """Rank ``root``'s ``x`` on every rank of ``axis``; the others pass a
+    tensor of its shape and dtype (whose values are not read). Returns it on
+    ``x``'s device."""
+    _tally("broadcast", x)
+    buf = axis._out(x) if axis.index == root else axis._buf(x)
+    dist.broadcast(buf, axis.ranks[root], group=axis.group)
+    return buf.to(x.device)
+
+
+def gather_to(x: torch.Tensor | None, axis: Axis, shapes: Sequence[tuple[int, ...] | None],
+              dtype: torch.dtype, device: torch.device,
+              root: int = 0) -> list[torch.Tensor | None] | None:
+    """Every rank's ``x`` on rank ``root`` of ``axis``, point to point:
+    ``shapes[i]`` is rank i's shape (None: rank i holds nothing and passes
+    None). Returns the list in axis order on the root, each on ``device``
+    (its own entry as given), and None on the others."""
+    if axis.index != root:
+        if x is not None:
+            _tally("gather", x)
+            _exchange(axis, [(axis._out(x), root)], [])
+        return None
+    recvs = [(torch.empty(shp, dtype=dtype, device="cpu" if axis.host else device), j)
+             for j, shp in enumerate(shapes) if shp is not None and j != root]
+    for b, _ in recvs:
+        _tally("gather", b)
+    _exchange(axis, [], recvs)
+    got = {j: b.to(device) for b, j in recvs}
+    return [x if j == root else got.get(j) for j in range(axis.size)]

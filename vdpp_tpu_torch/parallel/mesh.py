@@ -2,7 +2,8 @@
 intra-sample axes (the port's counterpart of ``vdpp_tpu/parallel/mesh.py``:
 ``make_pipeline_mesh``, ``make_data_mesh``, ``make_2d_mesh`` and
 ``make_axes_mesh``, which also stands for the reference's ``make_seq_mesh``,
-``make_stage_seq_mesh`` and ``make_cfg_mesh``).
+``make_stage_seq_mesh`` and ``make_cfg_mesh``, and
+``make_pipeline_and_decode_mesh`` for its ``make_pipeline_and_decode_meshes``).
 
 The JAX package runs its modes as one SPMD program over mesh axes
 ``"stage"``, ``"data"``, ``"seq"``, ``"frame"`` and ``"cfg"``. The port takes
@@ -13,7 +14,10 @@ they talk: S stages, each a group of ranks laid out row-major as the JAX
 package's ``make_axes_mesh`` lays out its devices. A stage is either D data
 columns (rank ``s * D + d``) or a (seq, frame, cfg) block of the intra-sample
 axes (rank ``((s * SEQ + i) * FRAME + j) * CFG + c``); the two do not mix,
-as in the JAX package. :func:`run_stages` starts the ranks (``spawn``: a
+as in the JAX package. A mesh may reserve D decode ranks after the stage
+ranks (the "stages + decode chips" layout): they take no part in the
+pipeline and decode each finished sample while later samples denoise.
+:func:`run_stages` starts the ranks (``spawn``: a
 parent that already holds a CUDA context cannot fork) and returns what each
 rank's function returned; each rank gets a :class:`Stage`, its view of the
 group, which holds one process subgroup for each inner axis it lies on
@@ -73,6 +77,7 @@ class PipelineMesh:
     seq: int = 1
     frame: int = 1
     cfg: int = 1
+    decode: int = 0  # reserved decode ranks, after the stage ranks
 
     def __post_init__(self) -> None:
         if min(self.num_data, self.seq, self.frame, self.cfg) < 1:
@@ -83,13 +88,22 @@ class PipelineMesh:
         if self.num_data > 1 and self.inner > 1:
             raise ValueError("the data axis composes with the stage axis only, not with the "
                              "seq, frame or cfg axes")
-        if len(self.devices) % self.group_size:
-            raise ValueError(f"{len(self.devices)} ranks do not form stages of "
+        if self.decode and self.num_data > 1:
+            raise ValueError("decode ranks compose with the stage and intra-sample axes, not "
+                             "with the data axis")
+        if self.stage_ranks < 1 or self.stage_ranks % self.group_size:
+            raise ValueError(f"{self.stage_ranks} stage ranks do not form stages of "
                              f"{self.group_size}")
 
     @property
     def world_size(self) -> int:
+        """Every rank: the stage ranks, then the decode ranks."""
         return len(self.devices)
+
+    @property
+    def stage_ranks(self) -> int:
+        """The ranks of the stages (all columns), ``0 .. stage_ranks - 1``."""
+        return len(self.devices) - self.decode
 
     @property
     def inner(self) -> int:
@@ -103,7 +117,7 @@ class PipelineMesh:
 
     @property
     def num_stages(self) -> int:
-        return len(self.devices) // self.group_size
+        return self.stage_ranks // self.group_size
 
     @property
     def host_handoff(self) -> bool:
@@ -144,10 +158,10 @@ def _devices(n: int | None, device, devices) -> tuple[torch.device, ...]:
     return devs
 
 
-def _mesh(devs: tuple[torch.device, ...], num_data: int = 1, **inner: int) -> PipelineMesh:
+def _mesh(devs: tuple[torch.device, ...], num_data: int = 1, **axes: int) -> PipelineMesh:
     """NCCL when every rank has a card of its own, else gloo."""
     own_cards = devs[0].type == "cuda" and len(set(devs)) == len(devs)
-    return PipelineMesh(devs, "nccl" if own_cards else "gloo", num_data, **inner)
+    return PipelineMesh(devs, "nccl" if own_cards else "gloo", num_data, **axes)
 
 
 def make_pipeline_mesh(num_stages: int | None = None, device: str | torch.device | None = None,
@@ -210,6 +224,37 @@ def make_axes_mesh(stage: int | None = 1, seq: int = 1, frame: int = 1, cfg: int
     return _mesh(_devices(stage * block, device, devices), seq=seq, frame=frame, cfg=cfg)
 
 
+def make_pipeline_and_decode_mesh(num_stages: int | None, decode_devices: int,
+                                  device: str | torch.device | None = None,
+                                  devices: Sequence[str | torch.device] | None = None,
+                                  seq: int = 1, frame: int = 1) -> PipelineMesh:
+    """The (stage[, seq][, frame]) mesh with ``decode_devices`` reserved decode
+    ranks after the stage ranks, drawn from one device list: ``devices`` as
+    given, else every visible card (rank r on card r), or, on the CPU, as
+    many ranks as the layout needs. ``num_stages=None`` takes as many stages
+    as the devices left after the reservation fill (one on the CPU). More
+    ranks than devices raises, naming the devices."""
+    per_stage = seq * frame
+    if devices is not None:
+        avail = len(devices)
+    elif resolve_device(device).type == "cuda":
+        avail = torch.cuda.device_count()
+    else:
+        avail = None  # the CPU: any number of ranks
+    if num_stages is None:
+        num_stages = 1 if avail is None else (avail - decode_devices) // per_stage
+    need = num_stages * per_stage + decode_devices
+    if not decode_devices and num_stages < 1:
+        raise ValueError(f"per-stage group (seq {seq} x frame {frame} = {per_stage}) exceeds the "
+                         f"{avail} available devices")
+    if num_stages < 1 or (avail is not None and need > avail):
+        raise ValueError(f"{num_stages} stages x {per_stage} per-stage (seq {seq} x frame "
+                         f"{frame}) + {decode_devices} decode devices need {need} devices, have "
+                         f"{avail}")
+    devs = _devices(need, device, None if devices is None else list(devices)[:need])
+    return _mesh(devs, seq=seq, frame=frame, decode=decode_devices)
+
+
 class Stage:
     """One rank's view of the mesh: its global rank, its stage, its data
     column or its place on each intra-sample axis, its device, and the
@@ -220,7 +265,13 @@ class Stage:
     Building a Stage on a mesh with inner axes makes one process subgroup
     for every line of ranks along each such axis: every rank of the group
     builds the same Stage, so every rank calls ``new_group`` for every
-    subgroup in the same order."""
+    subgroup in the same order (a decode rank too: ``new_group`` is
+    collective over the whole group).
+
+    On a mesh with decode ranks, ``is_decode`` says this is one of them;
+    the stage ranks and the decode ranks each have a subgroup of their own
+    (the stage ranks' tick barrier must not wait on the decode ranks), and
+    ``decode_axis`` is the decode ranks' axis ("data", on every rank)."""
 
     def __init__(self, mesh: PipelineMesh, rank: int):
         self.mesh = mesh
@@ -230,6 +281,30 @@ class Stage:
         if mesh.inner > 1:
             for name in INNER_AXES:
                 setattr(self, name, self._axis(name))
+        self._side_group = None  # None: the default group, every rank
+        self.decode_axis = None
+        if mesh.decode:
+            n = mesh.stage_ranks
+            stage_group = dist.new_group(list(range(n)))
+            decode_ranks = tuple(range(n, mesh.world_size))
+            decode_group = dist.new_group(list(decode_ranks))
+            self._side_group = decode_group if self.is_decode else stage_group
+            self.decode_axis = Axis("data", mesh.decode, max(rank - n, 0), decode_ranks,
+                                    decode_group, host=mesh.host_handoff)
+            if mesh.backend == "nccl":  # NCCL's point-to-point calls want a collective first
+                self.barrier()
+
+    @property
+    def is_decode(self) -> bool:
+        """This rank is one of the mesh's reserved decode ranks."""
+        return self.rank >= self.mesh.stage_ranks
+
+    def ranks_axis(self) -> Axis:
+        """The axis of every rank of the mesh ("data"; the default group),
+        for the work all ranks split after the pipeline, such as a
+        chunk-parallel decode."""
+        n = self.mesh.world_size
+        return Axis("data", n, self.rank, tuple(range(n)), None, host=self.mesh.host_handoff)
 
     def _axis(self, name: str) -> Axis | None:
         """This rank's Axis along ``name``, after creating the subgroup of
@@ -241,7 +316,7 @@ class Stage:
             return None
         stride = math.prod(sizes[k + 1:])
         mine = None
-        for start in range(mesh.world_size):
+        for start in range(mesh.stage_ranks):
             # one line a start: the ranks whose coordinate on ``name`` is 0
             if (start % mesh.inner) // stride % sizes[k]:
                 continue
@@ -287,9 +362,33 @@ class Stage:
 
     @property
     def is_last_rank(self) -> bool:
-        """The mesh's last rank: of the ranks of the last stage, which all
+        """The last stage rank: of the ranks of the last stage, which all
         hold the finished samples, the one that writes them out."""
-        return self.rank == self.mesh.world_size - 1
+        return self.rank == self.mesh.stage_ranks - 1
+
+    @property
+    def is_decode_sender(self) -> bool:
+        """The first rank of the last stage: of the ranks that hold each
+        finished sample, the one that sends it to the decode ranks."""
+        return self.mesh.decode > 0 and self.rank == self.mesh.stage_ranks - self.mesh.group_size
+
+    def send_to_decode(self, x: torch.Tensor) -> list:
+        """Post ``x`` to every decode rank (point to point, through host
+        memory under gloo) without waiting: returns the pending works, each
+        holding its tensor, for the caller to wait on later, so that the
+        next ticks run while the decode ranks take it."""
+        sent = x.detach().cpu() if self.mesh.host_handoff else x.contiguous()
+        works = [dist.isend(sent, r) for r in range(self.mesh.stage_ranks, self.mesh.world_size)]
+        return [(w, sent) for w in works]
+
+    def receive_sample(self, like: torch.Tensor) -> torch.Tensor:
+        """On a decode rank: the next sample the decode sender posts, of
+        ``like``'s shape and dtype, on this rank's device."""
+        src = self.mesh.stage_ranks - self.mesh.group_size
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if self.mesh.host_handoff else self.device)
+        dist.recv(buf, src)
+        return buf.to(self.device)
 
     def column_shard(self, inputs: torch.Tensor) -> torch.Tensor:
         """This column's contiguous block of the samples ``inputs (N, ...)``,
@@ -335,7 +434,7 @@ class Stage:
         gloo and card to card under NCCL. Not on a (stage, data) mesh."""
         if self.mesh.num_data != 1:
             raise NotImplementedError("gathering the stage ring of a (stage, data) mesh")
-        last, g = self.mesh.world_size - 1, self.mesh.group_size
+        last, g = self.mesh.stage_ranks - 1, self.mesh.group_size
         host = self.mesh.host_handoff
         slot = slot.cpu() if host else slot.contiguous()
         if self.rank != last:
@@ -360,14 +459,22 @@ class Stage:
         return box[0]
 
     def barrier(self) -> None:
-        """Every rank of the mesh, all columns: ticks stay aligned across
-        columns, as in the JAX package's one SPMD program."""
+        """Every stage rank, all columns (or, on a decode rank, every decode
+        rank): ticks stay aligned across columns, as in the JAX package's
+        one SPMD program, and never wait on the decode ranks."""
+        self._barrier(self._side_group)
+
+    def barrier_all(self) -> None:
+        """Every rank of the mesh, the decode ranks too."""
+        self._barrier(None)
+
+    def _barrier(self, group) -> None:
         if self.mesh.world_size == 1:
             return
         if self.mesh.backend == "nccl":
-            dist.barrier(device_ids=[self.device.index])
+            dist.barrier(group=group, device_ids=[self.device.index])
         else:
-            dist.barrier()
+            dist.barrier(group=group)
 
 
 def _rank_main(rank: int, mesh: PipelineMesh, init_method: str, payload: bytes, threads: int,
@@ -384,7 +491,7 @@ def _rank_main(rank: int, mesh: PipelineMesh, init_method: str, payload: bytes, 
         stage = Stage(mesh, rank)
         # Every rank joins one collective first: NCCL's batched point-to-point
         # calls need that, since a rank idle in tick 0 posts none.
-        stage.barrier()
+        stage.barrier_all()
         fn, args = pickle.loads(payload)
         results.put((rank, pickle.dumps(fn(stage, *args)), None))
     except Exception:  # the parent reports it; this process ends here

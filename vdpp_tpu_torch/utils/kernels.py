@@ -106,3 +106,21 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib
+
+
+def launch_counts() -> dict:
+    """The kernel wrappers' launch counts in this process: flash by head
+    dim, GroupNorm+SiLU and frame attention."""
+    from vdpp_tpu_torch.ops import flash_attention, norm_kernel, temporal_attention_kernel
+
+    return {"flash": dict(flash_attention.launches), "group_norm_silu": norm_kernel.launches,
+            "frame_attention": temporal_attention_kernel.launches}
+
+
+def launches_since(before: dict) -> dict:
+    """The launches since :func:`launch_counts` gave ``before`` (flash only
+    at the head dims that launched)."""
+    after = launch_counts()
+    flash = {d: n - before["flash"].get(d, 0) for d, n in after["flash"].items()}
+    return {"flash": {d: n for d, n in flash.items() if n},
+            **{k: after[k] - before[k] for k in ("group_norm_silu", "frame_attention")}}
