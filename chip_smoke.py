@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 and 8 (a), then stop
     python3 chip_smoke.py --intra-only     # the build and phases 9 and 10, then stop
+    python3 chip_smoke.py --moe-int8-only  # the build and phase 11, then stop
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -159,6 +160,27 @@ Phases (any failure exits non-zero and prints no result line):
    files byte-equal, the decode rank's flash launches at d = 512 4 a video
    and the stage rank's none (from the denoise on), each run's TIMING split
    printed.
+11. the MoE DiT with expert parallelism and int8 weights, last: (a) DiT-XL
+   joint3d bf16 with 4 experts of 4608 inner in every second block (1.26 B
+   parameters), T5-XXL's cross width and a random context, 8 frames of
+   40x64, CFG ramp to 6, 2 Euler steps, in this process with the dense
+   dispatch (28 flash launches a forward at (5120, 5120)), the gather
+   dispatch at capacity 4 (nothing drops: within TOL["bf16"] of dense) and at
+   the default 2.0, each timed; then 2 ranks sharing cuda:0 over gloo at
+   expert 2 (within INTRA_TOL of one process) and 4 ranks (NCCL with four
+   cards, else cuda:0 over gloo) at stage 2 x expert 2, bit-equal to expert 2:
+   each rank's parameter bytes (half of the expert stacks kept and freed on
+   the card), peak, flash launches and the psum calls and bytes a forward;
+   (b) full-width SVD-XT bf16, 14 frames of 72x128, CFG 3, 2 Euler steps,
+   both kernel switches on, through ``modes.benchmark.main`` at one stage in
+   this process: as it is, ``--weights-int8`` and ``--weights-w8a8``, the
+   parameter MB each logs, the launches of B1, B2, B3 and ``torch._int_mm``
+   counted, each int8 latent's relative L2 to the bf16 one within the CPU
+   tests' bounds, and ``int8_dot`` on the card bit-equal to the CPU at the
+   W8A8 sites' shapes (the single row padded), timed against the bf16
+   product; (c) the benchmark's tiny MoE DiT at ``--expert-parallel 2
+   --num-stages 2`` and ``--fsdp --weights-int8``, the ranks sharing cuda:0,
+   each BENCHMARK_JSON line checked.
 
 The last two lines are the ``nvidia-smi`` name/power-limit line and the
 contract line ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
@@ -286,6 +308,21 @@ DIT_INTRA = {
 # 28 blocks and the head's output gathered, 57 calls; each K or V shard is
 # (1, 2560, 16, 72) bf16, so 56 x 5.9 MB = 0.33 GB of K/V.
 DIT_SEQ2_GATHERS = 2 * 28 + 1
+# Phase 11 (a), the MoE DiT: DiT-XL joint3d (as phase 10's) with MOE_EXPERTS
+# experts of 4608 inner in every second block (MOE_BLOCKS of 28, 1.26 B
+# parameters), one forward a step a CFG branch; MOE_CAPACITY is the gather
+# dispatch's default capacity factor. Each MoE block's output is one sum over
+# the expert axis.
+MOE_EXPERTS, MOE_BLOCKS, MOE_CAPACITY = 4, 14, 2.0
+MOE_FORWARDS = 2 * STEPS
+# Phase 11 (b), int8 SVD-XT: 14 frames of 72x128; the latent's relative L2 to
+# the bf16 run's after the steps, at most the bound that tests/test_torch_port_
+# quant_model.py::test_trajectory_over_int8_weights holds a 4-step trajectory
+# of the tiny UNet to (int8 and W8A8 against float; the JAX package's bound
+# for an int8 trajectory, tests/test_deepcache.py). A single forward drifts
+# less (0.05 and 0.1 there).
+INT8_LATENT = ["--latent-shape", "1", "4", "14", "72", "128"]
+INT8_DRIFT = {"--weights-int8": 0.2, "--weights-w8a8": 0.2}
 # (e) The image->video app with a reserved decode rank: DECODE_SAMPLES
 # samples, APP_STEPS steps, the 14 frames decoded in chunks of 4 (4 chunks,
 # 4 flash launches at d = 512 a video).
@@ -2820,6 +2857,350 @@ def run_dit_intra_apps(torch, smi: str) -> dict:
     return results
 
 
+# ---- phase 11: the MoE DiT (expert parallelism) and int8 weights ---- #
+
+
+def moe_case(torch, device, dispatch: dict[str, str] | None = None):
+    """What phase 11 (a)'s runs build alike on ``device``: the wrapper
+    (MoE DiT-XL joint3d bf16, MOE_EXPERTS experts in every second block,
+    T5-XXL's cross width, STEPS Euler steps; built under ``dispatch``, the
+    MoE switches it reads once), the DiT from seed 1, a random context of
+    DIT_CTX_TOKENS tokens from seed 3 with a CFG ramp to 6 over DIT_FRAMES
+    frames, and one noise draw of DIT_FRAMES x DIT_LAT from seed 2."""
+    from vdpp_tpu_torch.models.dit import DiTVideoConfig, DiTVideoWrapper
+    from vdpp_tpu_torch.models.svd_wrapper import make_guidance_ramp
+
+    config = dataclasses.replace(DiTVideoConfig.joint3d_xl(), cross_attention_dim=4096,
+                                 num_experts=MOE_EXPERTS)
+    with kernel_switches(dispatch or {}):
+        wrapper = DiTVideoWrapper(config, num_steps=STEPS, device=device)
+    dit = wrapper.init(torch.Generator(device=device).manual_seed(1))
+    ctx = torch.randn(1, DIT_CTX_TOKENS, 4096, device=device,
+                      generator=torch.Generator(device=device).manual_seed(3))
+    noise = torch.randn(1, 1, DIT_FRAMES, *DIT_LAT, config.in_channels, device=device,
+                        generator=torch.Generator(device=device).manual_seed(2))
+    bundle = (dit, ctx, make_guidance_ramp(6.0, DIT_FRAMES, device=device))
+    return wrapper, bundle, noise * wrapper.init_noise_sigma
+
+
+def moe_stack_bytes(dit) -> int:
+    from vdpp_tpu_torch.ops.moe import MoEFF
+
+    return sum(p.numel() * p.element_size() for m in dit.modules() if isinstance(m, MoEFF)
+               for p in m._parameters.values())
+
+
+def moe_rank(stage, cases) -> dict:
+    """One rank of phase 11 (a): each ``(name, axes)`` of ``cases`` on this
+    group laid out with its inner axes (the stage count follows), through
+    ``StepPipeline.run`` with the expert layout: the model is built whole on
+    the card, then the rank keeps its experts (the parameter bytes and the
+    allocated bytes before and after are recorded), the launch counts and the
+    collectives' counts set to 0 just before the run and read just after.
+    The mesh's last rank also returns the outputs."""
+    import torch
+
+    from vdpp_tpu_torch.ops import flash_attention as fa
+    from vdpp_tpu_torch.ops import norm_kernel as nk
+    from vdpp_tpu_torch.ops import temporal_attention_kernel as ta
+    from vdpp_tpu_torch.ops.moe import expert_layout
+    from vdpp_tpu_torch.parallel import collectives
+    from vdpp_tpu_torch.parallel.mesh import Stage
+    from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+    from vdpp_tpu_torch.utils.memory import params_bytes_per_device
+
+    exact_libraries(torch)
+    out = {"rank": stage.rank, "device": str(stage.device)}
+    for name, axes in cases:
+        st = Stage(dataclasses.replace(stage.mesh, **{"seq": 1, "frame": 1, "cfg": 1,
+                                                      "expert": 1, **axes}), stage.rank)
+        torch.cuda.empty_cache()
+        wrapper, params, inputs = moe_case(torch, stage.device)
+        whole, stacks = params_bytes_per_device(params), moe_stack_bytes(params[0])
+        torch.cuda.synchronize(stage.device)
+        allocated = torch.cuda.memory_allocated(stage.device)
+        pipe = StepPipeline(st, wrapper.pipeline_step_fn(**st.axes),
+                            PipelineConfig(STEPS, st.num_stages), param_spec=expert_layout)
+        pipe.layout(params)
+        torch.cuda.synchronize(stage.device)
+        kept = params_bytes_per_device(params)
+        freed = allocated - torch.cuda.memory_allocated(stage.device)
+        torch.cuda.reset_peak_memory_stats(stage.device)
+        reset_counts(fa, nk, ta)
+        collectives.clear_counts()
+        t0 = time.perf_counter()
+        res = pipe.run(params, inputs)
+        torch.cuda.synchronize(stage.device)
+        out[name] = {
+            "seconds": time.perf_counter() - t0, "stage": st.index, "stages": st.num_stages,
+            "flash": dict(fa.launches), "collectives": dict(collectives.counts),
+            "bytes": dict(collectives.nbytes), "param_bytes": kept, "whole_bytes": whole,
+            "stack_bytes": stacks, "freed": freed,
+            "peak": torch.cuda.max_memory_allocated(stage.device),
+            "outputs": res.cpu() if res is not None and st.is_last_rank else None}
+        del wrapper, params, inputs, pipe
+    return out
+
+
+def run_moe(torch, fa, nk, ta, smi: str) -> dict:
+    """Phase 11 (a): the MoE DiT-XL joint3d at full width. In this process on
+    cuda:0: dense dispatch (STEPS steps, counted and timed, after a warm-up
+    step), the gather dispatch at capacity MOE_EXPERTS (nothing drops: within
+    TOL["bf16"] x max|latent| of dense) and at the default capacity 2.0
+    (timed); then 2 ranks sharing cuda:0 over gloo at expert 2 (within
+    INTRA_TOL of one process), and 4 ranks (NCCL with four cards, else cuda:0
+    over gloo) at stage 2 x expert 2, bit-equal to expert 2. Each rank keeps
+    half of the expert stacks; each run's psum calls and bytes a forward are
+    printed."""
+    from vdpp_tpu_torch.parallel.mesh import make_pipeline_mesh, run_stages
+    from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
+
+    saved = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    exact_libraries(torch)
+    torch.cuda.empty_cache()
+    out, lat = {}, {}
+    dev = torch.device("cuda:0")
+    wrapper, params, inputs = moe_case(torch, dev)
+    n_params = sum(p.numel() for p in params[0].parameters())
+    stacks = moe_stack_bytes(params[0])
+    print(f"MoE DiT-XL joint3d bf16 ({MOE_EXPERTS} experts in {MOE_BLOCKS} of 28 blocks): "
+          f"{n_params / 1e9:.3f} B parameters, {stacks / 2**30:.3f} GiB of expert stacks",
+          flush=True)
+    gather_wrappers = {cap: moe_case(torch, dev, {"VDPP_MOE_DISPATCH": "gather",
+                                                  "VDPP_MOE_CAPACITY": str(cap)})[0]
+                       for cap in (float(MOE_EXPERTS), MOE_CAPACITY)}
+    runs = {"dense": wrapper, **{f"gather_{cap:g}": w for cap, w in gather_wrappers.items()}}
+    for name, w in runs.items():
+        run_reference_single_device(w.pipeline_step_fn(), params, inputs, 1)  # warm
+        torch.cuda.synchronize()
+        reset_counts(fa, nk, ta)
+        t0 = time.perf_counter()
+        lat[name] = run_reference_single_device(w.pipeline_step_fn(), params, inputs,
+                                                STEPS).cpu()
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0, "flash": fa.launches.get(72, 0)}
+        expect(f"MoE DiT-XL {name}: flash at d = 72 ({MOE_FORWARDS} forwards)",
+               out[name]["flash"], FLASH_PER_JOINT3D_FORWARD * MOE_FORWARDS)
+    ref = lat["dense"]
+    ref_max = ref.abs().max().item()
+    for name in runs:
+        err = (lat[name] - ref).abs().max().item()
+        out[name]["max_abs_err"] = err
+        print(f"MoE DiT-XL {name} dispatch, one process: {out[name]['seconds']:.3f} s for "
+              f"{STEPS} steps ({MOE_FORWARDS} forwards), max|diff| to dense {err:.4g} "
+              f"({err / ref_max:.3g} of max|latent| {ref_max:.4g}) ({smi})", flush=True)
+        if not torch.isfinite(lat[name]).all():
+            fail(f"MoE DiT-XL {name}: non-finite latent")
+    full = f"gather_{float(MOE_EXPERTS):g}"
+    if not out[full]["max_abs_err"] <= TOL["bf16"] * ref_max:
+        fail(f"MoE gather at capacity {MOE_EXPERTS} (nothing drops) differs from dense by "
+             f"{out[full]['max_abs_err']}, more than {TOL['bf16']} x {ref_max}")
+    del wrapper, params, inputs, gather_wrappers, runs
+    torch.cuda.empty_cache()
+
+    four = torch.cuda.device_count() >= 4
+    meshes = {"a": (make_pipeline_mesh(devices=["cuda:0"] * 2), [("ep2", {"expert": 2})]),
+              "b": (make_pipeline_mesh(4, device="cuda") if four
+                    else make_pipeline_mesh(devices=["cuda:0"] * 4),
+                    [("stage2_ep2", {"expert": 2})])}
+    ranks = {}
+    for part, (mesh, cases) in meshes.items():
+        t0 = time.perf_counter()
+        try:
+            ranks[part] = run_stages(mesh, moe_rank, cases, timeout=900)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"phase 11 (a{part}) failed: {e}")
+        out[part + "_wall_s"] = time.perf_counter() - t0
+        out[part + "_backend"] = mesh.backend
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+    got = {name: ranks[part][-1][name]["outputs"] for part, (_, cases) in meshes.items()
+           for name, _ in cases}
+    err = (got["ep2"] - ref).abs().max().item()
+    print(f"MoE DiT-XL expert 2 (2 ranks sharing cuda:0, gloo): max|diff| to one process "
+          f"{err:.4g} ({err / ref_max:.3g} of max|latent|; limit {INTRA_TOL} x max), bit-equal "
+          f"{torch.equal(got['ep2'], ref)}; stage 2 x expert 2 ({len(ranks['b'])} ranks, "
+          f"{out['b_backend']}) bit-equal to expert 2 {torch.equal(got['stage2_ep2'], got['ep2'])}"
+          f" ({smi})", flush=True)
+    if not err <= INTRA_TOL * ref_max or not torch.isfinite(got["ep2"]).all():
+        fail(f"MoE expert 2 disagrees with one process: max|diff| {err}")
+    if not torch.equal(got["stage2_ep2"], got["ep2"]):
+        fail("MoE stage 2 x expert 2 is not bit-equal to expert 2")
+    out["ep2_max_abs_err"], out["ep2_bit_equal"] = err, torch.equal(got["ep2"], ref)
+    for part, (_, cases) in meshes.items():
+        for name, _ in cases:
+            for r in ranks[part]:
+                res = r[name]
+                forwards = MOE_FORWARDS // res["stages"]
+                per_fwd = {k: v / forwards for k, v in res["collectives"].items()}
+                bytes_fwd = {k: v / forwards for k, v in res["bytes"].items()}
+                print(f"MoE {name}, rank {r['rank']} (stage {res['stage']}): "
+                      f"{res['seconds']:.3f} s; flash {res['flash']}; collectives a forward "
+                      f"{per_fwd}, bytes a forward {bytes_fwd}; parameters "
+                      f"{res['param_bytes'] / 2**30:.3f} GiB of {res['whole_bytes'] / 2**30:.3f}"
+                      f" (stacks {res['stack_bytes'] / 2**30:.3f} GiB, freed on the card "
+                      f"{res['freed'] / 2**30:.3f}); peak allocated {res['peak'] / 2**30:.2f} "
+                      f"GiB ({smi})", flush=True)
+                expect(f"MoE {name}, rank {r['rank']}: flash at d = 72",
+                       res["flash"].get(72, 0), FLASH_PER_JOINT3D_FORWARD * forwards)
+                if per_fwd.get("sum") != MOE_BLOCKS:
+                    fail(f"MoE {name}: {per_fwd} collectives a forward, expected "
+                         f"{MOE_BLOCKS} sums")
+                if res["whole_bytes"] - res["param_bytes"] != res["stack_bytes"] // 2 \
+                        or res["freed"] < res["stack_bytes"] // 2:
+                    fail(f"MoE {name}, rank {r['rank']}: kept {res['param_bytes']} of "
+                         f"{res['whole_bytes']} parameter bytes, freed {res['freed']}; "
+                         f"expected half of the stacks' {res['stack_bytes']} gone")
+    out["ranks"] = {name: [{k: v for k, v in r[name].items() if k != "outputs"}
+                           for r in ranks[part]]
+                    for part, (_, cases) in meshes.items() for name, _ in cases}
+    return out
+
+
+def int8_mark_count(torch) -> int:
+    """W8A8 sites a forward of SVD-XT: the linears and spatial convs that
+    ``quantize_model(act_int8=True)`` marks (counted on the meta device), each
+    run once a forward, but the cross-attentions' ``to_q`` and ``to_k``: over
+    the one key of the image embedding the output is ``to_out(to_v(ctx))``,
+    so they never run (in the reference neither)."""
+    from vdpp_tpu_torch.models.svd_unet import SVDUNet, SVDUNetConfig
+    from vdpp_tpu_torch.ops.quant import is_a8, quantize_model
+
+    unet = quantize_model(SVDUNet(SVDUNetConfig.svd_xt(), device="meta"), act_int8=True)
+    return sum(is_a8(m) for name, m in unet.named_modules()
+               if not re.search(r"attn2\.to_[qk]$", name))
+
+
+def check_int8_dot(torch) -> dict:
+    """``int8_dot`` on the card against the CPU at SVD-XT's W8A8 shapes (the
+    timestep MLP's single row, which ``_int_mm`` takes padded; the add
+    embedding's 2 rows; 4096 rows of a 320 -> 2560 GEGLU projection and of a
+    level-0 conv's im2col, 2880 -> 320): bit for bit, timed against the bf16
+    product of the same shape."""
+    import torch.nn.functional as F
+
+    from vdpp_tpu_torch.ops import quant as tq
+
+    rows = []
+    for m, k, n in ((1, 320, 1280), (2, 1280, 1280), (4096, 320, 2560), (4096, 2880, 320)):
+        g = torch.Generator().manual_seed(m + k + n)
+        x = torch.randn(m, k, generator=g) * 3.0
+        q8, scale = tq.quantize_weight(torch.randn(n, k, generator=g) / math.sqrt(k))
+        want = tq.int8_dot(x, q8, scale)
+        xc, qc, sc = x.cuda(), q8.cuda(), scale.cuda()
+        got = tq.int8_dot(xc, qc, sc).cpu()
+        xb, wb = xc.to(torch.bfloat16), (qc.float() * sc).to(torch.bfloat16)
+        row = {"M": m, "K": k, "N": n, "bit_equal": torch.equal(got, want),
+               "ms": time_ms(torch, lambda: tq.int8_dot(xc, qc, sc)),
+               "bf16_ms": time_ms(torch, lambda: F.linear(xb, wb))}
+        print(f"int8_dot on the card, M {m}, K {k}, N {n}: bit-equal to the CPU "
+              f"{row['bit_equal']}, {row['ms']:.4f} ms (the bf16 product {row['bf16_ms']:.4f})",
+              flush=True)
+        if not row["bit_equal"]:
+            fail(f"int8_dot on the card differs from the CPU at M {m}, K {k}, N {n}")
+        rows.append(row)
+    return {"shapes": rows}
+
+
+def run_int8_svd(torch, fa, nk, ta, smi: str) -> dict:
+    """Phase 11 (b): full-width SVD-XT bf16, INT8_FRAMES frames of 72x128,
+    CFG 3, STEPS Euler steps, both kernel switches on, through
+    ``modes.benchmark.main`` at one stage in this process (one warm-up and
+    one measured sample): as it is, ``--weights-int8``, ``--weights-w8a8``.
+    For each: the parameter MB the benchmark logs, the launches (flash, B2,
+    B3, ``_int_mm``) counted from 0, the measured sample's latent (captured
+    from ``StepPipeline.run_ticked``) against the bf16 run's within
+    INT8_DRIFT, and the BENCHMARK_JSON line."""
+    import logging.handlers
+
+    from vdpp_tpu_torch.modes import benchmark
+    from vdpp_tpu_torch.ops import quant as tq
+    from vdpp_tpu_torch.parallel.pipeline import StepPipeline
+
+    argv = ["--model", "svd", "--guidance-scale", "3", "--num-stages", "1", "--total-steps",
+            str(STEPS), "--num-samples", "1", "--warmup-samples", "1", *INT8_LATENT]
+    latents, log = [], logging.handlers.BufferingHandler(1000)
+    run_ticked = StepPipeline.run_ticked
+
+    def capture(self, params, inputs, *a, **kw):
+        res = run_ticked(self, params, inputs, *a, **kw)
+        latents.append(res[0][-1].cpu())
+        return res
+
+    out = {}
+    sites = int8_mark_count(torch)
+    forwards = 2 * STEPS * 2  # CFG sequential, a warm-up and a measured sample
+    StepPipeline.run_ticked = capture
+    benchmark.LOGGER.addHandler(log)
+    try:
+        for flag in ("", "--weights-int8", "--weights-w8a8"):
+            torch.cuda.empty_cache()
+            log.buffer.clear()
+            with kernel_switches():
+                reset_counts(fa, nk, ta)
+                tq.int_mm_calls = 0
+                res = run_mode(benchmark.main, argv + ([flag] if flag else []),
+                               f"(11b) SVD-XT {flag or 'bf16'}", "pipeline", 1, smi)
+                counts = {"flash": fa.launches.total(), "gn": nk.launches,
+                          "frame": ta.launches, "int_mm": tq.int_mm_calls}
+            mb = [r.getMessage() for r in log.buffer if "MB of parameters" in r.getMessage()]
+            out[flag or "bf16"] = {"json": res, "counts": counts, "log": mb}
+            print(f"SVD-XT {flag or 'bf16'}: {'; '.join(mb)}; launches {counts}; "
+                  f"{res['avg_sample_time_s'] / STEPS:.4f} s a step ({smi})", flush=True)
+            expect(f"flash in SVD-XT {flag or 'bf16'}", counts["flash"],
+                   FLASH_PER_FORWARD * forwards)
+            expect(f"GroupNorm+SiLU in SVD-XT {flag or 'bf16'}", counts["gn"],
+                   GN_SILU_PER_FORWARD * forwards)
+            expect(f"frame attention in SVD-XT {flag or 'bf16'}", counts["frame"],
+                   FRAME_ATTN_PER_FORWARD * forwards)
+            expect(f"_int_mm in SVD-XT {flag or 'bf16'}", counts["int_mm"],
+                   sites * forwards if flag == "--weights-w8a8" else 0)
+    finally:
+        StepPipeline.run_ticked = run_ticked
+        benchmark.LOGGER.removeHandler(log)
+    ref = latents[0].float()
+    for flag, lat in zip(("--weights-int8", "--weights-w8a8"), latents[1:]):
+        drift = ((lat.float() - ref).norm() / ref.norm()).item()
+        out[flag]["drift"] = drift
+        print(f"SVD-XT {flag}: latent relative L2 to bf16 {drift:.4g} (limit "
+              f"{INT8_DRIFT[flag]}), finite {bool(torch.isfinite(lat).all())} ({smi})",
+              flush=True)
+        if not (0 < drift < INT8_DRIFT[flag]) or not torch.isfinite(lat).all():
+            fail(f"SVD-XT {flag}: latent drift {drift} from bf16, limit {INT8_DRIFT[flag]}")
+    out["a8_sites_per_forward"] = sites
+    out["int8_dot"] = check_int8_dot(torch)
+    return out
+
+
+def run_moe_int8_cli(smi: str) -> dict:
+    """Phase 11 (c): ``modes.benchmark.main`` with the tiny MoE DiT at
+    ``--expert-parallel 2 --num-stages 2`` (4 ranks) and ``--fsdp
+    --weights-int8`` (2 ranks), the ranks sharing cuda:0 over gloo; each
+    BENCHMARK_JSON line carries the contract's keys."""
+    from vdpp_tpu_torch.modes import benchmark
+
+    tiny = ["--model", "dit3d_moe_tiny", "--guidance-scale", "5", "--total-steps", "4",
+            "--num-samples", "2", "--warmup-samples", "1", "--latent-shape", "1", "4", "4", "16",
+            "16"]
+    return {
+        "ep2": run_mode(benchmark.main, [*tiny, "--expert-parallel", "2", "--num-stages", "2",
+                                         "--devices", *["cuda:0"] * 4],
+                        "(11c) dit3d_moe_tiny --expert-parallel 2 --num-stages 2",
+                        "pipeline_x_ep2", 4, smi),
+        "fsdp_int8": run_mode(benchmark.main, [*tiny, "--fsdp", "--weights-int8",
+                                               "--num-stages", "2", "--devices", "cuda:0",
+                                               "cuda:0"],
+                              "(11c) dit3d_moe_tiny --fsdp --weights-int8", "fsdp", 2, smi)}
+
+
+def run_phase11(torch, fa, nk, ta, smi: str) -> dict:
+    t0 = time.perf_counter()
+    out = {"moe": run_moe(torch, fa, nk, ta, smi), "int8": run_int8_svd(torch, fa, nk, ta, smi),
+           "cli": run_moe_int8_cli(smi)}
+    print(f"phase 11 (the MoE DiT, int8 weights) done in {time.perf_counter() - t0:.1f} s "
+          f"({smi})", flush=True)
+    return out
+
+
 def reset_counts(fa, nk, ta) -> None:
     """Every kernel's launch count set to 0."""
     fa.launches.clear()
@@ -2837,6 +3218,10 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--kernels-only", action="store_true",
                         help="build the kernels, hold each against its plain version and time "
                              "it (phases 1-3 and 8 (a)), then stop without the result lines")
+    parser.add_argument("--moe-int8-only", action="store_true",
+                        help="build the kernels, then only phase 11 (the MoE DiT-XL with its "
+                             "expert axis, int8 SVD-XT, the benchmark's MoE and int8 flags), "
+                             "and stop without the result lines")
     parser.add_argument("--intra-only", action="store_true",
                         help="build the kernels, then only phases 9 and 10 (the kernels at the "
                              "seq-sharded shapes, the intra-sample axes at full width, the "
@@ -2910,6 +3295,10 @@ def main(argv: list[str] | None = None) -> int:
         if built[src]["seconds"] and not report:
             fail(f"no ptxas report for {src}.cu")
 
+    if args.moe_int8_only:
+        run_phase11(torch, fa, nk, ta, smi)
+        print(f"phase 11 run done in {time.perf_counter() - t_start:.1f} s ({smi})")
+        return 0
     if args.intra_only:
         check_flash_seq_sharded(torch, fa, F)
         run_intra_sample(torch, smi)
@@ -3099,6 +3488,14 @@ def main(argv: list[str] | None = None) -> int:
     dit_apps = run_dit_intra_apps(torch, smi)
     print(f"phase 10 (the DiT's axes, the planner, the decode ranks) done in "
           f"{time.perf_counter() - t10:.1f} s ({smi})")
+    # 11. The MoE DiT with its expert axis, int8 weights and W8A8.
+    p11 = run_phase11(torch, fa, nk, ta, smi)
+    moe_flash = {f"moe_{k}": v["flash"] for k, v in p11["moe"].items()
+                 if isinstance(v, dict) and "flash" in v}
+    moe_flash.update({f"moe_{name}_rank{r}": res["flash"].get(72, 0)
+                      for name, rs in p11["moe"]["ranks"].items() for r, res in enumerate(rs)})
+    int8_counts = {f"svd_xt_{k.lstrip('-')}": v["counts"] for k, v in p11["int8"].items()
+                   if isinstance(v, dict) and "counts" in v}
 
     def dit_launches(cases, get):
         return {f"dit_{case}_rank{r}": get(res["launches"])
@@ -3133,7 +3530,8 @@ def main(argv: list[str] | None = None) -> int:
               flash_launches + app["flash"][64] + restyle["flash"][64] + long_app["flash"][64]
               + deepcache["schedule"]["flash"] + sum(pipe_flash.values())
               + bench_counts["flash"] + sum(prod_flash.values()) + sum(intra_flash.values())
-              + sum(auto_flash.values()) + sum(app_d64.values()),
+              + sum(auto_flash.values()) + sum(app_d64.values())
+              + sum(c["flash"] for c in int8_counts.values()),
               flash,
               flash["shapes"][0], ptxas=ptxas,
               fp32_d64_d72=[flash["fp32"], flash72["fp32"]],
@@ -3147,8 +3545,10 @@ def main(argv: list[str] | None = None) -> int:
                                 **pipe_flash,
                                 "benchmark_mode_1stage_switched": bench_counts["flash"],
                                 **prod_flash, **intra_flash, **auto_flash,
-                                **{f"image_to_video_app_{k}": n for k, n in app_d64.items()}},
-              production_launches_per_forward=PROD_FLASH_PER_FORWARD),
+                                **{f"image_to_video_app_{k}": n for k, n in app_d64.items()},
+                                **{k: c["flash"] for k, c in int8_counts.items()}},
+              production_launches_per_forward=PROD_FLASH_PER_FORWARD, int8=p11["int8"],
+              moe_int8_cli=p11["cli"]),
         entry("flash_attention_d512", flash_src, flash_tpu,
               decode_flash + dit_decode_flash + app["flash"][512] + restyle["flash"][512]
               + long_app["flash"][512] + sum(app_d512.values()), flash512,
@@ -3166,17 +3566,19 @@ def main(argv: list[str] | None = None) -> int:
         entry("group_norm_silu", "vdpp_tpu_torch/csrc/group_norm_silu.cu",
               "vdpp_tpu/ops/norm_kernel.py:165",
               switched["gn"] + deepcache["schedule"]["gn"] + sum(pipe_gn.values())
-              + bench_counts["gn"], gn,
+              + bench_counts["gn"] + sum(c["gn"] for c in int8_counts.values()), gn,
               gn["shapes"][0], ptxas=other_ptxas["group_norm_silu"],
               launches_per_forward={"full": deepcache["counts"]["full"][1],
                                     "deepcache_split1": deepcache["counts"]["cache"][1]},
               launches_by_path={"svd_xt_denoise_switched": switched["gn"],
                                 "dpmpp2m_deepcache2_switched": deepcache["schedule"]["gn"],
                                 **pipe_gn,
-                                "benchmark_mode_1stage_switched": bench_counts["gn"]}),
+                                "benchmark_mode_1stage_switched": bench_counts["gn"],
+                                **{k: c["gn"] for k, c in int8_counts.items()}}),
         entry("frame_attention", frame_src, frame_tpu,
               switched["frame"] + deepcache["schedule"]["frame"] + sum(pipe_frame.values())
-              + bench_counts["frame"] + sum(intra_frame.values()), frame, frame["shapes"][0],
+              + bench_counts["frame"] + sum(intra_frame.values())
+              + sum(c["frame"] for c in int8_counts.values()), frame, frame["shapes"][0],
               ptxas=other_ptxas["frame_attention"], fp32_d64_d72=frame["fp32"] + frame72["fp32"],
               launches_per_forward={"full": deepcache["counts"]["full"][2],
                                     "deepcache_split1": deepcache["counts"]["cache"][2]},
@@ -3184,12 +3586,14 @@ def main(argv: list[str] | None = None) -> int:
                                 "dpmpp2m_deepcache2_switched": deepcache["schedule"]["frame"],
                                 **pipe_frame,
                                 "benchmark_mode_1stage_switched": bench_counts["frame"],
-                                **intra_frame}),
+                                **intra_frame, **{k: c["frame"] for k, c in int8_counts.items()}}),
         entry("flash_attention_d72", flash_src, flash_tpu,
-              joint["flash"] + fact["flash"] + sum(dit_cfg_flash.values()),
+              joint["flash"] + fact["flash"] + sum(dit_cfg_flash.values())
+              + sum(moe_flash.values()),
               flash72, flash72["shapes"][0],
               launches_by_path={"dit_joint3d": joint["flash"], "dit_factorized": fact["flash"],
-                                **dit_cfg_flash}),
+                                **dit_cfg_flash, **moe_flash},
+              moe=p11["moe"]),
         entry("flash_attention_dit_seq_sharded", flash_src, flash_tpu,
               sum(dit_seq_flash.values()), dit_kernels["flash"], dit_kernels["flash"]["shapes"][0],
               launches_by_path=dit_seq_flash,

@@ -257,8 +257,9 @@ def test_bad_split_and_indivisible_samples_are_refused(capsys):
                                          "--num-samples", "3"]) == 1
 
 
-# The DiT's seq and cfg axes run (tests/test_torch_port_dit_parallel.py);
-# with them, int8 and MoE still raise.
+# Flag sets that raised, naming the ROADMAP item that had not been ported
+# yet: int8 (A14) and the MoE DiT with its expert axis (A15). Both are
+# ported (tests/test_torch_port_quant.py, tests/test_torch_port_moe_parallel.py).
 UNPORTED = [
     (["--model", "dit3d_tiny", "--cfg-parallel", "--guidance-scale", "3", "--weights-int8"],
      "A14"),
@@ -273,10 +274,20 @@ UNPORTED = [
 
 @pytest.mark.parametrize("flags,item", UNPORTED)
 def test_unported_flags_raise_naming_their_item(flags, item):
-    """Raised before the device is resolved (the default, cuda, would raise
-    otherwise here) and so before any rank starts."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        benchmark.main(flags + ["--latent-shape", "1", "4", "2", "16", "16"])
+    """Since their items were ported these flags raise nothing: they pass the
+    JAX package's checks and lay out their mesh (an expert axis of
+    ``--expert-parallel`` ranks innermost in each stage), and the int8 flags
+    reach the model's build."""
+    args = benchmark.build_parser().parse_args(
+        flags + ["--device", "cpu", "--latent-shape", "1", "4", "2", "16", "16"])
+    benchmark.check_flags(args)
+    mesh = benchmark._mesh(args)
+    assert (mesh.seq, mesh.cfg, mesh.expert) == (args.seq_parallel, 1 + args.cfg_parallel,
+                                                 args.expert_parallel)
+    if item == "A14":
+        assert args.weights_int8 or args.weights_w8a8
+    else:
+        assert args.model == "dit3d_moe_tiny"
 
 
 JAX_CHECKS = [

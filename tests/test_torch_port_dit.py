@@ -35,6 +35,8 @@ from vdpp_tpu.utils.weights import save_params
 from vdpp_tpu_torch.models import dit as tdit
 from vdpp_tpu_torch.models.svd_wrapper import make_guidance_ramp
 from vdpp_tpu_torch.ops import flash_attention as fa
+from vdpp_tpu_torch.ops.moe import shard_experts
+from vdpp_tpu_torch.parallel.collectives import Axis
 from vdpp_tpu_torch.parallel.pipeline import run_reference_single_device
 from vdpp_tpu_torch.utils.weights import from_jax_dit_params, load_jax_npz
 
@@ -228,19 +230,18 @@ def test_euler_a_matches_jax_at_the_pipeline_stage_counts(pair):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A15"):
-        tdit.DiTVideo(dataclasses.replace(tdit.DiTVideoConfig.tiny(), num_experts=4),
-                      device="cpu")
-    # The seq and cfg axes run (tests/test_torch_port_dit_parallel.py); the
-    # expert axis and MoE dispatch do not, and the DiT has no frame axis.
+    # The seq, cfg and expert axes and the MoE feed-forwards run
+    # (tests/test_torch_port_dit_parallel.py, tests/test_torch_port_moe.py);
+    # the DiT has no frame axis, and a rank holding part of the experts needs
+    # the expert axis they were split over.
     w = tdit.DiTVideoWrapper(tdit.DiTVideoConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        w.pipeline_step_fn(expert_axis="expert")
     with pytest.raises(ValueError, match="frame axis"):
         w.pipeline_step_fn(frame_axis=object())
-    model = w.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A15"):
-        model(torch.zeros(1, 2, 4, 4, 4), 0.0, expert_axis="expert")
+    moe = tdit.DiTVideoWrapper(tdit.DiTVideoConfig.moe_tiny(), device="cpu")
+    model = moe.init(torch.Generator().manual_seed(0))
+    shard_experts(model, Axis("expert", 2, 0, (0, 1), group=None))
+    with pytest.raises(ValueError, match="all 4 experts"):
+        model(torch.zeros(1, 2, 4, 4, 4), 0.0)
 
 
 def test_presets_match_jax():

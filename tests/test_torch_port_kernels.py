@@ -517,3 +517,59 @@ def test_frame_attention_generic_kernel_matches_plain(cuda, shape, dtype):
     ref = tak.frame_attention_plain(q, k, v)
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= _one_rounding_tol(ref), err
+
+
+# ---- int8 (ops/quant.py) and the expert axis (ops/moe.py) on the card ---- #
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 64, 1152), (16, 1152, 4608), (17, 72, 40), (5, 36, 20),
+                                   (300, 2880, 320)])
+def test_int8_dot_on_the_card_bit_equal_to_the_cpu(cuda, m, k, n):
+    """``int8_dot`` (per-row activation quantization, ``torch._int_mm``, the
+    two scales) on the card gives the CPU's bits: the int32 product is exact,
+    and the divisions and products are IEEE's on both. So does
+    ``quantize_weight`` (the benchmark quantizes on the card). Rows of 16 or
+    fewer (the timestep MLP at batch 1) and inner or outer extents that 8 does
+    not divide are padded with zeros for ``_int_mm``; each call is one
+    ``_int_mm``."""
+    from vdpp_tpu_torch.ops import quant as tq
+
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g) * 3.0
+    w = torch.randn(n, k, generator=g) / math.sqrt(k)
+    q8, scale = tq.quantize_weight(w)
+    on_card = tq.quantize_weight(w.to(cuda))
+    assert torch.equal(on_card[0].cpu(), q8) and torch.equal(on_card[1].cpu(), scale)
+    want = tq.int8_dot(x, q8, scale)
+    before = tq.int_mm_calls
+    got = tq.int8_dot(x.to(cuda), q8.to(cuda), scale.to(cuda))
+    torch.cuda.synchronize()
+    assert tq.int_mm_calls == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_expert_slice_frees_its_memory(cuda):
+    """``shard_experts`` leaves a rank of an expert axis of 2 half of each
+    stack, int8 tensors and scales included, and the card's allocator gets
+    the other half back: what the module holds on the card falls by half the
+    stacks' bytes."""
+    from vdpp_tpu_torch.ops import moe as tmoe
+    from vdpp_tpu_torch.ops import quant as tq
+    from vdpp_tpu_torch.parallel.collectives import Axis
+
+    for int8 in (False, True):
+        moe = tmoe.MoEFF(1152, 4, 4608, device=cuda, dtype=torch.bfloat16)
+        moe.reset_parameters(torch.Generator(device=cuda).manual_seed(0))
+        if int8:
+            tq.quantize_model(moe)
+        stacks = sum(p.numel() * p.element_size() for p in moe._parameters.values())
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda)
+        tmoe.shard_experts(moe, Axis("expert", 2, 1, (0, 1), group=None))
+        torch.cuda.synchronize()
+        freed = before - torch.cuda.memory_allocated(cuda)
+        assert freed == stacks // 2, (int8, freed, stacks)
+        del moe
+        torch.cuda.empty_cache()

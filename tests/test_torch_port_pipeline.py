@@ -241,7 +241,7 @@ def test_pipeline_config_errors():
     stage = tmesh.Stage(tmesh.make_pipeline_mesh(2, device="cpu"), 0)
     with pytest.raises(ValueError, match="stage axis"):
         StepPipeline(stage, _step, PipelineConfig(8, 4))
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(TypeError, match="param_spec"):  # a layout function since A15
         StepPipeline(stage, _step, PipelineConfig(8, 2), param_spec=object())
     one = StepPipeline(tmesh.Stage(tmesh.make_pipeline_mesh(1, device="cpu"), 0),
                        lambda p, x, k: x[..., :4], PipelineConfig(2, 1))

@@ -43,6 +43,90 @@ def tiny_svd_weights(seed: int = 0):
     return params, from_jax_params(params)
 
 
+def dit_jax_params(jcfg, seed: int):
+    """A JAX DiT tree for ``jcfg`` with every leaf drawn from a numpy seed:
+    matrices and expert stacks N(0, 1) over their fan-in (the adaLN ones a
+    tenth of that), norm scales near 1, biases near 0. JAX is imported here,
+    not at module level: spawned ranks import this module."""
+    import jax
+
+    from vdpp_tpu.models.dit import DiTVideo
+
+    shapes = jax.eval_shape(DiTVideo(jcfg).init, jax.random.key(0))
+    rng = np.random.default_rng(seed)
+    flat, treedef = jax.tree_util.tree_flatten_with_path(shapes)
+    leaves = []
+    for path, leaf in flat:
+        name = jax.tree_util.keystr(path)
+        noise = rng.standard_normal(leaf.shape).astype(np.float32)
+        if leaf.ndim >= 2:
+            leaves.append((0.1 if "ada" in name else 1.0) * noise / np.sqrt(leaf.shape[-2]))
+        elif name.endswith("['scale']"):
+            leaves.append(1.0 + 0.1 * noise)
+        else:
+            leaves.append(0.1 * noise)
+    return jax.tree_util.tree_unflatten(treedef, leaves)
+
+
+def assert_quant_step_bounded(got, want, rel_bound: float = 0.06, cos_bound: float = 0.999):
+    """Two W8A8 runs whose fp32 sums differ at the ulp level, held to the JAX
+    package's bound (``tests/test_quant.py::_assert_quant_step_bounded``): a
+    1-ulp difference at a rounding boundary moves an int8 value by a whole
+    step, so relative L2 < 0.06 and cosine > 0.999, not elementwise."""
+    a, b = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    rel = np.linalg.norm(a - b) / np.linalg.norm(b)
+    cos = (a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum())
+    assert rel < rel_bound and cos > cos_bound, (rel, cos)
+
+
+def _int8_view(tree, quantized, plain):
+    """``tree`` with each int8 dict replaced by ``quantized(dict)`` (an array
+    of the float weight's shape) and every other leaf by ``plain(leaf)``."""
+    if isinstance(tree, dict):
+        if "scale" in tree and ("q" in tree or "q8" in tree):
+            return quantized(tree)
+        return {k: _int8_view(v, quantized, plain) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_int8_view(v, quantized, plain) for v in tree)
+    return plain(np.asarray(tree))
+
+
+def assert_quantized_like_jax(port: torch.nn.Module, jax_tree, convert) -> dict[str, int]:
+    """``port`` (quantized by ``quantize_model``) holds in int8 exactly the
+    tensors ``jax_tree`` (the same weights through ``quantize_tree``) holds
+    in int8, with the same ``q8`` marks, int8 values and scales, bit for bit.
+    ``convert`` is the port's converter of the JAX tree
+    (``from_jax_params``, ``from_jax_dit_params``): fed views of the tree
+    (each int8 leaf as its values, its scales broadcast, or its mark), it
+    puts them in the port's names and layouts. Returns the count of each
+    form."""
+    from vdpp_tpu.ops.quant import _qtensor
+
+    from vdpp_tpu_torch.ops import quant as tq
+
+    marks = convert(_int8_view(jax_tree, lambda d: np.full(np.shape(_qtensor(d)),
+                                                      2.0 if "q8" in d else 1.0, np.float32),
+                               np.zeros_like))
+    qs = convert(_int8_view(jax_tree, lambda d: np.asarray(_qtensor(d), np.float32), lambda a: a))
+    scales = convert(_int8_view(jax_tree, lambda d: np.broadcast_to(
+        np.asarray(d["scale"]), np.shape(_qtensor(d))).astype(np.float32), lambda a: a))
+    modules = dict(port.named_modules())
+    forms = {"q": 0, "q8": 0}
+    for name, mark in marks.items():
+        prefix, _, leaf = name.rpartition(".")
+        m = modules[prefix]
+        want = {0.0: None, 1.0: "q", 2.0: "q8"}[float(mark.reshape(-1)[0])]
+        assert tq.int8_forms(m).get(leaf) == want, name
+        if want is None:
+            continue
+        forms[want] += 1
+        q, scale = tq.int8_tensor(m, leaf), getattr(m, leaf + "_scale")
+        assert q.dtype == torch.int8 and scale.dtype == torch.float32
+        assert torch.equal(q.float(), qs[name]), name
+        assert torch.equal(scale.expand(q.shape), scales[name]), name
+    return forms
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """One intra-op thread for the module's tests: their CPU tensors are
@@ -77,12 +161,14 @@ def svd_build(config, solver: str, num_steps: int, pad_steps_to, state: dict, co
 
     from vdpp_tpu_torch.models.svd_unet import SVDUNet
     from vdpp_tpu_torch.models.svd_wrapper import StableVideoUNet
+    from vdpp_tpu_torch.ops.quant import load_int8_forms
 
     if torch.device(device).type == "cuda":  # the same bits in every process
         torch.backends.cudnn.deterministic = True
     wrapper = StableVideoUNet(config, num_steps=num_steps, pad_steps_to=pad_steps_to,
                               solver=solver, device=device, **wrapper_kw)
     unet = SVDUNet(config, device=device)
+    load_int8_forms(unet, state)  # a quantized state holds int8 tensors
     unet.load_state_dict(state)
     cond = dataclasses.replace(cond, **{f.name: getattr(cond, f.name).to(device)
                                         for f in dataclasses.fields(cond)
@@ -106,6 +192,7 @@ def dit_runner_build(config, num_steps: int, state: dict, context, guidance, dev
     """``(wrapper, (dit, context, guidance))`` as :func:`dit_build` builds
     them, for a runner that takes the wrapper."""
     from vdpp_tpu_torch.models.dit import DiTVideo, DiTVideoWrapper
+    from vdpp_tpu_torch.ops.quant import load_int8_forms
 
     def to(t):
         if isinstance(t, tuple):
@@ -114,6 +201,7 @@ def dit_runner_build(config, num_steps: int, state: dict, context, guidance, dev
 
     wrapper = DiTVideoWrapper(config, num_steps=num_steps, device=device, **wrapper_kw)
     dit = DiTVideo(config, device=device)
+    load_int8_forms(dit, state)
     dit.load_state_dict(state)
     return wrapper, (dit, to(context), to(guidance))
 
@@ -232,13 +320,15 @@ def resume_cases(stage, cases: list) -> dict:
 
 def relayout(stage, **axes):
     """This rank's Stage of another layout of the same group: ``axes`` gives
-    ``seq``, ``frame`` and ``cfg`` (the rest 1; the stage count follows). All
-    the group's ranks call it alike, so they create the same subgroups."""
+    ``seq``, ``frame``, ``cfg`` and ``expert`` (the rest 1; the stage count
+    follows). All the group's ranks call it alike, so they create the same
+    subgroups."""
     import dataclasses
 
     from vdpp_tpu_torch.parallel.mesh import Stage
 
-    mesh = dataclasses.replace(stage.mesh, **{"seq": 1, "frame": 1, "cfg": 1, **axes})
+    mesh = dataclasses.replace(stage.mesh,
+                               **{"seq": 1, "frame": 1, "cfg": 1, "expert": 1, **axes})
     return Stage(mesh, stage.rank)
 
 
@@ -251,19 +341,25 @@ def _shard(x, axis, dim: int):
 def _op_case(stage, op: str, x, state: dict, kw: dict):
     """One sharded op on this rank's block of ``x`` (the whole input, the
     same on every rank), gathered whole again: ``conv2d_halo`` (W split over
-    seq), ``conv_temporal_halo`` (frames over frame), ``group_norm`` (W over
-    seq), ``attention`` (tokens over seq) and ``temporal_self_attention``
-    (frames over frame; ``env`` set around it). Modules are built from
-    ``state``."""
+    seq), ``conv2d_rows`` (rows split over frame, the W8A8 scale taken over
+    it), ``conv_temporal_halo`` (frames over frame), ``group_norm`` (W over
+    seq), ``attention`` (tokens over seq), ``temporal_self_attention``
+    (frames over frame; ``env`` set around it) and ``moe`` (the experts over
+    expert: ``moe_ff``, or ``moe_ff_gather`` at ``kw["capacity"]``; the
+    tokens whole on every rank). Modules are built from ``state``, in the
+    int8 form where it holds one."""
     import os
 
     from vdpp_tpu_torch.ops import attention as tattn
     from vdpp_tpu_torch.ops import conv as tconv
+    from vdpp_tpu_torch.ops import moe as tmoe
     from vdpp_tpu_torch.ops import normalization as tnorm
+    from vdpp_tpu_torch.ops.quant import load_int8_forms
     from vdpp_tpu_torch.parallel.collectives import all_gather
 
     def module(cls, *args):
         m = cls(*args)
+        load_int8_forms(m, state)
         m.load_state_dict(state)
         return m
 
@@ -272,6 +368,15 @@ def _op_case(stage, op: str, x, state: dict, kw: dict):
         conv = module(tconv.Conv2d, x.shape[-1], kw["out"], 3)
         return all_gather(tconv.conv2d_halo(_shard(x, seq, 2), conv, seq, stride=kw["stride"]),
                           seq, 2)
+    if op == "conv2d_rows":
+        conv = module(tconv.Conv2d, x.shape[-1], kw["out"], 3)
+        return all_gather(tconv.conv2d(_shard(x, frame, 0), conv, amax_axes=(frame,)), frame, 0)
+    if op == "moe":
+        moe = module(tmoe.MoEFF, x.shape[-1], kw["experts"], kw["inner"])
+        tmoe.shard_experts(moe, stage.expert)
+        if kw.get("capacity") is None:
+            return tmoe.moe_ff(moe, x, stage.expert)
+        return tmoe.moe_ff_gather(moe, x, stage.expert, capacity_factor=kw["capacity"])
     if op == "conv_temporal_halo":
         conv = module(tconv.ConvTemporal, x.shape[-1], kw["out"], 3)
         return all_gather(tconv.conv_temporal_halo(_shard(x, frame, 1), conv, frame), frame, 1)
@@ -314,12 +419,16 @@ def intra_cases(stage, cases: list) -> dict:
     (``args``: ``(build, inputs)``, ``build(device)`` giving ``(wrapper,
     (dit, context, guidance))``, through ``SequenceParallelRunner``, one
     sample at a time). A model case's result is ``(outputs, the collectives'
-    call counts)``. Returns every case's result on the mesh's last rank and
+    call counts)``; a pipeline on a mesh with an expert axis lays its
+    experts out (``ops.moe.expert_layout``) and adds the parameter bytes the
+    last rank holds. Returns every case's result on the mesh's last rank and
     ``{name: None}`` on the others."""
+    from vdpp_tpu_torch.ops.moe import expert_layout
     from vdpp_tpu_torch.parallel import collectives
     from vdpp_tpu_torch.parallel.cfg_parallel import CFGParallelRunner
     from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
     from vdpp_tpu_torch.parallel.sequence_parallel import SequenceParallelRunner
+    from vdpp_tpu_torch.utils.memory import params_bytes_per_device
 
     results = {}
     for name, layout, kind, args in cases:
@@ -338,8 +447,12 @@ def intra_cases(stage, cases: list) -> dict:
                 build, inputs, total = args
                 step_fn, params = build(st.device, st.axes)
                 if kind == "pipeline":
-                    pipe = StepPipeline(st, step_fn, PipelineConfig(total, st.num_stages))
+                    spec = expert_layout if st.expert is not None else None
+                    pipe = StepPipeline(st, step_fn, PipelineConfig(total, st.num_stages),
+                                        param_spec=spec)
                     out = (pipe.run(params, inputs), dict(collectives.counts))
+                    if spec is not None:
+                        out += (params_bytes_per_device(params),)
                 else:
                     runner = CFGParallelRunner(st, step_fn, total)
                     out = (torch.stack([runner.run(params, x) for x in inputs]),

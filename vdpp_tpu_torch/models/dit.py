@@ -1,8 +1,7 @@
 """Latte/CogVideoX-style video Diffusion Transformer (DiT) in PyTorch.
 
 Port of ``vdpp_tpu/models/dit.py`` (``DiTVideo.apply`` and
-``DiTVideoWrapper``) with its sequence and CFG axes, without the
-expert-parallel argument and MoE feed-forwards (ROADMAP A15):
+``DiTVideoWrapper``) with its sequence, CFG and expert axes:
 
 * a 2x2 spatial patchify of the ``(B, F, H, W, C)`` latent into per-frame
   tokens, fp32 sinusoidal spatial and temporal position embeddings;
@@ -11,7 +10,10 @@ expert-parallel argument and MoE feed-forwards (ROADMAP A15):
   token, or ``joint3d`` (CogVideoX): every block attends over all F * N
   tokens at once;
 * adaLN modulation (shift, scale, gate) from the timestep embedding,
-  qkv-bias attention, cross-attention on T5 tokens, tanh-GELU MLPs;
+  qkv-bias attention, cross-attention on T5 tokens, tanh-GELU MLPs, or with
+  ``num_experts > 0`` a top-1 MoE feed-forward (``ops/moe.py``) in every
+  ``moe_every``-th eligible block (joint3d: every block; factorized: the
+  spatial ones, the phase counted over them);
 * a final adaLN + linear head and the unpatchify.
 
 Self-attention goes through :func:`vdpp_tpu_torch.ops.attention.attention`,
@@ -31,7 +33,12 @@ is chosen on the local query length, as in the reference: at DiT-XL's 8
 frames of 40x64, joint3d seq 2 launches flash at (Lq, Lk) = (2560, 5120),
 factorized seq 2 (Lq = 320) takes the plain path. CFG parallelism
 (``step(cfg_axis=)``): rank 0 of a size-2 axis runs the uncond branch,
-rank 1 the cond one, and one swap gives both ranks both outputs.
+rank 1 the cond one, and one swap gives both ranks both outputs. Expert
+parallelism (``forward(expert_axis=)``): each rank of the axis holds its
+share of every MoE block's experts (``ops/moe.py::shard_experts``) and the
+block's output is summed over the axis. The MoE dispatch
+(``VDPP_MOE_DISPATCH``: ``dense`` or ``gather``; ``VDPP_MOE_CAPACITY``) is
+read once, when the wrapper is built, as in the reference.
 
 Module names follow the reference's parameter tree (``patch_embed``,
 ``t_embed.linear_1``, ``blocks.{i}.attn.to_q``, ``blocks.{i}.ada``, ...);
@@ -41,6 +48,7 @@ them.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -60,6 +68,7 @@ from vdpp_tpu_torch.diffusion.scheduler import (
 from vdpp_tpu_torch.ops.attention import Attention, attention, temporal_self_attention
 from vdpp_tpu_torch.ops.embeddings import TimestepEmbedding, sinusoidal_embedding
 from vdpp_tpu_torch.ops.linear import Linear
+from vdpp_tpu_torch.ops.moe import MoEFF, moe_ff, moe_ff_gather
 from vdpp_tpu_torch.ops.normalization import Norm, layer_norm
 from vdpp_tpu_torch.parallel.collectives import Axis, all_gather, swap
 from vdpp_tpu_torch.utils.device import resolve_device
@@ -76,8 +85,8 @@ class DiTVideoConfig:
     mlp_ratio: float = 4.0
     cross_attention_dim: int | None = 1024
     attention_mode: str = "factorized"  # "factorized" | "joint3d"
-    num_experts: int = 0          # > 0: MoE feed-forward, not ported
-    moe_every: int = 2
+    num_experts: int = 0          # > 0: MoE feed-forward (ops/moe.py)
+    moe_every: int = 2            # MoE in every moe_every-th eligible block
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
@@ -104,6 +113,13 @@ class DiTVideoConfig:
         return cls(hidden_size=32, depth=4, num_heads=2, cross_attention_dim=16,
                    attention_mode="joint3d", dtype=dtype)
 
+    @classmethod
+    def moe_tiny(cls, num_experts: int = 4, dtype: torch.dtype = torch.float32
+                 ) -> DiTVideoConfig:
+        """Tiny MoE joint-3D variant for the expert-parallelism tests."""
+        return cls(hidden_size=32, depth=4, num_heads=2, cross_attention_dim=16,
+                   attention_mode="joint3d", num_experts=num_experts, dtype=dtype)
+
 
 class _Ada(Linear):
     """adaLN projection ``(D -> n * D)``: N(0, 1) x ``init_std`` weights
@@ -122,17 +138,21 @@ class _Ada(Linear):
 
 class DiTBlock(nn.Module):
     """One transformer block; spatial, joint3d or temporal by how it is
-    called (a temporal block has no cross-attention)."""
+    called (a temporal block has no cross-attention). ``moe``: a MoE
+    feed-forward (``self.moe``) in place of the MLP."""
 
-    def __init__(self, cfg: DiTVideoConfig, cross: bool, **kw):
+    def __init__(self, cfg: DiTVideoConfig, cross: bool, moe: bool = False, **kw):
         super().__init__()
         d = cfg.hidden_size
         mlp = int(d * cfg.mlp_ratio)
         self.norm1 = Norm(d, **kw)
         self.attn = Attention(d, qkv_bias=True, **kw)
         self.norm2 = Norm(d, **kw)
-        self.mlp_in = Linear(d, mlp, **kw)
-        self.mlp_out = Linear(mlp, d, **kw)
+        if moe:
+            self.moe = MoEFF(d, cfg.num_experts, mlp, **kw)
+        else:
+            self.mlp_in = Linear(d, mlp, **kw)
+            self.mlp_out = Linear(mlp, d, **kw)
         self.ada = _Ada(d, 6 * d, 0.02, **kw)
         if cross and cfg.cross_attention_dim:
             self.norm_cross = Norm(d, **kw)
@@ -146,16 +166,26 @@ class DiTBlock(nn.Module):
         return x + gate[:, None, :] * self.mlp_out(h)
 
     def forward(self, x: torch.Tensor, c_emb: torch.Tensor, ctx: torch.Tensor | None,
-                heads: int, seq_axis: Axis | None = None) -> torch.Tensor:
+                heads: int, seq_axis: Axis | None = None, expert_axis: Axis | None = None,
+                moe_dispatch: str = "dense", moe_capacity: float = 2.0) -> torch.Tensor:
         """x ``(B', L, D)``; c_emb ``(B', D)``; ctx ``(B', M, Dc)`` or None;
-        ``seq_axis``: L is this rank's shard, self-attention gathers K/V."""
+        ``seq_axis``: L is this rank's shard, self-attention gathers K/V;
+        ``expert_axis``: the MoE experts are split over it. ``moe_dispatch``
+        ``"gather"`` takes the capacity-based form at ``moe_capacity``."""
         sh1, sc1, g1, sh2, sc2, g2 = self._ada_chunks(c_emb)
         h = _modulate(layer_norm(x, self.norm1), sh1, sc1)
         x = x + g1[:, None, :] * attention(h, self.attn, heads, seq_axis=seq_axis)
         if hasattr(self, "cross_attn") and ctx is not None:
             h = layer_norm(x, self.norm_cross)
             x = x + attention(h, self.cross_attn, heads, context=ctx)
-        return self._mlp(x, _modulate(layer_norm(x, self.norm2), sh2, sc2), g2)
+        h = _modulate(layer_norm(x, self.norm2), sh2, sc2)
+        if not hasattr(self, "moe"):
+            return self._mlp(x, h, g2)
+        if moe_dispatch == "gather":
+            ff = moe_ff_gather(self.moe, h, expert_axis, capacity_factor=moe_capacity)
+        else:
+            ff = moe_ff(self.moe, h, expert_axis)
+        return x + g2[:, None, :] * ff
 
     def temporal(self, x: torch.Tensor, c_emb: torch.Tensor, heads: int, batch: int,
                  frames: int) -> torch.Tensor:
@@ -181,9 +211,6 @@ class DiTVideo(nn.Module):
 
     def __init__(self, config: DiTVideoConfig, device: str | torch.device | None = None):
         super().__init__()
-        if config.num_experts:
-            raise NotImplementedError("MoE feed-forwards (num_experts > 0, ops/moe.py) are not "
-                                      "ported yet (ROADMAP A15)")
         self.config = cfg = config
         kw = dict(device=resolve_device(device), dtype=cfg.dtype)
         d = cfg.hidden_size
@@ -191,8 +218,16 @@ class DiTVideo(nn.Module):
         self.patch_embed = Linear(cfg.in_channels * p2, d, **kw)
         self.t_embed = TimestepEmbedding(256, d, **kw)
         joint = cfg.attention_mode == "joint3d"
-        self.blocks = nn.ModuleList(
-            [DiTBlock(cfg, cross=joint or i % 2 == 0, **kw) for i in range(cfg.depth)])
+        blocks, eligible = [], 0
+        for i in range(cfg.depth):
+            # The MoE phase counts ELIGIBLE blocks (factorized: the spatial
+            # ones), as the reference's init does.
+            moe = False
+            if cfg.num_experts > 0 and (joint or i % 2 == 0):
+                moe = eligible % cfg.moe_every == cfg.moe_every - 1
+                eligible += 1
+            blocks.append(DiTBlock(cfg, cross=joint or i % 2 == 0, moe=moe, **kw))
+        self.blocks = nn.ModuleList(blocks)
         self.final_norm = Norm(d, **kw)
         self.final_ada = _Ada(d, 2 * d, 0.0, **kw)
         self.final_proj = Linear(d, cfg.out_channels * p2, **kw)
@@ -213,18 +248,17 @@ class DiTVideo(nn.Module):
         return self.final_proj(_modulate(layer_norm(x, self.final_norm), shift, scale))
 
     def forward(self, latent: torch.Tensor, timestep, context: torch.Tensor | None = None,
-                seq_axis: Axis | None = None, expert_axis: str | None = None,
-                moe_dispatch: str = "dense") -> torch.Tensor:
+                seq_axis: Axis | None = None, expert_axis: Axis | None = None,
+                moe_dispatch: str = "dense", moe_capacity: float = 2.0) -> torch.Tensor:
         """latent ``(B, F, H, W, C)`` -> ``(B, F, H, W, C_out)``; context:
         optional ``(B, M, cross_dim)`` conditioning tokens.
 
         ``seq_axis``: the tokens are split over that axis after the patch
         embedding (factorized: each frame's tokens; joint3d: all F * N) and
         gathered whole before the unpatchify, so every rank of the axis
-        returns the whole output. The token count must divide by its size."""
-        if expert_axis is not None or moe_dispatch != "dense":
-            raise NotImplementedError("expert parallelism and MoE dispatch are not ported yet "
-                                      "(ROADMAP A15)")
+        returns the whole output. The token count must divide by its size.
+        ``expert_axis``, ``moe_dispatch`` and ``moe_capacity`` go to the MoE
+        blocks (:meth:`DiTBlock.forward`)."""
         cfg = self.config
         b, f, hh, ww, cch = latent.shape
         p = cfg.patch_size
@@ -232,7 +266,7 @@ class DiTVideo(nn.Module):
         n = gh * gw
         d = cfg.hidden_size
         heads = cfg.num_heads
-        dev = self.patch_embed.weight.device
+        dev = self.final_norm.weight.device  # a norm: never held in int8
 
         x = latent.to(dev, cfg.dtype).reshape(b * f, gh, p, gw, p, cch)
         x = self.patch_embed(x.permute(0, 1, 3, 2, 4, 5).reshape(b * f, n, p * p * cch))
@@ -243,13 +277,14 @@ class DiTVideo(nn.Module):
         t = torch.as_tensor(timestep, dtype=torch.float32, device=dev).reshape(-1).expand(b)
         c_emb = self.t_embed(sinusoidal_embedding(t, 256).to(cfg.dtype))  # (B, D)
         ctx = None if context is None else context.to(dev, cfg.dtype)
+        moe = dict(expert_axis=expert_axis, moe_dispatch=moe_dispatch, moe_capacity=moe_capacity)
 
         if cfg.attention_mode == "joint3d":
             # One set of F * N tokens, the temporal position added up front.
             x = (x.reshape(b, f, n, d) + pos_t[None, :, None, :].to(x.dtype)).reshape(b, f * n, d)
             x = _shard_tokens(x, seq_axis)
             for blk in self.blocks:
-                x = blk(x, c_emb, ctx, heads, seq_axis)
+                x = blk(x, c_emb, ctx, heads, seq_axis, **moe)
             # The head in the (B, L, D) layout (the modulation is per batch
             # element), then the tokens gathered whole.
             x = _gather_tokens(self._final_head(x, c_emb), seq_axis).reshape(b * f, n, -1)
@@ -259,7 +294,7 @@ class DiTVideo(nn.Module):
             ctx_f = None if ctx is None else ctx.repeat_interleave(f, dim=0)
             for i, blk in enumerate(self.blocks):
                 if i % 2 == 0:
-                    x = blk(x, c_f, ctx_f, heads, seq_axis)
+                    x = blk(x, c_f, ctx_f, heads, seq_axis, **moe)
                 else:
                     if i == 1:  # the temporal position, before the first temporal block
                         nl = x.shape[1]  # this rank's tokens a frame
@@ -303,7 +338,9 @@ class DiTVideoWrapper:
     fp32 with per-frame ``guidance``; the uncond branch gets zeros, or the
     negative prompt's tokens when ``context`` is a ``(neg_ctx, pos_ctx)``
     tuple. ``seq_axis`` splits every forward's tokens over that axis,
-    ``cfg_axis`` (a size-2 axis) runs one branch a rank.
+    ``cfg_axis`` (a size-2 axis) runs one branch a rank, ``expert_axis``
+    splits the MoE experts. ``VDPP_MOE_DISPATCH`` and ``VDPP_MOE_CAPACITY``
+    are read here, once (build a new wrapper to change them).
     """
 
     def __init__(
@@ -329,6 +366,8 @@ class DiTVideoWrapper:
         self.noise_source = noise_source
         self.config = config or DiTVideoConfig.latte_xl()
         self.device = resolve_device(device)
+        self.moe_dispatch = os.environ.get("VDPP_MOE_DISPATCH", "dense")
+        self.moe_capacity = float(os.environ.get("VDPP_MOE_CAPACITY", "2.0"))
         if solver == "flowmatch":
             self.schedule: EulerKarrasSchedule | FlowMatchSchedule = (
                 FlowMatchSchedule.create(num_steps, shift=flow_shift))
@@ -360,15 +399,16 @@ class DiTVideoWrapper:
         return DiTVideo(self.config, device=self.device).init_weights(generator)
 
     def _eps(self, params: DiTVideo, scaled: torch.Tensor, timestep, context, neg_context,
-             guidance, seq_axis: Axis | None = None,
-             cfg_axis: Axis | None = None) -> torch.Tensor:
+             guidance, seq_axis: Axis | None = None, cfg_axis: Axis | None = None,
+             expert_axis: Axis | None = None) -> torch.Tensor:
         """The model output at one point, CFG-blended in fp32 when guided.
 
         ``cfg_axis``: rank 0 of the axis runs the uncond branch, rank 1 the
         cond one, and one swap gives each the other's output, so both blend
         the two outputs that sequential CFG computes."""
         def fwd(ctx):
-            return params(scaled, timestep, ctx, seq_axis=seq_axis)
+            return params(scaled, timestep, ctx, seq_axis=seq_axis, expert_axis=expert_axis,
+                          moe_dispatch=self.moe_dispatch, moe_capacity=self.moe_capacity)
 
         if guidance is None or context is None:
             return fwd(context)
@@ -390,11 +430,11 @@ class DiTVideoWrapper:
 
     def step(self, params: DiTVideo, latent: torch.Tensor, step_idx: int, context=None,
              guidance: torch.Tensor | None = None, seq_axis: Axis | None = None,
-             cfg_axis: Axis | None = None) -> torch.Tensor:
+             cfg_axis: Axis | None = None, expert_axis: Axis | None = None) -> torch.Tensor:
         """One denoising step; ``context`` may be a ``(neg_ctx, pos_ctx)``
         tuple for negative-prompt CFG. The axes go to every model call
         (heun's two included)."""
-        axes = dict(seq_axis=seq_axis, cfg_axis=cfg_axis)
+        axes = dict(seq_axis=seq_axis, cfg_axis=cfg_axis, expert_axis=expert_axis)
         neg_context = None
         if isinstance(context, tuple):
             neg_context, context = context
@@ -428,19 +468,19 @@ class DiTVideoWrapper:
         return euler_step_v_prediction(lat32, eps, sigma, sigma_next, latent.dtype)
 
     def pipeline_step_fn(self, seq_axis: Axis | None = None, cfg_axis: Axis | None = None,
-                         expert_axis: str | None = None, frame_axis: Axis | None = None):
+                         expert_axis: Axis | None = None, frame_axis: Axis | None = None):
         """``step_fn(bundle, latent, step)`` with ``bundle = (dit, context,
         guidance)``, over the given intra-sample axes (``Stage.axes``: a
-        rank's axes on a (stage, seq, cfg) mesh). The DiT has no frame axis."""
-        if expert_axis is not None:
-            raise NotImplementedError("the DiT's expert parallelism is not ported yet "
-                                      "(ROADMAP A15)")
+        rank's axes on a (stage, seq, cfg, expert) mesh; with an expert axis
+        the DiT must hold this rank's experts, which ``StepPipeline(
+        param_spec=ops.moe.expert_layout)`` leaves it). The DiT has no frame
+        axis."""
         if frame_axis is not None:
             raise ValueError("the DiT has no frame axis (--frame-parallel needs an svd model)")
 
         def step_fn(bundle, latent: torch.Tensor, step_idx: int) -> torch.Tensor:
             params, context, guidance = bundle
             return self.step(params, latent, step_idx, context, guidance, seq_axis=seq_axis,
-                             cfg_axis=cfg_axis)
+                             cfg_axis=cfg_axis, expert_axis=expert_axis)
 
         return step_fn

@@ -1,7 +1,7 @@
 """Spatio-temporal conditioned video UNet (SVD architecture) in PyTorch.
 
 Port of ``vdpp_tpu/models/svd_unet.py`` (``SVDUNet.apply``, ``apply_cached`` and their blocks,
-with the sequence and frame sharding, without the int8 arguments). Modules carry the
+with the sequence and frame sharding and the int8 weights). Modules carry the
 diffusers ``UNetSpatioTemporalConditionModel`` parameter names, so
 ``state_dict()`` has exactly the keys of a diffusers checkpoint (1428 at
 SVD-XT). Activations stay channels-last as in the reference:
@@ -18,7 +18,9 @@ are averaged across the shards, spatial self-attention gathers K/V); under
 ``frame_axis`` the frame axis is split (temporal convs exchange an edge
 frame, temporal attention gathers K/V over frames, the temporal GroupNorm
 statistics are averaged); the two compose. The latent enters whole on every
-rank and the output is gathered whole again.
+rank and the output is gathered whole again. Under W8A8 (``ops/quant.py``)
+every spatial conv takes its activation scale over both axes (``amax_axes``),
+so a split conv quantizes as the unsplit one does.
 """
 
 from __future__ import annotations
@@ -114,13 +116,14 @@ def cache_feature_shape(cfg: SVDUNetConfig, batch: int, frames: int, height: int
     return (batch, frames, height // r, width // r, cfg.block_out_channels[split])
 
 
-def _conv3(x: torch.Tensor, conv: Conv2d, seq: Axis | None, stride: int = 1) -> torch.Tensor:
+def _conv3(x: torch.Tensor, conv: Conv2d, seq: Axis | None, stride: int = 1,
+           amax_axes: tuple[Axis, ...] = ()) -> torch.Tensor:
     """A 3x3 site of the UNet (one pixel of zero padding on each side, the
     downsample's stride 2 included): ``conv2d``, or its halo form under a W
-    split."""
+    split; ``amax_axes``: every axis that splits ``x`` (W8A8 only)."""
     if seq is not None:
-        return conv2d_halo(x, conv, seq, stride=stride)
-    return conv2d(x, conv, stride=stride, padding=((1, 1), (1, 1)))
+        return conv2d_halo(x, conv, seq, stride=stride, amax_axes=amax_axes)
+    return conv2d(x, conv, stride=stride, padding=((1, 1), (1, 1)), amax_axes=amax_axes)
 
 
 @dataclass(frozen=True)
@@ -131,6 +134,11 @@ class _Shards:
     seq: Axis | None = None
     frame: Axis | None = None
     frame_offset: int = 0
+
+    @property
+    def amax_axes(self) -> tuple[Axis, ...]:
+        """The axes that split a spatial tensor's elements."""
+        return tuple(a for a in (self.seq, self.frame) if a is not None)
 
 
 class AlphaBlender(nn.Module):
@@ -164,21 +172,24 @@ class SpatialResnet(nn.Module):
         self.conv2 = Conv2d(out_ch, out_ch, 3, **kw)
         self.conv_shortcut = Conv2d(in_ch, out_ch, 1, **kw) if in_ch != out_ch else None
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor,
-                seq: Axis | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, seq: Axis | None = None,
+                amax_axes: tuple[Axis, ...] = ()) -> torch.Tensor:
         """x: (BF, H, W, C), emb: (BF, time_embed_dim). Under ``seq`` (W
         split) the 3x3 convs exchange halos and the GroupNorm statistics are
-        averaged across the shards; the 1x1 shortcut stays local."""
+        averaged across the shards; the 1x1 shortcut stays local.
+        ``amax_axes``: every axis that splits ``x`` (seq and frame), for the
+        W8A8 convs' activation scale."""
         cfg = self.cfg
         h = group_norm_silu(x, self.norm1, cfg.norm_num_groups, cfg.resnet_eps,
                             fused=cfg.fused_groupnorm, psum_axis=seq)
-        h = _conv3(h, self.conv1, seq)
+        h = _conv3(h, self.conv1, seq, amax_axes=amax_axes)
         temb = self.time_emb_proj(F.silu(emb.float()).to(emb.dtype))
         h = h + temb[:, None, None, :]
         h = group_norm_silu(h, self.norm2, cfg.norm_num_groups, cfg.resnet_eps,
                             fused=cfg.fused_groupnorm, psum_axis=seq)
-        h = _conv3(h, self.conv2, seq)
-        shortcut = x if self.conv_shortcut is None else conv2d(x, self.conv_shortcut)
+        h = _conv3(h, self.conv2, seq, amax_axes=amax_axes)
+        shortcut = (x if self.conv_shortcut is None
+                    else conv2d(x, self.conv_shortcut, amax_axes=amax_axes))
         return shortcut + h
 
 
@@ -231,7 +242,7 @@ class STResBlock(nn.Module):
         """x: (B*F, H, W, C) -> same; ``frames`` is the local count under
         ``frame``."""
         bf, hh, ww, _ = x.shape
-        hs = self.spatial_res_block(x, emb, seq)
+        hs = self.spatial_res_block(x, emb, seq, _Shards(seq, frame).amax_axes)
         if os.environ.get("VDPP_ABLATE_TEMPORAL_RESNET") == "1":  # profiling only
             return hs
         c = hs.shape[-1]
@@ -477,7 +488,8 @@ class SVDUNet(nn.Module):
                                             sh.frame_offset)
                 res_stack.append(x)
             if hasattr(block, "downsamplers") and (i < n - 1 or run_last_downsample):
-                x = _conv3(x, block.downsamplers[0].conv, sh.seq, stride=2)
+                x = _conv3(x, block.downsamplers[0].conv, sh.seq, stride=2,
+                           amax_axes=sh.amax_axes)
                 res_stack.append(x)
         return x, res_stack
 
@@ -505,14 +517,15 @@ class SVDUNet(nn.Module):
                     x = block.attentions[j](x, ctx_f, rev_heads[i], b, f, sh.seq, sh.frame,
                                             sh.frame_offset)
             if hasattr(block, "upsamplers"):
-                x = _conv3(upsample_nearest_2x(x), block.upsamplers[0].conv, sh.seq)
+                x = _conv3(upsample_nearest_2x(x), block.upsamplers[0].conv, sh.seq,
+                           amax_axes=sh.amax_axes)
         return x
 
     def _head(self, x: torch.Tensor, sh: _Shards = _Shards()) -> torch.Tensor:
         cfg = self.config
         x = group_norm_silu(x, self.conv_norm_out, cfg.norm_num_groups, cfg.out_norm_eps,
                             fused=cfg.fused_groupnorm, psum_axis=sh.seq)
-        return _conv3(x, self.conv_out, sh.seq)
+        return _conv3(x, self.conv_out, sh.seq, amax_axes=sh.amax_axes)
 
     def _shard(self, sample: torch.Tensor, seq_axis: Axis | None, frame_axis: Axis | None,
                cache: torch.Tensor | None = None, split: int = 1):
@@ -589,7 +602,8 @@ class SVDUNet(nn.Module):
         b, f, hh, ww, _ = sample.shape
         x, sh, fl, _ = self._shard(sample, seq_axis, frame_axis)
         emb_f, ctx_f = self._embeddings(timestep, added_time_ids, encoder_hidden_states, b, fl)
-        x, res_stack = self._down_path(_conv3(x, self.conv_in, sh.seq), emb_f, ctx_f, b, fl, sh)
+        x = _conv3(x, self.conv_in, sh.seq, amax_axes=sh.amax_axes)
+        x, res_stack = self._down_path(x, emb_f, ctx_f, b, fl, sh)
         x = self._mid(x, emb_f, ctx_f, b, fl, sh)
         x = self._up_path(x, res_stack, emb_f, ctx_f, b, fl, sh)
         x = self._head(x, sh)
@@ -639,7 +653,7 @@ class SVDUNet(nn.Module):
         x, sh, fl, cache = self._shard(sample, seq_axis, frame_axis, cache, split)
         want_local = (b, fl, *cache.shape[2:])
         emb_f, ctx_f = self._embeddings(timestep, added_time_ids, encoder_hidden_states, b, fl)
-        x = _conv3(x, self.conv_in, sh.seq)
+        x = _conv3(x, self.conv_in, sh.seq, amax_axes=sh.amax_axes)
         if use_full:
             x, res_stack = self._down_path(x, emb_f, ctx_f, b, fl, sh)
             x = self._mid(x, emb_f, ctx_f, b, fl, sh)

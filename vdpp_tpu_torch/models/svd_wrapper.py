@@ -441,7 +441,7 @@ class StableVideoUNet:
                          dim=-1)
 
     def pipeline_step_fn(self, cfg_axis: Axis | None = None, seq_axis: Axis | None = None,
-                         frame_axis: Axis | None = None):
+                         frame_axis: Axis | None = None, expert_axis: Axis | None = None):
         """``step_fn(bundle, latent, step)`` with ``bundle = (unet, cond)``,
         over the given intra-sample axes (``Stage.axes``: a rank's axes on a
         (stage, seq, frame, cfg) mesh).
@@ -451,7 +451,11 @@ class StableVideoUNet:
         cadence and the schedule's padding (``collective_uniform_interval``,
         ``collective_uniform_pad``), and ``StepPipeline`` refuses, as the
         reference does, a split where the stages would not take the same
-        branch at the same tick."""
+        branch at the same tick. The UNet has no experts: an expert axis is
+        refused."""
+        if expert_axis is not None:
+            raise ValueError("the SVD UNet has no experts (--expert-parallel needs an MoE "
+                             "model)")
 
         def step_fn(bundle, latent: torch.Tensor, step_idx: int) -> torch.Tensor:
             params, cond = bundle

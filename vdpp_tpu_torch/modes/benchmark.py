@@ -40,15 +40,22 @@ weights were loaded (``utils/memory.py``); on the CPU 0.0 with the source
 ``"unavailable"``. ``--profile-dir`` writes each rank's ``torch.profiler``
 trace of its warm-up and measured runs, closed before the JSON line.
 
-``--seq-parallel N``, ``--frame-parallel N`` and ``--cfg-parallel`` make each
-stage a block of ranks on those axes (``make_axes_mesh``; an svd model's
-step splits its forwards over them, a DiT's over seq and cfg, as it has no
-frame axis), and the mode string grows ``_x_spN``, ``_x_fpN`` and
-``_x_cfg`` as in the JAX package.
+``--seq-parallel N``, ``--frame-parallel N``, ``--cfg-parallel`` and
+``--expert-parallel N`` make each stage a block of ranks on those axes
+(``make_axes_mesh``, expert innermost; an svd model's step splits its
+forwards over seq, frame and cfg, a DiT's over seq and cfg, and the MoE
+DiT ``dit3d_moe_tiny`` splits its experts over the expert axis: each rank
+keeps its share, ``StepPipeline(param_spec=ops.moe.expert_layout)``, before
+its modules reach the card), and the mode string grows ``_x_spN``,
+``_x_fpN``, ``_x_cfg`` and ``_x_epN`` as in the JAX package;
+``world_size`` counts the stages.
 
-Flags that are not ported raise, naming their ROADMAP item:
-``--weights-int8`` and ``--weights-w8a8`` (A14), ``dit3d_moe_tiny`` and
-``--expert-parallel`` (A15).
+``--weights-int8`` holds the svd and dit models' weights in int8
+(``ops/quant.py``, per-output-channel scales); ``--weights-w8a8`` also marks
+the big linear and spatial-conv weights for int8 activations and the int8
+product. The weights are quantized here, after they are drawn (the log
+says ``X -> Y MB of parameters``), and the ranks build their modules in the
+int8 form, so no rank holds the float copy.
 """
 
 from __future__ import annotations
@@ -67,6 +74,8 @@ from collections.abc import Callable
 import torch
 from torch import nn
 
+from vdpp_tpu_torch.ops.moe import expert_layout
+from vdpp_tpu_torch.ops.quant import load_int8_forms, quantize_model
 from vdpp_tpu_torch.parallel.data_parallel import FSDPRunner
 from vdpp_tpu_torch.parallel.mesh import (
     Stage,
@@ -82,6 +91,7 @@ from vdpp_tpu_torch.utils.device import resolve_device
 from vdpp_tpu_torch.utils.logging import setup_logging, stage_logger
 from vdpp_tpu_torch.utils.memory import (
     bundle_modules,
+    params_bytes_per_device,
     peak_memory_gb,
     peak_memory_source,
     reset_peak_memory,
@@ -118,16 +128,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frame-parallel", type=int, default=1,
                    help="frame-axis sharding width per stage (svd models)")
     p.add_argument("--expert-parallel", type=int, default=1,
-                   help="expert-axis width per stage (not ported: ROADMAP A15)")
+                   help="expert-axis width per stage (MoE dit models): the expert stacks "
+                        "split over an expert axis (ops/moe.py)")
     p.add_argument("--deepcache", type=int, default=0, metavar="N",
                    help="svd models: full UNet every N steps, shallow levels only in "
                         "between (0 = off; changes outputs)")
     p.add_argument("--deepcache-split", type=int, default=1,
                    help="shallow levels the cache steps still compute")
     p.add_argument("--weights-int8", action="store_true",
-                   help="weight-only int8 (not ported: ROADMAP A14)")
+                   help="weight-only int8 quantization (halves parameter bytes; ops/quant.py)")
     p.add_argument("--weights-w8a8", action="store_true",
-                   help="int8 weights and activations (not ported: ROADMAP A14)")
+                   help="W8A8: int8 weights plus int8 activations and the int8 product at "
+                        "the big linear and spatial-conv sites (changes numerics)")
     p.add_argument("--fused", action="store_true",
                    help="time StepPipeline.run (no per-tick barrier; derived per-sample times)")
     add_device_args(p)
@@ -158,7 +170,9 @@ def _cpu_state(module: nn.Module) -> dict[str, torch.Tensor]:
 
 
 def _loaded(module: nn.Module, state: dict) -> nn.Module:
-    """``module`` (built on the meta device) holding ``state``'s tensors."""
+    """``module`` (built on the meta device) holding ``state``'s tensors, in
+    the int8 form where ``state`` holds one."""
+    load_int8_forms(module, state)
     module.load_state_dict(state, assign=True)
     return module
 
@@ -186,7 +200,7 @@ def _svd_build(config, wrapper_kw: dict, cond, state: dict, device: torch.device
 
 def _dit_build(config, total_steps: int, context, guidance, state: dict,
                device: torch.device, axes: dict | None = None):
-    """``axes``: a rank's ``Stage.axes`` (its seq and cfg axes)."""
+    """``axes``: a rank's ``Stage.axes`` (its seq, cfg and expert axes)."""
     from vdpp_tpu_torch.models.dit import DiTVideo, DiTVideoWrapper
 
     wrapper = DiTVideoWrapper(config, num_steps=total_steps, device=device)
@@ -209,11 +223,27 @@ class Model:
     name: str
 
 
+def _state(module: nn.Module, args: argparse.Namespace) -> dict[str, torch.Tensor]:
+    """The CPU state dict of ``module`` (weights drawn), quantized first under
+    ``--weights-int8`` / ``--weights-w8a8`` (on the module's device), as the
+    JAX package quantizes after its build, with its log line."""
+    # (getattr: benchmark_data_parallel builds its models here, without these flags)
+    w8a8 = getattr(args, "weights_w8a8", False)
+    if getattr(args, "weights_int8", False) or w8a8:
+        before = params_bytes_per_device(module)
+        quantize_model(module, act_int8=w8a8)
+        LOGGER.info("int8 weights%s: %.1f -> %.1f MB of parameters",
+                    " + a8 activations" if w8a8 else "", before / 2**20,
+                    params_bytes_per_device(module) / 2**20)
+    return _cpu_state(module)
+
+
 def build_model(args: argparse.Namespace, device: torch.device) -> Model:
     """The model of ``args.model``, its weights drawn on ``device`` from
-    ``args.seed`` and its conditioning from ``args.seed + 1``, with the JAX
-    package's latent conventions: the dummy's ``(B, C, F, H, W)``, the
-    others' channels-last ``(B, F, H, W, C)``."""
+    ``args.seed`` (and quantized under the int8 flags) and its conditioning
+    from ``args.seed + 1``, with the JAX package's latent conventions: the
+    dummy's ``(B, C, F, H, W)``, the others' channels-last ``(B, F, H, W,
+    C)``."""
     b, c, f, h, w = args.latent_shape
     if args.model == "dummy":
         from vdpp_tpu_torch.models.dummy_unet import DummyUNet
@@ -230,9 +260,10 @@ def build_model(args: argparse.Namespace, device: torch.device) -> Model:
 
         config = {"dit_tiny": DiTVideoConfig.tiny, "dit": DiTVideoConfig.latte_xl,
                   "dit3d_tiny": DiTVideoConfig.joint3d_tiny,
-                  "dit3d": DiTVideoConfig.joint3d_xl}[args.model]()
-        state = _cpu_state(DiTVideo(config, device=device).init_weights(
-            _generator(device, args.seed)))
+                  "dit3d": DiTVideoConfig.joint3d_xl,
+                  "dit3d_moe_tiny": DiTVideoConfig.moe_tiny}[args.model]()
+        state = _state(DiTVideo(config, device=device).init_weights(
+            _generator(device, args.seed)), args)
         ctx = torch.randn(b, 2, config.cross_attention_dim, device=device,
                           generator=_generator(device, args.seed + 1)).cpu()
         build = functools.partial(_dit_build, config, args.total_steps, ctx,
@@ -245,8 +276,8 @@ def build_model(args: argparse.Namespace, device: torch.device) -> Model:
     config = SVDUNetConfig.tiny() if args.model == "svd_tiny" else SVDUNetConfig.svd_xt()
     wrapper_kw = dict(num_steps=args.total_steps, deepcache_interval=args.deepcache,
                       deepcache_split=args.deepcache_split)
-    state = _cpu_state(SVDUNet(config, device=device).init_weights(
-        _generator(device, args.seed)))
+    state = _state(SVDUNet(config, device=device).init_weights(
+        _generator(device, args.seed)), args)
     if device.type == "cuda":
         torch.cuda.empty_cache()
     cond = _cond_to(make_dummy_conditioning(_generator(device, args.seed + 1), b, f, h, w,
@@ -305,9 +336,8 @@ def _cond_to(cond, device):
 
 
 def check_flags(args: argparse.Namespace) -> None:
-    """The JAX package's argument checks, with its messages, then the flags
-    that are not ported: each raises naming its ROADMAP item, before any
-    rank starts."""
+    """The JAX package's argument checks, with its messages, before any rank
+    starts."""
     sp, fp, ep = args.seq_parallel, args.frame_parallel, args.expert_parallel
     f = args.latent_shape[2]
     if args.deepcache and args.model not in ("svd_tiny", "svd"):
@@ -333,12 +363,6 @@ def check_flags(args: argparse.Namespace) -> None:
     if not args.fsdp and args.data_parallel_size > 1 and multi_axis:
         raise SystemExit("--data-parallel-size composes with the stage axis only; drop "
                          "--seq-parallel/--frame-parallel/--cfg-parallel/--expert-parallel")
-    if args.model == "dit3d_moe_tiny" or ep > 1:
-        raise NotImplementedError("the MoE DiT and --expert-parallel come with expert "
-                                  "parallelism (ROADMAP A15)")
-    if args.weights_int8 or args.weights_w8a8:
-        raise NotImplementedError("--weights-int8 and --weights-w8a8 come with int8 "
-                                  "quantization (ROADMAP A14)")
     if sp > 1 and args.model.startswith("svd"):
         from vdpp_tpu_torch.models.svd_unet import SVDUNetConfig
 
@@ -353,13 +377,13 @@ def check_flags(args: argparse.Namespace) -> None:
 def inner_axes(args: argparse.Namespace) -> dict[str, int]:
     """The intra-sample axes of the flags, sizes above 1 only."""
     axes = {"seq": args.seq_parallel, "frame": args.frame_parallel,
-            "cfg": 2 if args.cfg_parallel else 1}
+            "cfg": 2 if args.cfg_parallel else 1, "expert": args.expert_parallel}
     return {k: n for k, n in axes.items() if n > 1}
 
 
 def _mesh(args: argparse.Namespace):
     """The mesh of the mode: a data mesh for FSDP, (stage, data) for
-    ``--data-parallel-size`` > 1, (stage, seq, frame, cfg) with an
+    ``--data-parallel-size`` > 1, (stage, seq, frame, cfg, expert) with an
     intra-sample axis, else the stage axis. A bad split or an indivisible
     sample count raises here, before any rank starts."""
     dp, total_n = args.data_parallel_size, args.num_samples + args.warmup_samples
@@ -459,14 +483,12 @@ def timed(stage: Stage, fn) -> float:
     return time.perf_counter() - t0
 
 
-def _ticked(stage: Stage, job: Job, step_fn, params) -> dict:
-    pipe = StepPipeline(stage, step_fn, PipelineConfig(job.total_steps, stage.num_stages))
+def _ticked(stage: Stage, job: Job, pipe: StepPipeline, params) -> dict:
     res = pipe.run_ticked(params, job.inputs)
     return {} if res is None else {"ticks": res[1]}
 
 
-def _fused(stage: Stage, job: Job, step_fn, params) -> dict:
-    pipe = StepPipeline(stage, step_fn, PipelineConfig(job.total_steps, stage.num_stages))
+def _fused(stage: Stage, job: Job, pipe: StepPipeline, params) -> dict:
     dp = stage.mesh.num_data
     pipe.run(params, job.inputs[:dp])  # warm-up: one sample a column, then all
     pipe.run(params, job.inputs)
@@ -488,30 +510,33 @@ def _fsdp(stage: Stage, job: Job, step_fn, params, runner: FSDPRunner) -> dict:
 
 
 def rank_main(stage: Stage, job: Job) -> dict:
-    """One rank: build the model from the state dict, place or shard it,
-    reset the card's peak, run the mode (traced with ``profile_dir``), and
-    return its timings and peak GB."""
+    """One rank: build the model from the state dict, lay it out (its
+    experts on an expert axis) and place it, or shard it (FSDP), reset the
+    card's peak, run the mode (traced with ``profile_dir``), and return its
+    timings and peak GB."""
     if stage.mesh.world_size > 1:  # a spawned rank starts with no logging set up
         setup_logging(job.log_level)
     log = stage_logger(LOGGER.name, stage.rank)
     axes = {"axes": stage.axes} if stage.mesh.inner > 1 else {}
     step_fn, params = job.build(rank_state(job.state), stage.device, **axes)
-    runner = None
+    runner = pipe = None
     if job.mode == "fsdp":
         runner = FSDPRunner(stage, step_fn, job.total_steps)
         runner.shard_params(params)
     else:
-        place(params, stage.device)
+        pipe = StepPipeline(stage, step_fn, PipelineConfig(job.total_steps, stage.num_stages),
+                            param_spec=expert_layout if stage.expert is not None else None)
+        place(pipe.layout(params), stage.device)
     reset_peak_memory(stage.device)
-    log.info("%s on %s, stage %d of column %d", job.mode, stage.device, stage.index,
-             stage.column)
+    log.info("%s on %s, stage %d of column %d, %.1f MB of parameters", job.mode, stage.device,
+             stage.index, stage.column, params_bytes_per_device(params) / 2**20)
     trace = (device_trace(job.profile_dir, stage.rank, stage.device) if job.profile_dir
              else contextlib.nullcontext())
     with trace:
         if runner is not None:
             out = _fsdp(stage, job, step_fn, params, runner)
         else:
-            out = (_fused if job.mode == "fused" else _ticked)(stage, job, step_fn, params)
+            out = (_fused if job.mode == "fused" else _ticked)(stage, job, pipe, params)
     return {"peak_gb": peak_memory_gb(stage.device), **out}
 
 
@@ -562,7 +587,8 @@ def main(argv: list[str] | None = None) -> int:
         mode_name = "pipeline" if dp == 1 else "pipeline_x_dp"
         inner = inner_axes(args)
         mode_name += "".join(f"_x_{tag}{inner[k] if k != 'cfg' else ''}"
-                             for k, tag in (("seq", "sp"), ("frame", "fp"), ("cfg", "cfg"))
+                             for k, tag in (("seq", "sp"), ("frame", "fp"), ("cfg", "cfg"),
+                                            ("expert", "ep"))
                              if k in inner)
         if mode == "fused":
             first, steady, throughput, per_sample_ms = fused_accounting(

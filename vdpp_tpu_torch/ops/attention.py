@@ -32,7 +32,8 @@ The reference's routing switches, each read at call time as there:
   attention core (profiling only);
 * ``VDPP_FLASH_MIN_L``: the length from which self-attention takes that route;
 * ``VDPP_FUSE_QKV=1``: self-attention's three projections as one product
-  with the concatenated weight (the same contractions);
+  with the concatenated weight (the same contractions), unless one of them
+  is held in int8 (each keeps its own scales), as in the reference;
 * ``VDPP_TEMPORAL_ATTN``: ``vpu`` (default), ``pallas``, ``transpose`` or
   ``einsum``, the reference's four forms of frame attention;
 * ``VDPP_ABLATE_TEMPORAL_ATTN=1``: the temporal block's attention core
@@ -52,6 +53,7 @@ from torch import nn
 
 from vdpp_tpu_torch.ops.flash_attention import flash_attention
 from vdpp_tpu_torch.ops.linear import Linear, linear
+from vdpp_tpu_torch.ops.quant import is_quantized
 from vdpp_tpu_torch.ops.temporal_attention_kernel import frame_attention
 from vdpp_tpu_torch.parallel.collectives import Axis, all_gather
 
@@ -90,9 +92,12 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
 def _self_qkv(x: torch.Tensor, p: Attention) -> tuple[torch.Tensor, ...]:
     """``(q, k, v)`` of self-attention over ``x``: under ``VDPP_FUSE_QKV=1``
     from one product with the three weights (and biases) concatenated, as
-    the reference's ``_qkv_fused``, when all three have a bias or none has."""
-    biases = {proj.bias is None for proj in (p.to_q, p.to_k, p.to_v)}
-    if os.environ.get("VDPP_FUSE_QKV", "0") == "1" and len(biases) == 1:
+    the reference's ``_qkv_fused``, when all three have a bias or none has
+    and none is held in int8."""
+    projs = (p.to_q, p.to_k, p.to_v)
+    biases = {proj.bias is None for proj in projs}
+    if (os.environ.get("VDPP_FUSE_QKV", "0") == "1" and len(biases) == 1
+            and not any(is_quantized(proj) for proj in projs)):
         w = torch.cat([p.to_q.weight, p.to_k.weight, p.to_v.weight])
         b = None if p.to_q.bias is None else torch.cat([p.to_q.bias, p.to_k.bias, p.to_v.bias])
         return linear(x, w, b).chunk(3, dim=-1)

@@ -1,7 +1,9 @@
 """Dense layers and the GEGLU feed-forward (port of ``vdpp_tpu/ops/linear.py``).
 
 Weights keep PyTorch's ``(out, in)`` layout under diffusers names; the
-result is in the input's dtype, with fp32 accumulation.
+result is in the input's dtype, with fp32 accumulation. A weight held in int8
+(``ops/quant.py``) is dequantized as it is read; a W8A8-marked one quantizes
+the activation per row and runs the int8 product (``int8_dot``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vdpp_tpu_torch.ops.quant import int8_dot, int8_tensor, is_a8, weight_for
+
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ weight.T + bias``, result in ``x.dtype``."""
@@ -20,6 +24,8 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
 
 class Linear(nn.Module):
     """``weight (out, in)`` and optional ``bias (out,)``; LeCun-normal init."""
+
+    int8_weights = ("weight",)
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True, *, device=None,
                  dtype=torch.float32):
@@ -38,7 +44,12 @@ class Linear(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(x, self.weight, self.bias)
+        if is_a8(self):
+            y = int8_dot(x, int8_tensor(self), self.weight_scale)
+            if self.bias is not None:
+                y = y + self.bias.float()
+            return y.to(x.dtype)
+        return linear(x, weight_for(self, x.dtype), self.bias)
 
 
 class GEGLUProj(nn.Module):

@@ -1,19 +1,20 @@
 """The collectives of intra-sample parallelism: what ``jax.lax`` gives the
 JAX package's sharded ops (``axis_index``, ``psum(1, axis)``,
-``all_gather(tiled=True)``, ``pmean`` and ``ppermute``), over the process
-subgroups of ``parallel/mesh.py``.
+``all_gather(tiled=True)``, ``pmean``, ``psum``, ``pmax`` and ``ppermute``),
+over the process subgroups of ``parallel/mesh.py``.
 
 An :class:`Axis` is one rank's view of one inner mesh axis (``seq``,
-``frame`` or ``cfg``): its size, this rank's index along it, the global
+``frame``, ``cfg`` or ``expert``): its size, this rank's index along it, the global
 ranks along it in axis order and their process group. The sharded ops take
 it where the JAX package takes an axis name.
 
 Two rules hold for every call:
 
 * the results are the same bits on every rank of the axis and on both
-  backends: a mean gathers the per-shard partial means and sums them in
+  backends: a mean or a sum gathers the per-shard partials and sums them in
   shard order on each rank (a ring all-reduce sums in an order that depends
-  on the rank and the backend);
+  on the rank and the backend), a max takes the largest of the gathered
+  values;
 * under gloo a tensor on a card is staged through host memory on each side
   of the call, as the pipeline's hand-off is (gloo's CUDA collectives are
   limited); under NCCL it goes card to card.
@@ -35,11 +36,11 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-# Calls by kind ("halo", "all_gather", "mean", "swap", "broadcast", "gather")
-# and the bytes of this rank's part in them (a halo's slices sent, a gather's
-# or a mean's shard, a swap's tensor, a broadcast's tensor, what a rank sends
-# to a gather's root or the root receives), since the counters were last
-# cleared.
+# Calls by kind ("halo", "all_gather", "mean", "sum", "max", "swap",
+# "broadcast", "gather") and the bytes of this rank's part in them (a halo's
+# slices sent, a gather's, a mean's, a sum's or a max's shard, a swap's
+# tensor, a broadcast's tensor, what a rank sends to a gather's root or the
+# root receives), since the counters were last cleared.
 counts: Counter[str] = Counter()
 nbytes: Counter[str] = Counter()
 
@@ -93,17 +94,44 @@ def all_gather(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     return torch.cat(_gather_list(x, axis), dim=dim)
 
 
+def _sum(x: torch.Tensor, axis: Axis, kind: str) -> torch.Tensor:
+    """Every rank's ``x`` on ``axis`` gathered and summed in axis order."""
+    _tally(kind, x)
+    parts = _gather_list(x, axis)
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def _each(axes: Axis | Sequence[Axis]) -> Sequence[Axis]:
+    return (axes,) if isinstance(axes, Axis) else axes
+
+
 def pmean(x: torch.Tensor, axes: Axis | Sequence[Axis]) -> torch.Tensor:
     """The mean of ``x`` over the ranks of ``axes`` (one axis or several, in
     turn): each axis's per-rank values gathered and summed in axis order,
     then divided by its size, so every rank holds the same bits."""
-    for axis in (axes,) if isinstance(axes, Axis) else axes:
-        _tally("mean", x)
-        parts = _gather_list(x, axis)
-        acc = parts[0]
-        for p in parts[1:]:
-            acc = acc + p
-        x = acc / axis.size
+    for axis in _each(axes):
+        x = _sum(x, axis, "mean") / axis.size
+    return x
+
+
+def psum(x: torch.Tensor, axes: Axis | Sequence[Axis]) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes`` (one axis or several, in
+    turn), summed in axis order: ``jax.lax.psum``, with the same bits on
+    every rank."""
+    for axis in _each(axes):
+        x = _sum(x, axis, "sum")
+    return x
+
+
+def pmax(x: torch.Tensor, axes: Axis | Sequence[Axis]) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks of ``axes`` (one axis or
+    several, in turn): ``jax.lax.pmax``."""
+    for axis in _each(axes):
+        _tally("max", x)
+        x = torch.stack(_gather_list(x, axis)).amax(dim=0)
     return x
 
 

@@ -2,18 +2,19 @@
 intra-sample axes (the port's counterpart of ``vdpp_tpu/parallel/mesh.py``:
 ``make_pipeline_mesh``, ``make_data_mesh``, ``make_2d_mesh`` and
 ``make_axes_mesh``, which also stands for the reference's ``make_seq_mesh``,
-``make_stage_seq_mesh`` and ``make_cfg_mesh``, and
+``make_stage_seq_mesh``, ``make_cfg_mesh`` and its expert meshes, and
 ``make_pipeline_and_decode_mesh`` for its ``make_pipeline_and_decode_meshes``).
 
 The JAX package runs its modes as one SPMD program over mesh axes
-``"stage"``, ``"data"``, ``"seq"``, ``"frame"`` and ``"cfg"``. The port takes
+``"stage"``, ``"data"``, ``"seq"``, ``"frame"``, ``"cfg"`` and ``"expert"``. The port takes
 the original system's shape instead: one OS process per rank, each holding
 the whole model (or, under FSDP, its shards), all joined by one
 ``torch.distributed`` process group. A mesh says where the ranks run and how
 they talk: S stages, each a group of ranks laid out row-major as the JAX
 package's ``make_axes_mesh`` lays out its devices. A stage is either D data
-columns (rank ``s * D + d``) or a (seq, frame, cfg) block of the intra-sample
-axes (rank ``((s * SEQ + i) * FRAME + j) * CFG + c``); the two do not mix,
+columns (rank ``s * D + d``) or a (seq, frame, cfg, expert) block of the
+intra-sample axes (rank ``(((s * SEQ + i) * FRAME + j) * CFG + c) * EXPERT +
+e``); the two do not mix,
 as in the JAX package. A mesh may reserve D decode ranks after the stage
 ranks (the "stages + decode chips" layout): they take no part in the
 pipeline and decode each finished sample while later samples denoise.
@@ -56,8 +57,9 @@ import torch.distributed as dist
 from vdpp_tpu_torch.parallel.collectives import Axis
 from vdpp_tpu_torch.utils.device import resolve_device
 
-# The intra-sample axes, in the order the ranks of a stage are laid out.
-INNER_AXES = ("seq", "frame", "cfg")
+# The intra-sample axes, in the order the ranks of a stage are laid out (the
+# JAX benchmark's order, expert innermost).
+INNER_AXES = ("seq", "frame", "cfg", "expert")
 
 
 @dataclass(frozen=True)
@@ -66,10 +68,10 @@ class PipelineMesh:
     device and ``backend`` the process group's.
 
     Each stage is a group of ``group_size`` consecutive ranks: ``num_data``
-    data columns, or a ``seq x frame x cfg`` block of the intra-sample axes,
-    row-major, as the JAX package's ``make_axes_mesh(stage=S, seq=..., frame=
-    ..., cfg=...)`` lays out its devices. A pipeline mesh has groups of one,
-    a data mesh one stage."""
+    data columns, or a ``seq x frame x cfg x expert`` block of the
+    intra-sample axes, row-major, as the JAX package's ``make_axes_mesh(
+    stage=S, seq=..., frame=..., cfg=..., expert=...)`` lays out its devices.
+    A pipeline mesh has groups of one, a data mesh one stage."""
 
     devices: tuple[torch.device, ...]
     backend: str
@@ -77,17 +79,18 @@ class PipelineMesh:
     seq: int = 1
     frame: int = 1
     cfg: int = 1
+    expert: int = 1
     decode: int = 0  # reserved decode ranks, after the stage ranks
 
     def __post_init__(self) -> None:
-        if min(self.num_data, self.seq, self.frame, self.cfg) < 1:
+        if min(self.num_data, self.seq, self.frame, self.cfg, self.expert) < 1:
             raise ValueError(f"axis sizes must be >= 1: data {self.num_data}, seq {self.seq}, "
-                             f"frame {self.frame}, cfg {self.cfg}")
+                             f"frame {self.frame}, cfg {self.cfg}, expert {self.expert}")
         if self.cfg not in (1, 2):
             raise ValueError("the cfg axis has exactly 2 branches (uncond, cond)")
         if self.num_data > 1 and self.inner > 1:
             raise ValueError("the data axis composes with the stage axis only, not with the "
-                             "seq, frame or cfg axes")
+                             "seq, frame, cfg or expert axes")
         if self.decode and self.num_data > 1:
             raise ValueError("decode ranks compose with the stage and intra-sample axes, not "
                              "with the data axis")
@@ -107,8 +110,8 @@ class PipelineMesh:
 
     @property
     def inner(self) -> int:
-        """Ranks of a stage's intra-sample block (seq x frame x cfg)."""
-        return self.seq * self.frame * self.cfg
+        """Ranks of a stage's intra-sample block (seq x frame x cfg x expert)."""
+        return self.seq * self.frame * self.cfg * self.expert
 
     @property
     def group_size(self) -> int:
@@ -203,15 +206,16 @@ def make_2d_mesh(num_stages: int, num_data: int, device: str | torch.device | No
 
 
 def make_axes_mesh(stage: int | None = 1, seq: int = 1, frame: int = 1, cfg: int = 1,
-                   device: str | torch.device | None = None,
+                   expert: int = 1, device: str | torch.device | None = None,
                    devices: Sequence[str | torch.device] | None = None) -> PipelineMesh:
-    """The (stage, seq, frame, cfg) mesh: ``stage`` stages, each a block of
-    ``seq x frame x cfg`` ranks laid out row-major (rank ``((s * seq + i) *
-    frame + j) * cfg + c``), on card r or ``devices[r]``. ``stage=None``
+    """The (stage, seq, frame, cfg, expert) mesh: ``stage`` stages, each a
+    block of ``seq x frame x cfg x expert`` ranks laid out row-major (rank
+    ``(((s * seq + i) * frame + j) * cfg + c) * expert + e``), on card r or
+    ``devices[r]``. ``stage=None``
     takes as many stages as the named devices or the visible cards fill (one
     on the CPU). The other arguments and the backend rule are
     :func:`make_pipeline_mesh`'s."""
-    block = seq * frame * cfg
+    block = seq * frame * cfg * expert
     if stage is None:
         if devices is not None:
             stage = len(devices) // block
@@ -220,8 +224,9 @@ def make_axes_mesh(stage: int | None = 1, seq: int = 1, frame: int = 1, cfg: int
         else:
             stage = 1
     if stage < 1 or block < 1:
-        raise ValueError(f"a ({stage}, {seq}, {frame}, {cfg}) mesh")
-    return _mesh(_devices(stage * block, device, devices), seq=seq, frame=frame, cfg=cfg)
+        raise ValueError(f"a ({stage}, {seq}, {frame}, {cfg}, {expert}) mesh")
+    return _mesh(_devices(stage * block, device, devices), seq=seq, frame=frame, cfg=cfg,
+                 expert=expert)
 
 
 def make_pipeline_and_decode_mesh(num_stages: int | None, decode_devices: int,
@@ -260,8 +265,9 @@ class Stage:
     column or its place on each intra-sample axis, its device, and the
     collective calls the pipeline, the runners and the apps make.
 
-    ``seq``, ``frame`` and ``cfg`` are this rank's :class:`~vdpp_tpu_torch.
-    parallel.collectives.Axis` on each inner axis of size > 1, else None.
+    ``seq``, ``frame``, ``cfg`` and ``expert`` are this rank's
+    :class:`~vdpp_tpu_torch.parallel.collectives.Axis` on each inner axis of
+    size > 1, else None.
     Building a Stage on a mesh with inner axes makes one process subgroup
     for every line of ranks along each such axis: every rank of the group
     builds the same Stage, so every rank calls ``new_group`` for every
@@ -277,7 +283,7 @@ class Stage:
         self.mesh = mesh
         self.rank = rank
         self.device = mesh.devices[rank]
-        self.seq = self.frame = self.cfg = None
+        self.seq = self.frame = self.cfg = self.expert = None
         if mesh.inner > 1:
             for name in INNER_AXES:
                 setattr(self, name, self._axis(name))
@@ -331,9 +337,10 @@ class Stage:
 
     @property
     def axes(self) -> dict[str, Axis | None]:
-        """``seq_axis``, ``frame_axis`` and ``cfg_axis`` for a wrapper's
-        ``pipeline_step_fn``."""
-        return {"seq_axis": self.seq, "frame_axis": self.frame, "cfg_axis": self.cfg}
+        """``seq_axis``, ``frame_axis``, ``cfg_axis`` and ``expert_axis``
+        for a wrapper's ``pipeline_step_fn``."""
+        return {"seq_axis": self.seq, "frame_axis": self.frame, "cfg_axis": self.cfg,
+                "expert_axis": self.expert}
 
     @property
     def num_stages(self) -> int:

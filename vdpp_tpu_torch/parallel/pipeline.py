@@ -74,13 +74,20 @@ class StepPipeline:
     samples, and the other stages size their receive buffers from its shape
     and dtype (a solver whose state rides the payload, such as dpmpp2m's 8
     channels, has a payload wider than the latent).
+
+    ``param_spec``: how ``params`` are laid out over the stage's inner axes,
+    where the JAX package takes a ``PartitionSpec`` tree: a function
+    ``(params, stage) -> params`` that leaves this rank its share (for
+    expert parallelism ``ops.moe.expert_layout``, this rank's experts), run
+    by :meth:`layout` before every run. None keeps ``params`` whole on every
+    rank.
     """
 
     def __init__(self, stage: Stage, step_fn: StepFn, config: PipelineConfig,
-                 param_spec=None):
-        if param_spec is not None:
-            raise NotImplementedError("sharded parameters (param_spec) come with expert "
-                                      "parallelism (ROADMAP A15)")
+                 param_spec: Callable[[Any, Stage], Any] | None = None):
+        if param_spec is not None and not callable(param_spec):
+            raise TypeError("param_spec must be a function (params, stage) -> params, such as "
+                            "vdpp_tpu_torch.ops.moe.expert_layout")
         if stage.num_stages != config.num_stages:
             raise ValueError(f"mesh stage axis ({stage.num_stages}) != config.num_stages "
                              f"({config.num_stages})")
@@ -104,6 +111,13 @@ class StepPipeline:
         self.stage = stage
         self.step_fn = step_fn
         self.config = config
+        self.param_spec = param_spec
+
+    def layout(self, params):
+        """``params`` laid out by ``param_spec`` for this rank (in place, so a
+        caller may do it before moving the modules to the card, which then
+        never holds what the rank drops)."""
+        return params if self.param_spec is None else self.param_spec(params, self.stage)
 
     def _tick(self, params, inputs: torch.Tensor, t: int,
               x: torch.Tensor | None) -> tuple[torch.Tensor | None, torch.Tensor | None]:
@@ -132,6 +146,7 @@ class StepPipeline:
         (on their devices) and None on the others. On a (stage, data) mesh each column
         pipelines its block of N / D samples (:meth:`Stage.column_shard`) and
         returns them on its last stage."""
+        params = self.layout(params)
         inputs = self.stage.column_shard(inputs)
         outputs, x = [], None
         with torch.inference_mode():
@@ -187,6 +202,7 @@ class StepPipeline:
                                       "JAX package's run_ticked refuses a data axis")
         if on_tick_every < 1:
             raise ValueError(f"on_tick_every must be >= 1, got {on_tick_every}")
+        params = self.layout(params)
         inputs = self.stage.column_shard(inputs)
         s, S, N = self.stage.index, self.config.num_stages, len(inputs)
         payload = tuple(inputs.shape[1:])

@@ -14,7 +14,10 @@ sharding and the gathers.
 Since the rule takes some axis the rank count divides, the bytes a rank
 holds do not depend on the order of a tensor's axes: a conv weight stored
 ``(out, in, kh, kw)`` here and ``(kh, kw, in, out)`` in the JAX package
-costs each rank the same bytes.
+costs each rank the same bytes. The rule reads shapes only, so a weight held
+in int8 (``ops/quant.py``: its ``<name>_q`` tensor and its scales) is split
+and gathered like any other tensor, as the JAX package's specs are
+dtype-agnostic.
 """
 
 from __future__ import annotations

@@ -270,14 +270,14 @@ def from_jax_t5_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 
 def from_jax_dit_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX ``DiTVideo`` parameter tree (dense feed-forwards) -> the state dict
-    that ``vdpp_tpu_torch.models.dit.DiTVideo.load_state_dict`` takes."""
+    """JAX ``DiTVideo`` parameter tree -> the state dict that
+    ``vdpp_tpu_torch.models.dit.DiTVideo.load_state_dict`` takes. A MoE
+    block's gate is a linear; its expert stacks keep their ``(E, ...)``
+    layout (``ops/moe.py``)."""
     out = _Out()
     out.linear("patch_embed", params["patch_embed"])
     out.mlp("t_embed", params["t_embed"])
     for i, blk in enumerate(params["blocks"]):
-        if "moe" in blk:
-            raise NotImplementedError("MoE feed-forwards are not ported yet (ROADMAP A15)")
         b = f"blocks.{i}"
         for name in ("norm1", "norm2", "norm_cross"):
             if name in blk:
@@ -285,8 +285,14 @@ def from_jax_dit_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         out.attention(b + ".attn", blk["attn"])
         if "cross_attn" in blk:
             out.attention(b + ".cross_attn", blk["cross_attn"])
+        if "moe" in blk:
+            moe = blk["moe"]
+            out.linear(b + ".moe.gate", moe["gate"])
+            for name in ("w_in", "b_in", "w_out", "b_out"):
+                out.sd[f"{b}.moe.{name}"] = _t(moe[name])
         for name in ("mlp_in", "mlp_out", "ada"):
-            out.linear(f"{b}.{name}", blk[name])
+            if name in blk:
+                out.linear(f"{b}.{name}", blk[name])
     out.norm("final_norm", params["final_norm"])
     out.linear("final_ada", params["final_ada"])
     out.linear("final_proj", params["final_proj"])
