@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only   # phases 1-3 and 8 (a), then stop
     python3 chip_smoke.py --intra-only     # the build and phases 9 and 10, then stop
     python3 chip_smoke.py --moe-int8-only  # the build and phase 11, then stop
+    python3 chip_smoke.py --serve-only     # the build and phase 12, then stop
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -180,7 +181,24 @@ Phases (any failure exits non-zero and prints no result line):
    W8A8 sites' shapes (the single row padded), timed against the bf16
    product; (c) the benchmark's tiny MoE DiT at ``--expert-parallel 2
    --num-stages 2`` and ``--fsdp --weights-int8``, the ranks sharing cuda:0,
-   each BENCHMARK_JSON line checked.
+   each BENCHMARK_JSON line checked. Phase 11 begins with the MoE expert
+   product's route on the card (bf16 operands, an fp32 result through
+   ``out_dtype``), against the fp32 product and the one rounded to bf16 first.
+12. serving, last: ``python -m vdpp_tpu_torch.modes.serve`` in a subprocess,
+   SVD-XT with both switches, 14 frames of 72x128, 2 steps, CFG 3: (a) one
+   stage in the server process: /healthz, two concurrent y4m requests and a
+   third with the first's seed (byte-equal; each 14 frames of 1024x576),
+   /metrics (4 served with the warm-up), then SIGTERM with a request in
+   flight (200, exit 0); its launches since the warm-up, 60 flash at d = 64,
+   4 at d = 512, 356 GroupNorm+SiLU and 64 frame attention a request; (b)
+   two stage ranks and a decode rank (a card each over NCCL where there are
+   three, else on cuda:0 over gloo): the same seeds give (a)'s bytes, each
+   stage rank launches half a request's denoise kernels and the decode rank
+   the decode's flash; (c) the tiny joint3d DiT server (8 frames of 32x64):
+   two requests with one prompt share a stream, a negative prompt opens
+   another, the generic flash at d = 16 (16 a request) and d = 32 (2). Each
+   part prints its wall, its request seconds, its ticks and each process's
+   peak.
 
 The last two lines are the ``nvidia-smi`` name/power-limit line and the
 contract line ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
@@ -3192,13 +3210,381 @@ def run_moe_int8_cli(smi: str) -> dict:
                               "(11c) dit3d_moe_tiny --fsdp --weights-int8", "fsdp", 2, smi)}
 
 
+def check_moe_products(torch) -> dict:
+    """The MoE expert products' route on the card (``ops/moe.py::_mm_f32``:
+    bf16 operands, an fp32 result, ``out_dtype``), at a dense block's shapes
+    (E = 4, T = 5120 tokens, D = 1152, I = 4608): its distance to the fp32
+    product of the same operands, against that of the product rounded to
+    bf16 first (what the port did before)."""
+    from vdpp_tpu_torch.ops.moe import _mm_f32
+
+    g = torch.Generator(device="cuda").manual_seed(30)
+    x = torch.randn(4, 5120, 1152, generator=g, device="cuda").bfloat16()
+    w = (torch.randn(4, 1152, 4608, generator=g, device="cuda") / 1152 ** 0.5).bfloat16()
+    ref = torch.bmm(x.float(), w.float())
+    got = _mm_f32(x, w)
+    rounded = torch.bmm(x, w).float()
+    scale = ref.abs().max().item()
+    err, err_bf16 = ((got - ref).abs().max().item() / scale,
+                     (rounded - ref).abs().max().item() / scale)
+    ms = time_ms(torch, lambda: _mm_f32(x, w))
+    ms_bf16 = time_ms(torch, lambda: torch.bmm(x, w))
+    ms_rounded = time_ms(torch, lambda: torch.bmm(x, w).float())
+    print(f"MoE expert product (11a): torch.bmm(out_dtype=torch.float32) on the card, "
+          f"{got.dtype}; max|diff| to the fp32 product / max|ref| {err:.3g} (rounded to bf16 "
+          f"first: {err_bf16:.3g}); {ms:.4f} ms against the bf16-output product's "
+          f"{ms_bf16:.4f} ms and the rounded product's, widened after, {ms_rounded:.4f} ms",
+          flush=True)
+    if got.dtype != torch.float32 or not err < err_bf16 / 10:
+        fail(f"the MoE expert product is not an fp32 result: {got.dtype}, {err} vs {err_bf16}")
+    return {"max_rel_err": err, "max_rel_err_bf16_rounded": err_bf16, "ms": ms,
+            "bf16_output_ms": ms_bf16, "rounded_then_widened_ms": ms_rounded}
+
+
 def run_phase11(torch, fa, nk, ta, smi: str) -> dict:
     t0 = time.perf_counter()
-    out = {"moe": run_moe(torch, fa, nk, ta, smi), "int8": run_int8_svd(torch, fa, nk, ta, smi),
-           "cli": run_moe_int8_cli(smi)}
+    out = {"moe_products": check_moe_products(torch), "moe": run_moe(torch, fa, nk, ta, smi),
+           "int8": run_int8_svd(torch, fa, nk, ta, smi), "cli": run_moe_int8_cli(smi)}
     print(f"phase 11 (the MoE DiT, int8 weights) done in {time.perf_counter() - t0:.1f} s "
           f"({smi})", flush=True)
     return out
+
+
+# 12. Serving (``modes/serve.py``), after phase 11: the server as a user
+# starts it, ``python -m vdpp_tpu_torch.modes.serve``, in a subprocess (its
+# ``main`` installs signal handlers, which only a main thread may do). The
+# image->video app's shape, 14 frames of a 72x128 latent, where the
+# reference's serve default (4 frames of 16x16) would reach no kernel. Each
+# server counts its kernel launches from the end of its warm-up request and
+# logs them, each process's, when it stops.
+SERVE_FRAMES = 14
+SERVE_STEPS = 2
+SERVE_ARGS = ["--preset", "svd_xt", "--num-frames", str(SERVE_FRAMES), "--latent-hw", "72",
+              "128", "--steps", str(SERVE_STEPS), "--guidance-scale", "3"]
+SERVE_VIDEO = (SERVE_FRAMES, 1024, 576)  # y4m frames, width, height
+SERVE_FORWARDS = 2 * SERVE_STEPS  # CFG: two UNet forwards a step
+# A request's launches at one stage (the decode in the server process):
+SERVE_PER_REQUEST = {"flash64": FLASH_PER_FORWARD * SERVE_FORWARDS,
+                     "flash512": -(-SERVE_FRAMES // 4),
+                     "gn": GN_SILU_PER_FORWARD * SERVE_FORWARDS,
+                     "frame": FRAME_ATTN_PER_FORWARD * SERVE_FORWARDS}
+SERVE_SEEDS = (1, 2)
+# (c) The tiny joint3d DiT (head dim 16) at 8 frames of 32x64: its 4
+# blocks' self-attention over 8 x 512 patch tokens takes the generic flash
+# kernel at d = 16 in each of a request's 4 forwards, and the tiny VAE's
+# mid-block attention (32 channels, L = 2048) at d = 32 once a 4-frame chunk.
+SERVE_TINY_ARGS = ["--model", "dit3d", "--preset", "tiny", "--num-frames", "8", "--latent-hw",
+                   "32", "64", "--steps", str(SERVE_STEPS), "--guidance-scale", "5"]
+SERVE_TINY_PER_REQUEST = {16: 4 * SERVE_FORWARDS, 32: 2}
+SERVE_TINY_VIDEO = (8, 128, 64)
+SERVE_READY_S = 900
+SERVE_LAUNCH_RE = re.compile(r"(?:rank (\d+)|server process) \(([^)]*)\) launched since the "
+                             r"warm-up: (\{.*\}); peak allocated ([\d.]+) GB")
+SERVE_TICKS_RE = re.compile(r"stream: (\d+) ticks, tick seconds mean ([\d.]+), min ([\d.]+), "
+                            r"max ([\d.]+)")
+
+
+class ServeProcess:
+    """``python -m vdpp_tpu_torch.modes.serve`` on a free port of this host,
+    its log in a file."""
+
+    def __init__(self, what: str, argv: list[str], env: dict[str, str], log_dir: str):
+        import socket
+        import subprocess
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self.port = s.getsockname()[1]
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.what = what
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.log_path = os.path.join(log_dir, f"serve_{self.port}.log")
+        self.log = open(self.log_path, "w")
+        full_env = dict(os.environ, **env,
+                        PYTHONPATH=os.pathsep.join([here, os.environ.get("PYTHONPATH", "")]))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "vdpp_tpu_torch.modes.serve", *argv, "--port",
+             str(self.port)], cwd=here, env=full_env, stdout=self.log,
+            stderr=subprocess.STDOUT)
+        print(f"serve {what}: started with {' '.join(argv)}", flush=True)
+
+    def text(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def failed(self, msg: str) -> None:
+        self.kill()
+        print(self.text()[-6000:], flush=True)
+        fail(f"serve {self.what}: {msg}")
+
+    def wait_ready(self) -> float:
+        import urllib.request
+
+        while True:
+            if self.proc.poll() is not None:
+                self.failed(f"the server exited with {self.proc.returncode} before it was ready")
+            if time.perf_counter() - self.t0 > SERVE_READY_S:
+                self.failed(f"not ready in {SERVE_READY_S} s")
+            try:
+                with urllib.request.urlopen(self.base + "/healthz", timeout=5) as r:
+                    if r.status == 200:
+                        return time.perf_counter() - self.t0
+            except OSError:
+                time.sleep(1.0)
+
+    def get(self, path: str) -> dict:
+        import urllib.request
+
+        with urllib.request.urlopen(self.base + path, timeout=60) as r:
+            return json.loads(r.read())
+
+    def post(self, body: dict) -> dict:
+        """``{"status", "seconds" (X-Generation-Seconds), "wall", "body"}``."""
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(self.base + "/generate", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return {"status": r.status, "seconds": float(r.headers["X-Generation-Seconds"]),
+                        "wall": time.perf_counter() - t0, "body": r.read()}
+        except urllib.error.HTTPError as e:
+            return {"status": e.code, "body": e.read(), "wall": time.perf_counter() - t0}
+
+    def posts(self, bodies: list[dict]) -> list[dict]:
+        """The requests at once, one thread each."""
+        import threading
+
+        out: list = [None] * len(bodies)
+
+        def one(i):
+            try:
+                out[i] = self.post(bodies[i])
+            except Exception as e:  # noqa: BLE001 - reported below
+                out[i] = {"status": None, "error": repr(e)}
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for r in out:
+            if r["status"] != 200:
+                self.failed(f"a request failed: {r.get('error') or r['body'][:2000]}")
+        return out
+
+    def stop(self) -> int:
+        """SIGTERM (drain), then the exit code."""
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=300)
+        except Exception:  # noqa: BLE001 - a server that does not drain fails the phase
+            self.failed("did not exit within 300 s of SIGTERM")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+    def launches(self) -> dict:
+        """Each process's launches since the warm-up and its peak, from the
+        log: ``{rank or "server": (counts, peak GB)}``."""
+        out = {}
+        for m in SERVE_LAUNCH_RE.finditer(self.text()):
+            counts = json.loads(m.group(3))
+            counts["flash"] = {int(d): n for d, n in counts["flash"].items()}
+            out[int(m.group(1)) if m.group(1) else "server"] = (counts, float(m.group(4)))
+        return out
+
+
+def serve_video(srv: ServeProcess, data: bytes, want: tuple[int, int, int]) -> None:
+    header = data[:data.index(b"\n")].split()
+    w = int(next(t[1:] for t in header if t.startswith(b"W")))
+    h = int(next(t[1:] for t in header if t.startswith(b"H")))
+    got = (data.count(b"FRAME"), w, h)
+    if header[0] != b"YUV4MPEG2" or got != want:
+        srv.failed(f"the y4m holds {got} (frames, width, height), expected {want}")
+
+
+def serve_expect(srv: ServeProcess, what: str, got: int, want: int) -> None:
+    print(f"serve {srv.what}: {what}: {got} launches (expected {want})", flush=True)
+    if got != want:
+        srv.failed(f"{what}: {got} launches, expected {want}")
+
+
+def serve_report(srv: ServeProcess, smi: str, ready_s: float, reqs: list[dict]) -> dict:
+    """Print the part's latencies, ticks, each process's peak; returns them."""
+    log = srv.text()
+    ticks = SERVE_TICKS_RE.search(log)
+    procs = srv.launches()
+    for key, (counts, peak) in procs.items():
+        print(f"serve {srv.what}: {'rank ' + str(key) if key != 'server' else 'server'}: "
+              f"launches since the warm-up {counts}, peak allocated {peak:.3f} GB ({smi})",
+              flush=True)
+    lat = [r["seconds"] for r in reqs]
+    print(f"serve {srv.what}: ready in {ready_s:.1f} s; request seconds (server) "
+          f"{[round(x, 4) for x in lat]}, client walls {[round(r['wall'], 4) for r in reqs]}; "
+          f"ticks: {ticks.group(0) if ticks else 'none logged'}; wall "
+          f"{time.perf_counter() - srv.t0:.1f} s ({smi})", flush=True)
+    return {"ready_s": ready_s, "request_s": lat, "walls": [r["wall"] for r in reqs],
+            "ticks": ticks.group(0) if ticks else None,
+            "launches": {str(k): v[0] for k, v in procs.items()},
+            "peak_gb": {str(k): v[1] for k, v in procs.items()},
+            "wall_s": time.perf_counter() - srv.t0}
+
+
+def run_serve_one_stage(smi: str, log_dir: str) -> dict:
+    """(a) One stage in the server process, both switches on: /healthz, two
+    concurrent y4m requests, a third with the first's seed (byte-equal),
+    /metrics (the warm-up counts), then SIGTERM with a request in flight:
+    200, exit 0. The launches since the warm-up: 4 requests' worth."""
+    import threading
+
+    srv = ServeProcess("(12a) one stage", [*SERVE_ARGS, "--num-stages", "1", "--device", "cuda"],
+                       SWITCHES, log_dir)
+    try:
+        ready_s = srv.wait_ready()
+        health = srv.get("/healthz")
+        if health.get("status") != "ok" or health.get("stages") != 1:
+            srv.failed(f"/healthz gave {health}")
+        pair = srv.posts([{"seed": s, "format": "y4m"} for s in SERVE_SEEDS])
+        again = srv.posts([{"seed": SERVE_SEEDS[0], "format": "y4m"}])[0]
+        for r in (*pair, again):
+            serve_video(srv, r["body"], SERVE_VIDEO)
+        if again["body"] != pair[0]["body"]:
+            srv.failed("the same seed gave other bytes")
+        metrics = srv.get("/metrics")
+        if metrics["requests_served"] != 4:
+            srv.failed(f"/metrics gave {metrics} (4 served, the warm-up with them)")
+        drained: list = []
+        t = threading.Thread(target=lambda: drained.extend(
+            srv.posts([{"seed": 3, "format": "y4m"}])))
+        t.start()
+        time.sleep(1.5)  # the request is in its denoise (a request takes seconds)
+        rc = srv.stop()
+        t.join()
+        log = srv.text()
+        if rc != 0 or not drained or "drained; exiting" not in log:
+            srv.failed(f"the drain: exit code {rc}, {len(drained)} answers")
+        if log.index("signal 15: draining") > log.rindex('"POST /generate HTTP/1.1" 200'):
+            srv.failed("the request answered before the drain began: not in flight")
+        serve_video(srv, drained[0]["body"], SERVE_VIDEO)
+        res = serve_report(srv, smi, ready_s, [*pair, again, *drained])
+        counts = srv.launches().get(0, ({}, 0))[0]
+        if not counts:
+            srv.failed("no launch counts logged")
+        n = 4
+        serve_expect(srv, "flash at d = 64", counts["flash"].get(64, 0),
+                     n * SERVE_PER_REQUEST["flash64"])
+        serve_expect(srv, "flash at d = 512 (the decode)", counts["flash"].get(512, 0),
+                     n * SERVE_PER_REQUEST["flash512"])
+        serve_expect(srv, "GroupNorm+SiLU", counts["group_norm_silu"], n * SERVE_PER_REQUEST["gn"])
+        serve_expect(srv, "frame attention", counts["frame_attention"],
+                     n * SERVE_PER_REQUEST["frame"])
+        res["bytes"] = [pair[0]["body"], pair[1]["body"]]
+        res["metrics"] = metrics
+        return res
+    finally:
+        srv.kill()
+
+
+def run_serve_decode_rank(torch, smi: str, log_dir: str, want_bytes: list[bytes]) -> dict:
+    """(b) Two stage ranks and a decode rank (a card each over NCCL where
+    there are three, else all on cuda:0 over gloo): the same seeds give
+    (a)'s bytes; each stage rank launches half a request's denoise kernels
+    a request, the decode rank the decode's flash; the server none."""
+    devices = (["cuda:0", "cuda:1", "cuda:2"] if torch.cuda.device_count() >= 3
+               else ["cuda:0"] * 3)
+    srv = ServeProcess("(12b) two stage ranks, a decode rank",
+                       [*SERVE_ARGS, "--num-stages", "2", "--decode-devices", "1", "--devices",
+                        *devices], SWITCHES, log_dir)
+    try:
+        ready_s = srv.wait_ready()
+        health = srv.get("/healthz")
+        if health.get("stages") != 2 or health.get("decode_devices") != 1:
+            srv.failed(f"/healthz gave {health}")
+        pair = srv.posts([{"seed": s, "format": "y4m"} for s in SERVE_SEEDS])
+        again = srv.posts([{"seed": SERVE_SEEDS[0], "format": "y4m"}])[0]
+        for r, want in zip((*pair, again), (*want_bytes, want_bytes[0])):
+            serve_video(srv, r["body"], SERVE_VIDEO)
+            if r["body"] != want:
+                srv.failed("a y4m differs from the one-stage server's for the same seed")
+        print(f"serve {srv.what}: 3 y4m byte-equal to the one-stage server's ({devices})",
+              flush=True)
+        if srv.stop() != 0:
+            srv.failed("the drain did not exit 0")
+        res = serve_report(srv, smi, ready_s, [*pair, again])
+        procs = srv.launches()
+        n = 3
+        for r in (0, 1):
+            counts = procs.get(r, ({}, 0))[0]
+            if not counts:
+                srv.failed(f"no launch counts logged for rank {r}")
+            serve_expect(srv, f"stage rank {r}: flash at d = 64", counts["flash"].get(64, 0),
+                         n * SERVE_PER_REQUEST["flash64"] // 2)
+            serve_expect(srv, f"stage rank {r}: GroupNorm+SiLU", counts["group_norm_silu"],
+                         n * SERVE_PER_REQUEST["gn"] // 2)
+            serve_expect(srv, f"stage rank {r}: frame attention", counts["frame_attention"],
+                         n * SERVE_PER_REQUEST["frame"] // 2)
+        dec = procs.get(2, ({"flash": {}}, 0))[0]
+        serve_expect(srv, "decode rank: flash at d = 512", dec["flash"].get(512, 0),
+                     n * SERVE_PER_REQUEST["flash512"])
+        server = procs.get("server", ({"flash": {}}, 0))[0]
+        serve_expect(srv, "server process: flash", sum(server["flash"].values()), 0)
+        res["devices"] = devices
+        return res
+    finally:
+        srv.kill()
+
+
+def run_serve_tiny_dit(smi: str, log_dir: str) -> dict:
+    """(c) The tiny joint3d DiT at one stage: two requests with one prompt
+    share a stream, one with a negative prompt opens another; the generic
+    flash kernel at d = 16 (the DiT) and d = 32 (the tiny VAE)."""
+    srv = ServeProcess("(12c) tiny dit3d", [*SERVE_TINY_ARGS, "--num-stages", "1", "--device",
+                                            "cuda"], {}, log_dir)
+    try:
+        ready_s = srv.wait_ready()
+        warm = srv.get("/metrics")["active_streams"]  # the warm-up's, with no prompt
+        pair = srv.posts([{"seed": s, "prompt": "a red panda", "format": "y4m"}
+                          for s in SERVE_SEEDS])
+        if srv.get("/metrics")["active_streams"] != warm + 1:
+            srv.failed("two requests with one prompt did not share a stream")
+        neg = srv.posts([{"seed": SERVE_SEEDS[0], "prompt": "a red panda",
+                          "negative_prompt": "blurry, dark", "format": "y4m"}])[0]
+        if srv.get("/metrics")["active_streams"] != warm + 2:
+            srv.failed("the negative prompt did not open a stream of its own")
+        for r in (*pair, neg):
+            serve_video(srv, r["body"], SERVE_TINY_VIDEO)
+        if neg["body"] == pair[0]["body"]:
+            srv.failed("the negative prompt changed nothing")
+        if srv.stop() != 0:
+            srv.failed("the drain did not exit 0")
+        res = serve_report(srv, smi, ready_s, [*pair, neg])
+        counts = srv.launches().get(0, ({"flash": {}}, 0))[0]
+        for d, per in SERVE_TINY_PER_REQUEST.items():
+            serve_expect(srv, f"generic flash at d = {d}", counts["flash"].get(d, 0), 3 * per)
+        return res
+    finally:
+        srv.kill()
+
+
+def run_phase12(torch, smi: str) -> dict:
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as log_dir:
+        one = run_serve_one_stage(smi, log_dir)
+        two = run_serve_decode_rank(torch, smi, log_dir, one.pop("bytes"))
+        tiny = run_serve_tiny_dit(smi, log_dir)
+    print(f"phase 12 (serving) done in {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    return {"one_stage": one, "decode_rank": two, "tiny_dit3d": tiny}
 
 
 def reset_counts(fa, nk, ta) -> None:
@@ -3222,6 +3608,10 @@ def main(argv: list[str] | None = None) -> int:
                         help="build the kernels, then only phase 11 (the MoE DiT-XL with its "
                              "expert axis, int8 SVD-XT, the benchmark's MoE and int8 flags), "
                              "and stop without the result lines")
+    parser.add_argument("--serve-only", action="store_true",
+                        help="build the kernels, then only phase 12 (the server at SVD-XT width "
+                             "at one stage and with a decode rank, and the tiny DiT server), and "
+                             "stop without the result lines")
     parser.add_argument("--intra-only", action="store_true",
                         help="build the kernels, then only phases 9 and 10 (the kernels at the "
                              "seq-sharded shapes, the intra-sample axes at full width, the "
@@ -3298,6 +3688,10 @@ def main(argv: list[str] | None = None) -> int:
     if args.moe_int8_only:
         run_phase11(torch, fa, nk, ta, smi)
         print(f"phase 11 run done in {time.perf_counter() - t_start:.1f} s ({smi})")
+        return 0
+    if args.serve_only:
+        run_phase12(torch, smi)
+        print(f"phase 12 run done in {time.perf_counter() - t_start:.1f} s ({smi})")
         return 0
     if args.intra_only:
         check_flash_seq_sharded(torch, fa, F)
@@ -3496,6 +3890,16 @@ def main(argv: list[str] | None = None) -> int:
                       for name, rs in p11["moe"]["ranks"].items() for r, res in enumerate(rs)})
     int8_counts = {f"svd_xt_{k.lstrip('-')}": v["counts"] for k, v in p11["int8"].items()
                    if isinstance(v, dict) and "counts" in v}
+    # 12. Serving: the server at one stage, with a decode rank, the tiny DiT.
+    p12 = run_phase12(torch, smi)
+    serve_runs = {f"serve_{part}_{proc}": c for part in ("one_stage", "decode_rank")
+                  for proc, c in p12[part]["launches"].items() if proc != "server"}
+    serve_d64 = {k: c["flash"].get(64, 0) for k, c in serve_runs.items()}
+    serve_d512 = {k: c["flash"].get(512, 0) for k, c in serve_runs.items()}
+    serve_gn = {k: c["group_norm_silu"] for k, c in serve_runs.items()}
+    serve_frame = {k: c["frame_attention"] for k, c in serve_runs.items()}
+    serve_tiny = {f"serve_tiny_dit3d_d{d}": n
+                  for d, n in p12["tiny_dit3d"]["launches"]["0"]["flash"].items()}
 
     def dit_launches(cases, get):
         return {f"dit_{case}_rank{r}": get(res["launches"])
@@ -3531,7 +3935,7 @@ def main(argv: list[str] | None = None) -> int:
               + deepcache["schedule"]["flash"] + sum(pipe_flash.values())
               + bench_counts["flash"] + sum(prod_flash.values()) + sum(intra_flash.values())
               + sum(auto_flash.values()) + sum(app_d64.values())
-              + sum(c["flash"] for c in int8_counts.values()),
+              + sum(c["flash"] for c in int8_counts.values()) + sum(serve_d64.values()),
               flash,
               flash["shapes"][0], ptxas=ptxas,
               fp32_d64_d72=[flash["fp32"], flash72["fp32"]],
@@ -3546,12 +3950,14 @@ def main(argv: list[str] | None = None) -> int:
                                 "benchmark_mode_1stage_switched": bench_counts["flash"],
                                 **prod_flash, **intra_flash, **auto_flash,
                                 **{f"image_to_video_app_{k}": n for k, n in app_d64.items()},
-                                **{k: c["flash"] for k, c in int8_counts.items()}},
+                                **{k: c["flash"] for k, c in int8_counts.items()},
+                                **serve_d64},
               production_launches_per_forward=PROD_FLASH_PER_FORWARD, int8=p11["int8"],
-              moe_int8_cli=p11["cli"]),
+              moe_int8_cli=p11["cli"], serve=p12),
         entry("flash_attention_d512", flash_src, flash_tpu,
               decode_flash + dit_decode_flash + app["flash"][512] + restyle["flash"][512]
-              + long_app["flash"][512] + sum(app_d512.values()), flash512,
+              + long_app["flash"][512] + sum(app_d512.values()) + sum(serve_d512.values()),
+              flash512,
               flash512["shapes"][0], encoder_site=flash512["shapes"][1],
               launches_by_path={"svd_decode": decode_flash, "dit_decode": dit_decode_flash,
                                 "image_to_video_app (1 encoder + 4 decode)":
@@ -3560,13 +3966,15 @@ def main(argv: list[str] | None = None) -> int:
                                 "long_app (2 x (1 encoder + 4 decode))":
                                     long_app["flash"][512],
                                 **{f"image_to_video_app_{k} (decode)": n
-                                   for k, n in app_d512.items()}}),
+                                   for k, n in app_d512.items()},
+                                **{f"{k} (decode)": n for k, n in serve_d512.items()}}),
         entry("flash_attention_d512_bf16", flash_src, flash_tpu, decode16_flash, flash512_bf16,
               flash512_bf16["shapes"][0]),
         entry("group_norm_silu", "vdpp_tpu_torch/csrc/group_norm_silu.cu",
               "vdpp_tpu/ops/norm_kernel.py:165",
               switched["gn"] + deepcache["schedule"]["gn"] + sum(pipe_gn.values())
-              + bench_counts["gn"] + sum(c["gn"] for c in int8_counts.values()), gn,
+              + bench_counts["gn"] + sum(c["gn"] for c in int8_counts.values())
+              + sum(serve_gn.values()), gn,
               gn["shapes"][0], ptxas=other_ptxas["group_norm_silu"],
               launches_per_forward={"full": deepcache["counts"]["full"][1],
                                     "deepcache_split1": deepcache["counts"]["cache"][1]},
@@ -3574,11 +3982,12 @@ def main(argv: list[str] | None = None) -> int:
                                 "dpmpp2m_deepcache2_switched": deepcache["schedule"]["gn"],
                                 **pipe_gn,
                                 "benchmark_mode_1stage_switched": bench_counts["gn"],
-                                **{k: c["gn"] for k, c in int8_counts.items()}}),
+                                **{k: c["gn"] for k, c in int8_counts.items()}, **serve_gn}),
         entry("frame_attention", frame_src, frame_tpu,
               switched["frame"] + deepcache["schedule"]["frame"] + sum(pipe_frame.values())
               + bench_counts["frame"] + sum(intra_frame.values())
-              + sum(c["frame"] for c in int8_counts.values()), frame, frame["shapes"][0],
+              + sum(c["frame"] for c in int8_counts.values()) + sum(serve_frame.values()), frame,
+              frame["shapes"][0],
               ptxas=other_ptxas["frame_attention"], fp32_d64_d72=frame["fp32"] + frame72["fp32"],
               launches_per_forward={"full": deepcache["counts"]["full"][2],
                                     "deepcache_split1": deepcache["counts"]["cache"][2]},
@@ -3586,7 +3995,8 @@ def main(argv: list[str] | None = None) -> int:
                                 "dpmpp2m_deepcache2_switched": deepcache["schedule"]["frame"],
                                 **pipe_frame,
                                 "benchmark_mode_1stage_switched": bench_counts["frame"],
-                                **intra_frame, **{k: c["frame"] for k, c in int8_counts.items()}}),
+                                **intra_frame, **{k: c["frame"] for k, c in int8_counts.items()},
+                                **serve_frame}),
         entry("flash_attention_d72", flash_src, flash_tpu,
               joint["flash"] + fact["flash"] + sum(dit_cfg_flash.values())
               + sum(moe_flash.values()),
@@ -3612,9 +4022,9 @@ def main(argv: list[str] | None = None) -> int:
         entry("frame_attention_d72", frame_src, frame_tpu, fact["frame"], frame72,
               frame72["shapes"][0]),
         entry("flash_attention_generic", flash_src, flash_tpu,
-              sum(c["flash"] for c in tiny.values()), flash_generic,
+              sum(c["flash"] for c in tiny.values()) + sum(serve_tiny.values()), flash_generic,
               next(r for r in flash_generic["shapes"] if r["D"] == 16 and r["dtype"] == "fp32"),
-              launches_by_path={k: c["flash"] for k, c in tiny.items()}),
+              launches_by_path={**{k: c["flash"] for k, c in tiny.items()}, **serve_tiny}),
         entry("flash_attention_exp_bf16", flash_src, flash_tpu,
               sum(c["flash_exp_bf16"] for c in tiny.values()), flash_exp,
               flash_exp["shapes"][0],

@@ -165,6 +165,67 @@ def test_gather_equals_dense_at_full_capacity():
     assert not torch.allclose(_port_ff(moe, 0.25), dense)
 
 
+BF16_D, BF16_I, BF16_L = 256, 1024, 512
+BF16_SHARE = 0.01  # of the output elements that may differ, each by one ulp at most
+# The ulp of a value under 1/8 is taken at 1/8 (2^-10): such outputs are
+# cancellations in the fp32 sums, whose last bits follow the summation order,
+# which differs between XLA's dot and the port's.
+BF16_ULP_FLOOR = 2.0 ** -3
+
+
+def _bf16_pair():
+    """JAX's bf16 MoE tree and the port's MoEFF holding the same values (the
+    stacks N(0, 1) over the square root of their fan-in, the biases a tenth
+    of N(0, 1), the fp32 gate over sqrt(D)) and the tokens ``(1, L, D)``,
+    unscaled, in bf16."""
+    rng = np.random.default_rng(0)
+    e, d, i = EXPERTS, BF16_D, BF16_I
+    p = {"w_in": rng.standard_normal((e, d, i)) / np.sqrt(d),
+         "b_in": 0.1 * rng.standard_normal((e, i)),
+         "w_out": rng.standard_normal((e, i, d)) / np.sqrt(i),
+         "b_out": 0.1 * rng.standard_normal((e, d))}
+    gate = (rng.standard_normal((d, e)) / np.sqrt(d)).astype(np.float32)
+    x = rng.standard_normal((1, BF16_L, d)).astype(np.float32)
+    jparams = {k: jnp.asarray(v, jnp.bfloat16) for k, v in p.items()}
+    jparams["gate"] = {"w": jnp.asarray(gate)}
+    moe = tmoe.MoEFF(d, e, i, device="cpu", dtype=torch.bfloat16)
+    sd = {k: torch.from_numpy(np.array(v.astype(jnp.float32))).to(torch.bfloat16)
+          for k, v in jparams.items() if k != "gate"}
+    sd["gate.weight"] = torch.from_numpy(gate.T.copy())
+    moe.load_state_dict(sd)
+    return jparams, moe, x
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "gather_full"])
+def test_bf16_expert_products_match_jax(dispatch):
+    """The bf16 MoE against JAX on the same bf16 weights and tokens (D = 256,
+    I = 1024, E = 4, L = 512, one torch thread): JAX takes each expert
+    product in fp32 (``preferred_element_type``), so a port that rounds the
+    product to bf16 before its bias, GELU and combine differs in most
+    elements. At most 1 % of the elements may differ, each by at most one
+    bf16 ulp of JAX's value (at ``BF16_ULP_FLOOR`` for smaller values)."""
+    jparams, moe, x = _bf16_pair()
+    cf = DISPATCH[dispatch]
+    xj = jnp.asarray(x, jnp.bfloat16)
+    if cf is None:
+        want = jax.jit(functools.partial(jmoe.moe_ff, num_experts=EXPERTS))(jparams, xj)
+    else:
+        want = jax.jit(functools.partial(jmoe.moe_ff_gather, num_experts=EXPERTS,
+                                         capacity_factor=cf))(jparams, xj)
+    want = np.asarray(want.astype(jnp.float32))
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    with torch.inference_mode():
+        got = (tmoe.moe_ff(moe, xt) if cf is None
+               else tmoe.moe_ff_gather(moe, xt, capacity_factor=cf))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), BF16_ULP_FLOOR))) - 7)
+    diff = np.abs(got - want)
+    assert (diff <= ulp).all(), float((diff / ulp).max())
+    share = float(np.mean(diff > 0))
+    assert share <= BF16_SHARE, share
+
+
 @pytest.mark.parametrize("case", list(EP_CASES))
 def test_expert_axis_matches_jax_single_device(expert_runs, case):
     """The experts split over 2 and 4 gloo ranks (each rank keeps its share

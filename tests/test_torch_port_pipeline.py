@@ -256,8 +256,13 @@ def test_pipeline_config_errors():
     seen = []
     one.run_ticked(None, torch.zeros(1, 4), on_tick=lambda t, buf: seen.append((t, buf.shape)))
     assert seen == [(0, (1, 4))]
-    with pytest.raises(NotImplementedError, match="A16"):
-        one.stream(None, (4,))
+    # The streaming executor, refused until A16 was ported: a one-rank
+    # pipeline streams in this process, a larger mesh through StreamRanks.
+    stream = one.stream(None, (1, 4))
+    assert torch.equal(stream.submit(torch.ones(1, 4)).result(timeout=60), torch.ones(1, 4))
+    stream.close()
+    with pytest.raises(ValueError, match="StreamRanks"):
+        StepPipeline(stage, _step, PipelineConfig(8, 2)).stream(None, (4,))
     two_d = tmesh.make_2d_mesh(2, 2, device="cpu")  # the (stage, data) mesh, since A11
     assert (two_d.num_stages, two_d.num_data, two_d.world_size) == (2, 2, 4)
 

@@ -483,3 +483,47 @@ def decode_cases(stage, state: dict, cases: list) -> dict:
             continue
         results[name] = dec.decode_data_parallel(latents, axis, chunk)
     return results
+
+
+# ---- streaming jobs (tests/test_torch_port_stream.py) ---- #
+
+
+def dummy_step(model, x, step):
+    """A module-level step function (it pickles into spawned ranks)."""
+    return model(x, step)
+
+
+def stream_dummy_job(stage, model_kw: dict, state: dict, total_steps: int):
+    """``StreamJob`` of a DummyUNet holding ``state``. A stream's payload None
+    steps the model; a payload ``("fail", r)`` makes the step raise
+    ("injected tick failure") on rank r alone."""
+    from vdpp_tpu_torch.parallel.pipeline import StreamJob
+
+    model = dummy_build(model_kw, state, stage.device)[1]
+
+    def step(params, x, k):
+        if isinstance(params, tuple):
+            if stage.rank == params[1]:
+                raise RuntimeError("injected tick failure")
+            params = model
+        return params(x, k)
+
+    return StreamJob(step, total_steps, bundle=lambda payload: model if payload is None
+                     else payload)
+
+
+def hold_stream_ranks(stages: int = 2) -> None:
+    """Main of a server stand-in: start a stream group of ``stages`` CPU
+    ranks, print ``PIDS <rank pids>``, and wait to be killed."""
+    import time
+
+    from vdpp_tpu_torch.models.dummy_unet import DummyUNet
+    from vdpp_tpu_torch.parallel.mesh import make_pipeline_mesh
+    from vdpp_tpu_torch.parallel.pipeline import StreamRanks
+
+    kw = dict(channels=4, hidden_channels=8)
+    state = DummyUNet(**kw, device="cpu").init_weights(torch.Generator().manual_seed(0))
+    ranks = StreamRanks(make_pipeline_mesh(stages, device="cpu"), stream_dummy_job, kw,
+                        state.state_dict(), stages, threads=1)
+    print("PIDS", *ranks.pids, flush=True)
+    time.sleep(600)

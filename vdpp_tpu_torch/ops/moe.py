@@ -23,7 +23,9 @@
   order) combines them: a token's output comes from one expert, so the sum
   adds zeros to it and every split gives the same bits.
 
-The expert products are ``torch.matmul`` in the weights' dtype; there is no
+The expert products take operands in the weights' dtype and give fp32, as
+the reference's ``preferred_element_type=float32`` does, so each product
+meets its bias, GELU and combine unrounded (:func:`_mm_f32`); there is no
 Pallas kernel here to port (the reference computes them with ``einsum``).
 """
 
@@ -122,6 +124,19 @@ def _route(moe: MoEFF, x: torch.Tensor, expert_axis: Axis | None):
     return probs, w_in, moe.b_in, w_out, moe.b_out, e_local, off
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D, or 3-D batched) with an fp32 result and no rounding of
+    the product to the operands' dtype: on the card cuBLAS writes fp32 from
+    bf16 operands (``out_dtype``); on the CPU, which has no ``out_dtype``, the
+    operands are widened first, which is exact."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.is_cuda:
+        mm = torch.bmm if a.ndim == 3 else torch.mm
+        return mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
 def moe_ff(moe: MoEFF, x: torch.Tensor, expert_axis: Axis | None = None) -> torch.Tensor:
     """``(B, L, D) -> (B, L, D)`` top-1 MoE feed-forward, dense one-hot
     dispatch. ``expert_axis``: the stacks are this rank's share of that
@@ -131,10 +146,10 @@ def moe_ff(moe: MoEFF, x: torch.Tensor, expert_axis: Axis | None = None) -> torc
     probs, w_in, b_in, w_out, b_out, e_local, off = _route(moe, x, expert_axis)
     combine = (F.one_hot(probs.argmax(dim=-1), moe.num_experts).float()
                * probs.amax(dim=-1, keepdim=True)).reshape(t, -1)[:, off:off + e_local]
-    xd = x.to(w_in.dtype).reshape(1, t, d)
-    h = torch.matmul(xd, w_in).float() + b_in[:, None, :].float()  # (E_local, T, I)
+    xd = x.to(w_in.dtype).reshape(1, t, d).expand(e_local, t, d)
+    h = _mm_f32(xd, w_in) + b_in[:, None, :].float()  # (E_local, T, I)
     h = F.gelu(h, approximate="tanh").to(xd.dtype)
-    o = torch.matmul(h, w_out).float() + b_out[:, None, :].float()  # (E_local, T, D)
+    o = _mm_f32(h, w_out) + b_out[:, None, :].float()  # (E_local, T, D)
     out = torch.einsum("etd,te->td", o, combine)
     if expert_axis is not None:
         out = psum(out, expert_axis)
@@ -171,8 +186,8 @@ def moe_ff_gather(moe: MoEFF, x: torch.Tensor, expert_axis: Axis | None = None,
         idx = starts[e].clamp(0, t - cap) + window
         tok, seg = order[idx], sorted_assign[idx]
         xt = flat[tok].to(w_in.dtype)
-        h = F.gelu(torch.matmul(xt, w_in[j]).float() + b_in[j].float(), approximate="tanh")
-        o = torch.matmul(h.to(xt.dtype), w_out[j]).float() + b_out[j].float()
+        h = F.gelu(_mm_f32(xt, w_in[j]) + b_in[j].float(), approximate="tanh")
+        o = _mm_f32(h.to(xt.dtype), w_out[j]) + b_out[j].float()
         o = o * ((seg == e).float() * gatev[tok])[:, None]
         out.index_add_(0, tok, o)
     if expert_axis is not None:

@@ -39,11 +39,14 @@ call, so a one-rank run goes in the caller's own process.
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import math
 import multiprocessing
 import os
 import pickle
 import queue
+import signal
 import tempfile
 import time
 import traceback
@@ -484,21 +487,28 @@ class Stage:
             dist.barrier(group=group)
 
 
+def _join(rank: int, mesh: PipelineMesh, init_method: str, threads: int) -> Stage:
+    """A spawned rank's set-up: its thread count and card, the process group,
+    its :class:`Stage`, and a first collective over every rank (NCCL's
+    batched point-to-point calls need one, since a rank idle in tick 0 posts
+    none)."""
+    torch.set_num_threads(threads)
+    if mesh.devices[rank].type == "cuda":
+        torch.cuda.set_device(mesh.devices[rank])
+    dist.init_process_group(mesh.backend, init_method=init_method, rank=rank,
+                            world_size=mesh.world_size)
+    stage = Stage(mesh, rank)
+    stage.barrier_all()
+    return stage
+
+
 def _rank_main(rank: int, mesh: PipelineMesh, init_method: str, payload: bytes, threads: int,
                results) -> None:
     """A spawned rank: joins the group, runs the pickled ``fn(stage, *args)``
     and puts ``(rank, pickled result, None)`` or ``(rank, None, traceback)``
     on ``results``."""
     try:
-        torch.set_num_threads(threads)
-        if mesh.devices[rank].type == "cuda":
-            torch.cuda.set_device(mesh.devices[rank])
-        dist.init_process_group(mesh.backend, init_method=init_method, rank=rank,
-                                world_size=mesh.world_size)
-        stage = Stage(mesh, rank)
-        # Every rank joins one collective first: NCCL's batched point-to-point
-        # calls need that, since a rank idle in tick 0 posts none.
-        stage.barrier_all()
+        stage = _join(rank, mesh, init_method, threads)
         fn, args = pickle.loads(payload)
         results.put((rank, pickle.dumps(fn(stage, *args)), None))
     except Exception:  # the parent reports it; this process ends here
@@ -506,6 +516,131 @@ def _rank_main(rank: int, mesh: PipelineMesh, init_method: str, payload: bytes, 
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _group_rank_main(rank: int, mesh: PipelineMesh, init_method: str, payload: bytes,
+                     threads: int, conn) -> None:
+    """A rank of a :class:`RankGroup`: joins the group and runs the pickled
+    ``fn(stage, channel, *args)`` until it returns, its channel reaches EOF
+    (the parent is gone) or it raises, when it sends ``("error", traceback)``.
+    It ignores SIGINT and SIGTERM: a terminal's Ctrl-C reaches the whole
+    process group, and the parent drains its work before it stops the
+    ranks."""
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    try:
+        stage = _join(rank, mesh, init_method, threads)
+        fn, args = pickle.loads(payload)
+        fn(stage, conn, *args)
+    except (EOFError, BrokenPipeError, ConnectionResetError):
+        pass  # the parent is gone: nothing is waiting for this rank
+    except Exception:
+        with contextlib.suppress(OSError):
+            conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class RankGroup:
+    """The ranks of ``mesh``, started once and kept alive, each in its own
+    spawned process running ``fn(stage, channel, *args)`` (a module-level
+    function, sent by import path; ``args`` pickled) on its channel, a
+    duplex pipe to this process: the rank reads its commands there and
+    writes its messages back, any picklable objects (tensors on the CPU).
+
+    :meth:`send` writes to one rank's channel (sends are serialised, so
+    several threads may send). One thread here reads every channel and calls
+    ``on_message(rank, message)`` for each message, in the order each rank
+    sent them; a rank whose channel closes (it returned, raised or died)
+    gives ``(rank, ("exit", exitcode))`` once. A rank reads nothing but its
+    channel while it waits, so an idle rank sits in no collective (whose
+    timeout would end it), and it exits when the channel reaches EOF: when
+    this process closes the group or dies, even by SIGKILL.
+
+    :meth:`close` closes the channels and joins the ranks, killing those
+    still alive after ``timeout`` seconds (they ignore SIGTERM); it also runs
+    when this interpreter exits.
+    """
+
+    def __init__(self, mesh: PipelineMesh, fn: Callable[..., Any], *args: Any,
+                 on_message: Callable[[int, Any], None], threads: int | None = None):
+        import threading
+
+        ctx = multiprocessing.get_context("spawn")
+        threads = torch.get_num_threads() if threads is None else threads
+        payload = pickle.dumps((fn, args))
+        self.mesh = mesh
+        self._on_message = on_message
+        self._tmp = tempfile.TemporaryDirectory(prefix="vdpp_ranks_")
+        init = "file://" + os.path.join(self._tmp.name, "rendezvous")
+        self._conns, self._procs = [], []
+        for r in range(mesh.world_size):
+            mine, theirs = ctx.Pipe(duplex=True)
+            proc = ctx.Process(target=_group_rank_main,
+                               args=(r, mesh, init, payload, threads, theirs), daemon=True)
+            proc.start()
+            theirs.close()
+            self._conns.append(mine)
+            self._procs.append(proc)
+        self._send_lock = threading.Lock()
+        self._close_lock = threading.Lock()
+        self._closed = False
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        atexit.register(self.close)
+
+    @property
+    def pids(self) -> list[int]:
+        return [p.pid for p in self._procs]
+
+    def send(self, rank: int, message: Any) -> None:
+        """Write ``message`` to rank ``rank``'s channel; raises ``OSError``
+        once the rank's channel is closed."""
+        with self._send_lock:
+            self._conns[rank].send(message)
+
+    def _read(self) -> None:
+        from multiprocessing.connection import wait
+
+        open_ = dict(enumerate(self._conns))
+        while open_ and not self._closed:
+            try:  # close() may close a channel under the wait
+                ready = wait(list(open_.values()), timeout=0.5)
+            except (OSError, ValueError):
+                return
+            for conn in ready:
+                rank = self._conns.index(conn)
+                try:
+                    msg = conn.recv()
+                except (EOFError, OSError, ValueError):
+                    del open_[rank]
+                    self._procs[rank].join(timeout=5)
+                    msg = ("exit", self._procs[rank].exitcode)
+                if self._closed:
+                    return
+                self._on_message(rank, msg)
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Close every channel (each rank then exits) and join the ranks,
+        killing any still alive after ``timeout`` seconds."""
+        with self._close_lock:
+            if self._closed:
+                return
+            self._closed = True
+        atexit.unregister(self.close)
+        for conn in self._conns:  # not under the send lock: a send may wait on a stuck rank
+            conn.close()
+        deadline = time.monotonic() + timeout
+        for p in self._procs:
+            p.join(max(deadline - time.monotonic(), 0.1))
+        for p in self._procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        self._reader.join(timeout=5)
+        self._tmp.cleanup()
 
 
 def run_stages(mesh: PipelineMesh, fn: Callable[..., Any], *args: Any, threads: int | None = None,

@@ -22,10 +22,18 @@ this schedule on its own block of N / D samples, as a JAX column does. On a
 steps together (``step_fn`` splits each forward over the block's axes), the
 payload the same on every rank of the block, and each rank hands it to its
 counterpart in the next stage.
+
+Serving streams the same tick: :class:`StreamRanks` keeps the ranks alive,
+idle on their command pipes, and a controller thread in the serving process
+sends every tick's plan (which sample each stage steps, stage 0's fresh
+latent); the last stage sends each finished latent back over its pipe
+(:class:`PipelineStream`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from collections.abc import Callable
 from dataclasses import dataclass
@@ -124,21 +132,31 @@ class StepPipeline:
         """Tick ``t`` on this rank, holding ``x`` (the payload received in the
         previous tick). Returns the payload received in this tick and, on the
         last stage, the sample it finished (else None)."""
-        s, S, N = self.stage.index, self.config.num_stages, len(inputs)
-        K = self.config.steps_per_stage
+        s, N = self.stage.index, len(inputs)
         active = 0 <= t - s < N
-        if active:
-            if s == 0:
-                x = inputs[t].to(self.stage.device)
+        if active and s == 0:
+            x = inputs[t].to(self.stage.device)
+        receives = s > 0 and 0 <= t - (s - 1) < N
+        return self._advance(params, x if active else None, inputs[0],
+                             inputs[0] if receives else None)
+
+    def _advance(self, params, x: torch.Tensor | None, like: torch.Tensor,
+                 recv_like: torch.Tensor | None):
+        """The tick body: this stage's steps on ``x`` (None: this rank is idle
+        in this tick), which must keep ``like``'s shape and dtype, handed to
+        the next stage, and a payload of ``recv_like``'s shape and dtype (None:
+        nothing) received from the previous one. Returns the received payload
+        and, on the last stage, the finished sample (else None)."""
+        s, S = self.stage.index, self.config.num_stages
+        K = self.config.steps_per_stage
+        if x is not None:
             for k in range(s * K, (s + 1) * K):
                 x = self.step_fn(params, x, k)
-            if x.shape != inputs.shape[1:] or x.dtype != inputs.dtype:
+            if x.shape != like.shape or x.dtype != like.dtype:
                 raise ValueError(f"step_fn returned a {tuple(x.shape)} {x.dtype} payload for a "
-                                 f"{tuple(inputs.shape[1:])} {inputs.dtype} one")
-        receives = s > 0 and 0 <= t - (s - 1) < N
-        nxt = self.stage.handoff(x if active and s < S - 1 else None,
-                                 inputs[0] if receives else None)
-        return nxt, (x if active and s == S - 1 else None)
+                                 f"{tuple(like.shape)} {like.dtype} one")
+        nxt = self.stage.handoff(x if x is not None and s < S - 1 else None, recv_like)
+        return nxt, (x if x is not None and s == S - 1 else None)
 
     def run(self, params, inputs: torch.Tensor) -> torch.Tensor | None:
         """Pipeline ``inputs (N, *payload)`` through all ``total_steps``.
@@ -246,9 +264,613 @@ class StepPipeline:
             return torch.zeros((0, *payload), dtype=inputs.dtype), ticks
         return torch.stack(outputs), ticks
 
-    def stream(self, params, latent_shape: tuple, dtype=torch.float32):
-        """The streaming executor for serving is not ported."""
-        raise NotImplementedError("PipelineStream comes with serving (ROADMAP A16)")
+    def stream(self, params, latent_shape: tuple, dtype=torch.float32) -> PipelineStream:
+        """Open a streaming executor on a one-rank mesh, in this process:
+        ``submit(latent) -> Future``. Requests arriving over time keep the
+        pipeline filled, all sharing ``params`` (the (weights, conditioning)
+        bundle). The stages of a mesh of several ranks stream through
+        :class:`StreamRanks`, which starts their processes."""
+        if self.stage.mesh.world_size != 1:
+            raise ValueError("StepPipeline.stream runs a one-rank pipeline in this process; the "
+                             "ranks of a larger mesh stream through StreamRanks")
+        worker = _StreamWorker(self.stage, StreamJob(self.step_fn, self.config.total_steps),
+                               pipe=self)
+        controller = _StreamController(self.config.num_stages, [0], [])
+        controller.transport = _LocalTransport(worker, controller.on_message)
+        return controller.open(params, latent_shape, dtype, owner=True)
+
+
+# ---- streaming: requests that arrive over time share one filled pipeline ---- #
+
+
+@dataclass
+class StreamJob:
+    """What one rank of a stream serves, built on the rank.
+
+    ``step_fn`` and ``total_steps`` are the pipeline's. ``bundle(payload)``
+    turns a stream's conditioning payload (sent once per stream, CPU
+    tensors) into the ``params`` ``step_fn`` takes on this rank; by default
+    the payload is the bundle. ``pack`` and ``unpack`` attach and strip the
+    solver's cross-step state (a wrapper's ``pack_initial`` and
+    ``unpack_final``): only latents cross to and from the stream, the packed
+    payload stays on the ranks. ``decode(latent, stage, uint8)`` runs on the
+    decode ranks of a mesh that has them and gives the frames on decode rank
+    0 (None on the others)."""
+
+    step_fn: StepFn | None = None
+    total_steps: int = 0
+    bundle: Callable[[Any], Any] | None = None
+    pack: Callable[[torch.Tensor], torch.Tensor] | None = None
+    unpack: Callable[[torch.Tensor], torch.Tensor] | None = None
+    decode: Callable[..., Any] | None = None
+
+
+class _StreamWorker:
+    """One rank's side of a stream: executes the controller's commands in order
+    and returns the messages they produce.
+
+    * ``("cond", cid, payload, latent_shape, dtype)``: keep stream ``cid``'s
+      bundle (and its payload's shape, from ``pack`` on the meta device);
+      ``("drop", cid)`` forgets it;
+    * ``("tick", t, slots, fresh)``: ``slots[s]`` is ``(rid, cid, decode)``
+      of the sample stage s steps in tick t, or None; stage 0 packs ``fresh``,
+      the request's latent. Every stage rank answers ``("tick", t)``; the
+      last stage rank also ``("done", rid, latent)``, and where ``decode`` is
+      set the decode sender posts the latent to the decode ranks;
+    * ``("decode", rid, shape, uint8)`` on a decode rank: receive that sample
+      from the decode sender and decode it; decode rank 0 answers
+      ``("frames", rid, frames)``;
+    * ``("mark",)`` and ``("launches",)``: the kernel launches since the
+      mark and the device's allocator peak, answered as ``("launches",
+      counts, peak GB)``.
+    """
+
+    def __init__(self, stage: Stage, job: StreamJob, pipe: StepPipeline | None = None):
+        from vdpp_tpu_torch.utils.kernels import launch_counts
+
+        self.stage = stage
+        self.job = job
+        if pipe is None and not stage.is_decode:
+            pipe = StepPipeline(stage, job.step_fn,
+                                PipelineConfig(job.total_steps, stage.num_stages))
+        self.pipe = pipe
+        self.bundles: dict[int, tuple[Any, torch.Tensor]] = {}
+        self.held: torch.Tensor | None = None  # the payload received in the last tick
+        self.sends: list = []  # posts to the decode ranks still in flight
+        self.mark = launch_counts()
+
+    def handle(self, cmd: tuple) -> list[tuple]:
+        from vdpp_tpu_torch.utils.kernels import launch_counts, launches_since
+        from vdpp_tpu_torch.utils.memory import peak_memory_gb
+
+        kind = cmd[0]
+        if kind == "cond":
+            _, cid, payload, shape, dtype = cmd
+            params = payload if self.job.bundle is None else self.job.bundle(payload)
+            like = torch.empty(shape, dtype=dtype, device="meta")
+            self.bundles[cid] = (self.pipe.layout(params), self._pack(like))
+            return []
+        if kind == "drop":
+            self.bundles.pop(cmd[1], None)
+            return []
+        if kind == "tick":
+            return self._tick(*cmd[1:])
+        if kind == "decode":
+            return self._decode(*cmd[1:])
+        if kind == "mark":
+            self.mark = launch_counts()
+            return []
+        if kind == "launches":
+            return [("launches", launches_since(self.mark), peak_memory_gb(self.stage.device))]
+        raise ValueError(f"unknown stream command {kind!r}")
+
+    def _pack(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.job.pack is None else self.job.pack(x)
+
+    def _tick(self, t: int, slots: tuple, fresh: torch.Tensor | None) -> list[tuple]:
+        stage = self.stage
+        s = stage.index
+        mine = slots[s]
+        params = x = None
+        like = recv_like = None
+        if s > 0 and slots[s - 1] is not None:
+            recv_like = self.bundles[slots[s - 1][1]][1]
+        with torch.inference_mode():
+            if mine is not None:
+                params, like = self.bundles[mine[1]]
+                x = (self._pack(fresh.to(stage.device, like.dtype)) if s == 0
+                     else self.held)
+            self.held, done = self.pipe._advance(params, x, like, recv_like)
+        if stage.device.type == "cuda":
+            torch.cuda.synchronize(stage.device)
+        out = [("tick", t)]
+        if done is not None:
+            latent = done if self.job.unpack is None else self.job.unpack(done)
+            if mine[2] and stage.is_decode_sender:
+                self.sends = [(w, buf) for w, buf in self.sends if not w.is_completed()]
+                self.sends += stage.send_to_decode(latent)
+            if stage.is_last_rank:
+                out.append(("done", mine[0], latent))
+        return out
+
+    def _decode(self, rid: int, shape: tuple, uint8: bool) -> list[tuple]:
+        latent = self.stage.receive_sample(torch.empty(shape, dtype=torch.float32))
+        with torch.inference_mode():
+            frames = self.job.decode(latent, self.stage, uint8)
+        return [] if frames is None else [("frames", rid, frames)]
+
+    def finish(self) -> None:
+        """Wait for the posts to the decode ranks still in flight."""
+        for work, _ in self.sends:
+            work.wait()
+        self.sends = []
+
+
+def _cpu(msg: tuple) -> tuple:
+    return tuple(v.detach().cpu() if isinstance(v, torch.Tensor) else v for v in msg)
+
+
+def stream_rank(stage: Stage, channel, build: Callable[..., StreamJob], build_args: tuple,
+                poll_seconds: float = 5.0) -> None:
+    """A rank of :class:`StreamRanks` (run by ``parallel/mesh.py``'s
+    :class:`~vdpp_tpu_torch.parallel.mesh.RankGroup`): builds its
+    :class:`StreamJob` with ``build(stage, *build_args)``, says ``("ready",)``
+    and then executes the commands on its channel until ``("stop",)``. While
+    idle it waits on the channel alone, ``poll_seconds`` at a time, and
+    leaves when its parent is gone."""
+    parent = os.getppid()
+    worker = _StreamWorker(stage, build(stage, *build_args))
+    channel.send(("ready",))
+    while True:
+        while not channel.poll(poll_seconds):
+            if os.getppid() != parent:
+                return
+        cmd = channel.recv()
+        if cmd[0] == "stop":
+            worker.finish()
+            return
+        for msg in worker.handle(cmd):
+            channel.send(_cpu(msg))
+
+
+class _LocalTransport:
+    """A one-rank stream's rank, in this process: a command runs at once on
+    the calling thread (one at a time) and its messages go to
+    ``on_message``; an exception becomes the rank's ``("error", exc)``."""
+
+    def __init__(self, worker: _StreamWorker, on_message):
+        import threading
+
+        self.worker = worker
+        self.on_message = on_message
+        self._lock = threading.Lock()
+
+    def send(self, rank: int, cmd: tuple) -> None:
+        with self._lock:
+            try:
+                msgs = self.worker.handle(cmd)
+            except Exception as e:  # noqa: BLE001 - the controller fails its waiters with it
+                msgs = [("error", e)]
+        for msg in msgs:
+            self.on_message(0, msg)
+
+    def close(self) -> None:
+        self.worker.finish()
+
+
+@dataclass
+class _Entry:
+    rid: int
+    cid: int
+    latent: torch.Tensor
+    future: Any
+    decode: bool | None  # None: no decode; else whether to return uint8 frames
+    frames: Any = None  # the decoded frames' Future, with decode
+
+
+class _StreamController:
+    """The single controller of a stream's ranks: a thread that ticks
+    whenever work is in flight. Each tick it sends every stage rank the same
+    command: which sample each stage steps (stage 0 ingests the oldest queued
+    request, or idles), and the fresh latent to stage 0's ranks; a sample
+    ingested at tick t finishes at tick t + S - 1. It counts a tick when every
+    stage rank has acknowledged it, then resolves the finished sample's
+    future. Once no real sample is in transit it stops ticking. A failure of
+    any rank fails every waiter and poisons every stream of the controller."""
+
+    def __init__(self, num_stages: int, stage_ranks: list[int], decode_ranks: list[int],
+                 first_stage_ranks: list[int] | None = None, on_failure=None):
+        import collections
+        import queue
+        import threading
+
+        self.transport = None
+        self.num_stages = num_stages
+        self.stage_ranks = stage_ranks
+        self.first_stage_ranks = first_stage_ranks or stage_ranks[:1]
+        self.decode_ranks = decode_ranks
+        self.on_failure = on_failure
+        self.ticks_run = 0
+        # host seconds of each tick, from its commands to the last answer
+        self.tick_seconds = collections.deque(maxlen=4096)
+        self.failure: BaseException | None = None
+        self._queue: collections.deque[_Entry] = collections.deque()
+        self._in_flight: list[_Entry | None] = []
+        self._frames: dict[int, Any] = {}
+        self._released: set[int] = set()
+        self._live: dict[int, int] = {}  # cid -> samples queued or in flight
+        self._acks = queue.SimpleQueue()
+        self._cv = threading.Condition()
+        self._stopped = False
+        self._next_rid = 0
+        self._next_cid = 0
+        self._thread = threading.Thread(target=self._run_ticks, daemon=True)
+        self._thread.start()
+
+    # -- from the streams' threads ------------------------------------- #
+
+    def open(self, payload, latent_shape: tuple, dtype, owner: bool = False) -> PipelineStream:
+        """Send ``payload`` (the stream's conditioning) to every stage rank
+        under a new stream id and return the stream."""
+        with self._cv:
+            self._raise_if_unusable()
+            cid = self._next_cid
+            self._next_cid += 1
+        for r in self.stage_ranks:
+            self.transport.send(r, ("cond", cid, payload, tuple(latent_shape), dtype))
+        return PipelineStream(self, cid, latent_shape, dtype, owner)
+
+    def _raise_if_unusable(self) -> None:
+        if self._stopped or self.failure is not None:
+            raise RuntimeError("stream is closed" if self.failure is None
+                               else f"stream failed: {self.failure!r}")
+
+    def enqueue(self, cid: int, latent: torch.Tensor, decode: bool | None):
+        from concurrent.futures import Future
+
+        if decode is not None and not self.decode_ranks:
+            raise ValueError("the mesh has no decode ranks")
+        fut: Future = Future()
+        # Check and enqueue under the lock: a submit racing a failure's drain
+        # could otherwise slip in after it and never complete.
+        with self._cv:
+            self._raise_if_unusable()
+            entry = _Entry(self._next_rid, cid, latent, fut, decode)
+            self._next_rid += 1
+            if decode is not None:
+                entry.frames = Future()
+                self._frames[entry.rid] = entry.frames
+            self._queue.append(entry)
+            self._live[cid] = self._live.get(cid, 0) + 1
+            self._cv.notify_all()
+        return entry
+
+    def release(self, cid: int) -> None:
+        """Stream ``cid`` takes no more samples: its ranks forget it once its
+        samples are done."""
+        with self._cv:
+            self._released.add(cid)
+            self._cv.notify_all()
+
+    def on_message(self, rank: int, msg: tuple) -> None:
+        kind = msg[0]
+        if kind in ("tick", "done"):
+            self._acks.put((rank, msg))
+        elif kind == "frames":
+            with self._cv:
+                fut = self._frames.pop(msg[1], None)
+            if fut is not None and not fut.done():
+                fut.set_result(msg[2])
+        elif kind in ("error", "exit"):
+            err = msg[1]
+            if kind == "exit":
+                if self._stopped:
+                    return  # a rank leaving after a stop
+                err = RuntimeError(f"stream rank {rank} exited with code {err}")
+            elif not isinstance(err, BaseException):
+                err = RuntimeError(f"stream rank {rank} failed:\n{err}")
+            self._fail(err)
+            self._acks.put((rank, ("failed",)))
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Refuse new samples, finish the ones submitted, stop the thread."""
+        with self._cv:
+            self._stopped = True
+            self._cv.notify_all()
+        self._thread.join(timeout=timeout)
+
+    # -- the controller thread --------------------------------------------- #
+
+    def _fail(self, err: BaseException) -> None:
+        """Poison the controller: every queued waiter and every decode waiter
+        fails with ``err`` (the in-flight ones when the controller thread sees
+        it)."""
+        with self._cv:
+            if self.failure is not None:
+                return
+            self.failure = err
+            self._stopped = True
+            waiters = [e.future for e in self._queue] + list(self._frames.values())
+            self._queue.clear()
+            self._frames.clear()
+            self._cv.notify_all()
+        for f in waiters:
+            if not f.done():
+                f.set_exception(err)
+        if self.on_failure is not None:
+            self.on_failure(err)
+
+    def _work_remains(self) -> bool:
+        return bool(self._queue) or any(e is not None for e in self._in_flight)
+
+    def _drop_released(self) -> None:
+        with self._cv:
+            gone = [c for c in self._released if not self._live.get(c)]
+            self._released.difference_update(gone)
+            for cid in gone:
+                self._live.pop(cid, None)
+        for cid in gone:
+            for r in self.stage_ranks:
+                self.transport.send(r, ("drop", cid))
+
+    def _run_ticks(self) -> None:
+        import time
+        from concurrent.futures import InvalidStateError
+
+        S = self.num_stages
+        while True:
+            with self._cv:
+                self._cv.wait_for(lambda: self._stopped or self._work_remains()
+                                  or bool(self._released))
+                if self.failure is not None or (self._stopped and not self._work_remains()):
+                    break
+                entry = self._queue.popleft() if self._queue else None
+            try:
+                if self._released:
+                    self._drop_released()
+                if entry is None and not any(e is not None for e in self._in_flight):
+                    continue  # woken for a release only
+                self._in_flight.append(entry)
+                n = len(self._in_flight)
+                slots = tuple(None if s >= n or self._in_flight[n - 1 - s] is None else
+                              (self._in_flight[n - 1 - s].rid, self._in_flight[n - 1 - s].cid,
+                               self._in_flight[n - 1 - s].decode is not None)
+                              for s in range(S))
+                t0 = time.perf_counter()
+                t = self.ticks_run
+                for r in self.stage_ranks:
+                    fresh = entry.latent if entry is not None and r in self.first_stage_ranks \
+                        else None
+                    self.transport.send(r, ("tick", t, slots, fresh))
+                last = self._in_flight[0] if n >= S else None
+                if last is not None and last.decode is not None:
+                    for r in self.decode_ranks:
+                        self.transport.send(r, ("decode", last.rid, tuple(last.latent.shape),
+                                                last.decode))
+                latent = self._wait_tick(t, last)
+                self.tick_seconds.append(time.perf_counter() - t0)
+                self.ticks_run += 1
+                if n >= S:
+                    done = self._in_flight.pop(0)
+                    if done is not None:
+                        with self._cv:
+                            self._live[done.cid] -= 1
+                        # A client may have cancelled its future meanwhile: that
+                        # must not read as a tick failure.
+                        try:
+                            done.future.set_result(latent)
+                        except InvalidStateError:
+                            pass
+                # Once no real sample is in transit, stop burning idle ticks (a
+                # sample ingested later still finishes S ticks on).
+                if all(e is None for e in self._in_flight):
+                    self._in_flight.clear()
+            except Exception as e:  # noqa: BLE001 - a failed tick poisons the stream
+                self._fail(e)
+                break
+        err = self.failure
+        if err is not None:
+            for e in [entry, *self._in_flight]:
+                if e is not None and not e.future.done():
+                    e.future.set_exception(err)
+            self._in_flight.clear()
+
+    def _wait_tick(self, t: int, last: _Entry | None):
+        """Every stage rank's acknowledgement of tick ``t`` and, where a
+        sample finishes, its latent; raises the failure of a rank."""
+        acks, latent = set(), None
+        while len(acks) < len(self.stage_ranks) or (last is not None and latent is None):
+            rank, msg = self._acks.get()
+            if msg[0] == "failed":
+                raise self.failure
+            if msg[0] == "tick" and msg[1] == t:
+                acks.add(rank)
+            elif msg[0] == "done" and last is not None and msg[1] == last.rid:
+                latent = msg[2]
+        return latent
+
+
+class PipelineStream:
+    """A streaming executor over one filled step pipeline (port of
+    ``vdpp_tpu/parallel/pipeline.py::PipelineStream``): ``submit(latent)``
+    returns a ``concurrent.futures.Future`` of the finished latent.
+
+    A controller thread in this process ticks the pipeline whenever work is in
+    flight: at each tick stage 0 ingests the oldest queued request (or
+    idles), every stage steps its resident sample through its slice of the
+    steps, and the last stage finishes the request ingested S - 1 ticks
+    earlier. Overlapping requests share the pipeline: one submitted during
+    another's transit finishes one tick after it, not S ticks later. A
+    stream is one conditioning bundle on a controller that several streams may
+    share (:class:`StreamRanks`: the stage ranks hold every open stream's
+    bundle, and samples of different streams share ticks). ``ticks_run``
+    counts the controller's ticks, idle ones included.
+    """
+
+    def __init__(self, controller: _StreamController, cid: int, latent_shape: tuple, dtype,
+                 owner: bool = False):
+        self._controller = controller
+        self.cid = cid
+        self.latent_shape = tuple(latent_shape)
+        self.dtype = dtype
+        self._owner = owner
+        self._closed = False
+
+    @property
+    def ticks_run(self) -> int:
+        return self._controller.ticks_run
+
+    @property
+    def unusable(self) -> bool:
+        """True once the stream can never accept another submit (closed, or
+        a failure poisoned it): a cache of streams must evict it."""
+        return self._closed or self._controller.failure is not None or self._controller._stopped
+
+    def _check(self, latent: torch.Tensor) -> torch.Tensor:
+        if self.unusable:
+            self._controller._raise_if_unusable()
+            raise RuntimeError("stream is closed")
+        if tuple(latent.shape) != self.latent_shape:
+            raise ValueError(f"latent shape {tuple(latent.shape)} != stream shape "
+                             f"{self.latent_shape}")
+        if latent.dtype != self.dtype:
+            raise ValueError(f"latent dtype {latent.dtype} != stream dtype {self.dtype}")
+        return latent if isinstance(self._controller.transport, _LocalTransport) \
+            else latent.detach().cpu()
+
+    def submit(self, latent: torch.Tensor):
+        """Enqueue one sample ``(*latent_shape)``; returns a Future of the
+        finished latent (on the stage's device in this process, else on the
+        CPU)."""
+        return self._controller.enqueue(self.cid, self._check(latent), None).future
+
+    def submit_decoded(self, latent: torch.Tensor, uint8: bool = False):
+        """As :meth:`submit`, on a mesh with decode ranks: the finished latent
+        goes on to the decode ranks, and the Future gives the decoded frames
+        from decode rank 0 (``uint8``: the frames as bytes)."""
+        return self._controller.enqueue(self.cid, self._check(latent), bool(uint8)).frames
+
+    def close(self) -> None:
+        """Take no more samples; the ones submitted still finish."""
+        if self._closed:
+            return
+        self._closed = True
+        self._controller.release(self.cid)
+        if self._owner:
+            self._controller.close()
+
+
+class StreamRanks:
+    """The ranks of ``mesh`` serving streams: started once (each rank builds
+    its :class:`StreamJob` with ``build(stage, *args)``, a module-level
+    function, and loads its model once), kept alive and idle between
+    requests, with one controller (:class:`PipelineStream`) over all of them.
+    :meth:`stream` opens a stream for a conditioning payload, sent to the
+    stage ranks once. A one-rank mesh runs in this process with no process
+    group; a larger one spawns its ranks (``parallel/mesh.py::RankGroup``).
+
+    A rank that fails sends its traceback: every waiter fails with it, every
+    stream turns ``unusable``, and the ranks are stopped (:attr:`failed`):
+    a server starts a new group.
+    """
+
+    def __init__(self, mesh, build: Callable[..., StreamJob], *args: Any,
+                 threads: int | None = None, poll_seconds: float = 5.0):
+        import queue
+
+        from vdpp_tpu_torch.parallel.mesh import RankGroup
+
+        self.mesh = mesh
+        g = mesh.group_size
+        stage_ranks = list(range(mesh.stage_ranks))
+        self.controller = _StreamController(mesh.num_stages, stage_ranks,
+                                    list(range(mesh.stage_ranks, mesh.world_size)),
+                                    stage_ranks[:g], on_failure=self._on_failure)
+        if mesh.num_data > 1:
+            raise ValueError("a stream runs on a stage mesh (with intra-sample axes and decode "
+                             "ranks), not on a (stage, data) mesh")
+        self._startup = queue.SimpleQueue()
+        self._launches = queue.SimpleQueue()
+        self._group = None
+        self._started = False
+        if mesh.world_size == 1:
+            stage = Stage(mesh, 0)
+            self.controller.transport = _LocalTransport(_StreamWorker(stage, build(stage, *args)),
+                                                    self._on_message)
+            self._started = True
+            return
+        self._group = RankGroup(mesh, stream_rank, build, args, poll_seconds,
+                                on_message=self._on_message, threads=threads)
+        self.controller.transport = self._group
+        ready = 0
+        while ready < mesh.world_size:
+            rank, msg = self._startup.get()
+            if msg[0] != "ready":
+                self._group.close(timeout=5)
+                raise RuntimeError(f"stream rank {rank} of {mesh.world_size} failed to start:\n"
+                                   f"{msg[1]}")
+            ready += 1
+        self._started = True
+
+    @property
+    def pids(self) -> list[int]:
+        """The rank processes' ids (none for a one-rank mesh)."""
+        return [] if self._group is None else self._group.pids
+
+    @property
+    def failed(self) -> bool:
+        return self.controller.failure is not None
+
+    @property
+    def ticks_run(self) -> int:
+        return self.controller.ticks_run
+
+    def _on_message(self, rank: int, msg: tuple) -> None:
+        if not self._started:
+            self._startup.put((rank, msg))
+        elif msg[0] == "launches":
+            self._launches.put((rank, msg[1:]))
+        else:
+            self.controller.on_message(rank, msg)
+
+    def _on_failure(self, err: BaseException) -> None:
+        if self._group is not None:
+            import threading
+
+            # The other ranks may wait on the one that failed: stop them all,
+            # off the thread that reported it.
+            threading.Thread(target=self._group.close, kwargs={"timeout": 5},
+                             daemon=True).start()
+
+    def stream(self, payload, latent_shape: tuple, dtype=torch.float32) -> PipelineStream:
+        """A stream of samples ``(*latent_shape)`` conditioned by ``payload``
+        (what the job's ``bundle`` takes; CPU tensors)."""
+        return self.controller.open(payload, latent_shape, dtype)
+
+    def mark(self) -> None:
+        """Every rank counts its kernel launches from now on."""
+        for r in range(self.mesh.world_size):
+            self.controller.transport.send(r, ("mark",))
+
+    def launches(self) -> list[tuple[dict, float]]:
+        """Each rank's kernel launches since :meth:`mark` (or its start) and
+        its device's allocator peak in GB (0.0 on the CPU), in rank order."""
+        for r in range(self.mesh.world_size):
+            self.controller.transport.send(r, ("launches",))
+        got = dict(self._launches.get() for _ in range(self.mesh.world_size))
+        return [got[r] for r in range(self.mesh.world_size)]
+
+    def close(self) -> None:
+        """Finish the samples submitted, then stop the ranks."""
+        self.controller.close()
+        if self._group is None:
+            self.controller.transport.close()
+            return
+        if not self.failed:
+            for r in range(self.mesh.world_size):
+                with contextlib.suppress(OSError):
+                    self._group.send(r, ("stop",))
+        self._group.close()
 
 
 def run_reference_single_device(

@@ -16,6 +16,7 @@ import logging
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -37,6 +38,9 @@ _SIGNATURES = {
 
 _lib: ctypes.CDLL | None = None
 _tried = False
+# One build at a time: a caller that comes while another builds waits for
+# the library, rather than writing through numpy, whose bytes differ.
+_load_lock = threading.Lock()
 
 
 def library_path() -> Path:
@@ -47,6 +51,11 @@ def library_path() -> Path:
 
 def _load() -> ctypes.CDLL | None:
     """The library, built first if needed; None without a compiler."""
+    with _load_lock:
+        return _build_and_load()
+
+
+def _build_and_load() -> ctypes.CDLL | None:
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
