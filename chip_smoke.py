@@ -6,6 +6,7 @@
     python3 chip_smoke.py --intra-only     # the build and phases 9 and 10, then stop
     python3 chip_smoke.py --moe-int8-only  # the build and phase 11, then stop
     python3 chip_smoke.py --serve-only     # the build and phase 12, then stop
+    python3 chip_smoke.py --variants-only  # the build, phase 3's last variants and phase 13
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -25,7 +26,14 @@ Phases (any failure exits non-zero and prints no result line):
    bf16 (DiT-XL's joint3d and factorized sites, plus ragged bf16 lengths and
    fp32), fused GroupNorm+SiLU (two launches, bf16 weights as the UNet
    stores them), and frame attention at d = 64 (the UNet's sites) and d = 72
-   (the factorized DiT's; bf16 on the TMA + mma.sync kernel);
+   (the factorized DiT's; bf16 on the TMA + mma.sync kernel); last, the
+   kernels' last variants, each against its plain version and timed with
+   its bound and library call: flash above d = 512 (640, 768, 1024, bf16
+   and fp32, both softmax modes; the bf16 exponent in 8 (a)), flash at B*H = 65,606
+   (bf16 d = 64, fp32 d = 512, bf16 d = 16), GroupNorm+SiLU past C = 4096,
+   G = 256 and N = 65,535 (the same bits twice), and the fused QKV
+   projection's strided chunks at the models' flash and frame-attention
+   sites, read in place (no copy) and bit-equal to contiguous operands;
 4. agreement: a small UNet (head dim 64, so the flash kernel runs) and one
    CFG Euler step, on the card against the same weights on the CPU, first
    as it is, then with both kernel switches on (VDPP_GN_FUSED=1,
@@ -101,9 +109,10 @@ Phases (any failure exits non-zero and prints no result line):
    3, the generic flash kernel (every head dim up to 512 without a kernel of
    its own) at d = 16, 40, 80, 128 and 256, bf16 and fp32, both softmax
    modes, at a ragged L = 600 and at L = 2304 (timed), VDPP_FLASH_EXP=bf16
-   (running max) on the d = 64 wgmma and fp32 kernels, both d = 512 kernels
-   and the generic one (inputs whose rows peak at key 0, so that the fp32
-   limit sits below the flag's own effect), and the generic frame-attention
+   (running max) on the d = 64 wgmma and fp32 kernels, both d = 512 kernels,
+   the generic one and the one above d = 512 at 640 and 1024 (inputs whose
+   rows peak at key 0, so that the fp32 limit sits below the flag's own
+   effect), and the generic frame-attention
    kernel at d = 16 and 40 with 14 frames, d = 64 with 48 and d = 33 with
    25; (b) after the agreement checks, the
    tiny SVD UNet (14 frames of 16x32) and the tiny DiT (8 frames of 32x64),
@@ -200,9 +209,24 @@ Phases (any failure exits non-zero and prints no result line):
    part prints its wall, its request seconds, its ticks and each process's
    peak.
 
+13. fused QKV, last: the image->video app (``apps.generate_video.run`` in
+   this process: SVD-XT bf16 with both kernel switches, 14 frames of
+   72x128, CFG 3, 2 Euler steps, CLIP, the fp32 VAE encode and decode) and
+   DiT-XL joint3d bf16 (8 frames of 40x64, 2 steps, a random context), each
+   with VDPP_FUSE_QKV=0, 1, 1, 0 in turns: the latents within TOL["bf16"] x max
+   (bit-equality printed), the app's videos within as many levels of 255,
+   the unfused run's launches (60 flash at d = 64, 5 at d = 512, 356
+   GroupNorm+SiLU, 64 frame attention; 224 flash at d = 72) and no operand
+   copy in any; the app's diffusion seconds and the DiT's s/step of each.
+
 The last two lines are the ``nvidia-smi`` name/power-limit line and the
 contract line ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
-comes before them.
+comes before them. Its entries for the variants no model reaches (flash
+above d = 512 and past 65,535 B*H, GroupNorm past its old limits) count
+their launches over every model phase (phases 4-13): this process's from
+the wrappers' counters, each spawned rank's and server's as its counts come
+back (``spawned``); the spawned processes that report no counts are named
+in the entry.
 """
 
 from __future__ import annotations
@@ -536,12 +560,15 @@ def add_rates(row: dict, flops: float) -> None:
 
 
 def add_shares(row: dict) -> None:
-    """The share of the bound and the ratio to the library call."""
+    """The share of the bound and the ratio to the library call (None where
+    the library call refused the shape)."""
     row["bound_share"] = row["bound_ms"] / row["ms"]
-    row["vs_library"] = row["ms"] / row["library_ms"]
+    row["vs_library"] = row["ms"] / row["library_ms"] if row["library_ms"] else None
 
 
 def shares_text(row: dict, library: str) -> str:
+    if row["vs_library"] is None:
+        return f"{row['bound_share']:.3f} of the bound, no {library} time (it refused the shape)"
     return (f"{row['bound_share']:.3f} of the bound, {row['vs_library']:.3f}x {library}'s "
             f"time")
 
@@ -554,7 +581,7 @@ def rates_text(row: dict) -> str:
 # their bool arguments in order (the last pair for any further bool).
 KERNEL_NAMES = {"flash_attention": (r"flash_fwd_\w+?", (("running", "static"),
                                                         ("exp_f32", "exp_bf16"))),
-                "frame_attention": (r"frame_attn\w*?", (("false", "true"),)),
+                "frame_attention": (r"frame_attn\w*?", (("unmerged", "merged"),)),
                 "group_norm_silu": (r"gn_\w+?", (("false", "true"),))}
 
 
@@ -1145,8 +1172,10 @@ def exp_inputs(torch, g, b, l, h, d, dtype):
 def check_flash_exp(torch, fa, F) -> dict:
     """VDPP_FLASH_EXP=bf16 (running max, s - m and its exponential rounded to
     bf16) on every kernel that has a running-max form: d = 64 bf16 (wgmma)
-    and fp32, d = 512 bf16 (wgmma) and fp32, and the generic kernel at d = 16
-    and 80, on ``exp_inputs``; the d = 64 bf16 site at L = 2304 is timed."""
+    and fp32, d = 512 bf16 (wgmma) and fp32, the generic kernel at d = 16
+    and 80, and the kernel above d = 512 at the first and last of
+    WIDE_FLASH_DIMS, on ``exp_inputs``; the d = 64 bf16 site at L = 2304 is
+    timed."""
     g = torch.Generator(device="cuda").manual_seed(13)
     print(f"flash VDPP_FLASH_EXP=bf16 tolerance: fp32 {EXP_TOL_FP32} x max|plain|, below the "
           f"flag's own effect (checked); bf16 {TOL['bf16']} x max|plain| as without the flag, "
@@ -1158,7 +1187,10 @@ def check_flash_exp(torch, fa, F) -> dict:
                               (64, 2, 600, 3, torch.float32), (512, 1, 2560, 1, torch.bfloat16),
                               (512, 1, 2560, 1, torch.float32), (16, 2, 600, 3, torch.bfloat16),
                               (16, 2, 600, 3, torch.float32), (80, 1, 2304, 8, torch.bfloat16),
-                              (80, 1, 2304, 8, torch.float32)):
+                              (80, 1, 2304, 8, torch.float32),
+                              *((d, 1, WIDE_FLASH_SHAPE[1], WIDE_FLASH_SHAPE[2], dtype)
+                                for d in (WIDE_FLASH_DIMS[0], WIDE_FLASH_DIMS[-1])
+                                for dtype in (torch.bfloat16, torch.float32))):
         q, k, v = exp_inputs(torch, g, b, l, h, d, dtype)
         name = "bf16" if dtype == torch.bfloat16 else "fp32"
         what = f"d={d} {name} B={b} L={l} H={h}"
@@ -1669,6 +1701,7 @@ def pipeline_rank(stage, solver: str, interval: int) -> dict:
     from vdpp_tpu_torch.ops import norm_kernel as nk
     from vdpp_tpu_torch.ops import temporal_attention_kernel as ta
     from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+    from vdpp_tpu_torch.utils import kernels
 
     exact_libraries(torch)
     wrapper, params, inputs = pipeline_case(torch, stage.device, solver, interval)
@@ -1690,6 +1723,7 @@ def pipeline_rank(stage, solver: str, interval: int) -> dict:
     res = pipe.run_ticked(params, inputs, on_sample=lambda i, lat: seen.append((i, lat.clone())))
     out = {"rank": stage.rank, "device": str(stage.device),
            "counts": {"flash": dict(fa.launches), "gn": nk.launches, "frame": ta.launches},
+           "variants": kernels.variant_launches(),
            "peak": torch.cuda.max_memory_allocated(stage.device),
            "handoff_bytes": inputs[0].numel() * inputs.element_size(), "handoff_s": handoff_s}
     if res is not None:
@@ -1733,7 +1767,7 @@ def run_pipeline(torch, smi: str, solver: str, interval: int = 0) -> dict:
     with kernel_switches():
         t0 = time.perf_counter()
         try:
-            ranks = run_stages(mesh, pipeline_rank, solver, interval, timeout=900)
+            ranks = spawned(run_stages(mesh, pipeline_rank, solver, interval, timeout=900))
         except (RuntimeError, TimeoutError) as e:
             fail(f"the {name} pipeline failed: {e}")
         wall = time.perf_counter() - t0
@@ -2163,6 +2197,7 @@ def production_rank(stage, tmpdir: str) -> dict:
     from vdpp_tpu_torch.ops import norm_kernel as nk
     from vdpp_tpu_torch.ops import temporal_attention_kernel as ta
     from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+    from vdpp_tpu_torch.utils import kernels
     from vdpp_tpu_torch.utils.resume import load_pipeline_state, save_pipeline_state
 
     exact_libraries(torch)
@@ -2208,6 +2243,7 @@ def production_rank(stage, tmpdir: str) -> dict:
             if res is not None:
                 runs[name].update(outputs=res[0].cpu(), ticks=res[1])
         out[solver] = {"runs": runs, "writes": writes}
+    out["variants"] = kernels.variant_launches()
     return out
 
 
@@ -2242,6 +2278,7 @@ def run_production(torch, fa, nk, ta, smi: str) -> dict:
         t0 = time.perf_counter()
         result = production.run(args)
         wall = time.perf_counter() - t0
+        spawned(result["launches"])
         tick, buf, meta = load_pipeline_state(state)
         what = (f"production (SVD-XT bf16, latent {'x'.join(PROD_LATENT)}, CFG 3, "
                 f"{PROD_STEPS} Euler steps, {PROD_SAMPLES} samples, {PROD_STAGES} ranks on "
@@ -2278,7 +2315,7 @@ def run_production(torch, fa, nk, ta, smi: str) -> dict:
         mesh = make_pipeline_mesh(devices=devices)
         t0 = time.perf_counter()
         try:
-            ranks = run_stages(mesh, production_rank, tmp, timeout=900)
+            ranks = spawned(run_stages(mesh, production_rank, tmp, timeout=900))
         except (RuntimeError, TimeoutError) as e:
             fail(f"the production API-level group failed: {e}")
         wall_api = time.perf_counter() - t0
@@ -2354,6 +2391,7 @@ def intra_rank(stage, cases) -> dict:
     from vdpp_tpu_torch.parallel import collectives
     from vdpp_tpu_torch.parallel.mesh import Stage
     from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+    from vdpp_tpu_torch.utils import kernels
 
     exact_libraries(torch)
     wrapper, params, inputs = intra_case(torch, stage.device)
@@ -2389,6 +2427,7 @@ def intra_rank(stage, cases) -> dict:
             "collectives": dict(collectives.counts), "bytes": dict(collectives.nbytes),
             "peak": torch.cuda.max_memory_allocated(stage.device),
             "outputs": res.cpu() if res is not None and st.is_last_rank else None}
+    out["variants"] = kernels.variant_launches()
     return out
 
 
@@ -2434,7 +2473,7 @@ def run_intra_sample(torch, smi: str) -> dict:
         for part, (mesh, cases) in meshes.items():
             t0 = time.perf_counter()
             try:
-                out[part] = run_stages(mesh, intra_rank, cases, timeout=900)
+                out[part] = spawned(run_stages(mesh, intra_rank, cases, timeout=900))
             except (RuntimeError, TimeoutError) as e:
                 fail(f"phase 9 ({part}) failed: {e}")
             out[part + "_wall_s"] = time.perf_counter() - t0
@@ -2562,6 +2601,7 @@ def dit_intra_rank(stage, cases) -> dict:
     from vdpp_tpu_torch.parallel import collectives
     from vdpp_tpu_torch.parallel.mesh import Stage
     from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+    from vdpp_tpu_torch.utils import kernels
 
     exact_libraries(torch)
     shapes = collections.Counter()
@@ -2602,6 +2642,7 @@ def dit_intra_rank(stage, cases) -> dict:
             "collectives": dict(collectives.counts), "bytes": dict(collectives.nbytes),
             "peak": torch.cuda.max_memory_allocated(stage.device),
             "outputs": res.cpu() if res is not None and st.is_last_rank else None}
+    out["variants"] = kernels.variant_launches()
     return out
 
 
@@ -2642,7 +2683,7 @@ def run_dit_intra(torch, smi: str) -> dict:
     for part, (mesh, cases) in meshes.items():
         t0 = time.perf_counter()
         try:
-            out[part] = run_stages(mesh, dit_intra_rank, cases, timeout=900)
+            out[part] = spawned(run_stages(mesh, dit_intra_rank, cases, timeout=900))
         except (RuntimeError, TimeoutError) as e:
             fail(f"phase 10 ({part}) failed: {e}")
         out[part + "_wall_s"] = time.perf_counter() - t0
@@ -2795,6 +2836,7 @@ def run_dit_intra_apps(torch, smi: str) -> dict:
             try:
                 t0 = time.perf_counter()
                 res = production.run(args, state=state)
+                spawned(res["launches"])
                 runs[what] = {"out": res["out"], "wall_s": time.perf_counter() - t0,
                               "launches": res["launches"],
                               "flags": (args.num_stages, args.seq_parallel, args.frame_parallel,
@@ -2838,6 +2880,8 @@ def run_dit_intra_apps(torch, smi: str) -> dict:
             wall = time.perf_counter() - t0
             if ranks is None:
                 fail(f"the image->video app ({what}) refused its flags")
+            if len(ranks) > 1:  # spawned ranks (one rank runs in this process)
+                spawned([r["launches"] for r in ranks])
             app_runs[what] = {"files": app_files(out_dir), "wall_s": wall, "ranks": ranks}
             writer = next(r for r in ranks if r["outputs"])
             print(f"image->video app {what}: {wall:.3f} s in run, TIMING {writer['timing']}, "
@@ -2925,6 +2969,7 @@ def moe_rank(stage, cases) -> dict:
     from vdpp_tpu_torch.parallel import collectives
     from vdpp_tpu_torch.parallel.mesh import Stage
     from vdpp_tpu_torch.parallel.pipeline import PipelineConfig, StepPipeline
+    from vdpp_tpu_torch.utils import kernels
     from vdpp_tpu_torch.utils.memory import params_bytes_per_device
 
     exact_libraries(torch)
@@ -2957,6 +3002,7 @@ def moe_rank(stage, cases) -> dict:
             "peak": torch.cuda.max_memory_allocated(stage.device),
             "outputs": res.cpu() if res is not None and st.is_last_rank else None}
         del wrapper, params, inputs, pipe
+    out["variants"] = kernels.variant_launches()
     return out
 
 
@@ -3025,7 +3071,7 @@ def run_moe(torch, fa, nk, ta, smi: str) -> dict:
     for part, (mesh, cases) in meshes.items():
         t0 = time.perf_counter()
         try:
-            ranks[part] = run_stages(mesh, moe_rank, cases, timeout=900)
+            ranks[part] = spawned(run_stages(mesh, moe_rank, cases, timeout=900))
         except (RuntimeError, TimeoutError) as e:
             fail(f"phase 11 (a{part}) failed: {e}")
         out[part + "_wall_s"] = time.perf_counter() - t0
@@ -3423,6 +3469,7 @@ def serve_report(srv: ServeProcess, smi: str, ready_s: float, reqs: list[dict]) 
     log = srv.text()
     ticks = SERVE_TICKS_RE.search(log)
     procs = srv.launches()
+    spawned([counts for counts, _ in procs.values()])
     for key, (counts, peak) in procs.items():
         print(f"serve {srv.what}: {'rank ' + str(key) if key != 'server' else 'server'}: "
               f"launches since the warm-up {counts}, peak allocated {peak:.3f} GB ({smi})",
@@ -3587,10 +3634,407 @@ def run_phase12(torch, smi: str) -> dict:
     return {"one_stage": one, "decode_rank": two, "tiny_dit3d": tiny}
 
 
+# ---- the last kernel variants (in phase 3) and fused QKV (phase 13) ---- #
+
+WIDE_FLASH_DIMS = (640, 768, 1024)  # flash_fwd_wide: O in slabs of 512 columns
+WIDE_FLASH_SHAPE = (1, 2304, 2)  # B, L, H
+MANY_HEADS = (2, 32803)  # B, H: B * H = 65,536 + 70, past grid y's 65,535
+MANY_HEADS_CASES = ((64, "bf16", 40), (512, "fp32", 12), (16, "bf16", 40))  # d, dtype, L
+# (N, S, C, G): two channel tiles of 2560 (16 whole groups each), G = 512,
+# two tiles of 4096, one group of 8192 split over two tiles, N = 70,000.
+GN_WIDE_CASES = ((1, 1024, 5120, 32), (1, 1024, 5120, 512), (1, 1024, 8192, 512),
+                 (2, 64, 8192, 1), (70000, 8, 64, 32))
+# The fused projection's chunks at the models' sites: (what, B, L, H, d, dtype).
+FUSED_FLASH_CASES = (("UNet level 0, 14 frames", 14, 9216, 5, 64, "bf16"),
+                     ("DiT-XL joint3d", 1, 5120, 16, 72, "bf16"),
+                     ("VAE mid-block, a decode chunk", 4, 9216, 1, 512, "fp32"),
+                     ("VAE mid-block bf16", 4, 9216, 1, 512, "bf16"))
+# (what, B, F, L, H, d): temporal self-attention's fused chunks.
+FUSED_FRAME_CASES = (("UNet level 0, 14 frames", 1, 14, 9216, 5, 64),
+                     ("DiT-XL factorized", 1, 8, 640, 16, 72))
+FUSE_SWITCH = "VDPP_FUSE_QKV"
+FUSE_ORDER = ("0", "1", "1", "0")  # unfused, fused, fused, unfused: the times in turns
+
+
+def dtype_of(torch, name: str):
+    return {"bf16": torch.bfloat16, "fp32": torch.float32}[name]
+
+
+def library_ms(torch, fn, what: str) -> float | None:
+    """The one-call PyTorch yardstick's time, or None where it refuses the
+    shape (said so)."""
+    try:
+        return time_ms(torch, fn, iters=5, warmup=1)
+    except RuntimeError as e:
+        print(f"{what}: the library call refused the shape: {str(e).splitlines()[0]}")
+        return None
+
+
+def check_flash_wide(torch, fa, F) -> dict:
+    """Flash above d = 512 (``flash_fwd_wide``) at d = 640, 768 and 1024,
+    bf16 and fp32, both softmax modes, at B = 1, L = 2304, 2 heads; every
+    dtype timed with its bound and SDPA (``check_flash_exp`` holds its bf16
+    exponent)."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    b, l, h = WIDE_FLASH_SHAPE
+    max_err, shapes = 0.0, []
+    for d in WIDE_FLASH_DIMS:
+        base = [torch.randn(b, l, h, d, generator=g, device="cuda") for _ in range(3)]
+        for name in ("bf16", "fp32"):
+            q, k, v = (t.to(dtype_of(torch, name)) for t in base)
+            for static in (True, False):
+                err, ref_max = compare_flash(torch, fa, f"wide d={d} {name} B={b} L={l} H={h}",
+                                             q, k, v, static, False, TOL[name])
+                max_err = max(max_err, err)
+            row = time_flash_row(torch, fa, F, q, k, v, {"D": d, "B": b, "L": l, "H": h,
+                                                         "dtype": name, "ref_max": ref_max})
+            print(f"flash wide d={d} {name} B={b} L={l} H={h}: kernel_ms {row['ms']:.4f}, "
+                  f"plain_ms {row['plain_ms']:.3f}, library_ms (SDPA {name}) "
+                  f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.5f} ({row['bound_by']}); "
+                  f"{rates_text(row)}", flush=True)
+            shapes.append(row)
+    return {"max_abs_err": max_err, "shapes": shapes}
+
+
+def check_flash_many_heads(torch, fa, F) -> dict:
+    """B * H = 65,536 + 70 on the wgmma kernel (bf16, d = 64), the fp32
+    d = 512 kernel and the generic one (bf16, d = 16): every (b, h) against
+    the plain version, timed with its bound and SDPA."""
+    g = torch.Generator(device="cuda").manual_seed(18)
+    b, h = MANY_HEADS
+    max_err, shapes = 0.0, []
+    for d, name, l in MANY_HEADS_CASES:
+        dtype = dtype_of(torch, name)
+        q, k, v = (torch.randn(b, l, h, d, generator=g, device="cuda").to(dtype)
+                   for _ in range(3))
+        err, ref_max = compare_flash(torch, fa, f"B*H={b * h} d={d} {name} L={l}", q, k, v,
+                                     True, False, TOL[name])
+        max_err = max(max_err, err)
+        row = {"D": d, "B": b, "H": h, "L": l, "dtype": name, "ref_max": ref_max}
+        row["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v), iters=5, warmup=1)
+        row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v), iters=3,
+                                  warmup=1)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row["library_ms"] = library_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                                       f"SDPA at B*H={b * h} d={d}")
+        del qh, kh, vh
+        flops = 4 * b * h * l * l * d
+        peak = H100_BF16_FLOPS if name == "bf16" else H100_FP32_FLOPS
+        row["bound_ms"], row["bound_by"] = bound(flops, 4 * b * h * l * d * q.element_size(),
+                                                 peak)
+        add_shares(row)
+        print(f"flash B*H={b * h} d={d} {name} L={l}: kernel_ms {row['ms']:.4f}, plain_ms "
+              f"{row['plain_ms']:.3f}, library_ms (SDPA) {row['library_ms']}, bound_ms "
+              f"{row['bound_ms']:.5f} ({row['bound_by']}); {shares_text(row, 'SDPA')}",
+              flush=True)
+        shapes.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, "shapes": shapes}
+
+
+def check_group_norm_wide(torch, nk, F) -> dict:
+    """GroupNorm+SiLU past the kernel's old limits (GN_WIDE_CASES: C > 4096 in
+    channel tiles, G > 256, N > 65,535), bf16 with bf16 weights, against the
+    plain version (one bf16 ulp), the same bits on a second call, timed with
+    its bound and F.group_norm + F.silu."""
+    from vdpp_tpu_torch.ops.normalization import Norm
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    max_err, shapes = 0.0, []
+    for n, rows, c, groups in GN_WIDE_CASES:
+        norm = Norm(c, device="cuda", dtype=torch.bfloat16)
+        norm.weight.copy_(1.0 + 0.2 * torch.randn(c, generator=g, device="cuda"))
+        norm.bias.copy_(0.1 * torch.randn(c, generator=g, device="cuda"))
+        x = (3.0 * torch.randn(n, rows, c, generator=g, device="cuda")).to(torch.bfloat16)
+        before = nk.launches
+        got = nk.group_norm_silu_fused(x, norm, groups, 1e-6)
+        again = nk.group_norm_silu_fused(x, norm, groups, 1e-6)
+        torch.cuda.synchronize()
+        if nk.launches != before + 2:
+            fail("the GroupNorm+SiLU wrapper did not count its launches")
+        ref = nk.group_norm_silu_fused_plain(x, norm, groups, 1e-6)
+        err = (got.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        tol = bf16_ulp(ref_max)
+        print(f"gn_silu N={n} S={rows} C={c} G={groups}: max|diff| {err:.3g}, max|plain| "
+              f"{ref_max:.3g}, limit {tol:.3g}; the same bits twice: {torch.equal(got, again)}",
+              flush=True)
+        if not math.isfinite(err) or err > tol or not torch.equal(got, again):
+            fail(f"gn_silu N={n} C={c} G={groups}: max|diff| {err} > {tol}, or other bits on a "
+                 "second call")
+        max_err = max(max_err, err)
+        row = {"N": n, "S": rows, "C": c, "G": groups, "ref_max": ref_max}
+        row["ms"] = time_ms(torch, lambda: nk.group_norm_silu_fused(x, norm, groups, 1e-6))
+        row["plain_ms"] = time_ms(torch, lambda: nk.group_norm_silu_fused_plain(x, norm, groups,
+                                                                                 1e-6),
+                                  iters=3, warmup=1)
+        xc = x.transpose(1, 2).contiguous()  # channels-first copy, not timed
+        row["library_ms"] = library_ms(
+            torch, lambda: F.silu(F.group_norm(xc, groups, norm.weight, norm.bias, 1e-6)),
+            f"F.group_norm at N={n} C={c} G={groups}")
+        elems = n * rows * c
+        row["bound_ms"], row["bound_by"] = bound(8 * elems, 2 * elems * 2, H100_FP32_FLOPS)
+        add_shares(row)
+        print(f"gn_silu N={n} S={rows} C={c} G={groups}: kernel_ms {row['ms']:.4f}, plain_ms "
+              f"{row['plain_ms']:.3f}, library_ms (F.group_norm + F.silu, channels-first) "
+              f"{row['library_ms']}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
+              f"{shares_text(row, 'the library')}", flush=True)
+        shapes.append(row)
+    return {"max_abs_err": max_err, "shapes": shapes}
+
+
+def fused_chunks(torch, g, shape: tuple, heads_dim: tuple, dtype):
+    """q, k, v as VDPP_FUSE_QKV=1 leaves them: the chunks of one projection of
+    ``shape[:-1] + (3 C,)``, each reshaped to ``heads_dim`` (strided views)."""
+    qkv = torch.randn(*shape[:-1], 3 * shape[-1], generator=g, device="cuda").to(dtype)
+    return [t.reshape(heads_dim) for t in qkv.chunk(3, dim=-1)]
+
+
+def check_fused_qkv_kernels(torch, fa, ta, F) -> dict:
+    """The fused projection's strided chunks at the models' sites: flash
+    (FUSED_FLASH_CASES) and frame attention (FUSED_FRAME_CASES) read them in
+    place (no copy), bit-equal to the contiguous operands, against the plain
+    version; the kernel timed on the strided and on contiguous operands,
+    with its bound, the plain version and SDPA."""
+    g = torch.Generator(device="cuda").manual_seed(20)
+    out = {"flash": [], "frame": []}
+    errs = {"flash": 0.0, "frame": 0.0}
+    for what, b, l, h, d, name in FUSED_FLASH_CASES:
+        q, k, v = fused_chunks(torch, g, (b, l, h * d), (b, l, h, d), dtype_of(torch, name))
+        copies = fa.copies
+        err, ref_max = compare_flash(torch, fa, f"fused QKV {what} d={d} {name}", q, k, v, True,
+                                     False, TOL[name])
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        same = torch.equal(fa.flash_attention(q, k, v), fa.flash_attention(qc, kc, vc))
+        if fa.copies != copies or not same:
+            fail(f"flash fused QKV {what}: {fa.copies - copies} copies, bit-equal to contiguous "
+                 f"operands {same}")
+        errs["flash"] = max(errs["flash"], err)
+        row = time_flash_row(torch, fa, F, q, k, v, {"site": what, "B": b, "L": l, "H": h,
+                                                     "D": d, "dtype": name, "ref_max": ref_max})
+        row["contiguous_ms"] = time_ms(torch, lambda: fa.flash_attention(qc, kc, vc), iters=5,
+                                       warmup=1)
+        print(f"flash fused QKV {what} (B={b}, L={l}, H={h}, d={d}, {name}): kernel_ms "
+              f"{row['ms']:.4f} on the strided chunks, {row['contiguous_ms']:.4f} on contiguous "
+              f"copies; plain_ms {row['plain_ms']:.3f}, library_ms (SDPA) "
+              f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} ({row['bound_by']}); "
+              f"{rates_text(row)}", flush=True)
+        out["flash"].append(row)
+    for what, b, f, l, h, d in FUSED_FRAME_CASES:
+        q, k, v = fused_chunks(torch, g, (b * f, l, h * d), (b, f, l, h, d), torch.bfloat16)
+        copies = ta.copies
+        got = ta.frame_attention(q, k, v)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        same = torch.equal(got, ta.frame_attention(qc, kc, vc))
+        ref = ta.frame_attention_plain(q, k, v)
+        err = (got.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        tol = bf16_ulp(ref_max)
+        print(f"frame attention fused QKV {what} (F={f}, L={l}, H={h}, d={d}): max|diff| "
+              f"{err:.3g}, limit {tol:.3g}; bit-equal to contiguous operands {same}, copies "
+              f"{ta.copies - copies}", flush=True)
+        if not math.isfinite(err) or err > tol or not same or ta.copies != copies:
+            fail(f"frame attention fused QKV {what}: max|diff| {err} > {tol}, bit-equal {same}, "
+                 f"{ta.copies - copies} copies")
+        errs["frame"] = max(errs["frame"], err)
+        row = {"site": what, "B": b, "F": f, "L": l, "H": h, "D": d, "ref_max": ref_max}
+        row["ms"] = time_ms(torch, lambda: ta.frame_attention(q, k, v))
+        row["contiguous_ms"] = time_ms(torch, lambda: ta.frame_attention(qc, kc, vc))
+        row["plain_ms"] = time_ms(torch, lambda: ta.frame_attention_plain(q, k, v), iters=3,
+                                  warmup=1)
+        qt, kt, vt = (t.permute(0, 2, 3, 1, 4).reshape(b * l, h, f, d).contiguous()
+                      for t in (q, k, v))
+        row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        row["bound_ms"], row["bound_by"] = bound(b * l * h * 4 * f * f * d,
+                                                 4 * b * f * l * h * d * 2, H100_BF16_FLOPS)
+        add_shares(row)
+        print(f"frame attention fused QKV {what}: kernel_ms {row['ms']:.4f} strided, "
+              f"{row['contiguous_ms']:.4f} contiguous; plain_ms {row['plain_ms']:.3f}, "
+              f"library_ms (SDPA on a copy) {row['library_ms']:.4f}, bound_ms "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}); {shares_text(row, 'SDPA')}",
+              flush=True)
+        out["frame"].append(row)
+    return {f"fused_{kind}": {"max_abs_err": errs[kind], "shapes": out[kind]}
+            for kind in ("flash", "frame")}
+
+
+def check_variants(torch, fa, nk, ta, F) -> dict:
+    """Phase 3's part for the last variants and the fused QKV layout."""
+    t0 = time.perf_counter()
+    res = {"wide": check_flash_wide(torch, fa, F),
+           "many_heads": check_flash_many_heads(torch, fa, F),
+           "gn_wide": check_group_norm_wide(torch, nk, F),
+           **check_fused_qkv_kernels(torch, fa, ta, F)}
+    print(f"the kernels' variants checked in {time.perf_counter() - t0:.1f} s", flush=True)
+    return res
+
+
+def same_within(torch, what: str, got, want, tol: float, smi: str) -> dict:
+    """max|got - want| against ``tol`` x max|want| (bit-equal noted); fails past it."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    top = want.abs().max().item()
+    equal = torch.equal(got, want)
+    print(f"{what}: max|fused - unfused| {err:.4g}, max|unfused| {top:.4g}, limit {tol} x "
+          f"max = {tol * top:.4g}; bit-equal {equal} ({smi})", flush=True)
+    if not math.isfinite(err) or err > tol * top:
+        fail(f"{what}: max|fused - unfused| {err} > {tol} x {top}")
+    return {"max_abs_diff": err, "max_abs": top, "bit_equal": equal}
+
+
+def fused_app_run(torch, fa, nk, ta, smi: str, fuse: str) -> dict:
+    """One run of the image->video app (``apps.generate_video.run``, in this
+    process) with both kernel switches and VDPP_FUSE_QKV=``fuse``: its
+    latent (captured from ``StepPipeline.run``), its Y4M's bytes, the
+    launches and the copies from the encode on, the TIMING split."""
+    import shutil
+    import tempfile
+
+    from vdpp_tpu_torch.apps import generate_video
+    from vdpp_tpu_torch.parallel.pipeline import StepPipeline
+
+    latents, run = [], StepPipeline.run
+
+    def capture(self, params, inputs, *a, **kw):
+        res = run(self, params, inputs, *a, **kw)
+        latents.append(res.cpu())
+        return res
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_fused_")
+    StepPipeline.run = capture
+    try:
+        with kernel_switches({**SWITCHES, FUSE_SWITCH: fuse}):
+            reset_counts(fa, nk, ta)
+            copies = (fa.copies, ta.copies)
+            t0 = time.perf_counter()
+            ranks = generate_video.run(["--random-weights", "--steps", str(APP_STEPS),
+                                        "--device", "cuda", "--num-stages", "1",
+                                        "--output-dir", out_dir])
+            wall = time.perf_counter() - t0
+            counts = {"flash": dict(fa.launches), "gn": nk.launches, "frame": ta.launches,
+                      "copies": fa.copies - copies[0] + ta.copies - copies[1]}
+        if not ranks or len(latents) != 1:
+            fail(f"the image->video app with {FUSE_SWITCH}={fuse} gave no result")
+        y4m = next(os.path.join(out_dir, n) for n in os.listdir(out_dir) if n.endswith(".y4m"))
+        with open(y4m, "rb") as fh:
+            video = fh.read()
+        frames = y4m_frames(y4m)
+    finally:
+        StepPipeline.run = run
+        shutil.rmtree(out_dir, ignore_errors=True)
+    timing = ranks[0]["timing"]
+    print(f"(13a) image->video app, {FUSE_SWITCH}={fuse}, both kernel switches: {wall:.2f} s, "
+          f"TIMING {timing}, launches {counts}, y4m {frames} ({smi})", flush=True)
+    if frames != (APP_FRAMES, APP_W, APP_H):
+        fail(f"the app with {FUSE_SWITCH}={fuse} wrote {frames}")
+    return {"latent": latents[0], "video": video, "counts": counts, "timing": timing,
+            "wall_s": wall}
+
+
+def run_fused_qkv(torch, bench, fa, nk, ta, smi: str) -> dict:
+    """Phase 13: the fused-QKV paths at full width, each against the same run
+    with VDPP_FUSE_QKV=0 (within TOL["bf16"] x max, bit-equal where cuBLAS
+    picks the same GEMM for the 3C-wide product), with the unfused run's
+    launches and no copy, each run in FUSE_ORDER (the times in turns): (a)
+    the image->video app (SVD-XT bf16 with both
+    kernel switches, 14 frames of 72x128, CFG 3, APP_STEPS Euler steps, CLIP
+    and the fp32 VAE encode and decode, whose mid-block attention fuses with
+    its bias: d = 512 at the fused k and v); (b) DiT-XL joint3d bf16, 8 frames
+    of 40x64, STEPS steps, a random context (d = 72)."""
+    from vdpp_tpu_torch.models.dit import DiTVideoConfig
+
+    t0 = time.perf_counter()
+    res: dict = {"svd_app": {}, "dit_joint3d": {}}
+    order = [(fuse, fused_app_run(torch, fa, nk, ta, smi, fuse)) for fuse in FUSE_ORDER]
+    runs = dict(order[:2])  # the first of each
+    forwards = 2 * APP_STEPS
+    want = {"flash": FLASH_PER_APP, "gn": GN_SILU_PER_FORWARD * forwards,
+            "frame": FRAME_ATTN_PER_FORWARD * forwards, "copies": 0}
+    for fuse, r in order:
+        for key, n in want.items():
+            if key == "flash":
+                for d, nd in n.items():
+                    expect(f"(13a) flash at d = {d}, {FUSE_SWITCH}={fuse}", r["counts"]["flash"]
+                           .get(d, 0), nd)
+            elif key == "copies":
+                print(f"(13a) operand copies, {FUSE_SWITCH}={fuse}: {r['counts']['copies']}")
+                if r["counts"]["copies"]:
+                    fail(f"(13a) {r['counts']['copies']} operand copies with {FUSE_SWITCH}={fuse}")
+            else:
+                expect(f"(13a) {key}, {FUSE_SWITCH}={fuse}", r["counts"][key], n)
+    import numpy as np
+
+    a, b = (np.frombuffer(runs[f]["video"], np.uint8).astype(np.int16) for f in ("0", "1"))
+    levels = int(np.abs(a - b).max()) if a.shape == b.shape else None
+    print(f"(13a) the videos' bytes: equal {runs['0']['video'] == runs['1']['video']}, max "
+          f"|fused - unfused| {levels} levels of 255 (limit {TOL['bf16']} x 255)", flush=True)
+    if levels is None or levels > TOL["bf16"] * 255:
+        fail(f"(13a) the fused run's video differs by {levels} levels")
+    res["svd_app"] = {
+        "latent": same_within(torch, "(13a) SVD-XT latent", runs["1"]["latent"],
+                              runs["0"]["latent"], TOL["bf16"], smi),
+        "video_levels": levels, "counts": {f: r["counts"] for f, r in runs.items()},
+        "diffusion_s": [(f, r["timing"]["diffusion"]) for f, r in order],
+        "wall_s": [(f, r["wall_s"]) for f, r in order]}
+    print(f"(13a) the app's diffusion seconds in turns: {res['svd_app']['diffusion_s']} ({smi})")
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ctx = torch.randn(1, DIT_CTX_TOKENS, 4096, generator=g, device="cuda").to(torch.bfloat16)
+    config = dataclasses.replace(DiTVideoConfig.latte_xl(), cross_attention_dim=4096,
+                                 attention_mode="joint3d")
+    order = []
+    forwards = 2 * STEPS * (VIDEOS + 1)
+    for fuse in FUSE_ORDER:
+        with kernel_switches({FUSE_SWITCH: fuse}):
+            reset_counts(fa, nk, ta)
+            copies = fa.copies
+            r = run_dit_path(torch, bench, config, ctx, smi, f"(13b) joint3d, {FUSE_SWITCH}={fuse}")
+            expect(f"(13b) flash at d = 72, {FUSE_SWITCH}={fuse}", fa.launches[72],
+                   FLASH_PER_JOINT3D_FORWARD * forwards)
+            r["flash"] = fa.launches[72]
+            if fa.copies != copies:
+                fail(f"(13b) {fa.copies - copies} operand copies with {FUSE_SWITCH}={fuse}")
+        order.append((fuse, r))
+    dit = dict(order[:2])
+    res["dit_joint3d"] = {
+        "latent": same_within(torch, "(13b) DiT-XL joint3d latent", dit["1"]["latent"],
+                              dit["0"]["latent"], TOL["bf16"], smi),
+        "sec_per_step": [(f, r["sec_per_step"]) for f, r in order],
+        "flash": {f: r["flash"] for f, r in dit.items()}}
+    print(f"(13b) DiT-XL joint3d s/step in turns: {res['dit_joint3d']['sec_per_step']} ({smi})")
+    print(f"phase 13 (fused QKV) done in {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    return res
+
+
 def reset_counts(fa, nk, ta) -> None:
     """Every kernel's launch count set to 0."""
     fa.launches.clear()
     nk.launches = ta.launches = 0
+
+
+# The launches of the kernels' variants that no model reaches
+# (``utils.kernels.variant_launches``: d > 512, B * H > 65,535, GroupNorm past
+# its old limits) in the processes the model phases spawn, added up as their
+# counts come back. This process's own are in the wrappers' counters, which
+# only grow and are set to 0 once, before the first model phase.
+SPAWNED_VARIANTS = {"flash_wide": 0, "flash_many_heads": 0, "group_norm_silu_wide": 0}
+# The spawned processes of the model phases that report no launch counts.
+UNCOUNTED_SPAWNS = ["phase 7 (b), (c): the benchmark modes' ranks",
+                    "phase 10 (c): the text->video app's 2 seq ranks",
+                    "phase 11: the benchmark modes' MoE and int8 ranks",
+                    "phase 12: the servers' warm-ups"]
+
+
+def spawned(ranks: list) -> list:
+    """``ranks`` (each a spawned process's result or launch counts) as they
+    are, after adding each one's ``"variants"`` to SPAWNED_VARIANTS."""
+    for r in ranks:
+        if "variants" not in r:
+            fail(f"a spawned process reported no variant launches: {sorted(r)}")
+        for key, n in r["variants"].items():
+            SPAWNED_VARIANTS[key] += n
+    return ranks
 
 
 def expect(what: str, got: int, want: int) -> None:
@@ -3612,6 +4056,11 @@ def main(argv: list[str] | None = None) -> int:
                         help="build the kernels, then only phase 12 (the server at SVD-XT width "
                              "at one stage and with a decode rank, and the tiny DiT server), and "
                              "stop without the result lines")
+    parser.add_argument("--variants-only", action="store_true",
+                        help="build the kernels, then only the kernels' last variants (d > 512, "
+                             "B*H > 65,535, GroupNorm past C = 4096, G = 256, N = 65,535, the "
+                             "fused QKV layout) and phase 13 (the fused-QKV paths), and stop "
+                             "without the result lines")
     parser.add_argument("--intra-only", action="store_true",
                         help="build the kernels, then only phases 9 and 10 (the kernels at the "
                              "seq-sharded shapes, the intra-sample axes at full width, the "
@@ -3658,7 +4107,8 @@ def main(argv: list[str] | None = None) -> int:
     lib = fa._kernel_lib()
     for kname, r in ptxas.items():
         d = re.match(r"flash_fwd_bf16<(\d+)", kname)
-        dims = {"flash_fwd_d512_bf16": (512, 1), "flash_fwd_d512_f32": (512, 0)}
+        dims = {"flash_fwd_d512_bf16": (512, 1), "flash_fwd_d512_f32": (512, 0),
+                "flash_fwd_wide": (1024, 1)}
         d_bf16 = (int(d.group(1)), 1) if d else dims.get(kname.split("<")[0])
         r["dynamic_smem"] = lib.vdpp_flash_attention_smem(*d_bf16) if d_bf16 else None
         print(f"ptxas {kname}: {r.get('registers')} registers"
@@ -3666,7 +4116,7 @@ def main(argv: list[str] | None = None) -> int:
               + f", {r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B spill loads, "
               f"{r.get('static_smem')} B static shared memory"
               + (f", {r['dynamic_smem']} B dynamic shared memory per CTA" if d_bf16 else ""))
-    for new in ("flash_fwd_d512_bf16", "flash_fwd_d512_f32", "flash_fwd_any"):
+    for new in ("flash_fwd_d512_bf16", "flash_fwd_d512_f32", "flash_fwd_any", "flash_fwd_wide"):
         if built["flash_attention"]["seconds"] and not any(k.startswith(new) for k in ptxas):
             fail(f"no ptxas report for {new}")
     if not ptxas:
@@ -3693,6 +4143,11 @@ def main(argv: list[str] | None = None) -> int:
         run_phase12(torch, smi)
         print(f"phase 12 run done in {time.perf_counter() - t_start:.1f} s ({smi})")
         return 0
+    if args.variants_only:
+        check_variants(torch, fa, nk, ta, F)
+        run_fused_qkv(torch, bench, fa, nk, ta, smi)
+        print(f"variants and phase 13 done in {time.perf_counter() - t_start:.1f} s ({smi})")
+        return 0
     if args.intra_only:
         check_flash_seq_sharded(torch, fa, F)
         run_intra_sample(torch, smi)
@@ -3704,6 +4159,13 @@ def main(argv: list[str] | None = None) -> int:
               f"{time.perf_counter() - t10:.1f} s ({smi})")
         print(f"intra-sample phases done in {time.perf_counter() - t_start:.1f} s ({smi})")
         return 0
+    t_lap = [time.perf_counter()]
+
+    def lap(what: str) -> None:  # where the script's time goes
+        now = time.perf_counter()
+        print(f"{what} done in {now - t_lap[0]:.1f} s ({smi})", flush=True)
+        t_lap[0] = now
+
     flash = check_flash(torch, fa, F)
     flash512 = check_flash_512(torch, fa, F, torch.float32)
     flash512_bf16 = check_flash_512(torch, fa, F, torch.bfloat16)
@@ -3718,9 +4180,17 @@ def main(argv: list[str] | None = None) -> int:
     flash_generic = check_flash_generic(torch, fa, F)
     flash_exp = check_flash_exp(torch, fa, F)
     frame_generic = check_frame_generic(torch, ta, F)
+    # The last variants: d > 512, B*H > 65,535, GroupNorm past its old
+    # limits, and the fused QKV projection's strided chunks.
+    variants = check_variants(torch, fa, nk, ta, F)
+    lap("the kernel checks (phases 1-3, 8 (a), the variants)")
     if args.kernels_only:
         print(f"kernel phases done in {time.perf_counter() - t_start:.1f} s ({smi})")
         return 0
+    # Every launch from here on is a model phase's: the variants' counters
+    # start from 0.
+    fa.variant_launches.clear()
+    nk.wide_launches = 0
     check_agreement(torch, switches=False)
     check_agreement(torch, switches=True)
     check_vae_agreement(torch, fa)
@@ -3728,6 +4198,7 @@ def main(argv: list[str] | None = None) -> int:
     check_encoder_agreement(torch, fa)
     # (b) The tiny configs (head dim 16) on the card.
     tiny = check_tiny_models(torch, fa, nk, ta)
+    lap("the agreement checks and the tiny configs (8 (b))")
 
     forwards = 2 * STEPS * (VIDEOS + 1)
     reset_counts(fa, nk, ta)
@@ -3812,6 +4283,7 @@ def main(argv: list[str] | None = None) -> int:
         fail(f"the text->video decode gave shape {dit_dec['shape']}, finite "
              f"{dit_dec['finite']}")
 
+    lap("the main paths, their decodes and text->video")
     # The image->video app: CLIP and VAE encode, the SVD-XT denoise, the decode.
     app = run_app(torch, fa, nk, ta, smi)
     # (c) The restyle app on the Y4M the image->video app wrote; (d) the long
@@ -3831,6 +4303,7 @@ def main(argv: list[str] | None = None) -> int:
          "--deepcache", "2"], APP_FRAMES + (LONG_SEGMENTS - 1) * (APP_FRAMES - 1),
         FLASH_PER_LONG)
 
+    lap("the apps")
     # (a) DeepCache: the full branch against forward, the launches of each
     # kind of forward, the fast path's composition and each step's time.
     deepcache = run_deepcache(torch, fa, nk, ta, smi)
@@ -3845,6 +4318,7 @@ def main(argv: list[str] | None = None) -> int:
         return {f"step_pipeline_{case}_rank{r['rank']}": get(r["counts"][key])
                 for case, res in pipes.items() for r in res["ranks"]}
 
+    lap("DeepCache and the step pipelines")
     pipe_flash = pipe_launches("flash", lambda c: c.get(64, 0))
     pipe_gn, pipe_frame = pipe_launches("gn"), pipe_launches("frame")
 
@@ -3863,8 +4337,10 @@ def main(argv: list[str] | None = None) -> int:
                        for rank, runs in prod["api"][solver]["launches"].items()
                        for run, c in runs.items()})
 
+    lap("the benchmark modes and production (7, 8 (c))")
     # 9. Intra-sample parallelism: seq, frame and cfg ranks inside a stage.
     intra = run_intra_sample(torch, smi)
+    lap("phase 9")
 
     def intra_launches(cases, get):
         return {f"intra_{case}_rank{r}": get(res["launches"])
@@ -3900,6 +4376,12 @@ def main(argv: list[str] | None = None) -> int:
     serve_frame = {k: c["frame_attention"] for k, c in serve_runs.items()}
     serve_tiny = {f"serve_tiny_dit3d_d{d}": n
                   for d, n in p12["tiny_dit3d"]["launches"]["0"]["flash"].items()}
+    # 13. The fused-QKV paths against the unfused ones.
+    p13 = run_fused_qkv(torch, bench, fa, nk, ta, smi)
+    fused_counts = p13["svd_app"]["counts"]["1"]
+    fused_flash = {"svd_app_d64": fused_counts["flash"].get(64, 0),
+                   "svd_app_d512": fused_counts["flash"].get(512, 0),
+                   "dit_joint3d_d72": p13["dit_joint3d"]["flash"]["1"]}
 
     def dit_launches(cases, get):
         return {f"dit_{case}_rank{r}": get(res["launches"])
@@ -3925,6 +4407,19 @@ def main(argv: list[str] | None = None) -> int:
                 "shapes": check["shapes"], **extra}
 
     print(f"chip_smoke phases done in {time.perf_counter() - t_start:.1f} s")
+    here = kernels.variant_launches()
+
+    def variant_paths(key):
+        return {"model phases in this process": here[key],
+                "the model phases' spawned ranks and servers": SPAWNED_VARIANTS[key]}
+
+    def variant_entry(name, source, replaces, key, check):
+        paths = variant_paths(key)
+        print(f"{name}: {sum(paths.values())} launches over the model phases {paths}")
+        return entry(name, source, replaces, sum(paths.values()), check,
+                     check["shapes"][0], launches_by_path=paths,
+                     not_counted=UNCOUNTED_SPAWNS)
+
     flash_src, flash_tpu = ("vdpp_tpu_torch/csrc/flash_attention.cu",
                             "vdpp_tpu/ops/flash_attention.py:233")
     frame_src, frame_tpu = ("vdpp_tpu_torch/csrc/frame_attention.cu",
@@ -4033,6 +4528,19 @@ def main(argv: list[str] | None = None) -> int:
               sum(c["frame"] for c in tiny.values()), frame_generic,
               frame_generic["shapes"][0],
               launches_by_path={k: c["frame"] for k, c in tiny.items()}),
+        variant_entry("flash_attention_wide", flash_src, flash_tpu, "flash_wide",
+                      variants["wide"]),
+        variant_entry("flash_attention_many_heads", flash_src, flash_tpu, "flash_many_heads",
+                      variants["many_heads"]),
+        variant_entry("group_norm_silu_wide", "vdpp_tpu_torch/csrc/group_norm_silu.cu",
+                      "vdpp_tpu/ops/norm_kernel.py:165", "group_norm_silu_wide",
+                      variants["gn_wide"]),
+        entry("flash_attention_fused_qkv", flash_src, flash_tpu, sum(fused_flash.values()),
+              variants["fused_flash"], variants["fused_flash"]["shapes"][0],
+              launches_by_path=fused_flash, fused_qkv=p13),
+        entry("frame_attention_fused_qkv", frame_src, frame_tpu, fused_counts["frame"],
+              variants["fused_frame"], variants["fused_frame"]["shapes"][0],
+              launches_by_path={"svd_app": fused_counts["frame"]}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

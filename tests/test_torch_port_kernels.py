@@ -15,6 +15,7 @@ the rounding of q', P or o by an ulp here and there). GroupNorm+SiLU and frame
 attention compute in fp32 and round once: bf16 one ulp at max|ref|, fp32 1e-5.
 """
 
+import ctypes
 import functools
 import math
 
@@ -74,12 +75,26 @@ def test_flash_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
 
 @pytest.mark.gpu
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 16, 1, 640, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="d=640"):
-        fa.flash_attention(q, q, q)
-    q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.bfloat16).transpose(1, 2)
-    with pytest.raises(ValueError, match="contiguous"):
-        fa.flash_attention(q, q, q)
+    """What the wrapper still refuses: mismatched shapes and dtypes. A head
+    dim above 512 and a transposed (B, L, H, D) view, refused before the
+    kernels took every head dim and strided operands, now agree with the
+    plain version, the view read in place (no copy)."""
+    q = torch.zeros(1, 16, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    with pytest.raises(TypeError, match="bf16 or all fp32"):
+        fa.flash_attention(q, q.float(), q)
+    g = torch.Generator(device=cuda).manual_seed(640)
+    for q in (torch.randn(1, 16, 1, 640, generator=g, device=cuda).to(torch.bfloat16),
+              torch.randn(1, 2, 16, 64, generator=g, device=cuda).to(torch.bfloat16)
+              .transpose(1, 2)):
+        copies = fa.copies
+        got = fa.flash_attention(q, q, q)
+        torch.cuda.synchronize()
+        assert fa.copies == copies
+        ref = fa.flash_attention_plain(q, q, q).float()
+        err = (got.float() - ref).abs().max().item()
+        assert err <= TOL[torch.bfloat16] * ref.abs().max().item(), err
 
 
 def _one_rounding_tol(ref: torch.Tensor) -> float:
@@ -129,10 +144,11 @@ def test_flash_d512_kernel_leaves_rows_past_lq_alone(cuda, static_max, dtype):
     q, k, v = _qkv(cuda, 1, lq, 1, 512, dtype, 512)
     buf = torch.full((1, lq + extra, 1, 512), 7.0, device=cuda, dtype=dtype)
     lib = fa._kernel_lib()
+    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     rc = lib.vdpp_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), int(dtype == torch.bfloat16),
-        1, 1, lq, lq, 512, int(static_max), 0, fa.LOG2E / math.sqrt(512),
-        torch.cuda.current_stream().cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(),
+        (ctypes.c_longlong * 9)(*strides), int(dtype == torch.bfloat16), 1, 1, lq, lq, 512,
+        int(static_max), 0, fa.LOG2E / math.sqrt(512), torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
     assert (buf[:, lq:] == 7.0).all()
@@ -228,15 +244,26 @@ def test_new_kernels_never_take_the_plain_version(cuda, monkeypatch):
 
 @pytest.mark.gpu
 def test_new_kernels_reject_what_they_do_not_take(cuda):
+    """Frame counts whose scores outgrow shared memory stay refused, and a
+    row count with no 8-aligned chunking (the reference's rule). Flash at
+    d = 1024 and GroupNorm at C = 8192, refused before this port took every
+    head dim and channel count, now agree with their plain versions."""
     q = torch.zeros(1, 20000, 1, 1, 16, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="frames"):
         tak.frame_attention(q, q, q)
-    q = torch.zeros(1, 16, 1, 1024, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="d=1024"):
-        fa.flash_attention(q, q, q)
-    x = torch.zeros(2, 24, 8192, device=cuda)
-    with pytest.raises(ValueError, match="C <= 4096"):
-        nk.group_norm_silu_fused(x, Norm(8192, device=cuda), 32)
+    with pytest.raises(ValueError, match="8-aligned"):
+        nk.group_norm_silu_fused(torch.zeros(2, 7, 64, device=cuda), Norm(64, device=cuda), 32)
+    g = torch.Generator(device=cuda).manual_seed(1024)
+    q = torch.randn(1, 16, 1, 1024, generator=g, device=cuda).to(torch.bfloat16)
+    got = fa.flash_attention(q, q, q)
+    ref = fa.flash_attention_plain(q, q, q).float()
+    assert (got.float() - ref).abs().max().item() <= TOL[torch.bfloat16] * ref.abs().max().item()
+    x = torch.randn(2, 24, 8192, generator=g, device=cuda)
+    norm = Norm(8192, device=cuda)
+    norm.reset_parameters(None)
+    got = nk.group_norm_silu_fused(x, norm, 32)
+    ref = nk.group_norm_silu_fused_plain(x, norm, 32)
+    assert (got - ref).abs().max().item() <= _one_rounding_tol(ref)
 
 
 @pytest.mark.gpu
@@ -573,3 +600,140 @@ def test_expert_slice_frees_its_memory(cuda):
         assert freed == stacks // 2, (int8, freed, stacks)
         del moe
         torch.cuda.empty_cache()
+
+
+def _flash_close(got: torch.Tensor, ref: torch.Tensor, dtype) -> None:
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype] * ref.float().abs().max().item(), (err, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("static_max,exp_bf16", [(True, False), (False, False), (False, True)])
+@pytest.mark.parametrize("d", [640, 768, 1024])
+def test_flash_wide_kernel_matches_plain(cuda, d, static_max, exp_bf16, dtype):
+    """Head dims above 512 (``flash_fwd_wide``: O in slabs of 512 columns, a
+    CTA a slab, each recomputing the full-width scores): a ragged L = 600
+    (the last query and key tiles part-filled), B * H = 2, both softmax
+    modes and the bf16 exponent (on inputs whose rows peak at key 0, held in
+    fp32 to EXP_TOL_FP32 as the other kernels' exponent cases are)."""
+    q, k, v = (_exp_qkv if exp_bf16 else _qkv)(cuda, 1, 600, 2, d, dtype, d)
+    before, wide = fa.launches[d], fa.variant_launches["wide"]
+    got = fa.flash_attention(q, k, v, static_max=static_max, exp_bf16=exp_bf16)
+    torch.cuda.synchronize()
+    assert fa.launches[d] == before + 1
+    assert fa.variant_launches["wide"] == wide + 1
+    ref = fa.flash_attention_plain(q, k, v, static_max, exp_bf16).float()
+    tol = EXP_TOL_FP32 if exp_bf16 and dtype == torch.float32 else TOL[dtype]
+    err = (got.float() - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dtype,l", [(64, torch.bfloat16, 40), (512, torch.float32, 12),
+                                       (16, torch.bfloat16, 40)])
+def test_flash_kernels_past_65535_heads(cuda, d, dtype, l):
+    """B * H = 65,536 + 70 (past grid y's limit, which the kernels no longer
+    use): the wgmma kernel at d = 64, the fp32 d = 512 kernel and the
+    generic one at d = 16, every (b, h) against the plain version."""
+    q, k, v = _qkv(cuda, 2, l, 32803, d, dtype, d + 1)
+    before = fa.variant_launches["many_heads"]
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.variant_launches["many_heads"] == before + 1
+    ref = fa.flash_attention_plain(q, k, v)
+    for h0 in range(0, 32803, 8192):  # the error per block of heads, the last ones included
+        _flash_close(got[:, :, h0:h0 + 8192], ref[:, :, h0:h0 + 8192], dtype)
+
+
+def _fused_qkv(device, b, l, h, d, dtype, seed):
+    """q, k, v as ``VDPP_FUSE_QKV=1`` leaves them: chunks of one (b, l, 3 h d)
+    projection, each reshaped to (b, l, h, d) with token stride 3 h d."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(b, l, 3 * h * d, generator=g, device=device).to(dtype)
+    return [t.reshape(b, l, h, d) for t in qkv.chunk(3, dim=-1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dtype,l,h", [
+    (64, torch.bfloat16, 576, 5),     # the UNet's wgmma kernel
+    (72, torch.bfloat16, 640, 16),    # DiT-XL's
+    (512, torch.bfloat16, 600, 1),    # the VAE mid-block's, bf16 and fp32
+    (512, torch.float32, 600, 1),
+    (64, torch.float32, 200, 3),      # fp32 static max, SIMT
+    (16, torch.bfloat16, 600, 3),     # the generic kernel
+    (640, torch.float32, 200, 2),     # above 512
+])
+def test_flash_kernel_reads_fused_qkv_in_place(cuda, d, dtype, l, h):
+    """The fused projection's strided chunks go to the kernels as they are
+    (no copy) and give the bits the contiguous operands give; a view whose
+    head dim is strided is copied, counted, and agrees too."""
+    q, k, v = _fused_qkv(cuda, 2, l, h, d, dtype, d + l)
+    assert not q.is_contiguous()
+    copies = fa.copies
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.copies == copies
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+    _flash_close(got, fa.flash_attention_plain(q, k, v), dtype)
+    wide = torch.cat([q, q], dim=-1)[..., ::2]  # head dim at stride 2
+    got = fa.flash_attention(wide, k, v)
+    assert fa.copies == copies + 1
+    _flash_close(got, fa.flash_attention_plain(wide, k, v), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dtype,shape", [
+    (64, torch.bfloat16, (1, 25, 144, 5)),  # the TMA + mma.sync kernel, F = 25
+    (72, torch.bfloat16, (2, 8, 40, 4)),    # d = 72, F = 8, two batches
+    (64, torch.float32, (1, 14, 24, 3)),    # fp32 SIMT
+    (16, torch.bfloat16, (1, 14, 24, 2)),   # the generic kernel
+])
+def test_frame_attention_reads_fused_qkv_in_place(cuda, d, dtype, shape):
+    """temporal_self_attention's fused chunks: (B*F, L, 3C) projected, each
+    chunk reshaped to (B, F, L, H, D) with token stride 3 C, read in place
+    and bit-equal to the contiguous operands."""
+    b, f, l, h = shape
+    g = torch.Generator(device=cuda).manual_seed(d + f)
+    qkv = torch.randn(b * f, l, 3 * h * d, generator=g, device=cuda).to(dtype)
+    q, k, v = (t.reshape(b, f, l, h, d) for t in qkv.chunk(3, dim=-1))
+    copies = tak.copies
+    got = tak.frame_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tak.copies == copies
+    want = tak.frame_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+    ref = tak.frame_attention_plain(q, k, v)
+    assert (got.float() - ref.float()).abs().max().item() <= _one_rounding_tol(ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,groups", [
+    ((2, 576, 5120), 32),    # two tiles of 2560 channels (16 whole groups each)
+    ((2, 576, 5120), 512),   # G past 256
+    ((1, 1024, 8192), 512),  # two tiles of 4096
+    ((2, 64, 8192), 1),      # one group of 8192: each tile holds half of it
+    ((70000, 8, 64), 32),    # N past grid y's 65,535
+])
+def test_group_norm_kernel_past_its_old_limits(cuda, shape, groups, dtype):
+    """C > 4096 (channel tiles), G > 256 and N > 65,535 against the plain
+    version, bf16 weights as the UNet stores them; the same bits on a second
+    call (the merges' order depends on the shape alone)."""
+    g = torch.Generator(device=cuda).manual_seed(shape[-1] + groups)
+    c = shape[-1]
+    norm = Norm(c, device=cuda, dtype=torch.bfloat16)
+    norm.weight.copy_(1.0 + 0.2 * torch.randn(c, generator=g, device=cuda))
+    norm.bias.copy_(0.1 * torch.randn(c, generator=g, device=cuda))
+    x = (3.0 * torch.randn(shape, generator=g, device=cuda) + 1.0).to(dtype)
+    before, wide = nk.launches, nk.wide_launches
+    got = nk.group_norm_silu_fused(x, norm, groups, 1e-6)
+    again = nk.group_norm_silu_fused(x, norm, groups, 1e-6)
+    torch.cuda.synchronize()
+    assert nk.launches == before + 2
+    assert nk.wide_launches == wide + 2  # each case passes one of the old limits
+    assert torch.equal(got, again)
+    ref = nk.group_norm_silu_fused_plain(x, norm, groups, 1e-6)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= _one_rounding_tol(ref), err

@@ -196,7 +196,39 @@
 //     rounded up to a power of two, so d = 512 takes 16 registers a row),
 //     takes key j's p from lane j by a shuffle and V's row j from shared
 //     memory; keys past L_k have p = 0, rows past L_q are not stored.
-// Head dims above 512 are not taken.
+//
+// Head dims above 512 (no model of either package; the reference pads V to
+// _aug_width(d) and shrinks its tiles to a VMEM budget), bf16 and fp32:
+// flash_fwd_wide<T, STATIC_MAX, EXP_BF16>, a simple SIMT kernel in
+// flash_fwd_any's layout (a warp owns 4 query rows, a CTA 4 warps, tiles of
+// 32 keys). O is cut into column slabs of 512, a CTA a slab:
+//   * every slab's CTA computes the full-width S = q'K^T, staging q' and K
+//     128 columns at a time (24.5 KB), summing each score over d in one
+//     order, so all slabs hold the same S bits; static max makes P a
+//     function of S alone, running max its m and alpha too, so every slab
+//     rounds the same P and sums the same l, and the slabs together are one
+//     CTA's result;
+//   * it then stages only its slab's 512 columns of the value tile (64 KB)
+//     for O += P V; 90,240 B of dynamic shared memory at any d, so d is
+//     bounded by nothing but the card's memory;
+//   * what bounds it: the S product is repeated in each of the ceil(d / 512)
+//     slabs, and every tile restages q' (making it fast is later work);
+//   * why it is not flash_fwd_any with a slab axis: flash_fwd_any stages q'
+//     over all of d once a CTA and K and V tiles over all of d, and a lane
+//     holds d / 32 columns of each of its 4 rows of O. At d <= 512 that is
+//     at most 160 KB of shared memory and 64 accumulators a thread; at
+//     d = 1024 it would be 320 KB (more than a CTA may have) and 128. Giving
+//     flash_fwd_any the slabs and the chunked score loop would make its
+//     d <= 512 rows restage q' every key tile, or carry both stagings behind
+//     a branch: two kernels in one body. The two share tile_p, tile_pv and
+//     store_rows, where the arithmetic lives.
+//
+// Operands. q, k and v come with element strides (batch, token, head), their
+// head dim dense: the fused QKV projection's chunks (VDPP_FUSE_QKV=1) are
+// views of a (B, L, 3, H, D) tensor with token stride 3 H D. The TMA kernels
+// put those strides in their tensor maps, the SIMT kernels index with them;
+// the output is contiguous. Every launcher's grid is one axis (query tiles
+// fastest, then b * h), so B * H is not held to grid y's 65,535.
 //
 // VDPP_FLASH_EXP=bf16 (the reference's exp_bf16, running max only) is the
 // EXP_BF16 flag of every kernel beside STATIC_MAX: s - m is rounded to bf16
@@ -213,7 +245,7 @@
 
 #include <type_traits>
 
-#include "hopper.cuh"  // smem_u32, mbarriers, tma_load_4d, encode_tiled
+#include "hopper.cuh"  // smem_u32, mbarriers, tma_load_4d, Strides, encode_tiled
 
 namespace {
 
@@ -238,6 +270,29 @@ template <bool EXP_BF16>
 __device__ __forceinline__ float exp_arg(float x) { return EXP_BF16 ? round_bf16(x) : x; }
 template <bool EXP_BF16>
 __device__ __forceinline__ float exp_val(float e) { return EXP_BF16 ? round_bf16(e) : e; }
+
+// Where head h of batch row b of a (B, L, H, D) operand with strides s starts.
+template <typename T>
+__device__ __forceinline__ const T* head_of(const T* p, const Strides& s, int b, int h) {
+  return p + b * s.b + h * s.h;
+}
+
+// Every launcher's grid is one axis, the query tiles of one (b, h) after
+// each other, then the next (b, h), so that B * H has no 65,535 limit; the
+// launch order is the one a (query tiles, B * H) grid had.
+struct Work {
+  int bh, q0;
+};
+__device__ __forceinline__ Work work_of(int Lq, int bq) {
+  const int nq = (Lq + bq - 1) / bq;
+  const int bh = blockIdx.x / nq;
+  return {bh, ((int)blockIdx.x - bh * nq) * bq};
+}
+// The grid of `tiles` CTAs for each of bh (b, h) pairs, or 0 past 2^31 - 1.
+inline unsigned grid_x(long long tiles, long long bh) {
+  const long long n = tiles * bh;
+  return n > 0x7fffffffLL ? 0u : (unsigned)n;
+}
 
 // ---------------------------------------------------------------------------
 // bf16, d = 64 and 72: TMA + mbarrier ring + wgmma, warp-specialised.
@@ -615,10 +670,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * WG_BQ;
+  const Work w = work_of(Lq, WG_BQ);
+  const int b = w.bh / H;
+  const int h = w.bh - b * H;
+  const int q0 = w.q0;
   const int nk = (Lk + WG_BK - 1) / WG_BK;
 
   if (threadIdx.x == 0) {
@@ -772,27 +827,27 @@ constexpr int BQ_F32 = THREADS; // query rows per block (1 per thread)
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int H, int Lq, int Lk,
-              float qscale) {
+              const float* __restrict__ v, float* __restrict__ o, Strides qs, Strides ks,
+              Strides vs, int H, int Lq, int Lk, float qscale) {
   __shared__ __align__(16) float Ks[BK * D];
   __shared__ __align__(16) float Vs[BK * D];
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
+  const Work w = work_of(Lq, BQ_F32);
+  const int b = w.bh / H;
+  const int h = w.bh - b * H;
   const long rs = (long)H * D;
-  const float* qb = q + ((long)b * Lq * H + h) * D;
-  const float* kb = k + ((long)b * Lk * H + h) * D;
-  const float* vb = v + ((long)b * Lk * H + h) * D;
+  const float* qb = head_of(q, qs, b, h);
+  const float* kb = head_of(k, ks, b, h);
+  const float* vb = head_of(v, vs, b, h);
   float* ob = o + ((long)b * Lq * H + h) * D;
-  const int r = blockIdx.x * BQ_F32 + tid;
+  const int r = w.q0 + tid;
 
   float qr[D];
   float acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = r < Lq ? qb[r * rs + d] * qscale : 0.f;
+    qr[d] = r < Lq ? qb[r * qs.l + d] * qscale : 0.f;
     acc[d] = 0.f;
   }
   float l = 0.f;
@@ -808,8 +863,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
       if (k0 + row < Lk) {
-        kv = *reinterpret_cast<const float4*>(kb + (k0 + row) * rs + col);
-        vv = *reinterpret_cast<const float4*>(vb + (k0 + row) * rs + col);
+        kv = *reinterpret_cast<const float4*>(kb + (k0 + row) * ks.l + col);
+        vv = *reinterpret_cast<const float4*>(vb + (k0 + row) * vs.l + col);
       }
       *reinterpret_cast<float4*>(Ks + row * D + col) = kv;
       *reinterpret_cast<float4*>(Vs + row * D + col) = vv;
@@ -1031,10 +1086,10 @@ flash_fwd_d512_bf16(const __grid_constant__ CUtensorMap q_map,
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * X_BQ;
+  const Work w = work_of(Lq, X_BQ);
+  const int b = w.bh / H;
+  const int h = w.bh - b * H;
+  const int q0 = w.q0;
   const int nk = (Lk + X_BK - 1) / X_BK;
   const bool leader = threadIdx.x == 0;  // issues every TMA load
 
@@ -1190,8 +1245,9 @@ constexpr int F_V_COPIES = F_VKEYS * X_D / 4 / F_THREADS;
 static_assert(F_K_COPIES * 4 * F_THREADS == F_BK * F_DC, "whole rounds of K copies");
 static_assert(F_V_COPIES * 4 * F_THREADS == F_VKEYS * X_D, "whole rounds of V copies");
 
-__device__ __forceinline__ void load_chunk(float* buf, const float* kb, const float* vb, long rs,
-                                           int tile, int n, int Lk, int tid) {
+__device__ __forceinline__ void load_chunk(float* buf, const float* kb, const float* vb,
+                                           long long krs, long long vrs, int tile, int n, int Lk,
+                                           int tid) {
   const int k0 = tile * F_BK;
   if (n < X_D / F_DC) {
 #pragma unroll
@@ -1200,8 +1256,7 @@ __device__ __forceinline__ void load_chunk(float* buf, const float* kb, const fl
       const int key = idx / (F_DC / 4);
       const int c4 = (idx % (F_DC / 4)) * 4;
       const bool ok = k0 + key < Lk;
-      cp_async16(buf + key * F_KROW + c4, kb + (ok ? (long)(k0 + key) * rs : 0) + n * F_DC + c4,
-                 ok);
+      cp_async16(buf + key * F_KROW + c4, kb + (ok ? (k0 + key) * krs : 0) + n * F_DC + c4, ok);
     }
   } else {
 #pragma unroll
@@ -1211,7 +1266,7 @@ __device__ __forceinline__ void load_chunk(float* buf, const float* kb, const fl
       const int c4 = (idx % (X_D / 4)) * 4;
       const int row = k0 + (n - X_D / F_DC) * F_VKEYS + key;
       const bool ok = row < Lk;
-      cp_async16(buf + key * X_D + c4, vb + (ok ? (long)row * rs : 0) + c4, ok);
+      cp_async16(buf + key * X_D + c4, vb + (ok ? row * vrs : 0) + c4, ok);
     }
   }
 }
@@ -1219,14 +1274,15 @@ __device__ __forceinline__ void load_chunk(float* buf, const float* kb, const fl
 // Waits for chunk `step` and starts the load of chunk step + F_NBUF - 1 into
 // the buffer that chunk step - 1 used, which every thread is done with once
 // all have passed the barrier.
-__device__ __forceinline__ void next_chunk(float* fsm, const float* kb, const float* vb, long rs,
-                                           int step, int total, int Lk, int tid) {
+__device__ __forceinline__ void next_chunk(float* fsm, const float* kb, const float* vb,
+                                           long long krs, long long vrs, int step, int total,
+                                           int Lk, int tid) {
   cp_async_wait<F_NBUF - 2>();
   __syncthreads();
   const int c = step + F_NBUF - 1;
   if (c < total) {
-    load_chunk(fsm + F_B0 + (c % F_NBUF) * F_BUF, kb, vb, rs, c / F_CHUNKS, c % F_CHUNKS, Lk,
-               tid);
+    load_chunk(fsm + F_B0 + (c % F_NBUF) * F_BUF, kb, vb, krs, vrs, c / F_CHUNKS, c % F_CHUNKS,
+               Lk, tid);
   }
   cp_async_commit();  // empty past the last chunk, so the group count stays one a step
 }
@@ -1254,8 +1310,8 @@ __device__ __forceinline__ void store_row(float* ob, long rs, int q0, int Lq, in
 template <bool STATIC_MAX, bool EXP_BF16>
 __global__ void __launch_bounds__(F_THREADS, 1)
 flash_fwd_d512_f32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ o, int H, int Lq, int Lk,
-                   float qscale) {
+                   const float* __restrict__ v, float* __restrict__ o, Strides qs, Strides ks,
+                   Strides vs, int H, int Lq, int Lk, float qscale) {
   extern __shared__ __align__(16) float fsm[];
   float* Qs = fsm + F_Q;
   float* PT = fsm + F_PT;
@@ -1265,21 +1321,21 @@ flash_fwd_d512_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
+  const Work w = work_of(Lq, F_BQ);
+  const int b = w.bh / H;
+  const int h = w.bh - b * H;
   const long rs = (long)H * X_D;
-  const float* qb = q + ((long)b * Lq * H + h) * X_D;
-  const float* kb = k + ((long)b * Lk * H + h) * X_D;
-  const float* vb = v + ((long)b * Lk * H + h) * X_D;
+  const float* qb = head_of(q, qs, b, h);
+  const float* kb = head_of(k, ks, b, h);
+  const float* vb = head_of(v, vs, b, h);
   float* ob = o + ((long)b * Lq * H + h) * X_D;
-  const int q0 = blockIdx.x * F_BQ;
+  const int q0 = w.q0;
   const int nk = (Lk + F_BK - 1) / F_BK;
   const int total = nk * F_CHUNKS;
 
   for (int c = 0; c < F_NBUF - 1; ++c) {  // chunks 0 .. F_NBUF - 2 in flight
     if (c < total) {
-      load_chunk(fsm + F_B0 + c * F_BUF, kb, vb, rs, c / F_CHUNKS, c % F_CHUNKS, Lk, tid);
+      load_chunk(fsm + F_B0 + c * F_BUF, kb, vb, ks.l, vs.l, c / F_CHUNKS, c % F_CHUNKS, Lk, tid);
     }
     cp_async_commit();
   }
@@ -1289,7 +1345,7 @@ flash_fwd_d512_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int c4 = (i & 127) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + row < Lq) {
-      x = *reinterpret_cast<const float4*>(qb + (q0 + row) * rs + c4);
+      x = *reinterpret_cast<const float4*>(qb + (q0 + row) * qs.l + c4);
       x = make_float4(x.x * qscale, x.y * qscale, x.z * qscale, x.w * qscale);
     }
     *reinterpret_cast<float4*>(Qs + row * F_QROW + c4) = x;
@@ -1335,7 +1391,7 @@ flash_fwd_d512_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < F_SC; ++c) s[r][c] = 0.f;
     for (int n = 0; n < X_D / F_DC; ++n, ++step) {
-      next_chunk(fsm, kb, vb, rs, step, total, Lk, tid);
+      next_chunk(fsm, kb, vb, ks.l, vs.l, step, total, Lk, tid);
       const float* kc = fsm + F_B0 + (step % F_NBUF) * F_BUF;
       const float* qc = Qs + srow * F_QROW + n * F_DC;
 #pragma unroll
@@ -1398,7 +1454,7 @@ flash_fwd_d512_f32(const float* __restrict__ q, const float* __restrict__ k,
     // O += P V over F_BK / F_VKEYS chunks of keys; the barrier of the first also
     // makes P^T and the rescale factors visible.
     for (int n = 0; n < F_BK / F_VKEYS; ++n, ++step) {
-      next_chunk(fsm, kb, vb, rs, step, total, Lk, tid);
+      next_chunk(fsm, kb, vb, ks.l, vs.l, step, total, Lk, tid);
       if (!STATIC_MAX && n == 0) {
         const float4 a = *reinterpret_cast<const float4*>(alpha_s + 4 * oy);
         const float ar[4] = {a.x, a.y, a.z, a.w};
@@ -1475,37 +1531,41 @@ cudaError_t by_softmax(int static_max, int exp_bf16, F&& f) {
 }
 
 template <bool STATIC_MAX, bool EXP_BF16>
-cudaError_t launch_d512_f32(const void* q, const void* k, const void* v, void* o, int bh, int H,
-                            int Lq, int Lk, float qscale, cudaStream_t st) {
+cudaError_t launch_d512_f32(const Operands& x, int bh, int H, int Lq, int Lk, float qscale,
+                            cudaStream_t st) {
   const cudaError_t err = cudaFuncSetAttribute(flash_fwd_d512_f32<STATIC_MAX, EXP_BF16>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)F_SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + F_BQ - 1) / F_BQ, bh);
+  const unsigned grid = grid_x((Lq + F_BQ - 1) / F_BQ, bh);
+  if (grid == 0) return cudaErrorInvalidValue;
   flash_fwd_d512_f32<STATIC_MAX, EXP_BF16><<<grid, F_THREADS, F_SMEM, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, Lq, Lk, qscale);
+      static_cast<const float*>(x.q), static_cast<const float*>(x.k),
+      static_cast<const float*>(x.v), static_cast<float*>(x.o), x.qs, x.ks, x.vs, H, Lq, Lk,
+      qscale);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int H,
-                       int Lq, int Lk, float qscale, cudaStream_t st) {
-  const dim3 grid((Lq + BQ_F32 - 1) / BQ_F32, bh);
-  flash_fwd_f32<D><<<grid, THREADS, 0, st>>>(static_cast<const float*>(q),
-                                             static_cast<const float*>(k),
-                                             static_cast<const float*>(v),
-                                             static_cast<float*>(o), H, Lq, Lk, qscale);
+cudaError_t launch_f32(const Operands& x, int bh, int H, int Lq, int Lk, float qscale,
+                       cudaStream_t st) {
+  const unsigned grid = grid_x((Lq + BQ_F32 - 1) / BQ_F32, bh);
+  if (grid == 0) return cudaErrorInvalidValue;
+  flash_fwd_f32<D><<<grid, THREADS, 0, st>>>(
+      static_cast<const float*>(x.q), static_cast<const float*>(x.k),
+      static_cast<const float*>(x.v), static_cast<float*>(x.o), x.qs, x.ks, x.vs, H, Lq, Lk,
+      qscale);
   return cudaGetLastError();
 }
 
-// A bf16 (B, L, H, D) tensor as a 4-D map over (D, H, L, B), whose box is
-// `cols` columns from the coordinate the kernel gives, one head, `rows` rows.
-bool tensor_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int D, int H, int L,
-                int B, int cols, int rows, CUtensorMapSwizzle swizzle) {
+// A bf16 (B, L, H, D) operand with strides `s` (D dense) as a 4-D map over
+// (D, H, L, B), whose box is `cols` columns from the coordinate the kernel
+// gives, one head, `rows` rows. TMA takes byte strides that are multiples of
+// 16, which the wrapper sees to.
+bool tensor_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, const Strides& s, int D,
+                int H, int L, int B, int cols, int rows, CUtensorMapSwizzle swizzle) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)L * H * D * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.l * 2, (cuuint64_t)s.b * 2};
   const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
@@ -1521,7 +1581,8 @@ cudaError_t launch_bf16(const CUtensorMap (&maps)[6], void* o, int bh, int H, in
   const cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<D, STATIC_MAX, EXP_BF16>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + WG_BQ - 1) / WG_BQ, bh);
+  const unsigned grid = grid_x((Lq + WG_BQ - 1) / WG_BQ, bh);
+  if (grid == 0) return cudaErrorInvalidValue;
   flash_fwd_bf16<D, STATIC_MAX, EXP_BF16><<<grid, WG_THREADS, smem, st>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], static_cast<__nv_bfloat16*>(o), H,
       Lq, Lk, qscale);
@@ -1529,31 +1590,31 @@ cudaError_t launch_bf16(const CUtensorMap (&maps)[6], void* o, int bh, int H, in
 }
 
 template <int D>
-cudaError_t launch_d_bf16(const void* q, const void* k, const void* v, void* o, int batch, int H,
-                          int Lq, int Lk, int static_max, int exp_bf16, float qscale,
-                          cudaStream_t st) {
+cudaError_t launch_d_bf16(const Operands& x, int batch, int H, int Lq, int Lk, int static_max,
+                          int exp_bf16, float qscale, cudaStream_t st) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   // q, k, v main boxes (columns 0-63), then their tails (columns 64-79, d = 72).
   CUtensorMap maps[6];
-  const void* ptrs[3] = {q, k, v};
+  const void* ptrs[3] = {x.q, x.k, x.v};
+  const Strides* strides[3] = {&x.qs, &x.ks, &x.vs};
   const int lens[3] = {Lq, Lk, Lk};
   for (int i = 0; i < 3; ++i) {
     const int rows = i == 0 ? WG_BQ : WG_BK;
-    if (!tensor_map(encode, &maps[i], ptrs[i], D, H, lens[i], batch, MAIN_COLS, rows,
+    if (!tensor_map(encode, &maps[i], ptrs[i], *strides[i], D, H, lens[i], batch, MAIN_COLS, rows,
                     CU_TENSOR_MAP_SWIZZLE_128B)) {
       return cudaErrorInvalidValue;
     }
     if (!WgLayout<D>::TAIL) {
       maps[i + 3] = maps[i];  // not read
-    } else if (!tensor_map(encode, &maps[i + 3], ptrs[i], D, H, lens[i], batch, TAIL_COLS, rows,
-                           CU_TENSOR_MAP_SWIZZLE_32B)) {
+    } else if (!tensor_map(encode, &maps[i + 3], ptrs[i], *strides[i], D, H, lens[i], batch,
+                           TAIL_COLS, rows, CU_TENSOR_MAP_SWIZZLE_32B)) {
       return cudaErrorInvalidValue;
     }
   }
   const int bh = batch * H;
   return by_softmax(static_max, exp_bf16, [&](auto sm, auto eb) {
-    return launch_bf16<D, decltype(sm)::value, decltype(eb)::value>(maps, o, bh, H, Lq, Lk,
+    return launch_bf16<D, decltype(sm)::value, decltype(eb)::value>(maps, x.o, bh, H, Lq, Lk,
                                                                      qscale, st);
   });
 }
@@ -1565,31 +1626,32 @@ cudaError_t launch_d512_bf16_maps(const CUtensorMap (&maps)[3], void* o, int bh,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                X_SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + X_BQ - 1) / X_BQ, bh);
+  const unsigned grid = grid_x((Lq + X_BQ - 1) / X_BQ, bh);
+  if (grid == 0) return cudaErrorInvalidValue;
   flash_fwd_d512_bf16<STATIC_MAX, EXP_BF16><<<grid, X_THREADS, X_SMEM, st>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), H, Lq, Lk, qscale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_d512_bf16(const void* q, const void* k, const void* v, void* o, int batch,
-                             int H, int Lq, int Lk, int static_max, int exp_bf16, float qscale,
-                             cudaStream_t st) {
+cudaError_t launch_d512_bf16(const Operands& x, int batch, int H, int Lq, int Lk, int static_max,
+                             int exp_bf16, float qscale, cudaStream_t st) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   // q, k, v as boxes of 64 columns x 64 rows (X_BQ = X_BK = 64), 128-byte swizzle.
   CUtensorMap maps[3];
-  const void* ptrs[3] = {q, k, v};
+  const void* ptrs[3] = {x.q, x.k, x.v};
+  const Strides* strides[3] = {&x.qs, &x.ks, &x.vs};
   const int lens[3] = {Lq, Lk, Lk};
   for (int i = 0; i < 3; ++i) {
-    if (!tensor_map(encode, &maps[i], ptrs[i], X_D, H, lens[i], batch, MAIN_COLS, 64,
+    if (!tensor_map(encode, &maps[i], ptrs[i], *strides[i], X_D, H, lens[i], batch, MAIN_COLS, 64,
                     CU_TENSOR_MAP_SWIZZLE_128B)) {
       return cudaErrorInvalidValue;
     }
   }
   const int bh = batch * H;
   return by_softmax(static_max, exp_bf16, [&](auto sm, auto eb) {
-    return launch_d512_bf16_maps<decltype(sm)::value, decltype(eb)::value>(maps, o, bh, H, Lq, Lk,
-                                                                           qscale, st);
+    return launch_d512_bf16_maps<decltype(sm)::value, decltype(eb)::value>(maps, x.o, bh, H, Lq,
+                                                                           Lk, qscale, st);
   });
 }
 
@@ -1627,10 +1689,87 @@ __device__ __forceinline__ float in_dtype(float x) {
   return std::is_same<T, float>::value ? x : round_bf16(x);
 }
 
+// A tile's P for the warp's ANY_R rows from their scores s (lane j: key j,
+// live when it is below L_k), rounded to T, with this lane's share of l
+// summed from the rounded values; running max: the tile's max over the
+// lanes, and O and l rescaled first.
+template <typename T, int DPL, bool STATIC_MAX, bool EXP_BF16>
+__device__ __forceinline__ void tile_p(const float (&s)[ANY_R], bool live, float (&m)[ANY_R],
+                                       float (&l)[ANY_R], float (&acc)[ANY_R][DPL],
+                                       float (&p)[ANY_R]) {
+#pragma unroll
+  for (int r = 0; r < ANY_R; ++r) {
+    float e;
+    if (STATIC_MAX) {
+      e = exp2f(fminf(fmaxf(s[r], S_CLAMP_LO), S_CLAMP));
+    } else {
+      float mt = live ? s[r] : MASK_VALUE;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      }
+      const float m_new = fmaxf(m[r], mt);
+      const float alpha = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
+      e = exp_val<EXP_BF16>(exp2f(exp_arg<EXP_BF16>(s[r] - m_new)));
+    }
+    p[r] = live ? in_dtype<T>(e) : 0.f;
+    l[r] += p[r];
+  }
+}
+
+// O += P V over a tile's nk keys: key j's p from lane j, V's row j at
+// vs + j * pitch in shared memory; lane c holds columns c, c + 32, ... below
+// `width`.
+template <int DPL>
+__device__ __forceinline__ void tile_pv(float (&acc)[ANY_R][DPL], const float (&p)[ANY_R],
+                                        const float* vs, int pitch, int width, int nk, int lane) {
+  for (int j = 0; j < nk; ++j) {
+    float pj[ANY_R];
+#pragma unroll
+    for (int r = 0; r < ANY_R; ++r) pj[r] = __shfl_sync(0xffffffffu, p[r], j);
+    const float* vr = vs + j * pitch;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int c = lane + 32 * i;
+      const float vc = c < width ? vr[c] : 0.f;
+#pragma unroll
+      for (int r = 0; r < ANY_R; ++r) acc[r][i] = fmaf(pj[r], vc, acc[r][i]);
+    }
+  }
+}
+
+// The warp's rows row0 ... row0 + ANY_R - 1 of O divided by their l (l == 0
+// -> 1), those below L_q, at ob + row * rs, columns below `width`.
+template <typename T, int DPL>
+__device__ __forceinline__ void store_rows(const float (&acc)[ANY_R][DPL],
+                                           const float (&l)[ANY_R], T* ob, long rs, int row0,
+                                           int Lq, int width, int lane) {
+#pragma unroll
+  for (int r = 0; r < ANY_R; ++r) {
+    float lr = l[r];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) lr += __shfl_xor_sync(0xffffffffu, lr, off);
+    const float inv = lr == 0.f ? 1.f : 1.f / lr;
+    const int row = row0 + r;
+    if (row < Lq) {
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int c = lane + 32 * i;
+        if (c < width) from_f32(acc[r][i] * inv, ob + row * rs + c);
+      }
+    }
+  }
+}
+
 template <typename T, int DPL, bool STATIC_MAX, bool EXP_BF16>
 __global__ void __launch_bounds__(ANY_THREADS)
 flash_fwd_any(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ o, int H, int D, int Lq, int Lk, float qscale) {
+              T* __restrict__ o, Strides qs, Strides ks, Strides vs, int H, int D, int Lq, int Lk,
+              float qscale) {
   extern __shared__ __align__(16) float any_smem_f[];
   const int kp = any_kpitch(D);
   float* Qs = any_smem_f;          // ANY_BQ x D: q' = q * qscale rounded to T
@@ -1640,20 +1779,20 @@ flash_fwd_any(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
+  const Work w = work_of(Lq, ANY_BQ);
+  const int b = w.bh / H;
+  const int h = w.bh - b * H;
   const long rs = (long)H * D;
-  const T* qb = q + ((long)b * Lq * H + h) * D;
-  const T* kb = k + ((long)b * Lk * H + h) * D;
-  const T* vb = v + ((long)b * Lk * H + h) * D;
+  const T* qb = head_of(q, qs, b, h);
+  const T* kb = head_of(k, ks, b, h);
+  const T* vb = head_of(v, vs, b, h);
   T* ob = o + ((long)b * Lq * H + h) * D;
-  const int q0 = blockIdx.x * ANY_BQ;
+  const int q0 = w.q0;
 
   for (int i = tid; i < ANY_BQ * D; i += ANY_THREADS) {
     const int r = i / D;
     const int c = i - r * D;
-    Qs[i] = q0 + r < Lq ? in_dtype<T>(to_f32(qb[(q0 + r) * rs + c]) * qscale) : 0.f;
+    Qs[i] = q0 + r < Lq ? in_dtype<T>(to_f32(qb[(q0 + r) * qs.l + c]) * qscale) : 0.f;
   }
   const float* qw = Qs + warp * ANY_R * D;  // this warp's rows
 
@@ -1674,8 +1813,8 @@ flash_fwd_any(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       const int j = i / D;
       const int c = i - j * D;
       const bool in = k0 + j < Lk;
-      Ks[j * kp + c] = in ? to_f32(kb[(k0 + j) * rs + c]) : 0.f;
-      Vs[i] = in ? to_f32(vb[(k0 + j) * rs + c]) : 0.f;
+      Ks[j * kp + c] = in ? to_f32(kb[(k0 + j) * ks.l + c]) : 0.f;
+      Vs[i] = in ? to_f32(vb[(k0 + j) * vs.l + c]) : 0.f;
     }
     __syncthreads();
 
@@ -1689,94 +1828,136 @@ flash_fwd_any(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
       for (int r = 0; r < ANY_R; ++r) s[r] = fmaf(qw[r * D + c], kc, s[r]);
     }
-    const bool live = k0 + lane < Lk;
-
-    // P, rounded to T, and l from the rounded values; running max: the
-    // tile's max over the lanes, O and l rescaled.
     float p[ANY_R];
-#pragma unroll
-    for (int r = 0; r < ANY_R; ++r) {
-      float e;
-      if (STATIC_MAX) {
-        e = exp2f(fminf(fmaxf(s[r], S_CLAMP_LO), S_CLAMP));
-      } else {
-        float mt = live ? s[r] : MASK_VALUE;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-        }
-        const float m_new = fmaxf(m[r], mt);
-        const float alpha = exp2f(m[r] - m_new);
-        m[r] = m_new;
-        l[r] *= alpha;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-        e = exp_val<EXP_BF16>(exp2f(exp_arg<EXP_BF16>(s[r] - m_new)));
-      }
-      p[r] = live ? in_dtype<T>(e) : 0.f;
-      l[r] += p[r];
-    }
-
-    // O += P V: key j's p from lane j, V's row j from shared memory.
-    const int nk = min(ANY_BK, Lk - k0);
-    for (int j = 0; j < nk; ++j) {
-      float pj[ANY_R];
-#pragma unroll
-      for (int r = 0; r < ANY_R; ++r) pj[r] = __shfl_sync(0xffffffffu, p[r], j);
-      const float* vr = Vs + j * D;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int c = lane + 32 * i;
-        const float vc = c < D ? vr[c] : 0.f;
-#pragma unroll
-        for (int r = 0; r < ANY_R; ++r) acc[r][i] = fmaf(pj[r], vc, acc[r][i]);
-      }
-    }
+    tile_p<T, DPL, STATIC_MAX, EXP_BF16>(s, k0 + lane < Lk, m, l, acc, p);
+    tile_pv(acc, p, Vs, D, D, min(ANY_BK, Lk - k0), lane);
   }
+  store_rows(acc, l, ob, rs, q0 + warp * ANY_R, Lq, D, lane);
+}
 
+// ---------------------------------------------------------------------------
+// Head dims above 512, bf16 or fp32: flash_fwd_wide<T, STATIC_MAX, EXP_BF16>,
+// SIMT. (The design is in the note at the top of the file.)
+
+constexpr int W_SLAB = 512;             // columns of O a CTA: its slab
+constexpr int W_DPL = W_SLAB / 32;      // columns of O a lane holds
+constexpr int W_DC = 128;               // columns of q' and K a score chunk stages
+constexpr int W_KP = any_kpitch(W_DC);  // odd pitch of a staged K chunk row
+constexpr int W_SMEM =
+    (int)sizeof(float) * (ANY_BQ * W_DC + ANY_BK * W_KP + ANY_BK * W_SLAB);  // 90,240 B
+
+template <typename T, bool STATIC_MAX, bool EXP_BF16>
+__global__ void __launch_bounds__(ANY_THREADS)
+flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               T* __restrict__ o, Strides qs, Strides ks, Strides vs, int H, int D, int Lq,
+               int Lk, float qscale) {
+  extern __shared__ __align__(16) float wide_smem_f[];
+  float* Qc = wide_smem_f;          // ANY_BQ x W_DC: a chunk of q' = q * qscale rounded to T
+  float* Kc = Qc + ANY_BQ * W_DC;   // ANY_BK x W_KP: the same columns of a key tile
+  float* Vs = Kc + ANY_BK * W_KP;   // ANY_BK x W_SLAB: the slab's columns of the value tile
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  // The slabs of one query tile are neighbours on the grid (they read the
+  // same q and K); then the query tiles of one (b, h), then the next (b, h).
+  const int nslab = (D + W_SLAB - 1) / W_SLAB;
+  const int slab = blockIdx.x % nslab;
+  const int nq = (Lq + ANY_BQ - 1) / ANY_BQ;
+  const int tile = blockIdx.x / nslab;
+  const int bh = tile / nq;
+  const int q0 = (tile - bh * nq) * ANY_BQ;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int c0 = slab * W_SLAB;
+  const int dw = min(W_SLAB, D - c0);  // the slab's width
+  const T* qb = head_of(q, qs, b, h);
+  const T* kb = head_of(k, ks, b, h);
+  const T* vb = head_of(v, vs, b, h);
+  T* ob = o + ((long)b * Lq * H + h) * D + c0;
+  const long rs = (long)H * D;
+  const float* qw = Qc + warp * ANY_R * W_DC;  // this warp's rows
+
+  float acc[ANY_R][W_DPL];  // O(row, c0 + lane + 32 i)
+  float m[ANY_R];
+  float l[ANY_R];  // this lane's share of the row's l
 #pragma unroll
   for (int r = 0; r < ANY_R; ++r) {
-    float lr = l[r];
+    m[r] = MASK_VALUE;
+    l[r] = 0.f;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) lr += __shfl_xor_sync(0xffffffffu, lr, off);
-    const float inv = lr == 0.f ? 1.f : 1.f / lr;
-    const int row = q0 + warp * ANY_R + r;
-    if (row < Lq) {
+    for (int i = 0; i < W_DPL; ++i) acc[r][i] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < Lk; k0 += ANY_BK) {
+    // S over every column of d, W_DC at a time, in the same order in every
+    // slab's CTA: lane j scores key k0 + j against the warp's rows.
+    float s[ANY_R];
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int c = lane + 32 * i;
-        if (c < D) from_f32(acc[r][i] * inv, ob + row * rs + c);
+    for (int r = 0; r < ANY_R; ++r) s[r] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += W_DC) {
+      const int dc = min(W_DC, D - d0);
+      __syncthreads();  // the last chunk, and the last tile's V, have been read
+      for (int i = tid; i < ANY_BQ * dc; i += ANY_THREADS) {
+        const int r = i / dc;
+        const int c = i - r * dc;
+        Qc[r * W_DC + c] =
+            q0 + r < Lq ? in_dtype<T>(to_f32(qb[(q0 + r) * qs.l + d0 + c]) * qscale) : 0.f;
+      }
+      for (int i = tid; i < ANY_BK * dc; i += ANY_THREADS) {
+        const int j = i / dc;
+        const int c = i - j * dc;
+        Kc[j * W_KP + c] = k0 + j < Lk ? to_f32(kb[(k0 + j) * ks.l + d0 + c]) : 0.f;
+      }
+      __syncthreads();
+      const float* kr = Kc + lane * W_KP;
+      for (int c = 0; c < dc; ++c) {
+        const float kc = kr[c];
+#pragma unroll
+        for (int r = 0; r < ANY_R; ++r) s[r] = fmaf(qw[r * W_DC + c], kc, s[r]);
       }
     }
+    // The slab's columns of the value tile; every thread is past this tile's
+    // first chunk barrier, so the last tile's P V is done with Vs.
+    for (int i = tid; i < ANY_BK * dw; i += ANY_THREADS) {
+      const int j = i / dw;
+      const int c = i - j * dw;
+      Vs[j * W_SLAB + c] = k0 + j < Lk ? to_f32(vb[(k0 + j) * vs.l + c0 + c]) : 0.f;
+    }
+    // P as flash_fwd_any takes it: the same bits in every slab.
+    float p[ANY_R];
+    tile_p<T, W_DPL, STATIC_MAX, EXP_BF16>(s, k0 + lane < Lk, m, l, acc, p);
+    __syncthreads();  // V staged
+    tile_pv(acc, p, Vs, W_SLAB, dw, min(ANY_BK, Lk - k0), lane);
   }
+  store_rows(acc, l, ob, rs, q0 + warp * ANY_R, Lq, dw, lane);
 }
 
 template <typename T, int DPL>
-cudaError_t launch_any_dpl(const void* q, const void* k, const void* v, void* o, int bh, int H,
-                           int D, int Lq, int Lk, int static_max, int exp_bf16, float qscale,
-                           cudaStream_t st) {
+cudaError_t launch_any_dpl(const Operands& x, int bh, int H, int D, int Lq, int Lk,
+                           int static_max, int exp_bf16, float qscale, cudaStream_t st) {
   const int smem = any_smem(D);
-  const dim3 grid((Lq + ANY_BQ - 1) / ANY_BQ, bh);
+  const unsigned grid = grid_x((Lq + ANY_BQ - 1) / ANY_BQ, bh);
+  if (grid == 0) return cudaErrorInvalidValue;
   return by_softmax(static_max, exp_bf16, [&](auto sm, auto eb) {
     const auto kernel = flash_fwd_any<T, DPL, decltype(sm)::value, decltype(eb)::value>;
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, ANY_THREADS, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                            static_cast<const T*>(v), static_cast<T*>(o), H, D,
-                                            Lq, Lk, qscale);
+    kernel<<<grid, ANY_THREADS, smem, st>>>(static_cast<const T*>(x.q), static_cast<const T*>(x.k),
+                                            static_cast<const T*>(x.v), static_cast<T*>(x.o),
+                                            x.qs, x.ks, x.vs, H, D, Lq, Lk, qscale);
     return cudaGetLastError();
   });
 }
 
 // DPL, the columns of O a lane holds: ceil(d / 32) rounded up to a power of two.
 template <typename T>
-cudaError_t launch_any(const void* q, const void* k, const void* v, void* o, int bh, int H, int D,
-                       int Lq, int Lk, int static_max, int exp_bf16, float qscale,
-                       cudaStream_t st) {
+cudaError_t launch_any(const Operands& x, int bh, int H, int D, int Lq, int Lk, int static_max,
+                       int exp_bf16, float qscale, cudaStream_t st) {
   const auto go = [&](auto dpl) {
-    return launch_any_dpl<T, decltype(dpl)::value>(q, k, v, o, bh, H, D, Lq, Lk, static_max,
-                                                   exp_bf16, qscale, st);
+    return launch_any_dpl<T, decltype(dpl)::value>(x, bh, H, D, Lq, Lk, static_max, exp_bf16,
+                                                   qscale, st);
   };
   if (D <= 32) return go(std::integral_constant<int, 1>{});
   if (D <= 64) return go(std::integral_constant<int, 2>{});
@@ -1785,61 +1966,85 @@ cudaError_t launch_any(const void* q, const void* k, const void* v, void* o, int
   return go(std::integral_constant<int, 16>{});
 }
 
+template <typename T>
+cudaError_t launch_wide(const Operands& x, int bh, int H, int D, int Lq, int Lk, int static_max,
+                        int exp_bf16, float qscale, cudaStream_t st) {
+  const long long nslab = (D + W_SLAB - 1) / W_SLAB;
+  const unsigned grid = grid_x((Lq + ANY_BQ - 1) / ANY_BQ * nslab, bh);
+  if (grid == 0) return cudaErrorInvalidValue;
+  return by_softmax(static_max, exp_bf16, [&](auto sm, auto eb) {
+    const auto kernel = flash_fwd_wide<T, decltype(sm)::value, decltype(eb)::value>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, ANY_THREADS, W_SMEM, st>>>(
+        static_cast<const T*>(x.q), static_cast<const T*>(x.k), static_cast<const T*>(x.v),
+        static_cast<T*>(x.o), x.qs, x.ks, x.vs, H, D, Lq, Lk, qscale);
+    return cudaGetLastError();
+  });
+}
+
 }  // namespace
 
-// q, o: (batch, lq, heads, head_dim); k, v: (batch, lk, heads, head_dim); all
-// contiguous and 16-byte aligned, all bf16 (is_bf16 = 1) or all fp32; any
-// head_dim from 1 to 512. static_max selects static max; otherwise exp_bf16
-// rounds s - m to bf16 before exp2 (VDPP_FLASH_EXP=bf16). qscale =
-// log2(e) / sqrt(head_dim).
+// q: (batch, lq, heads, head_dim); k, v: (batch, lk, heads, head_dim), each
+// with head_dim dense and the element strides strides[3i .. 3i + 2] = (batch,
+// token, head) of q, k, v (i = 0, 1, 2): multiples of 16 bytes, and 16-byte
+// aligned pointers, wherever a kernel loads 16-byte vectors or TMA boxes (the
+// wrapper passes nothing else). o: (batch, lq, heads, head_dim), contiguous.
+// All bf16 (is_bf16 = 1) or all fp32; any head_dim from 1 up. static_max
+// selects static max; otherwise exp_bf16 rounds s - m to bf16 before exp2
+// (VDPP_FLASH_EXP=bf16). qscale = log2(e) / sqrt(head_dim).
 extern "C" int vdpp_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                        int is_bf16, int batch, int heads, int lq, int lk,
-                                        int head_dim, int static_max, int exp_bf16, float qscale,
-                                        void* stream) {
-  if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0 || (long)batch * heads > 65535 ||
-      head_dim <= 0 || head_dim > ANY_MAX_D) {
+                                        const long long* strides, int is_bf16, int batch,
+                                        int heads, int lq, int lk, int head_dim, int static_max,
+                                        int exp_bf16, float qscale, void* stream) {
+  if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0 || head_dim <= 0 ||
+      (long long)batch * heads > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const Operands x = {q, k, v, o, {strides[0], 0, strides[1], strides[2]},
+                      {strides[3], 0, strides[4], strides[5]},
+                      {strides[6], 0, strides[7], strides[8]}};
   const int bh = batch * heads;
+  if (head_dim > ANY_MAX_D) {
+    return (int)(is_bf16 ? launch_wide<__nv_bfloat16>(x, bh, heads, head_dim, lq, lk, static_max,
+                                                      exp_bf16, qscale, st)
+                         : launch_wide<float>(x, bh, heads, head_dim, lq, lk, static_max,
+                                              exp_bf16, qscale, st));
+  }
   if (head_dim == X_D) {
     if (is_bf16) {
-      return (int)launch_d512_bf16(q, k, v, o, batch, heads, lq, lk, static_max, exp_bf16, qscale,
-                                   st);
+      return (int)launch_d512_bf16(x, batch, heads, lq, lk, static_max, exp_bf16, qscale, st);
     }
     return (int)by_softmax(static_max, exp_bf16, [&](auto sm, auto eb) {
-      return launch_d512_f32<decltype(sm)::value, decltype(eb)::value>(q, k, v, o, bh, heads, lq,
-                                                                       lk, qscale, st);
+      return launch_d512_f32<decltype(sm)::value, decltype(eb)::value>(x, bh, heads, lq, lk,
+                                                                       qscale, st);
     });
   }
   if (is_bf16 && head_dim == 64) {
-    return (int)launch_d_bf16<64>(q, k, v, o, batch, heads, lq, lk, static_max, exp_bf16, qscale,
-                                  st);
+    return (int)launch_d_bf16<64>(x, batch, heads, lq, lk, static_max, exp_bf16, qscale, st);
   }
   if (is_bf16 && head_dim == 72) {
-    return (int)launch_d_bf16<72>(q, k, v, o, batch, heads, lq, lk, static_max, exp_bf16, qscale,
-                                  st);
+    return (int)launch_d_bf16<72>(x, batch, heads, lq, lk, static_max, exp_bf16, qscale, st);
   }
-  if (static_max && head_dim == 64) {
-    return (int)launch_f32<64>(q, k, v, o, bh, heads, lq, lk, qscale, st);
-  }
-  if (static_max && head_dim == 72) {
-    return (int)launch_f32<72>(q, k, v, o, bh, heads, lq, lk, qscale, st);
-  }
-  return (int)(is_bf16 ? launch_any<__nv_bfloat16>(q, k, v, o, bh, heads, head_dim, lq, lk,
-                                                   static_max, exp_bf16, qscale, st)
-                       : launch_any<float>(q, k, v, o, bh, heads, head_dim, lq, lk, static_max,
-                                           exp_bf16, qscale, st));
+  if (static_max && head_dim == 64) return (int)launch_f32<64>(x, bh, heads, lq, lk, qscale, st);
+  if (static_max && head_dim == 72) return (int)launch_f32<72>(x, bh, heads, lq, lk, qscale, st);
+  return (int)(is_bf16 ? launch_any<__nv_bfloat16>(x, bh, heads, head_dim, lq, lk, static_max,
+                                                   exp_bf16, qscale, st)
+                       : launch_any<float>(x, bh, heads, head_dim, lq, lk, static_max, exp_bf16,
+                                           qscale, st));
 }
 
 // Dynamic shared memory of one CTA of the kernel that takes head_dim in bf16
 // (is_bf16 = 1) or fp32, for reports: 0 for the fp32 kernel at d = 64/72
 // (static max), which has only static shared memory.
 extern "C" int vdpp_flash_attention_smem(int head_dim, int is_bf16) {
+  if (head_dim > ANY_MAX_D) return W_SMEM;
   if (head_dim == X_D) return is_bf16 ? X_SMEM : (int)F_SMEM;
   if (head_dim == 64 || head_dim == 72) {
     if (!is_bf16) return 0;
     return head_dim == 64 ? WgLayout<64>::SMEM : WgLayout<72>::SMEM;
   }
-  return head_dim > 0 && head_dim <= ANY_MAX_D ? any_smem(head_dim) : 0;
+  return head_dim > 0 ? any_smem(head_dim) : 0;
 }

@@ -16,11 +16,14 @@
 // 0.01 ms on the tensor cores. So the design is about keeping bytes in
 // flight, and the arithmetic only has to stay out of the way.
 //
-// bf16, head dims 64 and 72: frame_attn_tma<D, FP>.
-//   * Loads by TMA, with no copy of the tensors: q, k, v and o are each a 4-D
-//     tensor map over (D, L*H, F, B), with byte strides 2 D, 2 D L H and
-//     2 D L H F, whose box is one item's FP frames: D columns, one item, FP
-//     rows. FP is
+// bf16, head dims 64 and 72: frame_attn_tma<D, FP, MERGED>.
+//   * Loads by TMA, with no copy of the tensors: q, k, v and o are each a
+//     tensor map with the tensor's own byte strides, 4-D over (D, L*H, F, B)
+//     where the token and head axes merge (MERGED: every contiguous operand,
+//     and o always), else 5-D over (D, H, L, F, B) (the fused QKV
+//     projection's chunks, VDPP_FUSE_QKV=1, token stride 3 H D), at the cost
+//     of an item's (l, h) from a divide; a box is one item's FP frames: D
+//     columns, one item, FP rows. FP is
 //     F rounded up to 16 (16 or 32), and TMA fills the frames from F to FP
 //     with zeros, so every row a product reads is finite. A tile is
 //     T = 128 / FP consecutive items of one batch (4 at F = 25, 8 at F = 8):
@@ -91,11 +94,23 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "hopper.cuh"  // smem_u32, mbarriers, tma_load_4d, encode_tiled
+#include "hopper.cuh"  // smem_u32, mbarriers, tma_load_4d/5d, Strides, encode_tiled
 
 namespace {
 
 constexpr int FMAX = 32;  // frames of the d = 64/72 kernels
+
+// Where item (b, l, h) of a (B, F, L, H, D) operand with strides s starts,
+// given rem = l * H + h (below L * H, which the launcher holds to an int).
+__device__ __forceinline__ long long item_base(const Strides& s, long long b, int rem, int H) {
+  const int l = rem / H;
+  return b * s.b + (long long)l * s.l + (long long)(rem - l * H) * s.h;
+}
+
+// Whether an operand's token and head axes merge into one axis of L * H
+// items with the head stride (a contiguous tensor's do; the fused QKV
+// projection's chunks, token stride 3 H D, do not).
+inline bool merges(const Strides& s, int H) { return s.l == (long long)H * s.h; }
 constexpr int ANY_MAX_SMEM = 232448;  // dynamic shared memory a CTA may have
 
 // ---------------------------------------------------------------------------
@@ -342,11 +357,11 @@ __device__ __forceinline__ void store_tile(const CUtensorMap* o_map, uint32_t sl
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
 
-template <int D, int FP>
+template <int D, int FP, bool MERGED>
 __global__ void __launch_bounds__(FA_THREADS)
 frame_attn_tma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
-               int F, int LH, int tiles_per_batch, int ntiles, float scale) {
+               int F, int H, int LH, int tiles_per_batch, int ntiles, float scale) {
   using Lay = FrameLayout<D>;
   constexpr int T = FA_ROWS / FP;        // items a tile
   constexpr int ITEM = FP * Lay::ROW;    // bytes of one item's rows in q, k or v
@@ -383,9 +398,17 @@ frame_attn_tma(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
       const uint32_t full = full0 + 8 * s;
       mbar_expect_tx(full, 3 * n * ITEM);
       for (int t = 0; t < n; ++t) {
-        tma_load_4d(slot + t * ITEM, &q_map, full, 0, t0 + t, 0, b);
-        tma_load_4d(slot + Lay::TENSOR + t * ITEM, &k_map, full, 0, t0 + t, 0, b);
-        tma_load_4d(slot + 2 * Lay::TENSOR + t * ITEM, &v_map, full, 0, t0 + t, 0, b);
+        if (MERGED) {  // 4-D maps over (D, L*H, F, B)
+          tma_load_4d(slot + t * ITEM, &q_map, full, 0, t0 + t, 0, b);
+          tma_load_4d(slot + Lay::TENSOR + t * ITEM, &k_map, full, 0, t0 + t, 0, b);
+          tma_load_4d(slot + 2 * Lay::TENSOR + t * ITEM, &v_map, full, 0, t0 + t, 0, b);
+        } else {  // 5-D maps over (D, H, L, F, B)
+          const int l = (t0 + t) / H;
+          const int h = t0 + t - l * H;
+          tma_load_5d(slot + t * ITEM, &q_map, full, 0, h, l, 0, b);
+          tma_load_5d(slot + Lay::TENSOR + t * ITEM, &k_map, full, 0, h, l, 0, b);
+          tma_load_5d(slot + 2 * Lay::TENSOR + t * ITEM, &v_map, full, 0, h, l, 0, b);
+        }
       }
     }
     for (int j = i > FA_STAGES ? i - FA_STAGES : 0; j < i; ++j) {  // the last tiles' outputs
@@ -420,41 +443,56 @@ frame_attn_tma(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   }
 }
 
-// A bf16 (B, F, L*H, D) tensor as a 4-D map over (D, L*H, F, B) whose box is
-// one item's FP frames.
-bool frame_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int D, long LH, int F,
-               int B, int FP) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)LH, (cuuint64_t)F, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)LH * D * 2,
-                                 (cuuint64_t)F * LH * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)FP, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+// A bf16 (B, F, L, H, D) tensor with strides `s` (D dense) as a tensor map
+// whose box is one item's FP frames: 4-D over (D, L*H, F, B) where `merged`
+// (its token and head axes merge, see merges()), else 5-D over
+// (D, H, L, F, B). TMA takes byte strides that are multiples of 16, which the
+// wrapper sees to.
+bool operand_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, const Strides& s,
+                 bool merged, int D, int H, int L, int F, int B, int FP) {
+  const cuuint64_t d5[5] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)F,
+                            (cuuint64_t)B};
+  const cuuint64_t s5[4] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.l * 2, (cuuint64_t)s.f * 2,
+                            (cuuint64_t)s.b * 2};
+  const cuuint64_t d4[4] = {(cuuint64_t)D, (cuuint64_t)L * H, (cuuint64_t)F, (cuuint64_t)B};
+  const cuuint64_t s4[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.f * 2, (cuuint64_t)s.b * 2};
+  const cuuint32_t box5[5] = {(cuuint32_t)D, 1, 1, (cuuint32_t)FP, 1};
+  const cuuint32_t box4[4] = {(cuuint32_t)D, 1, (cuuint32_t)FP, 1};
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, merged ? 4 : 5, const_cast<void*>(ptr),
+                merged ? d4 : d5, merged ? s4 : s5, merged ? box4 : box5, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
                 D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int FP>
-int launch_tma(const void* q, const void* k, const void* v, void* o, int B, int F, long LH,
-               float scale, cudaStream_t st) {
+template <int D, int FP, bool MERGED>
+int launch_tma(const Operands& x, int B, int F, int L, int H, float scale, cudaStream_t st) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const long LH = (long)L * H;
   CUtensorMap maps[4];
-  const void* ptrs[4] = {q, k, v, o};
-  for (int i = 0; i < 4; ++i) {
-    if (!frame_map(encode, &maps[i], ptrs[i], D, LH, F, B, FP)) return (int)cudaErrorInvalidValue;
+  const void* ptrs[3] = {x.q, x.k, x.v};
+  const Strides* strides[3] = {&x.qs, &x.ks, &x.vs};
+  for (int i = 0; i < 3; ++i) {
+    if (!operand_map(encode, &maps[i], ptrs[i], *strides[i], MERGED, D, H, L, F, B, FP)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  const Strides os = {F * LH * D, LH * D, (long long)H * D, D};  // the contiguous output's
+  if (!operand_map(encode, &maps[3], x.o, os, true, D, H, L, F, B, FP)) {
+    return (int)cudaErrorInvalidValue;
   }
   constexpr int smem = FrameLayout<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(frame_attn_tma<D, FP>,
+  cudaError_t err = cudaFuncSetAttribute(frame_attn_tma<D, FP, MERGED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, frame_attn_tma<D, FP>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, frame_attn_tma<D, FP, MERGED>,
                                                         FA_THREADS, smem);
   }
   if (err != cudaSuccess) return (int)err;
@@ -463,17 +501,24 @@ int launch_tma(const void* q, const void* k, const void* v, void* o, int B, int 
   const long ntiles = tiles_per_batch * B;
   if (ntiles > 0x7fffffffL || per_sm < 1) return (int)cudaErrorInvalidValue;
   const int grid = (int)(ntiles < (long)sms * per_sm ? ntiles : (long)sms * per_sm);
-  frame_attn_tma<D, FP><<<grid, FA_THREADS, smem, st>>>(maps[0], maps[1], maps[2], maps[3], F,
-                                                         (int)LH, (int)tiles_per_batch,
-                                                         (int)ntiles, scale);
+  frame_attn_tma<D, FP, MERGED><<<grid, FA_THREADS, smem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], F, H, (int)LH, (int)tiles_per_batch, (int)ntiles, scale);
   return (int)cudaGetLastError();
 }
 
+// The 4-D maps where q, k and v all merge (any contiguous operands), else 5-D
+// maps for all three.
+template <int D, int FP>
+int launch_fp(const Operands& x, int B, int F, int L, int H, float scale, cudaStream_t st) {
+  return merges(x.qs, H) && merges(x.ks, H) && merges(x.vs, H)
+             ? launch_tma<D, FP, true>(x, B, F, L, H, scale, st)
+             : launch_tma<D, FP, false>(x, B, F, L, H, scale, st);
+}
+
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int F, long LH,
-                float scale, cudaStream_t st) {
-  return F <= 16 ? launch_tma<D, 16>(q, k, v, o, B, F, LH, scale, st)
-                 : launch_tma<D, 32>(q, k, v, o, B, F, LH, scale, st);
+int launch_bf16(const Operands& x, int B, int F, int L, int H, float scale, cudaStream_t st) {
+  return F <= 16 ? launch_fp<D, 16>(x, B, F, L, H, scale, st)
+                 : launch_fp<D, 32>(x, B, F, L, H, scale, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -513,7 +558,8 @@ __device__ __forceinline__ void load_rows(T* dst, int dst_row, const T* src, lon
 template <typename T, int D>
 __global__ void __launch_bounds__(WARPS * 32)
 frame_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ o, long items, int F, int L, int H, float scale) {
+           T* __restrict__ o, Strides qs, Strides ks, Strides vs, long items, int F, int L, int H,
+           float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -521,18 +567,18 @@ frame_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   if (item >= items) return;  // whole warps only: no block-wide barrier below
 
   constexpr int QROW = q_row<T, D>();
-  T* qs = reinterpret_cast<T*>(smem_raw + warp * warp_smem<T, D>(F));
-  T* ks = qs + F * QROW;
-  T* vs = ks + F * D;
+  T* qsm = reinterpret_cast<T*>(smem_raw + warp * warp_smem<T, D>(F));
+  T* ksm = qsm + F * QROW;
+  T* vsm = ksm + F * D;
 
   const long lh = (long)L * H;
   const long b = item / lh;
   const long rem = item - b * lh;  // = l * H + h
-  const long base = (b * F * lh + rem) * D;
+  const long base = (b * F * lh + rem) * D;  // the contiguous output's
   const long fstride = lh * D;
-  load_rows<T, D>(qs, QROW, q + base, fstride, F, lane);
-  load_rows<T, D>(ks, D, k + base, fstride, F, lane);
-  load_rows<T, D>(vs, D, v + base, fstride, F, lane);
+  load_rows<T, D>(qsm, QROW, q + item_base(qs, b, (int)rem, H), qs.f, F, lane);
+  load_rows<T, D>(ksm, D, k + item_base(ks, b, (int)rem, H), ks.f, F, lane);
+  load_rows<T, D>(vsm, D, v + item_base(vs, b, (int)rem, H), vs.f, F, lane);
   __syncwarp();
 
   // Shared rows are read 16 bytes at a time (V elements): k and v rows as
@@ -542,7 +588,7 @@ frame_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   float qf[D];
 #pragma unroll
   for (int j = 0; j < D / V; ++j) {
-    const uint4 raw = reinterpret_cast<const uint4*>(qs + f * QROW)[j];
+    const uint4 raw = reinterpret_cast<const uint4*>(qsm + f * QROW)[j];
     const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int t = 0; t < V; ++t) qf[j * V + t] = to_f(e[t]) * scale;
@@ -553,7 +599,7 @@ frame_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
   for (int g = 0; g < FMAX; ++g) {
     if (g < F) {
-      const uint4* kg = reinterpret_cast<const uint4*>(ks + g * D);
+      const uint4* kg = reinterpret_cast<const uint4*>(ksm + g * D);
       float a = 0.f;
 #pragma unroll
       for (int j = 0; j < D / V; ++j) {
@@ -576,7 +622,7 @@ frame_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     if (g < F) {
       const float p = expf(s[g] - m);
       denom += p;
-      const uint4* vg = reinterpret_cast<const uint4*>(vs + g * D);
+      const uint4* vg = reinterpret_cast<const uint4*>(vsm + g * D);
 #pragma unroll
       for (int j = 0; j < D / V; ++j) {
         const uint4 raw = vg[j];
@@ -590,7 +636,7 @@ frame_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   __syncwarp();  // every lane has read its q row before the rows are overwritten
   if (lane < F) {
 #pragma unroll
-    for (int d = 0; d < D; ++d) qs[lane * QROW + d] = from_f<T>(acc[d] / denom);
+    for (int d = 0; d < D; ++d) qsm[lane * QROW + d] = from_f<T>(acc[d] / denom);
   }
   __syncwarp();
   constexpr int PER_ROW = D / V;
@@ -598,21 +644,20 @@ frame_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const int fr = i / PER_ROW;
     const int c = (i - fr * PER_ROW) * V;
     *reinterpret_cast<uint4*>(o + base + fr * fstride + c) =
-        *reinterpret_cast<const uint4*>(qs + fr * QROW + c);
+        *reinterpret_cast<const uint4*>(qsm + fr * QROW + c);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, long items, int F, int L, int H,
-           float scale, cudaStream_t st) {
+int launch(const Operands& x, long items, int F, int L, int H, float scale, cudaStream_t st) {
   const size_t smem = WARPS * warp_smem<T, D>(F);
   const cudaError_t err = cudaFuncSetAttribute(
       frame_attn<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long blocks = (items + WARPS - 1) / WARPS;
   frame_attn<T, D><<<(unsigned)blocks, WARPS * 32, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), items, F, L, H, scale);
+      static_cast<const T*>(x.q), static_cast<const T*>(x.k), static_cast<const T*>(x.v),
+      static_cast<T*>(x.o), x.qs, x.ks, x.vs, items, F, L, H, scale);
   return (int)cudaGetLastError();
 }
 
@@ -644,8 +689,8 @@ __host__ __device__ constexpr size_t any_warp_smem(int F, int D, bool staged) {
 template <typename T>
 __global__ void __launch_bounds__(ANY_WARPS * 32)
 frame_attn_any(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ o, long items, int F, int L, int H, int D, float scale,
-               int staged) {
+               T* __restrict__ o, Strides qs, Strides ks, Strides vs, long items, int F, int L,
+               int H, int D, float scale, int staged) {
   extern __shared__ __align__(16) unsigned char any_raw[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -657,35 +702,35 @@ frame_attn_any(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const long lh = (long)L * H;
   const long b = item / lh;
   const long rem = item - b * lh;  // = l * H + h
-  const long base = (b * F * lh + rem) * D;
+  const long base = (b * F * lh + rem) * D;  // the contiguous output's
   const long fstride = lh * D;
-  const T* qr = q + base;  // row f of the item at qr + f * rows
-  const T* kr = k + base;
-  const T* vr = v + base;
-  long rows = fstride;
+  const T* qr = q + item_base(qs, b, (int)rem, H);  // row f of the item at qr + f * qrows
+  const T* kr = k + item_base(ks, b, (int)rem, H);
+  const T* vr = v + item_base(vs, b, (int)rem, H);
+  long long qrows = qs.f, krows = ks.f, vrows = vs.f;
   if (staged) {
     T* st = reinterpret_cast<T*>(mine + any_scores_bytes<T>(F));
     for (long i = lane; i < (long)F * D; i += 32) {
       const long f = i / D;
       const long c = i - f * D;
-      st[i] = q[base + f * fstride + c];
-      st[(long)F * D + i] = k[base + f * fstride + c];
-      st[2 * (long)F * D + i] = v[base + f * fstride + c];
+      st[i] = qr[f * qrows + c];
+      st[(long)F * D + i] = kr[f * krows + c];
+      st[2 * (long)F * D + i] = vr[f * vrows + c];
     }
     __syncwarp();
     qr = st;
     kr = st + (long)F * D;
     vr = st + 2 * (long)F * D;
-    rows = D;
+    qrows = krows = vrows = D;
   }
 
   for (int f = 0; f < F; ++f) {
     // Pass 1: s_g = (q_f / sqrt(d)) . k_g in fp32, each lane's columns then
     // the warp's sum (a butterfly: every lane gets the same bits), and the max.
-    const T* qf = qr + f * rows;
+    const T* qf = qr + f * qrows;
     float m = -CUDART_INF_F;
     for (int g = 0; g < F; ++g) {
-      const T* kg = kr + g * rows;
+      const T* kg = kr + g * krows;
       float a = 0.f;
       for (int c = lane; c < D; c += 32) a = fmaf(to_f(qf[c]) * scale, to_f(kg[c]), a);
 #pragma unroll
@@ -704,7 +749,7 @@ frame_attn_any(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       for (int g = 0; g < F; ++g) {
         const float p = expf(sc[g] - m);
         denom += p;
-        const T* vg = vr + g * rows;
+        const T* vg = vr + g * vrows;
 #pragma unroll
         for (int i = 0; i < ANY_COLS; ++i) {
           const int c = c0 + lane + 32 * i;
@@ -723,8 +768,8 @@ frame_attn_any(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 template <typename T>
-int launch_any(const void* q, const void* k, const void* v, void* o, long items, int F, int L,
-               int H, int D, float scale, cudaStream_t st) {
+int launch_any(const Operands& x, long items, int F, int L, int H, int D, float scale,
+               cudaStream_t st) {
   // Stage the items' rows when four warps' worth fits an SM's shared memory.
   int staged = ANY_WARPS * any_warp_smem<T>(F, D, true) <= (size_t)ANY_MAX_SMEM;
   const size_t smem = ANY_WARPS * any_warp_smem<T>(F, D, staged != 0);
@@ -734,8 +779,8 @@ int launch_any(const void* q, const void* k, const void* v, void* o, long items,
   if (err != cudaSuccess) return (int)err;
   const long blocks = (items + ANY_WARPS - 1) / ANY_WARPS;
   frame_attn_any<T><<<(unsigned)blocks, ANY_WARPS * 32, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), items, F, L, H, D, scale, staged);
+      static_cast<const T*>(x.q), static_cast<const T*>(x.k), static_cast<const T*>(x.v),
+      static_cast<T*>(x.o), x.qs, x.ks, x.vs, items, F, L, H, D, scale, staged);
   return (int)cudaGetLastError();
 }
 
@@ -746,12 +791,17 @@ extern "C" int vdpp_frame_attention_smem(int head_dim) {
   return head_dim == 64 ? FrameLayout<64>::SMEM : head_dim == 72 ? FrameLayout<72>::SMEM : 0;
 }
 
-// q, k, v, o: (batch, frames, L, heads, head_dim) contiguous, 16-byte aligned,
-// all bf16 (is_bf16 = 1) or all fp32; any head_dim and frame count whose
-// scores fit shared memory. scale = 1 / sqrt(head_dim).
+// q, k, v: (batch, frames, L, heads, head_dim), each with head_dim dense and
+// the element strides strides[4i .. 4i + 3] = (batch, frame, token, head) of
+// q, k, v (i = 0, 1, 2): multiples of 16 bytes, and 16-byte aligned pointers,
+// wherever a kernel loads 16-byte vectors or TMA boxes (the wrapper passes
+// nothing else). o: the same shape, contiguous and 16-byte aligned. All bf16
+// (is_bf16 = 1) or all fp32; any head_dim and frame count whose scores fit
+// shared memory. scale = 1 / sqrt(head_dim).
 extern "C" int vdpp_frame_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                        int is_bf16, int batch, int frames, int L, int heads,
-                                        int head_dim, float scale, void* stream) {
+                                        const long long* strides, int is_bf16, int batch,
+                                        int frames, int L, int heads, int head_dim, float scale,
+                                        void* stream) {
   const long lh = (long)L * heads;
   const long items = lh * batch;
   if (head_dim < 1 || frames < 1 || batch <= 0 || L <= 0 || heads <= 0 || lh > 0x7fffffffL ||
@@ -759,17 +809,19 @@ extern "C" int vdpp_frame_attention_fwd(const void* q, const void* k, const void
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const Operands x = {q, k, v, o, {strides[0], strides[1], strides[2], strides[3]},
+                      {strides[4], strides[5], strides[6], strides[7]},
+                      {strides[8], strides[9], strides[10], strides[11]}};
   if ((head_dim != 64 && head_dim != 72) || frames > FMAX) {
-    return is_bf16 ? launch_any<__nv_bfloat16>(q, k, v, o, items, frames, L, heads, head_dim,
-                                               scale, st)
-                   : launch_any<float>(q, k, v, o, items, frames, L, heads, head_dim, scale, st);
+    return is_bf16 ? launch_any<__nv_bfloat16>(x, items, frames, L, heads, head_dim, scale, st)
+                   : launch_any<float>(x, items, frames, L, heads, head_dim, scale, st);
   }
   if (is_bf16) {
-    return head_dim == 72 ? launch_bf16<72>(q, k, v, o, batch, frames, lh, scale, st)
-                          : launch_bf16<64>(q, k, v, o, batch, frames, lh, scale, st);
+    return head_dim == 72 ? launch_bf16<72>(x, batch, frames, L, heads, scale, st)
+                          : launch_bf16<64>(x, batch, frames, L, heads, scale, st);
   }
-  return head_dim == 72 ? launch<float, 72>(q, k, v, o, items, frames, L, heads, scale, st)
-                        : launch<float, 64>(q, k, v, o, items, frames, L, heads, scale, st);
+  return head_dim == 72 ? launch<float, 72>(x, items, frames, L, heads, scale, st)
+                        : launch<float, 64>(x, items, frames, L, heads, scale, st);
 }
 
 // The largest frame count the kernels take (the generic kernel's scores must

@@ -45,6 +45,17 @@
 //      (253 blocks, all reading one 8,096-partial table) it was as slow as
 //      the serial merge by the last gn_stats block that it replaced, and
 //      faster at N = 25; both measured on an H100, 700 W.
+// Any C, G and N. A thread owns at most 8 channels of 512 threads, so the
+// channels are cut into tiles of at most 4096: C itself up to there (the
+// models' widths, one tile, as above); else the most whole groups that fit a
+// tile, or, for a group wider than 4096, the largest divisor of the group
+// that fits. A block then owns (n, tile, rows) and writes one partial per
+// "segment" of its tile (a whole group, or the group's share of the tile);
+// gn_apply merges a group's partials over blocks and then over its segments,
+// in that fixed order, and holds only its tile's groups' statistics (dynamic
+// shared memory, so G has no cap). The grid is one axis, (n, tile, row
+// range) with the row ranges fastest, N * tiles * blocks a unit filling one
+// wave; N is not held to grid y's 65,535.
 // Registers: gn_stats is capped at 64 a thread (two blocks of up to 512
 // threads an SM); ptxas' counts are printed by chip_smoke.py (PERF.md).
 //
@@ -65,8 +76,7 @@ constexpr int MAX_THREADS = 512;
 constexpr int BLOCKS_PER_SM = 2;
 constexpr int CH = 8;            // channels a thread owns, at most
 constexpr int MERGE_UNROLL = 8;  // partials a merging thread loads at once
-constexpr int MAX_C = 4096;
-constexpr int MAX_G = 256;
+constexpr int MAX_CT = CH * MAX_THREADS;  // channels of a tile: 4096
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -76,17 +86,41 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
-// How a call is cut; the same for both launches.
+// How a call is cut; the same for both launches. The channels are cut into
+// ntiles tiles of ct (C itself up to 4096), and a tile's statistics into
+// segments of sw channels: whole groups (sw = C / G) when a group fits a
+// tile, else a group's share of one tile (sw = ct). A block owns (n, tile,
+// a range of rows) and writes one partial (mean, M2) per segment of its tile.
 struct Plan {
+  int ct;        // channels of a tile
+  int ntiles;    // C / ct
+  int sw;        // channels of a segment
+  int segs;      // segments of a tile: ct / sw
   int vec;       // elements of a column: a 16-byte vector, or 1
-  int cols;      // C / vec
+  int cols;      // ct / vec
   int cw;        // column threads; thread column j owns columns j, j + cw, ...
   int cpt;       // columns a thread: ceil(cols / cw) <= CH / vec
   int rs;        // row lanes
   int threads;   // rs * cw, rounded up to whole warps
   int rows_blk;  // rows a block (a multiple of rs * RPT, but the last block's)
-  int bx;        // blocks per n
+  int bx;        // blocks per (n, tile)
 };
+
+// Channels of a tile: C up to MAX_CT; else the most whole groups that divide
+// G and fit, or, for a group wider than MAX_CT, the largest divisor of the
+// group that fits (a tile then holds part of one group).
+int tile_channels(int C, int G) {
+  if (C <= MAX_CT) return C;
+  const int gsize = C / G;
+  if (gsize <= MAX_CT) {
+    int k = MAX_CT / gsize;
+    while (G % k != 0) --k;
+    return k * gsize;
+  }
+  int ct = MAX_CT;
+  while (gsize % ct != 0) --ct;
+  return ct;
+}
 
 // Rows a thread holds per chunk: 32 bytes of each of its columns (2 rows of
 // a bf16 vector). 64 bytes measured slower in both kernels on an H100
@@ -105,23 +139,26 @@ int sm_count() {
   return sms;
 }
 
-// Upper bound of bx for any plan of this shape: N * bx blocks fill the SMs
-// in one wave.
-int max_blocks_per_n(int N, int S, int sms) {
-  const int bx = BLOCKS_PER_SM * sms / N;
-  return bx < 1 ? 1 : bx < S ? bx : S;
+// bx for `units` (n, tile) pairs: units * bx blocks fill the SMs in one wave.
+int blocks_per_unit(long long units, int S, int sms) {
+  const long long bx = BLOCKS_PER_SM * (long long)sms / units;
+  return bx < 1 ? 1 : bx < S ? (int)bx : S;
 }
 
-Plan make_plan(int N, int S, int C, int elem, bool vectors, int sms) {
+Plan make_plan(int N, int S, int C, int G, int elem, bool vectors, int sms) {
   Plan p;
-  p.vec = vectors && C % (16 / elem) == 0 ? 16 / elem : 1;
-  p.cols = C / p.vec;
+  p.ct = tile_channels(C, G);
+  p.ntiles = C / p.ct;
+  p.sw = C / G < p.ct ? C / G : p.ct;
+  p.segs = p.ct / p.sw;
+  p.vec = vectors && p.ct % (16 / elem) == 0 ? 16 / elem : 1;
+  p.cols = p.ct / p.vec;
   p.cpt = (p.cols + MAX_THREADS - 1) / MAX_THREADS;
   p.cw = (p.cols + p.cpt - 1) / p.cpt;
   p.rs = MAX_THREADS / p.cw > 1 ? MAX_THREADS / p.cw : 1;
   p.threads = (p.rs * p.cw + 31) / 32 * 32;
   const int chunk = p.rs * (4 / elem);  // rows of a chunk: rs x chunk_rows
-  const int bx = max_blocks_per_n(N, S, sms);
+  const int bx = blocks_per_unit((long long)N * p.ntiles, S, sms);
   const int rows = (S + bx - 1) / bx;
   p.rows_blk = (rows + chunk - 1) / chunk * chunk;
   p.bx = (S + p.rows_blk - 1) / p.rows_blk;
@@ -183,27 +220,40 @@ __device__ __forceinline__ float elem(const Chunk<T, VEC, ROWS>& c, int r, int q
   }
 }
 
-// Statistics: per block a (mean, M2) per group of its rows. Shared memory:
-// rs x C means, rs x C M2s and rs counts.
+// The block's (n, tile, row range): the grid is one axis, the row ranges of
+// one (n, tile) after each other, then the next tile, then the next n (so N
+// is not held to grid y's 65,535).
+struct Unit {
+  int n, tile, blk;
+};
+__device__ __forceinline__ Unit unit_of(const Plan& p) {
+  const int t = blockIdx.x / p.bx;
+  const int n = t / p.ntiles;
+  return {n, t - n * p.ntiles, (int)blockIdx.x - t * p.bx};
+}
+
+// Statistics: per block a (mean, M2) per segment of its tile, over its rows.
+// Shared memory: rs x ct means, rs x ct M2s and rs counts.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(MAX_THREADS, BLOCKS_PER_SM)
-gn_stats(const T* __restrict__ x, float* __restrict__ part, int S, int C, int G, Plan p) {
+gn_stats(const T* __restrict__ x, float* __restrict__ part, int S, int C, Plan p) {
   using Ck = Chunk<T, VEC, chunk_rows<T>()>;
   constexpr int RPT = Ck::RPT;
   constexpr int CPT = Ck::CPT;
+  const int CT = p.ct;
   extern __shared__ float red[];
   float* rmean = red;
-  float* rm2 = red + p.rs * C;
-  float* rcnt = red + 2 * p.rs * C;
+  float* rm2 = red + p.rs * CT;
+  float* rcnt = red + 2 * p.rs * CT;
 
   const int tid = threadIdx.x;
-  const int n = blockIdx.y;
-  const int blk = blockIdx.x;
+  const Unit u = unit_of(p);
+  const int blk = u.blk;
   const int rl = tid / p.cw;
   const int col0 = tid - rl * p.cw;
   const int r_begin = blk * p.rows_blk;
   const int r_end = min(S, r_begin + p.rows_blk);
-  const T* xn = x + (long)n * S * C;
+  const T* xn = x + (long)u.n * S * C + (long)u.tile * CT;
 
   if (rl < p.rs) {
     float cnt = 0.f;
@@ -262,8 +312,8 @@ gn_stats(const T* __restrict__ x, float* __restrict__ part, int S, int C, int G,
       if (q < p.cpt && col < p.cols) {
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
-          rmean[rl * C + col * VEC + i] = mean[q][i];
-          rm2[rl * C + col * VEC + i] = m2[q][i];
+          rmean[rl * CT + col * VEC + i] = mean[q][i];
+          rm2[rl * CT + col * VEC + i] = m2[q][i];
         }
       }
     }
@@ -272,21 +322,22 @@ gn_stats(const T* __restrict__ x, float* __restrict__ part, int S, int C, int G,
   __syncthreads();
 
   // Row lanes per channel, in index order.
-  for (int c = tid; c < C; c += blockDim.x) {
+  for (int c = tid; c < CT; c += blockDim.x) {
     float na = 0.f, ma = 0.f, qa = 0.f;
     for (int r = 0; r < p.rs; ++r) {
-      chan_merge(na, ma, qa, rcnt[r], rmean[r * C + c], rm2[r * C + c]);
+      chan_merge(na, ma, qa, rcnt[r], rmean[r * CT + c], rm2[r * CT + c]);
     }
     rmean[c] = ma;
     rm2[c] = qa;
   }
   __syncthreads();
-  // Every channel of the block has the same count (its rows), so a group's
+  // Every channel of the block has the same count (its rows), so a segment's
   // (mean, M2) is Chan's formula for equal parts: the mean of the channel
   // means, and the channels' M2 plus rows x their squared distances to it.
   // A team of lanes sums each, with xor shuffles that give every lane the
   // same bits.
-  const int gsize = C / G;
+  const int G = p.segs;
+  const int gsize = p.sw;
   const float rows = (float)(r_end - r_begin);
   int gteam = 1;
   while (gteam < 32 && gteam * 2 * G <= (int)blockDim.x) gteam *= 2;
@@ -310,7 +361,8 @@ gn_stats(const T* __restrict__ x, float* __restrict__ part, int S, int C, int G,
       sq += __shfl_xor_sync(0xffffffffu, sq, off, gteam);
     }
     if (ok && tl == 0) {
-      float* out = part + (((long)n * p.bx + blk) * G + g) * 2;
+      const long nseg = (long)p.ntiles * p.segs;
+      float* out = part + (((long)u.n * p.bx + blk) * nseg + (long)u.tile * p.segs + g) * 2;
       out[0] = mean;
       out[1] = sq;
     }
@@ -335,31 +387,43 @@ gn_apply(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ p
   using Ck = Chunk<T, VEC, chunk_rows<T>()>;
   constexpr int RPT = Ck::RPT;
   constexpr int CPT = Ck::CPT;
-  __shared__ float g_mean[MAX_G];
-  __shared__ float g_rstd[MAX_G];
+  extern __shared__ float g_stat[];  // the tile's groups' means, then their rstds
   const int tid = threadIdx.x;
-  const int n = blockIdx.y;
+  const Unit un = unit_of(p);
+  const int n = un.n;
   const int gsize = C / G;
+  // The tile's groups: gt of them from group g_first; each has spg segments,
+  // its partials (b, segment) in the order b-major.
+  const int gt = gsize <= p.ct ? p.segs : 1;
+  const int g_first = (int)((long)un.tile * p.ct / gsize);
+  const int spg = gsize / p.sw;
+  const int np = p.bx * spg;
+  const long nseg = (long)p.ntiles * p.segs;
+  float* g_mean = g_stat;
+  float* g_rstd = g_stat + gt;
 
-  // Merge the bx partials of each group of batch row n (Chan: each lane of a
-  // team over blocks in index order, then a shuffle tree in a fixed order).
-  // Every block of row n does the same merge and gets the same bits.
+  // Merge the partials of each group of the tile in batch row n (Chan: each
+  // lane of a team over the partials in index order, then a shuffle tree in a
+  // fixed order). Every block of (n, tile) does the same merge and gets the
+  // same bits.
   int team = 1;
-  while (team < 32 && team * 2 * G <= (int)blockDim.x) team *= 2;
+  while (team < 32 && team * 2 * gt <= (int)blockDim.x) team *= 2;
   const int teams = blockDim.x / team;
   const int tl = tid % team;
-  for (int g0 = 0; g0 < G; g0 += teams) {
+  for (int g0 = 0; g0 < gt; g0 += teams) {
     const int g = g0 + tid / team;
+    const long seg0 = (long)(g_first + g) * spg;
     float na = 0.f, ma = 0.f, qa = 0.f;
-    for (int b0 = tl; g < G && b0 < p.bx; b0 += MERGE_UNROLL * team) {  // loads in flight together
+    for (int i0 = tl; g < gt && i0 < np; i0 += MERGE_UNROLL * team) {  // loads in flight together
       float nb[MERGE_UNROLL], mb[MERGE_UNROLL], qb[MERGE_UNROLL];
 #pragma unroll
       for (int u = 0; u < MERGE_UNROLL; ++u) {
-        const int b = b0 + u * team;
+        const int i = i0 + u * team;
         nb[u] = 0.f;
-        if (b < p.bx) {
-          const float* in = part + (((long)n * p.bx + b) * G + g) * 2;
-          nb[u] = (float)(min(S, (b + 1) * p.rows_blk) - b * p.rows_blk) * (float)gsize;
+        if (i < np) {
+          const int b = i / spg;
+          const float* in = part + (((long)n * p.bx + b) * nseg + seg0 + (i - b * spg)) * 2;
+          nb[u] = (float)(min(S, (b + 1) * p.rows_blk) - b * p.rows_blk) * (float)p.sw;
           mb[u] = in[0];
           qb[u] = in[1];
         }
@@ -373,7 +437,7 @@ gn_apply(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ p
       const float qb = __shfl_down_sync(0xffffffffu, qa, off, team);
       if (tl < off) chan_merge(na, ma, qa, nb, mb, qb);
     }
-    if (g < G && tl == 0) {
+    if (g < gt && tl == 0) {
       g_mean[g] = ma;
       g_rstd[g] = 1.f / sqrtf(qa / na + eps);
     }
@@ -391,16 +455,17 @@ gn_apply(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ p
     for (int i = 0; i < VEC; ++i) {
       a[q][i] = b[q][i] = 0.f;
       if (q < p.cpt && col < p.cols) {
-        const int c = col * VEC + i;
-        a[q][i] = g_rstd[c / gsize] * to_f(weight[c]);
-        b[q][i] = to_f(bias[c]) - g_mean[c / gsize] * a[q][i];
+        const int c = un.tile * p.ct + col * VEC + i;
+        const int g = c / gsize - g_first;
+        a[q][i] = g_rstd[g] * to_f(weight[c]);
+        b[q][i] = to_f(bias[c]) - g_mean[g] * a[q][i];
       }
     }
   }
-  const int r_begin = blockIdx.x * p.rows_blk;
+  const int r_begin = un.blk * p.rows_blk;
   const int r_end = min(S, r_begin + p.rows_blk);
   const int step = p.rs * RPT;
-  const long base = (long)n * S * C;
+  const long base = (long)n * S * C + (long)un.tile * p.ct;
   const T* xn = x + base;
   T* yn = y + base;
   int r0 = r_begin + (r_end - 1 - r_begin) / step * step;  // the last chunk
@@ -433,33 +498,42 @@ gn_apply(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ p
   }
 }
 
+// The tile's groups' (mean, rstd) in gn_apply's dynamic shared memory: at
+// most 2 x 4096 floats (segs <= ct <= MAX_CT), 32 KB, under the 48 KB a
+// launch may take without cudaFuncSetAttribute, so none is made.
+int apply_smem(int C, int G, const Plan& p) {
+  return 2 * (C / G <= p.ct ? p.segs : 1) * (int)sizeof(float);
+}
+
 template <typename T, int VEC, typename WT>
-int launch_apply(const T* x, T* y, const float* part, const void* w, const void* b, int N, int S,
-                 int C, int G, const Plan& p, float eps, int silu, cudaStream_t st) {
-  const dim3 grid(p.bx, N);
+int launch_apply(const T* x, T* y, const float* part, const void* w, const void* b,
+                 unsigned grid, int S, int C, int G, const Plan& p, float eps, int silu,
+                 cudaStream_t st) {
   const WT* wt = static_cast<const WT*>(w);
   const WT* bt = static_cast<const WT*>(b);
-  if (silu) {
-    gn_apply<T, VEC, WT, true><<<grid, p.threads, 0, st>>>(x, y, part, wt, bt, S, C, G, p, eps);
-  } else {
-    gn_apply<T, VEC, WT, false><<<grid, p.threads, 0, st>>>(x, y, part, wt, bt, S, C, G, p, eps);
-  }
+  const int smem = apply_smem(C, G, p);
+  const auto kernel = silu ? gn_apply<T, VEC, WT, true> : gn_apply<T, VEC, WT, false>;
+  kernel<<<grid, p.threads, smem, st>>>(x, y, part, wt, bt, S, C, G, p, eps);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int VEC>
 int run(const T* x, T* y, const void* w, const void* b, int w_is_bf16, float* part, int N, int S,
         int C, int G, const Plan& p, float eps, int silu, cudaStream_t st) {
-  const int smem = (2 * p.rs * C + p.rs) * (int)sizeof(float);
+  const long long blocks = (long long)N * p.ntiles * p.bx;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)blocks;
+  const int smem = (2 * p.rs * p.ct + p.rs) * (int)sizeof(float);
   cudaError_t err =
       cudaFuncSetAttribute(gn_stats<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  gn_stats<T, VEC><<<dim3(p.bx, N), p.threads, smem, st>>>(x, part, S, C, G, p);
+  gn_stats<T, VEC><<<grid, p.threads, smem, st>>>(x, part, S, C, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return w_is_bf16
-             ? launch_apply<T, VEC, __nv_bfloat16>(x, y, part, w, b, N, S, C, G, p, eps, silu, st)
-             : launch_apply<T, VEC, float>(x, y, part, w, b, N, S, C, G, p, eps, silu, st);
+             ? launch_apply<T, VEC, __nv_bfloat16>(x, y, part, w, b, grid, S, C, G, p, eps, silu,
+                                                   st)
+             : launch_apply<T, VEC, float>(x, y, part, w, b, grid, S, C, G, p, eps, silu, st);
 }
 
 template <typename T>
@@ -468,7 +542,7 @@ int dispatch(const void* x, void* y, const void* w, const void* b, int w_is_bf16
   constexpr int V = 16 / sizeof(T);
   const bool aligned =
       (reinterpret_cast<uintptr_t>(x) & 15) == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
-  const Plan p = make_plan(N, S, C, (int)sizeof(T), aligned, sms);
+  const Plan p = make_plan(N, S, C, G, (int)sizeof(T), aligned, sms);
   if ((long)p.rows_blk * C > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
@@ -479,24 +553,23 @@ int dispatch(const void* x, void* y, const void* w, const void* b, int w_is_bf16
 }  // namespace
 
 // fp32 scratch the caller passes for this shape on the current device: a
-// (mean, M2) per (n, block, group).
+// (mean, M2) per (n, block, segment), for any plan of the shape.
 extern "C" long vdpp_gn_scratch_floats(int N, int S, int C, int G) {
   const int sms = sm_count();
-  if (N <= 0 || S <= 0 || C <= 0 || G <= 0 || sms <= 0) return 0;
-  return (long)N * G * 2 * max_blocks_per_n(N, S, sms);
+  if (N <= 0 || S <= 0 || C <= 0 || G <= 0 || C % G != 0 || sms <= 0) return 0;
+  const int ct = tile_channels(C, G);
+  const int sw = C / G < ct ? C / G : ct;
+  return (long)N * (C / sw) * 2 * blocks_per_unit((long long)N * (C / ct), S, sms);
 }
 
 // x, y: (N, S, C) contiguous, both bf16 (is_bf16 = 1) or both fp32; weight,
 // bias: (C,), both bf16 (w_is_bf16 = 1) or both fp32; scratch:
-// vdpp_gn_scratch_floats(N, S, C, G) fp32. C % G == 0, C <= 4096, G <= 256.
+// vdpp_gn_scratch_floats(N, S, C, G) fp32. Any C % G == 0.
 extern "C" int vdpp_group_norm_silu_fwd(const void* x, void* y, const void* weight,
                                         const void* bias, int w_is_bf16, float* scratch,
                                         int is_bf16, int N, int S, int C, int G, float eps,
                                         int silu, void* stream) {
-  if (N <= 0 || S <= 0 || C <= 0 || G <= 0 || C % G != 0 || C > MAX_C || G > MAX_G ||
-      N > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (N <= 0 || S <= 0 || C <= 0 || G <= 0 || C % G != 0) return (int)cudaErrorInvalidValue;
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA kernels
 // (flash_attention.cu, frame_attention.cu): shared-memory addresses,
-// mbarriers with TMA transaction counts, and cuTensorMapEncodeTiled reached
-// through the runtime (no -lcuda).
+// mbarriers with TMA transaction counts, the operands' strides, and
+// cuTensorMapEncodeTiled reached through the runtime (no -lcuda).
 
 #pragma once
 
@@ -61,6 +61,37 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+
+// One box of a 5-D tensor map (coordinates innermost first) into shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// Element strides of an attention operand (q, k or v) whose innermost axis,
+// the head dim, is dense: batch, frame, token, head (flash attention's
+// (B, L, H, D) operands have no frame axis, f = 0). The wrappers pass only
+// strides that are multiples of 16 bytes, with 16-byte aligned data pointers
+// (vdpp_tpu_torch/utils/kernels.py::operand_strides), as TMA's tensor maps
+// and the 16-byte vector loads need; an operand that breaks that rule is
+// copied to contiguous first. Outputs are always contiguous.
+struct Strides {
+  long long b, f, l, h;
+};
+
+// The operands as the launchers take them.
+struct Operands {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  Strides qs, ks, vs;
+};
 
 // cuTensorMapEncodeTiled, looked up by name at first use so that a library
 // links against the CUDA runtime alone (no -lcuda).

@@ -371,10 +371,11 @@ def run(args: argparse.Namespace, state: dict | None = None,
     for i, dt in enumerate(ticks):
         LOGGER.info("tick %d: %.1f ms", start_tick + i, dt * 1e3)
     for r, res in enumerate(ranks):
-        if any(res["launches"].values()):
+        counts = res["launches"]
+        if counts["flash"] or counts["group_norm_silu"] or counts["frame_attention"]:
             LOGGER.info("rank %d on %s launched: flash %s, GroupNorm+SiLU %d, frame attention "
-                        "%d", r, mesh.devices[r], res["launches"]["flash"],
-                        res["launches"]["group_norm_silu"], res["launches"]["frame_attention"])
+                        "%d", r, mesh.devices[r], counts["flash"], counts["group_norm_silu"],
+                        counts["frame_attention"])
     for snap in last["snapshots"]:
         LOGGER.info("snapshot after tick %d: %d bytes, gathered in %.3f ms, written in %.3f ms",
                     snap["tick"], snap["bytes"], snap["gather_seconds"] * 1e3,

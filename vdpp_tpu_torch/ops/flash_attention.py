@@ -19,8 +19,11 @@ Two implementations of that arithmetic live here:
   the VAE decoder's mid-block: bf16 on wgmma with the head dim split over
   two warpgroups, fp32 on a register-tiled SIMT kernel; every other head dim
   up to 512, such as the tiny configs' 16, and fp32 running max at 64 and
-  72, on a simple SIMT kernel), which
-  :func:`flash_attention` launches for a CUDA tensor;
+  72, on a simple SIMT kernel; head dims above 512 on a SIMT kernel that
+  cuts O into slabs of 512 columns), which :func:`flash_attention` launches
+  for a CUDA tensor. They read q, k and v in place wherever
+  ``utils.kernels.operand_strides`` admits them (the fused QKV projection's
+  chunks among them) and copy the rest, counted in :data:`copies`;
 * :func:`flash_attention_plain`, plain PyTorch that processes the queries in
   chunks, which :func:`flash_attention` runs for a CPU tensor and which the
   tests and ``chip_smoke.py`` hold the kernel against.
@@ -43,8 +46,6 @@ from vdpp_tpu_torch.utils import kernels
 LOG2E = math.log2(math.e)
 S_CLAMP = 100.0
 S_CLAMP_LO = -100.0
-# The largest head dim the CUDA kernels take (bf16 or fp32).
-MAX_HEAD_DIM = 512
 # fp32 scores the plain version holds at once (query chunk x all keys x B*H).
 _PLAIN_SCORE_ELEMS = 1 << 26
 
@@ -55,6 +56,15 @@ _PLAIN_SCORE_ELEMS = 1 << 26
 # too, the launches among them that ran the VDPP_FLASH_EXP=bf16 form.
 launches: Counter[int] = Counter()
 exp_bf16_launches: Counter[int] = Counter()
+# Operands copied to contiguous before a launch because their layout broke
+# the kernels' input rule (``utils.kernels.operand_strides``); 0 on the
+# models' routes, fused QKV or not.
+copies = 0
+# Launches past the limits the kernels had before they took every shape, which
+# no model of either package reaches: ``"wide"`` at d > 512, ``"many_heads"``
+# at B * H > 65,535. Never set to 0 here, so that chip_smoke.py can read them
+# over every model phase of a run.
+variant_launches: Counter[str] = Counter()
 
 _lib: ctypes.CDLL | None = None
 
@@ -64,7 +74,8 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = kernels.load("flash_attention")
         fn = lib.vdpp_flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -107,6 +118,10 @@ def flash_attention(
     form honours. The static form's precondition is the reference's:
     log2-logits within +-100 (|q.k/sqrt(d)| <= ~69); beyond it the static
     form saturates and only finiteness is guaranteed.
+
+    On the card every head dim and every B * H is taken (the kernels' one
+    grid axis holds 2^31 - 1 CTAs of at least 16 query rows: more rows than
+    80 GB hold in q and the output at any d); the output is contiguous.
     """
     _check(q, k, v)
     if static_max is None:
@@ -119,21 +134,15 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
     b, lq, h, d = q.shape
-    if d > MAX_HEAD_DIM:
-        raise NotImplementedError(f"the CUDA flash kernels take head dims up to "
-                                  f"{MAX_HEAD_DIM}; d={d} is not ported")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the CUDA flash kernel takes contiguous (B, L, H, D) tensors")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the CUDA flash kernel takes 16-byte aligned tensors")
-    if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the kernel grid's 65535")
+    global copies
+    (q, k, v), strides, copied = kernels.kernel_operands(q, k, v)
+    copies += copied
     lib = _kernel_lib()
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.vdpp_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
             int(q.dtype == torch.bfloat16), b, h, lq, k.shape[1], d, int(static_max),
             int(exp_bf16), LOG2E / math.sqrt(d), stream,
         )
@@ -142,6 +151,10 @@ def flash_attention(
     launches[d] += 1
     if exp_bf16:
         exp_bf16_launches[d] += 1
+    if d > 512:
+        variant_launches["wide"] += 1
+    if b * h > 65535:  # the grid's y axis once held B * H
+        variant_launches["many_heads"] += 1
     return out
 
 

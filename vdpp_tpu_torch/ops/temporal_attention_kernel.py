@@ -16,7 +16,9 @@ Two implementations of that arithmetic live here:
   other head dim or frame count, such as the tiny configs' d = 16, on a
   simple SIMT kernel), which :func:`frame_attention` launches for a CUDA
   tensor; they read q, k and v in the layout the projections produce, with
-  no transpose or padding copy;
+  no transpose or padding copy -- the fused QKV projection's strided chunks
+  too (``utils.kernels.operand_strides``; an operand that breaks that rule is
+  copied to contiguous and counted in :data:`copies`);
 * :func:`frame_attention_plain`, plain PyTorch, which :func:`frame_attention`
   runs for a CPU tensor and which the tests and ``chip_smoke.py`` hold the
   kernel against.
@@ -37,6 +39,9 @@ from vdpp_tpu_torch.utils import kernels
 # Kernel launches since the count was last set to 0 (chip_smoke.py reads it to
 # show that the models' temporal attention went through the kernel).
 launches = 0
+# Operands copied to contiguous before a launch (their layout broke the
+# kernels' input rule); 0 on the models' routes, fused QKV or not.
+copies = 0
 
 _lib: ctypes.CDLL | None = None
 
@@ -46,8 +51,8 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = kernels.load("frame_attention")
         fn = lib.vdpp_frame_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float,
-                                                                   ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.vdpp_frame_attention_max_frames.argtypes = []
         lib.vdpp_frame_attention_max_frames.restype = ctypes.c_int
@@ -76,20 +81,18 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if f > max_frames:
         raise ValueError(f"the CUDA frame-attention kernels take at most {max_frames} frames "
                          f"(their scores live in shared memory), got {f}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the CUDA frame-attention kernel takes contiguous tensors")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the CUDA frame-attention kernel takes 16-byte aligned tensors")
-    out = torch.empty_like(q)
+    global copies, launches
+    (q, k, v), strides, copied = kernels.kernel_operands(q, k, v)
+    copies += copied
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.vdpp_frame_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
             int(q.dtype == torch.bfloat16), b, f, l, h, d, 1.0 / math.sqrt(d), stream,
         )
     if rc != 0:
         raise RuntimeError(f"frame-attention kernel launch failed: CUDA error {rc}")
-    global launches
     launches += 1
     return out
 

@@ -14,6 +14,7 @@ Nothing here runs at import time; a kernel is built at its first use (or by
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -108,13 +109,86 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def operand_strides(t) -> tuple[int, ...] | None:
+    """The element strides the attention kernels are given for tensor ``t``,
+    or None where ``t`` breaks their input rule.
+
+    The rule: a 16-byte aligned data pointer, and either ``t`` contiguous or
+    its innermost axis dense (stride 1) with every other stride a positive
+    multiple of 16 bytes, as TMA's tensor maps and the 16-byte vector loads
+    need. The fused QKV projection's chunks (a ``(..., 3, H, D)`` view with
+    token stride ``3 H D``) pass it at every model width. An axis of size 1
+    is never stepped along: its stride is passed as a contiguous tensor's
+    would be there. A plain function of the tensor's layout, so the CPU
+    tests can hold the models' tensors to it.
+    """
+    if t.data_ptr() % 16:
+        return None
+    return _layout_strides(tuple(t.shape), t.stride(), t.element_size(), t.is_contiguous())
+
+
+@functools.lru_cache(maxsize=1024)
+def _layout_strides(shape: tuple, strides: tuple, size: int,
+                    contiguous: bool) -> tuple[int, ...] | None:
+    """:func:`operand_strides` but for the pointer, by layout (cached: the
+    wrappers ask it three times a launch, and a model has few layouts)."""
+    if not contiguous:
+        if shape[-1] > 1 and strides[-1] != 1:
+            return None
+        if any(n > 1 and (s <= 0 or s * size % 16) for n, s in zip(shape[:-1], strides[:-1])):
+            return None
+    out = [1]
+    for i in range(len(shape) - 2, -1, -1):
+        out.insert(0, strides[i] if shape[i] > 1 else out[0] * shape[i + 1])
+    return tuple(out)
+
+
+def kernel_operands(*tensors) -> tuple[list, ctypes.Array, int]:
+    """``(tensors, strides, copies)`` for an attention kernel's launch: each
+    tensor as it is where it passes :func:`operand_strides`, else a
+    contiguous copy of it (fresh, so aligned), ``strides`` the operands'
+    element strides in order but the innermost (1), as the C entries take
+    them (a ``long long`` array, shared between calls: read, never written),
+    and ``copies`` how many were copied."""
+    out, strides, copies = [], (), 0
+    for t in tensors:
+        st = operand_strides(t)
+        if st is None:
+            import torch
+
+            t = torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+            st = operand_strides(t)
+            copies += 1
+        out.append(t)
+        strides += st[:-1]
+    return out, _c_strides(strides), copies
+
+
+@functools.lru_cache(maxsize=1024)
+def _c_strides(strides: tuple) -> ctypes.Array:
+    return (ctypes.c_longlong * len(strides))(*strides)
+
+
+def variant_launches() -> dict:
+    """This process's launches of the kernels' variants that no model
+    reaches: flash attention at d > 512 and at B * H > 65,535, GroupNorm+SiLU
+    past C = 4096, G = 256 or N = 65,535 (counters that only grow)."""
+    from vdpp_tpu_torch.ops import flash_attention, norm_kernel
+
+    return {"flash_wide": flash_attention.variant_launches["wide"],
+            "flash_many_heads": flash_attention.variant_launches["many_heads"],
+            "group_norm_silu_wide": norm_kernel.wide_launches}
+
+
 def launch_counts() -> dict:
     """The kernel wrappers' launch counts in this process: flash by head
-    dim, GroupNorm+SiLU and frame attention."""
+    dim, GroupNorm+SiLU, frame attention and the variants
+    (:func:`variant_launches`)."""
     from vdpp_tpu_torch.ops import flash_attention, norm_kernel, temporal_attention_kernel
 
     return {"flash": dict(flash_attention.launches), "group_norm_silu": norm_kernel.launches,
-            "frame_attention": temporal_attention_kernel.launches}
+            "frame_attention": temporal_attention_kernel.launches,
+            "variants": variant_launches()}
 
 
 def launches_since(before: dict) -> dict:
@@ -123,4 +197,5 @@ def launches_since(before: dict) -> dict:
     after = launch_counts()
     flash = {d: n - before["flash"].get(d, 0) for d, n in after["flash"].items()}
     return {"flash": {d: n for d, n in flash.items() if n},
-            **{k: after[k] - before[k] for k in ("group_norm_silu", "frame_attention")}}
+            **{k: after[k] - before[k] for k in ("group_norm_silu", "frame_attention")},
+            "variants": {k: n - before["variants"][k] for k, n in after["variants"].items()}}
