@@ -29,11 +29,14 @@ Phases (any failure exits non-zero and prints no result line):
    (the factorized DiT's; bf16 on the TMA + mma.sync kernel); last, the
    kernels' last variants, each against its plain version and timed with
    its bound and library call: flash above d = 512 (640, 768, 1024, bf16
-   and fp32, both softmax modes; the bf16 exponent in 8 (a)), flash at B*H = 65,606
-   (bf16 d = 64, fp32 d = 512, bf16 d = 16), GroupNorm+SiLU past C = 4096,
-   G = 256 and N = 65,535 (the same bits twice), and the fused QKV
+   and fp32, both softmax modes, timed; 520, 1000 and 1536 with a ragged
+   last slab at Lq = 600 != Lk; the bf16 exponent in 8 (a)), flash at
+   B*H = 65,606 (bf16 d = 64, fp32 d = 512, bf16 d = 16 and 136, fp32 d = 24,
+   bf16 d = 520), GroupNorm+SiLU past C = 4096, G = 256 and N = 65,535 (the
+   same bits twice), and the fused QKV
    projection's strided chunks at the models' flash and frame-attention
-   sites, read in place (no copy) and bit-equal to contiguous operands;
+   sites and at a video DiT's head dim 128, read in place (no copy) and
+   bit-equal to contiguous operands;
 4. agreement: a small UNet (head dim 64, so the flash kernel runs) and one
    CFG Euler step, on the card against the same weights on the CPU, first
    as it is, then with both kernel switches on (VDPP_GN_FUSED=1,
@@ -106,11 +109,15 @@ Phases (any failure exits non-zero and prints no result line):
    ``BENCHMARK_JSON`` line is printed and must carry the contract's keys, one
    positive allocator peak a rank and finite positive times.
 8. the slice of production, resume and the kernels' variants: (a) in phase
-   3, the generic flash kernel (every head dim up to 512 without a kernel of
-   its own) at d = 16, 40, 80, 128 and 256, bf16 and fp32, both softmax
-   modes, at a ragged L = 600 and at L = 2304 (timed), VDPP_FLASH_EXP=bf16
+   3, the generic flash kernels (every head dim up to 512 without a kernel of
+   its own: bf16 on wgmma, fp32 register-tiled) at d = 16, 40, 80, 128 and
+   256, bf16 and fp32, both softmax modes, at a ragged L = 600 and at
+   L = 2304 (timed), at their routing edges d = 8, 24, 136, 200, 264, 320 and
+   504 (Lq = 600 against Lk = 593) and at one long row, bf16 d = 128 at
+   (1, 9216, 24) (timed), VDPP_FLASH_EXP=bf16
    (running max) on the d = 64 wgmma and fp32 kernels, both d = 512 kernels,
-   the generic one and the one above d = 512 at 640 and 1024 (inputs whose
+   the generic ones at d = 16, 80 and 136 and the one above d = 512 at 640
+   and 1024 (inputs whose
    rows peak at key 0, so that the fp32 limit sits below the flag's own
    effect), and the generic frame-attention
    kernel at d = 16 and 40 with 14 frames, d = 64 with 48 and d = 33 with
@@ -255,6 +262,15 @@ TOL = {"bf16": 2e-2, "fp32": 1e-5}
 # and one at least 2304, which is timed.
 GENERIC_FLASH_DIMS = (16, 40, 80, 128, 256)
 GENERIC_FLASH_SHAPES = ((2, 600, 3), (1, 2304, 8))
+# Their routing edges, both sides of every width class (fp32: 16, 32, 64, 128,
+# 256, 512; bf16: d rounded up to 16, with or without the 32- and 16-column
+# boxes) and of the bf16 kernel's layouts (a producer warpgroup to 128, a
+# warpgroup's rows' whole O to 256, O's columns split over two above), at
+# (B, Lq, Lk, H) = EDGE_SHAPE; and one long row, bf16 d = 128 at (B, L, H) =
+# GENERIC_LONG_ROW (a video DiT's head dim), timed.
+GENERIC_EDGE_DIMS = (8, 24, 136, 200, 264, 320, 504)
+EDGE_SHAPE = (2, 600, 593, 3)
+GENERIC_LONG_ROW = (1, 9216, 24)
 # VDPP_FLASH_EXP=bf16 against the plain version of the same form, on inputs
 # whose every row has its largest score at key 0 (exp_inputs), so that the
 # kernel's running max is the plain version's global max from the first key
@@ -1121,10 +1137,12 @@ def time_flash_row(torch, fa, F, q, k, v, row: dict, exp_bf16: bool = False) -> 
 
 
 def check_flash_generic(torch, fa, F) -> dict:
-    """The generic flash kernel (every head dim up to 512 without a kernel of
-    its own) at d = 16 (the tiny SVD UNet's and DiT's), 40, 80, 128 and 256,
-    bf16 and fp32, both softmax modes, at a ragged L = 600 (B = 2, 3 heads)
-    and at L = 2304 (B = 1, 8 heads), which is timed."""
+    """The generic flash kernels (every head dim up to 512 without a kernel
+    of its own: ``flash_fwd_any`` in bf16, ``flash_fwd_any_f32``) at d = 16
+    (the tiny SVD UNet's and DiT's), 40, 80, 128 and 256, bf16 and fp32, both
+    softmax modes, at a ragged L = 600 (B = 2, 3 heads) and at L = 2304
+    (B = 1, 8 heads), which is timed; at GENERIC_EDGE_DIMS with Lq != Lk; and
+    bf16 d = 128 at GENERIC_LONG_ROW, timed."""
     g = torch.Generator(device="cuda").manual_seed(12)
     print(f"flash generic tolerance: as at d = 64, {TOL['bf16']} x max|plain| in bf16, "
           f"{TOL['fp32']} x max|plain| in fp32")
@@ -1149,7 +1167,40 @@ def check_flash_generic(torch, fa, F) -> dict:
                       f"{name}) {row['library_ms']:.4f}, bound_ms {row['bound_ms']:.5f} "
                       f"({row['bound_by']}); {rates_text(row)}", flush=True)
                 shapes.append(row)
+    max_err = max(max_err, check_flash_edges(torch, fa, g, "generic", GENERIC_EDGE_DIMS,
+                                             EDGE_SHAPE))
+    b, l, h = GENERIC_LONG_ROW
+    q, k, v = (torch.randn(b, l, h, 128, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    for static in (True, False):
+        err, ref_max = compare_flash(torch, fa, f"generic long row d=128 bf16 B={b} L={l} H={h}",
+                                     q, k, v, static, False, TOL["bf16"])
+        max_err = max(max_err, err)
+    row = time_flash_row(torch, fa, F, q, k, v, {"D": 128, "B": b, "L": l, "H": h,
+                                                 "dtype": "bf16", "ref_max": ref_max})
+    print(f"flash generic long row d=128 bf16 B={b} L={l} H={h}: kernel_ms {row['ms']:.4f}, "
+          f"plain_ms {row['plain_ms']:.3f}, library_ms (SDPA bf16) {row['library_ms']:.4f}, "
+          f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']}); {rates_text(row)}", flush=True)
+    shapes.append(row)
     return {"max_abs_err": max_err, "shapes": shapes}
+
+
+def check_flash_edges(torch, fa, g, what: str, dims, shape) -> float:
+    """Flash at each head dim of ``dims``, bf16 and fp32, both softmax modes,
+    at (B, Lq, Lk, H) = ``shape``, against the plain version; returns the
+    largest bf16 max|diff|."""
+    b, lq, lk, h = shape
+    max_err = 0.0
+    for d in dims:
+        base = [torch.randn(b, n, h, d, generator=g, device="cuda") for n in (lq, lk, lk)]
+        for name in ("bf16", "fp32"):
+            q, k, v = (t.to(dtype_of(torch, name)) for t in base)
+            for static in (True, False):
+                err, _ = compare_flash(torch, fa, f"{what} d={d} {name} B={b} Lq={lq} Lk={lk} "
+                                       f"H={h}", q, k, v, static, False, TOL[name])
+                if name == "bf16":
+                    max_err = max(max_err, err)
+    return max_err
 
 
 def exp_inputs(torch, g, b, l, h, d, dtype):
@@ -1172,8 +1223,9 @@ def exp_inputs(torch, g, b, l, h, d, dtype):
 def check_flash_exp(torch, fa, F) -> dict:
     """VDPP_FLASH_EXP=bf16 (running max, s - m and its exponential rounded to
     bf16) on every kernel that has a running-max form: d = 64 bf16 (wgmma)
-    and fp32, d = 512 bf16 (wgmma) and fp32, the generic kernel at d = 16
-    and 80, and the kernel above d = 512 at the first and last of
+    and fp32, d = 512 bf16 (wgmma) and fp32, the generic kernels at d = 16,
+    80 and 136 (bf16: with the producer warpgroup, then without), and the kernels
+    above d = 512 at the first and last of
     WIDE_FLASH_DIMS, on ``exp_inputs``; the d = 64 bf16 site at L = 2304 is
     timed."""
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -1187,7 +1239,8 @@ def check_flash_exp(torch, fa, F) -> dict:
                               (64, 2, 600, 3, torch.float32), (512, 1, 2560, 1, torch.bfloat16),
                               (512, 1, 2560, 1, torch.float32), (16, 2, 600, 3, torch.bfloat16),
                               (16, 2, 600, 3, torch.float32), (80, 1, 2304, 8, torch.bfloat16),
-                              (80, 1, 2304, 8, torch.float32),
+                              (80, 1, 2304, 8, torch.float32), (136, 2, 600, 3, torch.bfloat16),
+                              (136, 2, 600, 3, torch.float32),
                               *((d, 1, WIDE_FLASH_SHAPE[1], WIDE_FLASH_SHAPE[2], dtype)
                                 for d in (WIDE_FLASH_DIMS[0], WIDE_FLASH_DIMS[-1])
                                 for dtype in (torch.bfloat16, torch.float32))):
@@ -3638,8 +3691,12 @@ def run_phase12(torch, smi: str) -> dict:
 
 WIDE_FLASH_DIMS = (640, 768, 1024)  # flash_fwd_wide: O in slabs of 512 columns
 WIDE_FLASH_SHAPE = (1, 2304, 2)  # B, L, H
+# The last slab 8, 488 and 512 of 512 columns wide, at (B, Lq, Lk, H).
+WIDE_EDGE_DIMS = (520, 1000, 1536)
+WIDE_EDGE_SHAPE = (1, 600, 593, 2)
 MANY_HEADS = (2, 32803)  # B, H: B * H = 65,536 + 70, past grid y's 65,535
-MANY_HEADS_CASES = ((64, "bf16", 40), (512, "fp32", 12), (16, "bf16", 40))  # d, dtype, L
+MANY_HEADS_CASES = ((64, "bf16", 40), (512, "fp32", 12), (16, "bf16", 40),  # d, dtype, L
+                    (136, "bf16", 24), (24, "fp32", 24), (520, "bf16", 12))
 # (N, S, C, G): two channel tiles of 2560 (16 whole groups each), G = 512,
 # two tiles of 4096, one group of 8192 split over two tiles, N = 70,000.
 GN_WIDE_CASES = ((1, 1024, 5120, 32), (1, 1024, 5120, 512), (1, 1024, 8192, 512),
@@ -3648,7 +3705,8 @@ GN_WIDE_CASES = ((1, 1024, 5120, 32), (1, 1024, 5120, 512), (1, 1024, 8192, 512)
 FUSED_FLASH_CASES = (("UNet level 0, 14 frames", 14, 9216, 5, 64, "bf16"),
                      ("DiT-XL joint3d", 1, 5120, 16, 72, "bf16"),
                      ("VAE mid-block, a decode chunk", 4, 9216, 1, 512, "fp32"),
-                     ("VAE mid-block bf16", 4, 9216, 1, 512, "bf16"))
+                     ("VAE mid-block bf16", 4, 9216, 1, 512, "bf16"),
+                     ("a video DiT's head dim", 1, 2304, 8, 128, "bf16"))
 # (what, B, F, L, H, d): temporal self-attention's fused chunks.
 FUSED_FRAME_CASES = (("UNet level 0, 14 frames", 1, 14, 9216, 5, 64),
                      ("DiT-XL factorized", 1, 8, 640, 16, 72))
@@ -3671,10 +3729,11 @@ def library_ms(torch, fn, what: str) -> float | None:
 
 
 def check_flash_wide(torch, fa, F) -> dict:
-    """Flash above d = 512 (``flash_fwd_wide``) at d = 640, 768 and 1024,
-    bf16 and fp32, both softmax modes, at B = 1, L = 2304, 2 heads; every
-    dtype timed with its bound and SDPA (``check_flash_exp`` holds its bf16
-    exponent)."""
+    """Flash above d = 512 (``flash_fwd_wide``, ``flash_fwd_wide_f32``) at
+    d = 640, 768 and 1024, bf16 and fp32, both softmax modes, at B = 1,
+    L = 2304, 2 heads, every dtype timed with its bound and SDPA; and at
+    WIDE_EDGE_DIMS (a ragged last slab) with Lq != Lk (``check_flash_exp``
+    holds its bf16 exponent)."""
     g = torch.Generator(device="cuda").manual_seed(17)
     b, l, h = WIDE_FLASH_SHAPE
     max_err, shapes = 0.0, []
@@ -3693,13 +3752,16 @@ def check_flash_wide(torch, fa, F) -> dict:
                   f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.5f} ({row['bound_by']}); "
                   f"{rates_text(row)}", flush=True)
             shapes.append(row)
+    max_err = max(max_err, check_flash_edges(torch, fa, g, "wide", WIDE_EDGE_DIMS,
+                                             WIDE_EDGE_SHAPE))
     return {"max_abs_err": max_err, "shapes": shapes}
 
 
 def check_flash_many_heads(torch, fa, F) -> dict:
     """B * H = 65,536 + 70 on the wgmma kernel (bf16, d = 64), the fp32
-    d = 512 kernel and the generic one (bf16, d = 16): every (b, h) against
-    the plain version, timed with its bound and SDPA."""
+    d = 512 kernel, the generic ones (bf16 d = 16 and 136, fp32 d = 24) and
+    the one above 512 (bf16 d = 520): every (b, h) against the plain
+    version, timed with its bound and SDPA."""
     g = torch.Generator(device="cuda").manual_seed(18)
     b, h = MANY_HEADS
     max_err, shapes = 0.0, []
@@ -4106,17 +4168,25 @@ def main(argv: list[str] | None = None) -> int:
     ptxas = ptxas_report(built["flash_attention"]["log"])
     lib = fa._kernel_lib()
     for kname, r in ptxas.items():
-        d = re.match(r"flash_fwd_bf16<(\d+)", kname)
+        # (head dim, bf16) of a call that launches the kernel: flash_fwd_any's
+        # template argument is d rounded up (at most 128: producer and
+        # consumer warpgroups), flash_fwd_any_f32's a width class.
+        d = re.match(r"flash_fwd_(bf16|any)<(\d+)", kname)
+        f32 = re.match(r"flash_fwd_any_f32<(\d+)", kname)
         dims = {"flash_fwd_d512_bf16": (512, 1), "flash_fwd_d512_f32": (512, 0),
-                "flash_fwd_wide": (1024, 1)}
-        d_bf16 = (int(d.group(1)), 1) if d else dims.get(kname.split("<")[0])
+                "flash_fwd_wide": (1024, 1), "flash_fwd_wide_f32": (1024, 0)}
+        d_bf16 = ((int(d.group(2)), 1) if d else (int(f32.group(1)) // 2 + 1, 0) if f32
+                  else dims.get(kname.split("<")[0]))
+        producer = d and (d.group(1) == "bf16" or int(d.group(2)) <= 128)
         r["dynamic_smem"] = lib.vdpp_flash_attention_smem(*d_bf16) if d_bf16 else None
         print(f"ptxas {kname}: {r.get('registers')} registers"
-              + (" at launch (setmaxnreg: consumer warpgroups 240, producer 24)" if d else "")
+              + (" at launch (setmaxnreg: consumer warpgroups 240, producer 24)" if producer
+                 else "")
               + f", {r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B spill loads, "
               f"{r.get('static_smem')} B static shared memory"
               + (f", {r['dynamic_smem']} B dynamic shared memory per CTA" if d_bf16 else ""))
-    for new in ("flash_fwd_d512_bf16", "flash_fwd_d512_f32", "flash_fwd_any", "flash_fwd_wide"):
+    for new in ("flash_fwd_d512_bf16", "flash_fwd_d512_f32", "flash_fwd_any<", "flash_fwd_any_f32",
+                "flash_fwd_wide<", "flash_fwd_wide_f32"):
         if built["flash_attention"]["seconds"] and not any(k.startswith(new) for k in ptxas):
             fail(f"no ptxas report for {new}")
     if not ptxas:

@@ -45,6 +45,10 @@ SHAPES = (
     ("B2 level 0 spatial N=25 S=9216 C=320", "gn", (25, 9216, 320), "bf16"),
     ("B2 level 3 skip concat N=25 S=144 C=2560", "gn", (25, 144, 2560), "bf16"),
     ("B2 level 3 temporal N=1 S=3600 C=1280", "gn", (1, 3600, 1280), "bf16"),
+    *((f"B1 generic d={d} {dt} L=2304 H=8", "flash", (1, 2304, 8, d), dt)
+      for dt in ("bf16", "fp32") for d in (16, 40, 80, 128, 256)),
+    *((f"B1 wide d={d} {dt} L=2304 H=2", "flash", (1, 2304, 2, d), dt)
+      for dt in ("bf16", "fp32") for d in (640, 768, 1024)),
     ("B3 d=64 F=25 L=9216 H=5", "frame", (1, 25, 9216, 5, 64), "bf16"),
     ("B3 d=64 F=25 L=2304 H=10", "frame", (1, 25, 2304, 10, 64), "bf16"),
     ("B3 d=64 F=25 L=576 H=20", "frame", (1, 25, 576, 20, 64), "bf16"),
@@ -53,7 +57,8 @@ SHAPES = (
     ("B3 d=72 F=8 L=640 H=16", "frame", (1, 8, 640, 16, 72), "bf16"),
 )
 # Words in the names of each wrapper's kernels, as the profiler reports them.
-KERNEL_NAMES = {"flash": ("flash_fwd",), "gn": ("gn_stats", "gn_apply"), "frame": ("frame_attn",)}
+KERNEL_NAMES = {"flash": ("flash_fwd", "flash_scale_q"), "gn": ("gn_stats", "gn_apply"),
+                "frame": ("frame_attn",)}
 CALLS = 50  # calls timed a shape, each way
 
 

@@ -22,6 +22,7 @@ from vdpp_tpu.ops.attention import _sdpa_xla
 from vdpp_tpu.ops.flash_attention import flash_attention as jax_flash
 
 from vdpp_tpu_torch.ops import flash_attention as fa
+from vdpp_tpu_torch.utils import kernels
 
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
@@ -141,12 +142,14 @@ def test_flash_d72_matches_jax(l, static_max, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("static_max", [True, False])
-@pytest.mark.parametrize("d", [16, 256])
+@pytest.mark.parametrize("d", [16, 40, 136, 256, 264])
 def test_flash_matches_jax_at_other_head_dims(d, static_max, dtype):
-    """d = 16 (the tiny SVD UNet's and DiT's) and 256
-    (tests/test_ops.py::test_flash_attention_large_head_dim's): the reference
-    pads V to _aug_width(d), the port's CUDA side has a generic kernel; on the
-    CPU both are held to the same arithmetic. Tolerances as above."""
+    """d = 16 (the tiny SVD UNet's and DiT's), 256
+    (tests/test_ops.py::test_flash_attention_large_head_dim's) and 40, 136
+    and 264 (either side of the CUDA kernel's layout switches at 128 and 256,
+    and of the width classes): the reference pads V to _aug_width(d), the
+    port's CUDA side has a generic kernel; on the CPU both are held to the
+    same arithmetic. Tolerances as above."""
     got, want = _both(_qkv(21 + d, 1, 200, 2, d, dtype), dtype, static_max)
     atol = TOL[dtype] * (np.abs(want).max() if dtype == torch.bfloat16 else 1.0)
     np.testing.assert_allclose(got, want, atol=atol, rtol=0)
@@ -177,3 +180,27 @@ def test_flash_exp_bf16_matches_jax(d, dtype, monkeypatch):
     assert np.abs(got - exact).max() > 0  # the rounding is there
     monkeypatch.setenv("VDPP_FLASH_SOFTMAX", "static")
     assert torch.equal(fa.flash_attention(*t), fa.flash_attention(*t, exp_bf16=False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [7, 33, 1003])
+def test_padded_operands_keep_the_result_bit_for_bit(d, dtype):
+    """A head dim that is no whole number of 16-byte words reaches the CUDA
+    kernels in rows padded with zeros (``utils.kernels.padded_operands``):
+    the same values, zeros past d, every stride but the head dim's a multiple
+    of 16 bytes (an axis of size 1 included), each operand counted as a copy;
+    and the plain version gives the unpadded result bit for bit on them."""
+    t = [torch.from_numpy(a).to(dtype) for a in _qkv(40 + d, 2, 24, 1, d, dtype)]
+    padded, strides, copies = kernels.padded_operands(*t)
+    assert copies == 3
+    size = t[0].element_size()
+    pitch = -(-d * size // 16) * 16 // size
+    for a, p in zip(t, padded):
+        assert torch.equal(a, p)
+        assert p.stride()[-1] == 1 and all(s * size % 16 == 0 for s in p.stride()[:-1])
+        rows = torch.as_strided(p, (*p.shape[:-1], pitch), p.stride())
+        assert not rows[..., d:].any()
+    assert list(strides) == [s for p in padded for s in p.stride()[:-1]]
+    for static_max in (True, False):
+        assert torch.equal(fa.flash_attention_plain(*padded, static_max),
+                           fa.flash_attention_plain(*t, static_max))

@@ -146,7 +146,7 @@ def test_flash_d512_kernel_leaves_rows_past_lq_alone(cuda, static_max, dtype):
     lib = fa._kernel_lib()
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     rc = lib.vdpp_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), None,
         (ctypes.c_longlong * 9)(*strides), int(dtype == torch.bfloat16), 1, 1, lq, lq, 512,
         int(static_max), 0, fa.LOG2E / math.sqrt(512), torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
@@ -455,10 +455,13 @@ def test_deepcache_pipeline_over_nccl_matches_single_device(cuda, monkeypatch, s
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("static_max", [True, False])
 @pytest.mark.parametrize("l", [31, 200, 600])
-@pytest.mark.parametrize("d", [16, 40, 80, 128, 256, 320])
+@pytest.mark.parametrize("d", [8, 16, 24, 33, 40, 80, 128, 136, 200, 256, 264, 320, 504])
 def test_flash_generic_kernel_matches_plain(cuda, d, l, static_max, dtype):
-    """The generic kernel (every head dim up to 512 without a kernel of its
-    own): ragged lengths, a part-filled last key tile, Lq != Lk."""
+    """The generic kernels (every head dim up to 512 without a kernel of its
+    own: bf16 on wgmma, fp32 register-tiled), at their routing edges (both
+    sides of each width class and of the bf16 switch from one warpgroup's
+    columns to two past 256; d = 33 comes in padded rows): ragged lengths, a
+    part-filled last key tile, Lq != Lk."""
     q, k, v = _qkv(cuda, 2, l, 3, d, dtype, d + l)
     k, v = k[:, : l - 7].contiguous(), v[:, : l - 7].contiguous()
     before = fa.launches[d]
@@ -610,10 +613,11 @@ def _flash_close(got: torch.Tensor, ref: torch.Tensor, dtype) -> None:
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("static_max,exp_bf16", [(True, False), (False, False), (False, True)])
-@pytest.mark.parametrize("d", [640, 768, 1024])
+@pytest.mark.parametrize("d", [520, 640, 768, 1000, 1024, 1536])
 def test_flash_wide_kernel_matches_plain(cuda, d, static_max, exp_bf16, dtype):
-    """Head dims above 512 (``flash_fwd_wide``: O in slabs of 512 columns, a
-    CTA a slab, each recomputing the full-width scores): a ragged L = 600
+    """Head dims above 512 (``flash_fwd_wide`` and ``flash_fwd_wide_f32``: O
+    in slabs of 512 columns, a CTA a slab, each recomputing the full-width
+    scores; 520, 1000 and 1536 end in a ragged slab): a ragged L = 600
     (the last query and key tiles part-filled), B * H = 2, both softmax
     modes and the bf16 exponent (on inputs whose rows peak at key 0, held in
     fp32 to EXP_TOL_FP32 as the other kernels' exponent cases are)."""
@@ -631,11 +635,13 @@ def test_flash_wide_kernel_matches_plain(cuda, d, static_max, exp_bf16, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,dtype,l", [(64, torch.bfloat16, 40), (512, torch.float32, 12),
-                                       (16, torch.bfloat16, 40)])
+                                       (16, torch.bfloat16, 40), (136, torch.bfloat16, 24),
+                                       (24, torch.float32, 24), (520, torch.bfloat16, 12)])
 def test_flash_kernels_past_65535_heads(cuda, d, dtype, l):
     """B * H = 65,536 + 70 (past grid y's limit, which the kernels no longer
-    use): the wgmma kernel at d = 64, the fp32 d = 512 kernel and the
-    generic one at d = 16, every (b, h) against the plain version."""
+    use): the wgmma kernel at d = 64, the fp32 d = 512 kernel, the generic
+    ones at d = 16 and 136 (bf16) and 24 (fp32) and the one above 512 at
+    d = 520, every (b, h) against the plain version."""
     q, k, v = _qkv(cuda, 2, l, 32803, d, dtype, d + 1)
     before = fa.variant_launches["many_heads"]
     got = fa.flash_attention(q, k, v)
@@ -661,8 +667,13 @@ def _fused_qkv(device, b, l, h, d, dtype, seed):
     (512, torch.bfloat16, 600, 1),    # the VAE mid-block's, bf16 and fp32
     (512, torch.float32, 600, 1),
     (64, torch.float32, 200, 3),      # fp32 static max, SIMT
-    (16, torch.bfloat16, 600, 3),     # the generic kernel
+    (16, torch.bfloat16, 600, 3),     # the generic kernels: one warpgroup's columns,
+    (128, torch.bfloat16, 600, 3),
+    (136, torch.bfloat16, 200, 2),
+    (264, torch.bfloat16, 200, 2),    # two warpgroups' columns,
+    (200, torch.float32, 200, 2),     # fp32
     (640, torch.float32, 200, 2),     # above 512
+    (1000, torch.bfloat16, 100, 2),
 ])
 def test_flash_kernel_reads_fused_qkv_in_place(cuda, d, dtype, l, h):
     """The fused projection's strided chunks go to the kernels as they are
@@ -737,3 +748,19 @@ def test_group_norm_kernel_past_its_old_limits(cuda, shape, groups, dtype):
     ref = nk.group_norm_silu_fused_plain(x, norm, groups, 1e-6)
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= _one_rounding_tol(ref), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [7, 33, 1003])
+def test_flash_kernel_pads_head_dims_off_16_bytes(cuda, d, dtype):
+    """A head dim that is no whole number of 16-byte words (here odd) reaches
+    the kernels in rows padded with zeros: three copies, counted, and the
+    result of the plain version on the unpadded operands."""
+    q, k, v = _qkv(cuda, 2, 200, 3, d, dtype, d)
+    copies, before = fa.copies, fa.launches[d]
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.copies == copies + 3
+    assert fa.launches[d] == before + 1
+    _flash_close(got, fa.flash_attention_plain(q, k, v), dtype)

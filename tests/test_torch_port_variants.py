@@ -49,7 +49,7 @@ JNP_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("static_max", [True, False])
-@pytest.mark.parametrize("d,l", [(640, 64), (1024, 72)])
+@pytest.mark.parametrize("d,l", [(640, 64), (1000, 40), (1024, 72)])
 def test_flash_above_512_matches_jax(d, l, static_max, dtype):
     rng = np.random.default_rng(d + l)
     arrs = [rng.standard_normal((1, l, 2, d)).astype(NP_DTYPE[dtype]).astype(np.float32)

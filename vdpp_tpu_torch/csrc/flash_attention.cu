@@ -94,8 +94,7 @@
 // loads in the running-max kernel at d = 72.
 //
 // fp32 inputs at d = 64 and 72 take a plain SIMT kernel (one query row per
-// thread) in static max, and the generic kernel below in running max, where
-// it measured 26-31 % faster (it was 14-16 % slower in static max; PERF.md):
+// thread) in static max, and the generic fp32 kernel below in running max:
 // the tensor cores would round fp32 operands to TF32, and fp32 is off the
 // models' paths (the small agreement configs use it).
 //
@@ -179,49 +178,97 @@
 //     and 1.09 at B = 1; 48-row CTAs are 5.82 and 1.45, and measured faster
 //     at all three path shapes (PERF.md).
 
-// Every other head dim up to 512 (the tiny SVD UNet's and DiT's 16, 40, 80,
-// 128, 256; the reference pads V to _aug_width(d) and takes any d), bf16 and
-// fp32, and fp32 running max at d = 64 and 72: flash_fwd_any<T, DPL,
-// STATIC_MAX, EXP_BF16>, a simple SIMT kernel (making it fast is later
-// work). A warp owns 4 query rows, a CTA 4 warps; K
-// and V come through shared memory in tiles of 32 keys, converted to fp32 as
-// they are staged, with q' = q * qscale rounded to T staged once:
-//   * S: lane j scores key j of the tile against the warp's rows, a dot
-//     product over d from K's row (pitch d | 1 floats: odd, so the 32 lanes'
-//     rows start in distinct banks) against q' rows read as broadcasts;
-//   * softmax per row: static max clamps and takes exp2; running max reduces
-//     the tile's max over the lanes by shuffles and rescales O and l. P is
-//     rounded to T and each lane sums its share of l from those values;
-//   * O += P V: lane c holds columns c, c + 32, ... (DPL = ceil(d / 32)
-//     rounded up to a power of two, so d = 512 takes 16 registers a row),
-//     takes key j's p from lane j by a shuffle and V's row j from shared
-//     memory; keys past L_k have p = 0, rows past L_q are not stored.
+// Every other head dim up to 512 (the tiny SVD UNet's and DiT's 16, a video
+// DiT's 128 (Wan 2.1, HunyuanVideo), a VAE of another width; the reference
+// pads V to _aug_width(d) and takes any d), and every head dim above 512.
+// At B = 1, L = 2304, H = 8 the work is 4 * 8 * 2304^2 * d flops: 0.0028 ms
+// (d = 16) to 0.044 ms (d = 256) at 989 TFLOP/s in bf16, against 0.0028 to
+// 0.044 ms of bytes at 3.35 TB/s: both bounds meet there, and above that
+// length or at more heads operations bound. So bf16 runs on wgmma with the
+// parts of the kernels above, and fp32 on the SIMT cores in the SGEMM layout
+// of flash_fwd_d512_f32 (the tensor cores would round to TF32, and the
+// check is 1e-5 x max|plain|).
 //
-// Head dims above 512 (no model of either package; the reference pads V to
-// _aug_width(d) and shrinks its tiles to a VMEM budget), bf16 and fp32:
-// flash_fwd_wide<T, STATIC_MAX, EXP_BF16>, a simple SIMT kernel in
-// flash_fwd_any's layout (a warp owns 4 query rows, a CTA 4 warps, tiles of
-// 32 keys). O is cut into column slabs of 512, a CTA a slab:
-//   * every slab's CTA computes the full-width S = q'K^T, staging q' and K
-//     128 columns at a time (24.5 KB), summing each score over d in one
-//     order, so all slabs hold the same S bits; static max makes P a
-//     function of S alone, running max its m and alpha too, so every slab
-//     rounds the same P and sums the same l, and the slabs together are one
-//     CTA's result;
-//   * it then stages only its slab's 512 columns of the value tile (64 KB)
-//     for O += P V; 90,240 B of dynamic shared memory at any d, so d is
-//     bounded by nothing but the card's memory;
-//   * what bounds it: the S product is repeated in each of the ceil(d / 512)
-//     slabs, and every tile restages q' (making it fast is later work);
-//   * why it is not flash_fwd_any with a slab axis: flash_fwd_any stages q'
-//     over all of d once a CTA and K and V tiles over all of d, and a lane
-//     holds d / 32 columns of each of its 4 rows of O. At d <= 512 that is
-//     at most 160 KB of shared memory and 64 accumulators a thread; at
-//     d = 1024 it would be 320 KB (more than a CTA may have) and 128. Giving
-//     flash_fwd_any the slabs and the chunked score loop would make its
-//     d <= 512 rows restage q' every key tile, or carry both stagings behind
-//     a branch: two kernels in one body. The two share tile_p, tile_pv and
-//     store_rows, where the arithmetic lives.
+// bf16, d <= 512: flash_fwd_any<DP, STATIC_MAX, EXP_BF16>, DP = d rounded up
+// to 16 (to 32 above 256). TMA maps are 4-D over (D, H, L, B) with D the
+// operand's own head dim, so every column from d to DP comes in as zeros: 0
+// times 0 adds exactly 0 to S, and O's columns past d are never stored. A
+// warpgroup's W columns are loaded as boxes of 64 columns (128-byte swizzle,
+// layout B128), then one of 32 where W % 64 >= 32 (64-byte swizzle, B64,
+// SBO = 512 B) and one of 16 where W % 32 == 16 (32-byte swizzle, B32, as
+// the d = 72 tail); S sums the k16 steps of every box into one accumulator,
+// and P V takes one product for the 64-column boxes (N = 64 * boxes, LBO =
+// the box stride) and one for each narrow box (N = 32, 16). Three layouts,
+// by what O costs in registers (d / 2 fp32 a thread for a 64-row block):
+//   * DP <= 128: flash_fwd_bf16's, unchanged but for the boxes: a producer
+//     warpgroup (one thread issues every TMA load into a 3-stage ring), two
+//     consumer warpgroups of 64 rows, setmaxnreg, S(j) issued beside
+//     P V(j - 1), ping-pong above d = 64, P from S's accumulators. Key tiles
+//     of 128 at DP <= 80, else 64, so that O, S and P fit the 168 registers
+//     ptxas gives a thread beside a producer warp (168, no spills, but 20 B
+//     at DP = 80 as at d = 72). Where P V is one product a k16 step (DP =
+//     16, 32, 64, 128) the loop keeps d = 64's shape (the last P V's P from
+//     the loop alone): with the plain loop ptxas serialised every wgmma
+//     (C7513), and d = 128 ran markedly slower;
+//   * 128 < DP <= 256: the same CTA without the producer: O takes up to 128
+//     registers, so the two consumer warpgroups (128 rows, each its rows'
+//     whole O) are the CTA, 255 registers a thread (ptxas: 148-226, no
+//     spills), and
+//     thread 0 refills a stage once both warpgroups have released it; no
+//     ping-pong, which measured slower here. The ring holds 3 tiles up to
+//     DP = 224, 2 above. At these widths it measured faster than
+//     flash_fwd_d512_bf16's layout at (B, L, H) = (1, 4096, 16) and even
+//     with it at (1, 2304, 8), where its 144 CTAs are 1.09 waves of 132 SMs;
+//   * 256 < DP <= 512: flash_fwd_d512_bf16's layout: one 64-row block, its
+//     two warpgroups take DP / 2 columns each of S's partial sums and of O
+//     and exchange S through shared memory; thread 0 loads single K and V
+//     tiles of 64 keys.
+// bf16 operands must have 16-byte strides for TMA; a head dim that is no
+// whole number of 16-byte words (d % 8 in bf16, d % 4 in fp32) is copied by
+// the wrapper into rows padded with zeros to one (utils/kernels.py::
+// padded_operands, counted in `copies`): the kernels read the same values,
+// TMA never reads the padding (the map's D is the head dim), and the fp32
+// kernels read it as the zeros it is.
+//
+// bf16, d > 512: flash_fwd_wide<STATIC_MAX, EXP_BF16>. A CTA owns 64 query
+// rows and a slab of 512 columns of O, 256 a warpgroup (N = 256 P V as at
+// d = 512); a ragged last slab computes on zeros past d and stores nothing
+// there. S runs over all of d: q' = bf16(q * qscale) is written first by
+// flash_scale_q into scratch the wrapper allocates (rows padded to 16
+// bytes), then each warpgroup streams its half of d's 64-column boxes of q'
+// and K through a 4-stage ring of its own (its thread 0 refills a stage
+// once the warpgroup's four warps have released it) into wgmma m64n64k16
+// products, the next box's product issued while this one runs; the two
+// partial sums meet as in flash_fwd_d512_bf16. Every slab's CTA sums S in
+// the same box order and the same exchange, so every slab rounds the same
+// P, running max and l, and the slabs together equal one CTA's result. S is
+// computed once a slab: (slabs + 1) / 2 times the minimum work at d = 1024;
+// the bound counts each product once.
+//
+// fp32: flash_fwd_any_f32<DW, STATIC_MAX, EXP_BF16> (d <= DW, the width class
+// 16, 32, 64, 128, 256 or 512), also fp32 running max at d = 64 and 72, and
+// above 512 flash_fwd_wide_f32<STATIC_MAX, EXP_BF16> (DW = 512, a slab).
+// flash_fwd_d512_f32's layout on BQ query rows and 256 threads:
+//   * S (BQ x 64 a key tile): warp w rows (BQ / 8) w ..., each lane a
+//     BQ / 16 x 4 micro-tile (rows (BQ / 8) w + sy + 2r, keys sx + 16c): at
+//     BQ = 64 a step of 4 columns reads 4 Q' float4s (1 wavefront each) and
+//     4 K float4s (2 each) for 64 FMAs a lane, 5.3 warp FMAs a wavefront; q'
+//     and K rows padded by 4 floats, so rows 1 apart start 4 banks apart;
+//   * O += P V: each lane holds RO rows (orow ...) and NC float4s of
+//     columns 16 apart (4 ox + 16 c + e; NC = DW / 16 below 64, 2 at 128,
+//     else 4), a warp 16 NC columns, so DW / 16 NC warps across O's columns
+//     and the rest across its rows; a key reads RO floats of P^T and NC
+//     float4s of V from shared memory;
+//   * K chunks of min(DW, 64) columns and V chunks of 64, 32 or 16 keys by
+//     DW stream by cp.async through two buffers, each loaded while the other
+//     is read (keys past L_k, rows past L_q and columns past d zero-filled);
+//     q' is resident (BQ x DW, scaled once), and the wide kernel streams
+//     flash_scale_q's q' beside each K chunk instead;
+//   * 64 query rows a CTA, but 48 at DW = 128, where 64 made 1.09 waves of
+//     CTAs at (B, L, H) = (1, 2304, 8) and 48 makes 0.97 with three CTAs an
+//     SM; registers (ptxas): 80 at DW = 16, 32 and 128 (three CTAs an SM;
+//     12-132 B of spill loads), 128 at 64 (two), 204-208 at 256 and 254-255
+//     at 512 (one; up to 272 B of spill loads in running max).
 //
 // Operands. q, k and v come with element strides (batch, token, head), their
 // head dim dense: the fused QKV projection's chunks (VDPP_FUSE_QKV=1) are
@@ -1656,25 +1703,820 @@ cudaError_t launch_d512_bf16(const Operands& x, int batch, int H, int Lq, int Lk
 }
 
 // ---------------------------------------------------------------------------
-// Any other head dim d <= 512, bf16 or fp32, and fp32 running max at d = 64
-// and 72: flash_fwd_any<T, DPL, STATIC_MAX, EXP_BF16>, SIMT. (The design is
-// in the note at the top of the file.)
+// Every other head dim, bf16: flash_fwd_any<DP, STATIC_MAX, EXP_BF16> on wgmma,
+// and above 512 flash_fwd_wide<STATIC_MAX, EXP_BF16>. (The design is in the
+// note at the top of the file.)
 
-constexpr int ANY_R = 4;                    // query rows a warp
-constexpr int ANY_WARPS = 4;                // warps a CTA
-constexpr int ANY_BQ = ANY_R * ANY_WARPS;   // query rows a CTA
-constexpr int ANY_BK = 32;                  // keys a tile: one a lane for S
-constexpr int ANY_THREADS = 32 * ANY_WARPS;
-constexpr int ANY_MAX_D = 512;
+// O(64 x 32, fp32) += P(64 x 16, bf16, registers) * V(16 x 32, bf16, shared, N-major).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
-// Row pitch of a staged K tile, in floats: odd, so that the 32 lanes' rows
-// start in 32 distinct banks.
-__host__ __device__ constexpr int any_kpitch(int d) { return d | 1; }
+// O(64 x 128, fp32) += P(64 x 16, bf16, registers) * V(16 x 128, bf16, shared, N-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
-// Dynamic shared memory of a CTA at head dim d: Q' (ANY_BQ rows), a K tile
-// (padded rows) and a V tile, all fp32.
-__host__ __device__ constexpr int any_smem(int d) {
-  return (int)sizeof(float) * (ANY_BQ * d + ANY_BK * any_kpitch(d) + ANY_BK * d);
+// O(64 x 192, fp32) += P(64 x 16, bf16, registers) * V(16 x 192, bf16, shared, N-major).
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The columns one warpgroup reads, W of them (a multiple of 16, at most 256),
+// as TMA boxes: NB boxes of 64 columns (128-byte swizzle), then one of 32
+// (64-byte swizzle) where W % 64 >= 32, then one of 16 (32-byte swizzle) where
+// W % 32 == 16. An R-row tile of them is R * W * 2 bytes, the boxes one after
+// the other, each R rows of its width (so each starts on its swizzle atom).
+template <int W>
+struct Cols {
+  static_assert(W % 16 == 0 && W >= 16 && W <= 256, "whole k16 steps, wgmma's N <= 256");
+  static constexpr int NB = W / 64;
+  static constexpr bool T32 = W % 64 >= 32;
+  static constexpr bool T16 = W % 32 == 16;
+  static constexpr int OM = NB > 0 ? 32 * NB : 1;  // registers of the 64-column boxes' O
+  __host__ __device__ static constexpr int t32(int r) { return NB * r * 128; }
+  __host__ __device__ static constexpr int t16(int r) { return NB * r * 128 + (T32 ? r * 64 : 0); }
+  __host__ __device__ static constexpr int bytes(int r) { return r * W * 2; }
+};
+constexpr uint64_t SW64 = 2;
+__host__ __device__ constexpr int round16(int d) { return (d + 15) & ~15; }
+
+// The tensor maps of q, k and v, three each: boxes of 64, 32 and 16 columns.
+struct Maps {
+  CUtensorMap m[9];
+};
+
+// The TMA loads of an R-row tile of W columns from column c0 (rows `row` ...
+// of batch b, head h) into dst, completing on bar; `maps` are the operand's
+// three maps.
+template <int W>
+__device__ __forceinline__ void load_cols(uint32_t dst, const CUtensorMap* maps, uint32_t bar,
+                                          int c0, int h, int row, int b, int r) {
+  using C = Cols<W>;
+#pragma unroll
+  for (int i = 0; i < C::NB; ++i) tma_load_4d(dst + i * r * 128, &maps[0], bar, c0 + 64 * i, h, row, b);
+  if (C::T32) tma_load_4d(dst + C::t32(r), &maps[1], bar, c0 + 64 * C::NB, h, row, b);
+  if (C::T16) tma_load_4d(dst + C::t16(r), &maps[2], bar, c0 + 64 * C::NB + (C::T32 ? 32 : 0), h, row, b);
+}
+
+// q' = bf16(q * qscale) in place over `bytes` of shared memory, by the 128
+// threads of a warpgroup (tw its thread).
+__device__ __forceinline__ void scale_region(uint8_t* p, int bytes, int tw, float qscale) {
+  uint4* x = reinterpret_cast<uint4*>(p);
+  for (int i = tw; i < bytes / 16; i += 128) scale_q8(x[i], qscale);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, bool first) {
+  static_assert(N == 64 || N == 128, "S tiles of 64 or 128 keys");
+  if constexpr (N == 64) {
+    if (first) {
+      wgmma_ss_n64_first(d, da, db);
+    } else {
+      wgmma_ss_n64(d, da, db);
+    }
+  } else {
+    if (first) {
+      wgmma_ss_n128_first(d, da, db);
+    } else {
+      wgmma_ss_n128(d, da, db, 1);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 192) wgmma_rs_n192(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+// S(64 x N) (+)= A B^T over the k16 steps of W columns: A is 64 rows from row
+// ra of an RA-row tile at a (q'), B the N-row tile at bt (keys), both K-major
+// as TMA stored them. FIRST: the first step writes S without reading it.
+template <int W, int N, int RA, bool FIRST>
+__device__ __forceinline__ void issue_s_cols(float (&s)[N / 2], uint32_t a, int ra, uint32_t bt) {
+  using C = Cols<W>;
+#pragma unroll
+  for (int i = 0; i < C::NB; ++i) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // +32 B a k16 step inside a 128-byte row
+      wgmma_ss<N>(s, wg_desc(a + i * RA * 128 + ra * 128 + kk * 32, 1024, SW128),
+                  wg_desc(bt + i * N * 128 + kk * 32, 1024, SW128), FIRST && i == 0 && kk == 0);
+    }
+  }
+  if (C::T32) {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      wgmma_ss<N>(s, wg_desc(a + C::t32(RA) + ra * 64 + kk * 32, 512, SW64),
+                  wg_desc(bt + C::t32(N) + kk * 32, 512, SW64), FIRST && C::NB == 0 && kk == 0);
+    }
+  }
+  if (C::T16) {
+    wgmma_ss<N>(s, wg_desc(a + C::t16(RA) + ra * 32, 256, SW32), wg_desc(bt + C::t16(N), 256, SW32),
+                FIRST && C::NB == 0 && !C::T32);
+  }
+}
+
+// O(64 x W) += P V over a BK-key tile of W columns at vt (N-major: keys x
+// columns, columns contiguous): the 64-column boxes in one product (LBO = the
+// box stride), the 32- and 16-column boxes in one each.
+template <int W, int BK>
+__device__ __forceinline__ void issue_pv_cols(float (&om)[Cols<W>::OM], float (&o32)[16],
+                                              float (&o16)[8], const uint32_t (&p)[BK / 4],
+                                              uint32_t vt) {
+  using C = Cols<W>;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {  // 16 keys a step
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    if constexpr (C::NB > 0) {
+      wgmma_rs<64 * C::NB>(om, a, wg_desc_lbo(vt + kk * 16 * 128, BK * 128, 1024, SW128));
+    }
+    if constexpr (C::T32) {
+      wgmma_rs<32>(o32, a, wg_desc_lbo(vt + C::t32(BK) + kk * 16 * 64, 512, 512, SW64));
+    }
+    if constexpr (C::T16) {
+      wgmma_rs<16>(o16, a, wg_desc(vt + C::t16(BK) + kk * 16 * 32, 256, SW32));
+    }
+  }
+}
+
+// O's registers of one warpgroup over W columns.
+template <int W>
+struct OAcc {
+  float om[Cols<W>::OM];
+  float o32[16];
+  float o16[8];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < Cols<W>::OM; ++i) om[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o32[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o16[i] = 0.f;
+  }
+  __device__ __forceinline__ void fence() {
+    fence_regs(om);
+    if (Cols<W>::T32) fence_regs(o32);
+    if (Cols<W>::T16) fence_regs(o16);
+  }
+  __device__ __forceinline__ void rescale(const float (&alpha)[2]) {
+#pragma unroll
+    for (int i = 0; i < Cols<W>::OM; ++i) om[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o32[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o16[i] *= alpha[(i >> 1) & 1];
+  }
+};
+
+// Two bf16 values of O at columns c, c + 1 of a row, those below D; `pair`:
+// the row and c are even, so the two may be stored as one 4-byte word.
+__device__ __forceinline__ void store2(__nv_bfloat16* row, int c, int D, float x0, float x1,
+                                       bool pair) {
+  if (pair && c + 1 < D) {
+    *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(x0, x1);
+    return;
+  }
+  if (c < D) row[c] = __float2bfloat16_rn(x0);
+  if (c + 1 < D) row[c + 1] = __float2bfloat16_rn(x1);
+}
+
+// This thread's rows r0 and r0 + 8 of O (those below Lq) over W columns from
+// column c0 (those below D), divided by l (inv).
+template <int W>
+__device__ __forceinline__ void store_cols(const OAcc<W>& acc, const float (&inv)[2],
+                                           __nv_bfloat16* ob, long rs, int r0, int Lq, int c0,
+                                           int D, int t) {
+  using C = Cols<W>;
+  const bool pair = (rs & 1) == 0;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = r0 + 8 * e;
+    if (r >= Lq) continue;
+    __nv_bfloat16* row = ob + r * rs;
+#pragma unroll
+    for (int j = 0; j < 8 * C::NB; ++j) {
+      store2(row, c0 + 8 * j + 2 * t, D, acc.om[4 * j + 2 * e] * inv[e],
+             acc.om[4 * j + 2 * e + 1] * inv[e], pair);
+    }
+    if (C::T32) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        store2(row, c0 + 64 * C::NB + 8 * j + 2 * t, D, acc.o32[4 * j + 2 * e] * inv[e],
+               acc.o32[4 * j + 2 * e + 1] * inv[e], pair);
+      }
+    }
+    if (C::T16) {
+      const int c16 = c0 + 64 * C::NB + (C::T32 ? 32 : 0);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        store2(row, c16 + 8 * j + 2 * t, D, acc.o16[4 * j + 2 * e] * inv[e],
+               acc.o16[4 * j + 2 * e + 1] * inv[e], pair);
+      }
+    }
+  }
+}
+
+// 1 / l of this thread's two rows (l == 0 -> 1) from the four partial sums.
+__device__ __forceinline__ void row_inverses(const float (&lp)[4], float (&inv)[2]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float l = lp[j] + lp[j + 2];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[j] = l == 0.f ? 1.f : 1.f / l;
+  }
+}
+
+// d <= 256 (DP = d rounded up to 16): flash_fwd_bf16's layout. A CTA owns
+// 128 query rows, two consumer warpgroups of 64 that each hold the rows'
+// whole O, and a ring of K/V tiles. At DP <= 128 a producer warpgroup's one
+// thread keeps the ring full (ptxas then gives a thread 168 registers);
+// above, O takes up to 128 registers a thread, so the CTA is the two
+// warpgroups alone (255), and thread 0 refills a stage once both are done
+// with it.
+template <int DP>
+struct PcLayout {
+  using C = Cols<DP>;
+  static constexpr bool PRODUCER = DP <= 128;
+  static constexpr int THREADS = PRODUCER ? WG_THREADS : X_THREADS;
+  static constexpr int BK = DP <= 80 ? 128 : 64;  // keys a tile
+  static constexpr int NS = BK / 2;               // S accumulators a thread
+  static constexpr bool PINGPONG = PRODUCER && DP > 64;  // without a producer it cost time
+  static constexpr int Q_BYTES = C::bytes(WG_BQ);
+  static constexpr int TILE = C::bytes(BK);  // a K or a V tile
+  static constexpr int STAGE_BYTES = 2 * TILE;
+  static constexpr int STAGE0 = Q_BYTES;
+  static constexpr int FREE = 232448 - 1024 - 8 * 7 - Q_BYTES;  // room for the ring
+  static constexpr int STAGES = FREE / STAGE_BYTES < 3 ? FREE / STAGE_BYTES : 3;
+  static constexpr int BARS = STAGE0 + STAGES * STAGE_BYTES;  // full[], empty[], q
+  static constexpr int SMEM = BARS + 8 * (2 * STAGES + 1) + 1024;
+  static_assert(STAGES >= 2, "a tile in flight beside the one in use");
+  static_assert(Q_BYTES % 1024 == 0 && TILE % 1024 == 0, "1024-byte swizzle atoms");
+  static_assert(SMEM <= 232448, "one CTA's dynamic shared memory on an H100");
+};
+
+// The K and V tiles of key tile j into stage j % STAGES, completing on its
+// full barrier.
+template <int DP>
+__device__ __forceinline__ void pc_load(const Maps& maps, uint32_t stage0, uint32_t full0, int j,
+                                        int h, int b) {
+  using L = PcLayout<DP>;
+  const int s = j % L::STAGES;
+  const uint32_t full = full0 + 8 * s;
+  const uint32_t st = stage0 + s * L::STAGE_BYTES;
+  mbar_expect_tx(full, L::STAGE_BYTES);
+  load_cols<DP>(st, &maps.m[3], full, 0, h, j * L::BK, b, L::BK);
+  load_cols<DP>(st + L::TILE, &maps.m[6], full, 0, h, j * L::BK, b, L::BK);
+}
+
+// Tile j of a consumer warpgroup (flash_fwd_bf16's tile_step over DP
+// columns): S(j) and P V(j - 1) issued together, the softmax of tile j while
+// P V runs, then O rescaled (running max), stage j - 1 freed (without a
+// producer, thread 0 then loads tile j - 1 + STAGES into it), P taken.
+template <int DP, bool STATIC_MAX, bool EXP_BF16>
+__device__ __forceinline__ void pc_tile(int j, float (&s)[PcLayout<DP>::NS],
+                                        uint32_t (&pa)[PcLayout<DP>::NS / 2], OAcc<DP>& acc,
+                                        float (&m)[2], float (&lp)[4], float (&alpha)[2],
+                                        uint32_t q, int ra, uint32_t stage0, uint32_t full0,
+                                        uint32_t empty0, int Lk, int wg, const Maps& maps, int nk,
+                                        int h, int b) {
+  using L = PcLayout<DP>;
+  const int sj = j % L::STAGES;
+  const int sp = (j - 1) % L::STAGES;
+  mbar_wait(full0 + 8 * sj, (j / L::STAGES) & 1);
+  pingpong_wait<L::PINGPONG>(wg);
+  fence_regs(pa);
+  acc.fence();
+  wg_fence();
+  issue_s_cols<DP, L::BK, WG_BQ, true>(s, q, ra, stage0 + sj * L::STAGE_BYTES);
+  wg_commit();
+  issue_pv_cols<DP, L::BK>(acc.om, acc.o32, acc.o16, pa, stage0 + sp * L::STAGE_BYTES + L::TILE);
+  wg_commit();
+  pingpong_pass<L::PINGPONG>(wg);
+  wg_wait<1>();  // S of tile j has landed; P V of tile j - 1 may still run
+  fence_regs(s);
+  softmax<STATIC_MAX, EXP_BF16>(s, m, lp, alpha, j * L::BK, Lk, threadIdx.x & 3);
+  fence_regs(s);
+  wg_wait<0>();
+  acc.fence();
+  fence_regs(pa);
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty0 + 8 * sp);
+  if (!L::PRODUCER && threadIdx.x == 0 && j - 1 + L::STAGES < nk) {
+    mbar_wait(empty0 + 8 * sp, ((j - 1) / L::STAGES) & 1);  // both warpgroups are done with it
+    pc_load<DP>(maps, stage0, full0, j - 1 + L::STAGES, h, b);
+  }
+  if (!STATIC_MAX) acc.rescale(alpha);
+  take_p(pa, s);
+}
+
+template <int DP, bool STATIC_MAX, bool EXP_BF16>
+__device__ __forceinline__ void any_pc(const Maps& maps, __nv_bfloat16* __restrict__ o, int H,
+                                       int D, int Lq, int Lk, float qscale) {
+  using L = PcLayout<DP>;
+  using C = Cols<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t full0 = base + L::BARS;
+  const uint32_t empty0 = full0 + 8 * L::STAGES;
+  const uint32_t qbar = empty0 + 8 * L::STAGES;
+  const uint32_t stage0 = base + L::STAGE0;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const Work w = work_of(Lq, WG_BQ);
+  const int b = w.bh / H;
+  const int h = w.bh - b * H;
+  const int q0 = w.q0;
+  const int nk = (Lk + L::BK - 1) / L::BK;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * WG_NC);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if constexpr (L::PRODUCER) {
+    if (warp >= 4 * WG_NC) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+      if (threadIdx.x == 128 * WG_NC) {
+        mbar_expect_tx(qbar, L::Q_BYTES);
+        load_cols<DP>(base, &maps.m[0], qbar, 0, h, q0, b, WG_BQ);
+        for (int j = 0; j < nk; ++j) {
+          mbar_wait(empty0 + 8 * (j % L::STAGES), ((j / L::STAGES) & 1) ^ 1);  // round 0 passes
+          pc_load<DP>(maps, stage0, full0, j, h, b);
+        }
+      }
+      return;
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+  } else if (threadIdx.x == 0) {
+    mbar_expect_tx(qbar, L::Q_BYTES);
+    load_cols<DP>(base, &maps.m[0], qbar, 0, h, q0, b, WG_BQ);
+    for (int j = 0; j < L::STAGES && j < nk; ++j) pc_load<DP>(maps, stage0, full0, j, h, b);
+  }
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);  // warp-uniform descriptors
+  const int tw = threadIdx.x & 127;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int ra = 64 * wg;  // this warpgroup's rows of the Q tile
+
+  mbar_wait(qbar, 0);
+#pragma unroll
+  for (int i = 0; i < C::NB; ++i) scale_region(smem + i * WG_BQ * 128 + ra * 128, 64 * 128, tw, qscale);
+  if (C::T32) scale_region(smem + C::t32(WG_BQ) + ra * 64, 64 * 64, tw, qscale);
+  if (C::T16) scale_region(smem + C::t16(WG_BQ) + ra * 32, 64 * 32, tw, qscale);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // before wgmma reads Q'
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+
+  float s[L::NS];
+  uint32_t p[L::NS / 2];
+  OAcc<DP> acc;
+  acc.zero();
+  float m[2] = {MASK_VALUE, MASK_VALUE};
+  float lp[4] = {0.f, 0.f, 0.f, 0.f};
+  float alpha[2];
+
+  if (wg == 1) pingpong_pass<L::PINGPONG>(wg);  // warpgroup 0 issues first
+  mbar_wait(full0, 0);
+  pingpong_wait<L::PINGPONG>(wg);
+  wg_fence();
+  issue_s_cols<DP, L::BK, WG_BQ, true>(s, base, ra, stage0);
+  wg_commit();
+  pingpong_pass<L::PINGPONG>(wg);
+  wg_wait<0>();
+  fence_regs(s);
+  softmax<STATIC_MAX, EXP_BF16>(s, m, lp, alpha, 0, Lk, t);
+  take_p(p, s);
+  // P V of the last tile.
+  const auto last_pv = [&] {
+    pingpong_wait<L::PINGPONG>(wg);
+    fence_regs(p);
+    acc.fence();
+    wg_fence();
+    issue_pv_cols<DP, L::BK>(acc.om, acc.o32, acc.o16, p,
+                             stage0 + ((nk - 1) % L::STAGES) * L::STAGE_BYTES + L::TILE);
+    wg_commit();
+    if (wg == 0) pingpong_pass<L::PINGPONG>(wg);  // for warpgroup 1's last issue
+    wg_wait<0>();
+    acc.fence();
+    fence_regs(p);
+  };
+  // Tiles 1 .. nk - 1. Where P V is one product a k16 step, ptxas keeps the
+  // wgmma pipeline only with a last P V whose P comes from the loop alone
+  // (as flash_fwd_bf16 at d = 64 has it); with two or three products (the
+  // tails) the plain loop.
+  if constexpr ((C::NB > 0) + C::T32 + C::T16 > 1) {
+    for (int j = 1; j < nk; ++j) {
+      pc_tile<DP, STATIC_MAX, EXP_BF16>(j, s, p, acc, m, lp, alpha, base, ra, stage0, full0,
+                                        empty0, Lk, wg, maps, nk, h, b);
+    }
+    last_pv();
+  } else if (nk == 1) {
+    last_pv();
+  } else {
+    int j = 1;
+    do {
+      pc_tile<DP, STATIC_MAX, EXP_BF16>(j, s, p, acc, m, lp, alpha, base, ra, stage0, full0,
+                                        empty0, Lk, wg, maps, nk, h, b);
+    } while (++j < nk);
+    last_pv();
+  }
+
+  float inv[2];
+  row_inverses(lp, inv);
+  const long rs = (long)H * D;
+  const int r0 = q0 + ra + (warp & 3) * 16 + g;
+  store_cols<DP>(acc, inv, o + ((long)b * Lq * H + h) * D, rs, r0, Lq, 0, D, t);
+}
+
+// 256 < d <= 512: flash_fwd_d512_bf16's layout. A CTA owns 64 query rows;
+// warpgroup w holds columns w * HW ... w * HW + HW - 1 of d (HW = d / 2
+// rounded up to 16) for S's partial sum and for O; thread 0 loads single K
+// and V tiles of 64 keys.
+template <int HW>
+struct SplitLayout {
+  using C = Cols<HW>;
+  static constexpr int HALF = C::bytes(64);  // a warpgroup's columns of a 64-row tile
+  static constexpr int TILE = 2 * HALF;
+  static constexpr int Q = 0;
+  static constexpr int K = TILE;
+  static constexpr int V = 2 * TILE;
+  static constexpr int XCH = 3 * TILE;
+  static constexpr int BARS = XCH + 2 * X_XCH_BYTES;  // full K, full V, empty V, Q
+  static constexpr int SMEM = BARS + 8 * 4 + 1024;
+  static_assert(HALF % 1024 == 0, "1024-byte swizzle atoms");
+  static_assert(SMEM <= 232448, "one CTA's dynamic shared memory on an H100");
+};
+
+// A 64-row tile of both halves' columns into dst; thread 0 issues it.
+template <int HW>
+__device__ __forceinline__ void load_split(uint32_t dst, const CUtensorMap* maps, uint32_t bar,
+                                           int h, int row, int b) {
+  mbar_expect_tx(bar, SplitLayout<HW>::TILE);
+  load_cols<HW>(dst, maps, bar, 0, h, row, b, 64);
+  load_cols<HW>(dst + SplitLayout<HW>::HALF, maps, bar, HW, h, row, b, 64);
+}
+
+template <int HW, bool STATIC_MAX, bool EXP_BF16>
+__device__ __forceinline__ void any_split(const Maps& maps, __nv_bfloat16* __restrict__ o, int H,
+                                          int D, int Lq, int Lk, float qscale) {
+  using L = SplitLayout<HW>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t full_k = base + L::BARS;
+  const uint32_t full_v = full_k + 8;
+  const uint32_t empty_v = full_k + 16;
+  const uint32_t qbar = full_k + 24;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const Work w = work_of(Lq, X_BQ);
+  const int b = w.bh / H;
+  const int h = w.bh - b * H;
+  const int q0 = w.q0;
+  const int nk = (Lk + X_BK - 1) / X_BK;
+  const bool leader = threadIdx.x == 0;
+
+  if (leader) {
+    mbar_init(full_k, 1);
+    mbar_init(full_v, 1);
+    mbar_init(empty_v, 4 * WG_NC);
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (leader) {
+    load_split<HW>(base + L::Q, &maps.m[0], qbar, h, q0, b);
+    load_split<HW>(base + L::K, &maps.m[3], full_k, h, 0, b);
+    load_split<HW>(base + L::V, &maps.m[6], full_v, h, 0, b);
+  }
+
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int tw = threadIdx.x & 127;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const uint32_t half = wg * L::HALF;
+  uint8_t* xch = smem + L::XCH;
+
+  mbar_wait(qbar, 0);
+  scale_region(smem + L::Q + half, L::HALF, tw, qscale);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // before wgmma reads Q'
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+
+  float s[32];
+  uint32_t p[16];
+  OAcc<HW> acc;
+  acc.zero();
+  float m[2] = {MASK_VALUE, MASK_VALUE};
+  float lp[4] = {0.f, 0.f, 0.f, 0.f};
+  float alpha[2];
+
+  for (int j = 0; j < nk; ++j) {
+    mbar_wait(full_k, j & 1);
+    acc.fence();
+    wg_fence();
+    issue_s_cols<HW, X_BK, 64, true>(s, base + L::Q + half, 0, base + L::K + half);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    exchange_s(s, xch, wg, j, tw);
+    if (leader && j + 1 < nk) load_split<HW>(base + L::K, &maps.m[3], full_k, h, (j + 1) * X_BK, b);
+    softmax<STATIC_MAX, EXP_BF16>(s, m, lp, alpha, j * X_BK, Lk, t);
+    if (!STATIC_MAX) acc.rescale(alpha);
+    take_p(p, s);
+    mbar_wait(full_v, j & 1);
+    fence_regs(p);
+    acc.fence();
+    wg_fence();
+    issue_pv_cols<HW, X_BK>(acc.om, acc.o32, acc.o16, p, base + L::V + half);
+    wg_commit();
+    wg_wait<0>();
+    acc.fence();
+    fence_regs(p);
+    if (lane == 0) mbar_arrive(empty_v);
+    if (leader && j + 1 < nk) {
+      mbar_wait(empty_v, j & 1);  // both warpgroups' P V(j) are done with V
+      load_split<HW>(base + L::V, &maps.m[6], full_v, h, (j + 1) * X_BK, b);
+    }
+  }
+
+  float inv[2];
+  row_inverses(lp, inv);
+  const long rs = (long)H * D;
+  const int r0 = q0 + (warp & 3) * 16 + g;
+  store_cols<HW>(acc, inv, o + ((long)b * Lq * H + h) * D, rs, r0, Lq, wg * HW, D, t);
+}
+
+// DP: d rounded up to 16 at d <= 256 (any_pc), else to 32 (any_split, whose
+// warpgroups take DP / 2 columns each).
+constexpr int PC_MAX = 256;
+template <int DP, bool STATIC_MAX, bool EXP_BF16>
+__global__ void __launch_bounds__(DP <= 128 ? WG_THREADS : X_THREADS, 1)
+flash_fwd_any(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ o, int H, int D,
+              int Lq, int Lk, float qscale) {
+  if constexpr (DP <= PC_MAX) {
+    any_pc<DP, STATIC_MAX, EXP_BF16>(maps, o, H, D, Lq, Lk, qscale);
+  } else {
+    any_split<DP / 2, STATIC_MAX, EXP_BF16>(maps, o, H, D, Lq, Lk, qscale);
+  }
+}
+
+// d > 512, bf16: a CTA owns 64 query rows and a slab of 512 columns of O, 256
+// a warpgroup; S over all of d streams q' (scaled beforehand by
+// flash_scale_q) and K in 64-column boxes through a ring of its own for each
+// warpgroup, warpgroup 0 taking the first half of the boxes and warpgroup 1
+// the rest, and the partial sums meet as in flash_fwd_d512_bf16.
+constexpr int WD_SLAB = 512;
+constexpr int WD_RING = 4;                       // stages of a warpgroup's ring
+constexpr int WD_STAGE = 2 * X_BOX;              // a q' box and a K box: 16 KB
+constexpr int WD_V = 0;                          // the slab's V tile: 64 KB
+constexpr int WD_XCH = X_TILE;                   // the exchange: 2 x 16 KB
+constexpr int WD_RINGS = WD_XCH + 2 * X_XCH_BYTES;
+constexpr int WD_BARS = WD_RINGS + WG_NC * WD_RING * WD_STAGE;  // full V, empty V, full[][], empty[][]
+constexpr int WD_SMEM = WD_BARS + 8 * (2 + 2 * WG_NC * WD_RING) + 1024;
+static_assert(WD_SMEM <= 232448, "one CTA's dynamic shared memory on an H100");
+
+template <bool STATIC_MAX, bool EXP_BF16>
+__global__ void __launch_bounds__(X_THREADS, 1)
+flash_fwd_wide(const __grid_constant__ CUtensorMap qs_map,  // q' = bf16(q * qscale)
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o, int H,
+               int D, int Lq, int Lk) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t full_v = base + WD_BARS;
+  const uint32_t empty_v = full_v + 8;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nslab = (D + WD_SLAB - 1) / WD_SLAB;
+  const int slab = blockIdx.x % nslab;
+  const int nq = (Lq + X_BQ - 1) / X_BQ;
+  const int tile = blockIdx.x / nslab;
+  const int bh = tile / nq;
+  const int q0 = (tile - bh * nq) * X_BQ;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int c0 = slab * WD_SLAB;
+  const int nk = (Lk + X_BK - 1) / X_BK;
+  const bool leader = threadIdx.x == 0;
+
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int tw = threadIdx.x & 127;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // This warpgroup's boxes of d: [cb, cb + ncw).
+  const int nc = (D + MAIN_COLS - 1) / MAIN_COLS;
+  const int c_half = (nc + 1) / 2;
+  const int cb = wg == 0 ? 0 : c_half;
+  const int ncw = wg == 0 ? c_half : nc - c_half;
+  const int total = nk * ncw;  // boxes this warpgroup's ring carries
+  const uint32_t ring = base + WD_RINGS + wg * WD_RING * WD_STAGE;
+  const uint32_t full0 = empty_v + 8 + wg * 2 * 8 * WD_RING;
+  const uint32_t empty0 = full0 + 8 * WD_RING;
+  const bool ring_leader = tw == 0;
+
+  if (leader) {
+    mbar_init(full_v, 1);
+    mbar_init(empty_v, 4 * WG_NC);
+    for (int i = 0; i < WG_NC * WD_RING; ++i) {
+      mbar_init(empty_v + 8 + 16 * WD_RING * (i / WD_RING) + 8 * (i % WD_RING), 1);  // full
+      mbar_init(empty_v + 8 + 16 * WD_RING * (i / WD_RING) + 8 * WD_RING + 8 * (i % WD_RING),
+                4);  // empty: one arrive per warp of the warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Box n of this warpgroup's ring: key tile n / ncw, box cb + n % ncw of d.
+  const auto load_box = [&](int n) {
+    const uint32_t st = ring + (n % WD_RING) * WD_STAGE;
+    const uint32_t full = full0 + 8 * (n % WD_RING);
+    const int col = MAIN_COLS * (cb + n % ncw);
+    mbar_expect_tx(full, WD_STAGE);
+    tma_load_4d(st, &qs_map, full, col, h, q0, b);
+    tma_load_4d(st + X_BOX, &k_map, full, col, h, (n / ncw) * X_BK, b);
+  };
+  const auto load_v = [&](int j) {
+    mbar_expect_tx(full_v, X_TILE);
+    for (int i = 0; i < X_BOXES; ++i) {
+      tma_load_4d(base + WD_V + i * X_BOX, &v_map, full_v, c0 + MAIN_COLS * i, h, j * X_BK, b);
+    }
+  };
+  if (ring_leader) {
+    for (int n = 0; n < WD_RING && n < total; ++n) load_box(n);
+  }
+  if (leader) load_v(0);
+  // Box n is done with: this warp's arrive, and its ring's leader refills the
+  // stage with box n + WD_RING once all four warps have arrived.
+  const auto release = [&](int n) {
+    const uint32_t empty = empty0 + 8 * (n % WD_RING);
+    if (lane == 0) mbar_arrive(empty);
+    if (ring_leader && n + WD_RING < total) {
+      mbar_wait(empty, (n / WD_RING) & 1);
+      load_box(n + WD_RING);
+    }
+  };
+
+  const uint64_t dv = wg_desc_lbo(base + WD_V + wg * X_HALF, X_BOX, 1024, SW128);
+  uint8_t* xch = smem + WD_XCH;
+  float s[32];
+  uint32_t p[16];
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float m[2] = {MASK_VALUE, MASK_VALUE};
+  float lp[4] = {0.f, 0.f, 0.f, 0.f};
+  float alpha[2];
+
+  for (int j = 0; j < nk; ++j) {
+    // This warpgroup's partial S over its boxes, in one order in every slab:
+    // each box's product runs while the next one's is issued.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_regs(acc);
+    for (int ci = 0; ci < ncw; ++ci) {
+      const int n = j * ncw + ci;
+      const uint32_t st = ring + (n % WD_RING) * WD_STAGE;
+      mbar_wait(full0 + 8 * (n % WD_RING), (n / WD_RING) & 1);
+      wg_fence();
+      const uint64_t dq = wg_desc(st, 1024, SW128);
+      const uint64_t dk = wg_desc(st + X_BOX, 1024, SW128);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64(s, dq + 2 * kk, dk + 2 * kk);
+      wg_commit();
+      wg_wait<1>();
+      if (ci > 0) release(n - 1);
+    }
+    wg_wait<0>();
+    fence_regs(s);
+    release(j * ncw + ncw - 1);
+    exchange_s(s, xch, wg, j, tw);
+    softmax<STATIC_MAX, EXP_BF16>(s, m, lp, alpha, j * X_BK, Lk, t);
+    if (!STATIC_MAX) {
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+    take_p(p, s);
+    mbar_wait(full_v, j & 1);
+    fence_regs(p);
+    fence_regs(acc);
+    wg_fence();
+    issue_pv512(acc, p, dv);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(p);
+    if (lane == 0) mbar_arrive(empty_v);
+    if (leader && j + 1 < nk) {
+      mbar_wait(empty_v, j & 1);  // both warpgroups' P V(j) are done with V
+      load_v(j + 1);
+    }
+  }
+
+  float inv[2];
+  row_inverses(lp, inv);
+  const long rs = (long)H * D;
+  const int r0 = q0 + (warp & 3) * 16 + g;
+  __nv_bfloat16* ob = o + ((long)b * Lq * H + h) * D;
+  const bool pair = (rs & 1) == 0;
+  const int cw = c0 + wg * (WD_SLAB / 2);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (r0 + 8 * e >= Lq) continue;
+    __nv_bfloat16* row = ob + (r0 + 8 * e) * rs;
+#pragma unroll
+    for (int jj = 0; jj < 32; ++jj) {
+      store2(row, cw + 8 * jj + 2 * t, D, acc[4 * jj + 2 * e] * inv[e],
+             acc[4 * jj + 2 * e + 1] * inv[e], pair);
+    }
+  }
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -1689,297 +2531,572 @@ __device__ __forceinline__ float in_dtype(float x) {
   return std::is_same<T, float>::value ? x : round_bf16(x);
 }
 
-// A tile's P for the warp's ANY_R rows from their scores s (lane j: key j,
-// live when it is below L_k), rounded to T, with this lane's share of l
-// summed from the rounded values; running max: the tile's max over the
-// lanes, and O and l rescaled first.
-template <typename T, int DPL, bool STATIC_MAX, bool EXP_BF16>
-__device__ __forceinline__ void tile_p(const float (&s)[ANY_R], bool live, float (&m)[ANY_R],
-                                       float (&l)[ANY_R], float (&acc)[ANY_R][DPL],
-                                       float (&p)[ANY_R]) {
-#pragma unroll
-  for (int r = 0; r < ANY_R; ++r) {
-    float e;
-    if (STATIC_MAX) {
-      e = exp2f(fminf(fmaxf(s[r], S_CLAMP_LO), S_CLAMP));
-    } else {
-      float mt = live ? s[r] : MASK_VALUE;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      }
-      const float m_new = fmaxf(m[r], mt);
-      const float alpha = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-      e = exp_val<EXP_BF16>(exp2f(exp_arg<EXP_BF16>(s[r] - m_new)));
-    }
-    p[r] = live ? in_dtype<T>(e) : 0.f;
-    l[r] += p[r];
+// q' = q * qscale rounded to T, for the kernels above d = 512: (B, Lq, H)
+// rows of `pitch` elements (columns past D are 0), contiguous.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_scale_q(const T* __restrict__ q, Strides qs, T* __restrict__ out, int H, int Lq, int D,
+              int pitch, float qscale, long long n) {
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n; i += (long long)gridDim.x * 256) {
+    const long long row = i / pitch;
+    const int c = (int)(i - row * pitch);
+    const int h = (int)(row % H);
+    const long long bl = row / H;
+    const int l = (int)(bl % Lq);
+    const int b = (int)(bl / Lq);
+    float x = 0.f;
+    if (c < D) x = in_dtype<T>(to_f32(q[b * qs.b + l * qs.l + h * qs.h + c]) * qscale);
+    from_f32(x, out + i);
   }
-}
-
-// O += P V over a tile's nk keys: key j's p from lane j, V's row j at
-// vs + j * pitch in shared memory; lane c holds columns c, c + 32, ... below
-// `width`.
-template <int DPL>
-__device__ __forceinline__ void tile_pv(float (&acc)[ANY_R][DPL], const float (&p)[ANY_R],
-                                        const float* vs, int pitch, int width, int nk, int lane) {
-  for (int j = 0; j < nk; ++j) {
-    float pj[ANY_R];
-#pragma unroll
-    for (int r = 0; r < ANY_R; ++r) pj[r] = __shfl_sync(0xffffffffu, p[r], j);
-    const float* vr = vs + j * pitch;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int c = lane + 32 * i;
-      const float vc = c < width ? vr[c] : 0.f;
-#pragma unroll
-      for (int r = 0; r < ANY_R; ++r) acc[r][i] = fmaf(pj[r], vc, acc[r][i]);
-    }
-  }
-}
-
-// The warp's rows row0 ... row0 + ANY_R - 1 of O divided by their l (l == 0
-// -> 1), those below L_q, at ob + row * rs, columns below `width`.
-template <typename T, int DPL>
-__device__ __forceinline__ void store_rows(const float (&acc)[ANY_R][DPL],
-                                           const float (&l)[ANY_R], T* ob, long rs, int row0,
-                                           int Lq, int width, int lane) {
-#pragma unroll
-  for (int r = 0; r < ANY_R; ++r) {
-    float lr = l[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) lr += __shfl_xor_sync(0xffffffffu, lr, off);
-    const float inv = lr == 0.f ? 1.f : 1.f / lr;
-    const int row = row0 + r;
-    if (row < Lq) {
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int c = lane + 32 * i;
-        if (c < width) from_f32(acc[r][i] * inv, ob + row * rs + c);
-      }
-    }
-  }
-}
-
-template <typename T, int DPL, bool STATIC_MAX, bool EXP_BF16>
-__global__ void __launch_bounds__(ANY_THREADS)
-flash_fwd_any(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ o, Strides qs, Strides ks, Strides vs, int H, int D, int Lq, int Lk,
-              float qscale) {
-  extern __shared__ __align__(16) float any_smem_f[];
-  const int kp = any_kpitch(D);
-  float* Qs = any_smem_f;          // ANY_BQ x D: q' = q * qscale rounded to T
-  float* Ks = Qs + ANY_BQ * D;     // ANY_BK x kp
-  float* Vs = Ks + ANY_BK * kp;    // ANY_BK x D
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const Work w = work_of(Lq, ANY_BQ);
-  const int b = w.bh / H;
-  const int h = w.bh - b * H;
-  const long rs = (long)H * D;
-  const T* qb = head_of(q, qs, b, h);
-  const T* kb = head_of(k, ks, b, h);
-  const T* vb = head_of(v, vs, b, h);
-  T* ob = o + ((long)b * Lq * H + h) * D;
-  const int q0 = w.q0;
-
-  for (int i = tid; i < ANY_BQ * D; i += ANY_THREADS) {
-    const int r = i / D;
-    const int c = i - r * D;
-    Qs[i] = q0 + r < Lq ? in_dtype<T>(to_f32(qb[(q0 + r) * qs.l + c]) * qscale) : 0.f;
-  }
-  const float* qw = Qs + warp * ANY_R * D;  // this warp's rows
-
-  float acc[ANY_R][DPL];  // O(row, lane + 32 i)
-  float m[ANY_R];
-  float l[ANY_R];         // this lane's share of the row's l
-#pragma unroll
-  for (int r = 0; r < ANY_R; ++r) {
-    m[r] = MASK_VALUE;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Lk; k0 += ANY_BK) {
-    __syncthreads();  // the last tile has been read (and Q' staged, the first time)
-    for (int i = tid; i < ANY_BK * D; i += ANY_THREADS) {
-      const int j = i / D;
-      const int c = i - j * D;
-      const bool in = k0 + j < Lk;
-      Ks[j * kp + c] = in ? to_f32(kb[(k0 + j) * ks.l + c]) : 0.f;
-      Vs[i] = in ? to_f32(vb[(k0 + j) * vs.l + c]) : 0.f;
-    }
-    __syncthreads();
-
-    // S: lane j scores key k0 + j against the warp's rows.
-    float s[ANY_R];
-#pragma unroll
-    for (int r = 0; r < ANY_R; ++r) s[r] = 0.f;
-    const float* kr = Ks + lane * kp;
-    for (int c = 0; c < D; ++c) {
-      const float kc = kr[c];
-#pragma unroll
-      for (int r = 0; r < ANY_R; ++r) s[r] = fmaf(qw[r * D + c], kc, s[r]);
-    }
-    float p[ANY_R];
-    tile_p<T, DPL, STATIC_MAX, EXP_BF16>(s, k0 + lane < Lk, m, l, acc, p);
-    tile_pv(acc, p, Vs, D, D, min(ANY_BK, Lk - k0), lane);
-  }
-  store_rows(acc, l, ob, rs, q0 + warp * ANY_R, Lq, D, lane);
 }
 
 // ---------------------------------------------------------------------------
-// Head dims above 512, bf16 or fp32: flash_fwd_wide<T, STATIC_MAX, EXP_BF16>,
-// SIMT. (The design is in the note at the top of the file.)
+// Every other head dim, fp32, and fp32 running max at d = 64 and 72:
+// flash_fwd_any_f32<DW, STATIC_MAX, EXP_BF16> (d <= DW, DW = 16, 32, 64,
+// 128, 256, 512), and above 512 flash_fwd_wide_f32<STATIC_MAX, EXP_BF16>: the
+// SGEMM layout of flash_fwd_d512_f32. (The design is in the note at the top
+// of the file.)
 
-constexpr int W_SLAB = 512;             // columns of O a CTA: its slab
-constexpr int W_DPL = W_SLAB / 32;      // columns of O a lane holds
-constexpr int W_DC = 128;               // columns of q' and K a score chunk stages
-constexpr int W_KP = any_kpitch(W_DC);  // odd pitch of a staged K chunk row
-constexpr int W_SMEM =
-    (int)sizeof(float) * (ANY_BQ * W_DC + ANY_BK * W_KP + ANY_BK * W_SLAB);  // 90,240 B
+constexpr int G_BK = 64;              // keys a tile
+constexpr int G_THREADS = 256;        // 8 warps
+constexpr int G_SC = G_BK / 16;       // keys of S a lane holds
 
-template <typename T, bool STATIC_MAX, bool EXP_BF16>
-__global__ void __launch_bounds__(ANY_THREADS)
-flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ o, Strides qs, Strides ks, Strides vs, int H, int D, int Lq,
-               int Lk, float qscale) {
-  extern __shared__ __align__(16) float wide_smem_f[];
-  float* Qc = wide_smem_f;          // ANY_BQ x W_DC: a chunk of q' = q * qscale rounded to T
-  float* Kc = Qc + ANY_BQ * W_DC;   // ANY_BK x W_KP: the same columns of a key tile
-  float* Vs = Kc + ANY_BK * W_KP;   // ANY_BK x W_SLAB: the slab's columns of the value tile
+template <int DW, bool WIDE>
+struct GLayout {
+  static_assert(DW == 16 || DW == 32 || DW == 64 || DW == 128 || DW == 256 || DW == 512,
+                "the width classes");
+  // Query rows a CTA: 48 at DW = 128, where 64 made 1.09 waves of CTAs at
+  // (B, L, H) = (1, 2304, 8) (two a SM) and 48 makes 0.97 (three a SM).
+  static constexpr int BQ = DW == 128 ? 48 : 64;
+  static constexpr int SR = BQ / 16;             // rows of S a lane holds
+  static constexpr int PROW = BQ + 4;            // P^T row (one key, the query rows), padded
+  static constexpr int DC = DW < 64 ? DW : 64;   // columns of d an S chunk
+  static constexpr int KROW = DC + 4;            // padded chunk row: rows 1 apart start 4 banks apart
+  static constexpr int VKEYS = DW <= 64 ? G_BK : DW == 128 ? 32 : 16;  // keys a V chunk
+  static constexpr int NC = DW < 64 ? DW / 16 : DW == 128 ? 2 : 4;  // float4s of O a lane holds, 16 apart
+  static constexpr int WC = DW / (16 * NC);         // warps across O's columns
+  static constexpr int WR = 8 / WC;                 // warps across its rows
+  static constexpr int RO = BQ / (8 * WR);          // rows of O a lane holds
+  static constexpr int QROW = DW + 4;               // resident Q' row (not WIDE), padded
+  static constexpr int KPART = G_BK * KROW;         // a K chunk; WIDE: then the q' chunk
+  static constexpr int SCHUNK = KPART + (WIDE ? BQ * KROW : 0);
+  static constexpr int BUF = SCHUNK > VKEYS * DW ? SCHUNK : VKEYS * DW;
+  static constexpr int B0 = WIDE ? 0 : BQ * QROW;  // offsets in floats
+  static constexpr int PT = B0 + 2 * BUF;
+  static constexpr int ALPHA = PT + G_BK * PROW;
+  static constexpr int L = ALPHA + BQ;
+  static constexpr int SMEM = (int)sizeof(float) * (L + BQ);
+  static constexpr int MIN_BLOCKS = DW <= 32 || DW == 128 ? 3 : DW == 64 ? 2 : 1;
+  static_assert(WC * WR == 8 && RO * 8 * WR == BQ && BQ % 16 == 0, "the layouts cover the tile");
+  static_assert(SMEM * MIN_BLOCKS <= 232448, "the CTAs an SM holds");
+};
+
+// A 16-byte copy of `bytes` bytes of src (the rest zero-filled).
+__device__ __forceinline__ void cp_async16n(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// Chunk n of key tile `tile` into buf. n < ncs: K's keys x columns DC * n
+// ... + DC - 1 as [key][KROW] (WIDE: then q' rows q0 ... of the same
+// columns); after them: V's VKEYS keys (VKEYS * (n - ncs) of the tile on) x
+// columns c0 ... c0 + DW - 1 as [key][DW]. Keys past Lk, rows past Lq and
+// columns past D are zero-filled (a float4 that starts below D lies in the
+// row: the wrapper gives rows a multiple of 4 floats, zero-padded).
+template <int DW, bool WIDE>
+__device__ __forceinline__ void g_load(float* buf, const float* kb, const float* vb,
+                                       const float* qp, long long krs, long long vrs,
+                                       long long qrs, int tile, int n, int ncs, int q0, int Lq,
+                                       int Lk, int D, int c0, int tid) {
+  using L = GLayout<DW, WIDE>;
+  const int k0 = tile * G_BK;
+  if (n < ncs) {
+    const int col = L::DC * n;
+#pragma unroll
+    for (int i = 0; i < G_BK * L::DC / 4 / G_THREADS; ++i) {
+      const int idx = tid + G_THREADS * i;
+      const int key = idx / (L::DC / 4);
+      const int c4 = (idx % (L::DC / 4)) * 4;
+      const bool ok = k0 + key < Lk && col + c4 < D;
+      cp_async16n(buf + key * L::KROW + c4, kb + (ok ? (k0 + key) * krs + col + c4 : 0),
+                  ok ? 16 : 0);
+    }
+    if (WIDE) {
+#pragma unroll
+      for (int i = 0; i < L::BQ * L::DC / 4 / G_THREADS; ++i) {
+        const int idx = tid + G_THREADS * i;
+        const int r = idx / (L::DC / 4);
+        const int c4 = (idx % (L::DC / 4)) * 4;
+        const bool ok = q0 + r < Lq && col + c4 < D;
+        cp_async16n(buf + L::KPART + r * L::KROW + c4, qp + (ok ? (q0 + r) * qrs + col + c4 : 0),
+                    ok ? 16 : 0);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < L::VKEYS * DW / 4 / G_THREADS; ++i) {
+      const int idx = tid + G_THREADS * i;
+      const int key = idx / (DW / 4);
+      const int c4 = (idx % (DW / 4)) * 4;
+      const int row = k0 + (n - ncs) * L::VKEYS + key;
+      const bool ok = row < Lk && c0 + c4 < D;
+      cp_async16n(buf + key * DW + c4, vb + (ok ? row * vrs + c0 + c4 : 0), ok ? 16 : 0);
+    }
+  }
+}
+
+template <int DW, bool WIDE, bool STATIC_MAX, bool EXP_BF16>
+__device__ __forceinline__ void any_f32(const float* __restrict__ q, const float* __restrict__ k,
+                                        const float* __restrict__ v, float* __restrict__ o,
+                                        Strides qs, Strides ks, Strides vs, int H, int D, int Lq,
+                                        int Lk, float qscale) {
+  using L = GLayout<DW, WIDE>;
+  extern __shared__ __align__(16) float gsm[];
+  float* PT = gsm + L::PT;
+  float* alpha_s = gsm + L::ALPHA;
+  float* l_s = gsm + L::L;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  // The slabs of one query tile are neighbours on the grid (they read the
-  // same q and K); then the query tiles of one (b, h), then the next (b, h).
-  const int nslab = (D + W_SLAB - 1) / W_SLAB;
-  const int slab = blockIdx.x % nslab;
-  const int nq = (Lq + ANY_BQ - 1) / ANY_BQ;
-  const int tile = blockIdx.x / nslab;
-  const int bh = tile / nq;
-  const int q0 = (tile - bh * nq) * ANY_BQ;
+  int bh, q0, c0 = 0;
+  if (WIDE) {  // the slabs of one query tile are neighbours on the grid
+    const int nslab = (D + DW - 1) / DW;
+    const int nq = (Lq + L::BQ - 1) / L::BQ;
+    const int tile = blockIdx.x / nslab;
+    c0 = (blockIdx.x - tile * nslab) * DW;
+    bh = tile / nq;
+    q0 = (tile - bh * nq) * L::BQ;
+  } else {
+    const Work w = work_of(Lq, L::BQ);
+    bh = w.bh;
+    q0 = w.q0;
+  }
   const int b = bh / H;
   const int h = bh - b * H;
-  const int c0 = slab * W_SLAB;
-  const int dw = min(W_SLAB, D - c0);  // the slab's width
-  const T* qb = head_of(q, qs, b, h);
-  const T* kb = head_of(k, ks, b, h);
-  const T* vb = head_of(v, vs, b, h);
-  T* ob = o + ((long)b * Lq * H + h) * D + c0;
   const long rs = (long)H * D;
-  const float* qw = Qc + warp * ANY_R * W_DC;  // this warp's rows
+  // WIDE: q is q' (flash_scale_q's rows, (B, Lq, H) x qs.h floats).
+  const float* qb = head_of(q, qs, b, h);
+  const float* kb = head_of(k, ks, b, h);
+  const float* vb = head_of(v, vs, b, h);
+  float* ob = o + ((long)b * Lq * H + h) * D + c0;
+  const int ncs = (D + L::DC - 1) / L::DC;  // S chunks a tile
+  const int chunks = ncs + G_BK / L::VKEYS;
+  const int nk = (Lk + G_BK - 1) / G_BK;
+  const int total = nk * chunks;
 
-  float acc[ANY_R][W_DPL];  // O(row, c0 + lane + 32 i)
-  float m[ANY_R];
-  float l[ANY_R];  // this lane's share of the row's l
+  const auto load = [&](int c) {
+    g_load<DW, WIDE>(gsm + L::B0 + (c & 1) * L::BUF, kb, vb, qb, ks.l, vs.l, qs.l, c / chunks,
+                     c % chunks, ncs, q0, Lq, Lk, D, c0, tid);
+  };
+  load(0);
+  cp_async_commit();
+  if (!WIDE) {  // Q' = q * qscale, resident; rows past Lq and columns past D are zeros
+    for (int i = tid; i < L::BQ * DW / 4; i += G_THREADS) {
+      const int row = i / (DW / 4);
+      const int c4 = (i % (DW / 4)) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + row < Lq && c4 < D) {
+        x = *reinterpret_cast<const float4*>(qb + (q0 + row) * qs.l + c4);
+        x = make_float4(x.x * qscale, x.y * qscale, x.z * qscale, x.w * qscale);
+      }
+      *reinterpret_cast<float4*>(gsm + row * L::QROW + c4) = x;
+    }
+  }
+  // Waits for chunk `step`, then starts chunk step + 1 into the other buffer,
+  // which every thread is done with once all have passed the barrier.
+  const auto next = [&](int step) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (step + 1 < total) load(step + 1);
+    cp_async_commit();
+  };
+
+  // S layout: warp w owns rows (BQ / 8) w ...; lane (sy, sx) = (lane & 1,
+  // lane >> 1) rows (BQ / 8) w + sy + 2r (r < SR), keys sx + 16c (c < 4).
+  const int sy = lane & 1;
+  const int sx = lane >> 1;
+  const int srow = (L::BQ / 8) * warp + sy;
+  // O layout: warp (wr, wc) = (warp / WC, warp % WC) owns rows wr * (BQ /
+  // WR) ... and columns 16 NC wc ... 16 NC wc + 16 NC - 1; lane (oy, ox) =
+  // (lane >> 2, lane & 3) rows orow + r (r < RO), columns 16 NC wc + 4 ox +
+  // 16 c + e (c < NC, e < 4).
+  const int orow = (warp / L::WC) * (L::BQ / L::WR) + (lane >> 2) * L::RO;
+  const int ocol = 16 * L::NC * (warp % L::WC) + 4 * (lane & 3);
+
+  float acc[L::RO][L::NC][4];
 #pragma unroll
-  for (int r = 0; r < ANY_R; ++r) {
+  for (int r = 0; r < L::RO; ++r)
+#pragma unroll
+    for (int c = 0; c < L::NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][c][e] = 0.f;
+  float m[L::SR], lpart[L::SR];
+#pragma unroll
+  for (int r = 0; r < L::SR; ++r) {
     m[r] = MASK_VALUE;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < W_DPL; ++i) acc[r][i] = 0.f;
+    lpart[r] = 0.f;
   }
 
-  for (int k0 = 0; k0 < Lk; k0 += ANY_BK) {
-    // S over every column of d, W_DC at a time, in the same order in every
-    // slab's CTA: lane j scores key k0 + j against the warp's rows.
-    float s[ANY_R];
+  int step = 0;
+  for (int tile = 0; tile < nk; ++tile) {
+    float s[L::SR][G_SC];
 #pragma unroll
-    for (int r = 0; r < ANY_R; ++r) s[r] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += W_DC) {
-      const int dc = min(W_DC, D - d0);
-      __syncthreads();  // the last chunk, and the last tile's V, have been read
-      for (int i = tid; i < ANY_BQ * dc; i += ANY_THREADS) {
-        const int r = i / dc;
-        const int c = i - r * dc;
-        Qc[r * W_DC + c] =
-            q0 + r < Lq ? in_dtype<T>(to_f32(qb[(q0 + r) * qs.l + d0 + c]) * qscale) : 0.f;
-      }
-      for (int i = tid; i < ANY_BK * dc; i += ANY_THREADS) {
-        const int j = i / dc;
-        const int c = i - j * dc;
-        Kc[j * W_KP + c] = k0 + j < Lk ? to_f32(kb[(k0 + j) * ks.l + d0 + c]) : 0.f;
-      }
-      __syncthreads();
-      const float* kr = Kc + lane * W_KP;
-      for (int c = 0; c < dc; ++c) {
-        const float kc = kr[c];
+    for (int r = 0; r < L::SR; ++r)
 #pragma unroll
-        for (int r = 0; r < ANY_R; ++r) s[r] = fmaf(qw[r * W_DC + c], kc, s[r]);
+      for (int c = 0; c < G_SC; ++c) s[r][c] = 0.f;
+    for (int n = 0; n < ncs; ++n, ++step) {
+      next(step);
+      const float* kc = gsm + L::B0 + (step & 1) * L::BUF;
+      const float* qc = WIDE ? kc + L::KPART + srow * L::KROW : gsm + srow * L::QROW + n * L::DC;
+      const int qrow = WIDE ? L::KROW : L::QROW;
+#pragma unroll 4
+      for (int d = 0; d < L::DC; d += 4) {
+        float4 qv[L::SR], kv[G_SC];
+#pragma unroll
+        for (int r = 0; r < L::SR; ++r) {
+          qv[r] = *reinterpret_cast<const float4*>(qc + 2 * r * qrow + d);
+        }
+#pragma unroll
+        for (int c = 0; c < G_SC; ++c) {
+          kv[c] = *reinterpret_cast<const float4*>(kc + (sx + 16 * c) * L::KROW + d);
+        }
+#pragma unroll
+        for (int r = 0; r < L::SR; ++r) {
+#pragma unroll
+          for (int c = 0; c < G_SC; ++c) {
+            s[r][c] = fmaf(qv[r].x, kv[c].x, s[r][c]);
+            s[r][c] = fmaf(qv[r].y, kv[c].y, s[r][c]);
+            s[r][c] = fmaf(qv[r].z, kv[c].z, s[r][c]);
+            s[r][c] = fmaf(qv[r].w, kv[c].w, s[r][c]);
+          }
+        }
       }
     }
-    // The slab's columns of the value tile; every thread is past this tile's
-    // first chunk barrier, so the last tile's P V is done with Vs.
-    for (int i = tid; i < ANY_BK * dw; i += ANY_THREADS) {
-      const int j = i / dw;
-      const int c = i - j * dw;
-      Vs[j * W_SLAB + c] = k0 + j < Lk ? to_f32(vb[(k0 + j) * vs.l + c0 + c]) : 0.f;
+
+    // Softmax in the S layout; a row's 64 keys are the 16 lanes of equal sy.
+    const int k0 = tile * G_BK;
+#pragma unroll
+    for (int r = 0; r < L::SR; ++r) {
+      float mr = 0.f;
+      if (!STATIC_MAX) {
+        float mt = MASK_VALUE;
+#pragma unroll
+        for (int c = 0; c < G_SC; ++c) {
+          if (k0 + sx + 16 * c < Lk) mt = fmaxf(mt, s[r][c]);
+        }
+#pragma unroll
+        for (int off = 2; off < 32; off <<= 1) {
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+        }
+        const float m_new = fmaxf(m[r], mt);
+        const float a = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        mr = m_new;
+        lpart[r] *= a;
+        if (sx == 0) alpha_s[srow + 2 * r] = a;
+      }
+#pragma unroll
+      for (int c = 0; c < G_SC; ++c) {
+        const int key = sx + 16 * c;
+        float pv = STATIC_MAX ? exp2f(fminf(fmaxf(s[r][c], S_CLAMP_LO), S_CLAMP))
+                              : exp_val<EXP_BF16>(exp2f(exp_arg<EXP_BF16>(s[r][c] - mr)));
+        if (k0 + key >= Lk) pv = 0.f;
+        lpart[r] += pv;
+        PT[key * L::PROW + srow + 2 * r] = pv;
+      }
     }
-    // P as flash_fwd_any takes it: the same bits in every slab.
-    float p[ANY_R];
-    tile_p<T, W_DPL, STATIC_MAX, EXP_BF16>(s, k0 + lane < Lk, m, l, acc, p);
-    __syncthreads();  // V staged
-    tile_pv(acc, p, Vs, W_SLAB, dw, min(ANY_BK, Lk - k0), lane);
+
+    // O += P V over G_BK / VKEYS chunks of keys; the barrier of the first
+    // also makes P^T and the rescale factors visible.
+    for (int n = 0; n < G_BK / L::VKEYS; ++n, ++step) {
+      next(step);
+      if (!STATIC_MAX && n == 0) {
+#pragma unroll
+        for (int r = 0; r < L::RO; ++r) {
+          const float a = alpha_s[orow + r];
+#pragma unroll
+          for (int c = 0; c < L::NC; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[r][c][e] *= a;
+        }
+      }
+      const float* vc = gsm + L::B0 + (step & 1) * L::BUF + ocol;
+      const float* pc = PT + n * L::VKEYS * L::PROW + orow;
+#pragma unroll 4
+      for (int kk = 0; kk < L::VKEYS; ++kk) {
+        float pr[L::RO];
+#pragma unroll
+        for (int r = 0; r < L::RO; ++r) pr[r] = pc[kk * L::PROW + r];
+        float4 vv[L::NC];
+#pragma unroll
+        for (int c = 0; c < L::NC; ++c) {
+          vv[c] = *reinterpret_cast<const float4*>(vc + kk * DW + 16 * c);
+        }
+#pragma unroll
+        for (int c = 0; c < L::NC; ++c) {
+#pragma unroll
+          for (int r = 0; r < L::RO; ++r) {
+            acc[r][c][0] = fmaf(pr[r], vv[c].x, acc[r][c][0]);
+            acc[r][c][1] = fmaf(pr[r], vv[c].y, acc[r][c][1]);
+            acc[r][c][2] = fmaf(pr[r], vv[c].z, acc[r][c][2]);
+            acc[r][c][3] = fmaf(pr[r], vv[c].w, acc[r][c][3]);
+          }
+        }
+      }
+    }
   }
-  store_rows(acc, l, ob, rs, q0 + warp * ANY_R, Lq, dw, lane);
+
+  // l per row from the S layout's partial sums, to the O layout through l_s.
+#pragma unroll
+  for (int r = 0; r < L::SR; ++r) {
+    float l = lpart[r];
+#pragma unroll
+    for (int off = 2; off < 32; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (sx == 0) l_s[srow + 2 * r] = l;
+  }
+  __syncthreads();
+  const int cols = D - c0;  // O's columns this CTA may store
+  const bool vec = (D & 3) == 0;
+#pragma unroll
+  for (int r = 0; r < L::RO; ++r) {
+    const int row = orow + r;
+    const float l = l_s[row];
+    const float inv = l == 0.f ? 1.f : 1.f / l;
+    if (q0 + row >= Lq) continue;
+    float* orow_p = ob + (q0 + row) * rs;
+#pragma unroll
+    for (int c = 0; c < L::NC; ++c) {
+      const int col = ocol + 16 * c;
+      if (vec && col + 3 < cols) {
+        *reinterpret_cast<float4*>(orow_p + col) =
+            make_float4(acc[r][c][0] * inv, acc[r][c][1] * inv, acc[r][c][2] * inv,
+                        acc[r][c][3] * inv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (col + e < cols) orow_p[col + e] = acc[r][c][e] * inv;
+        }
+      }
+    }
+  }
 }
 
-template <typename T, int DPL>
-cudaError_t launch_any_dpl(const Operands& x, int bh, int H, int D, int Lq, int Lk,
-                           int static_max, int exp_bf16, float qscale, cudaStream_t st) {
-  const int smem = any_smem(D);
-  const unsigned grid = grid_x((Lq + ANY_BQ - 1) / ANY_BQ, bh);
+template <int DW, bool STATIC_MAX, bool EXP_BF16>
+__global__ void __launch_bounds__(G_THREADS, (GLayout<DW, false>::MIN_BLOCKS))
+flash_fwd_any_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, Strides qs, Strides ks,
+                  Strides vs, int H, int D, int Lq, int Lk, float qscale) {
+  any_f32<DW, false, STATIC_MAX, EXP_BF16>(q, k, v, o, qs, ks, vs, H, D, Lq, Lk, qscale);
+}
+
+template <bool STATIC_MAX, bool EXP_BF16>
+__global__ void __launch_bounds__(G_THREADS, 1)
+flash_fwd_wide_f32(const float* __restrict__ qp, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, Strides qs, Strides ks,
+                   Strides vs, int H, int D, int Lq, int Lk) {
+  any_f32<WD_SLAB, true, STATIC_MAX, EXP_BF16>(qp, k, v, o, qs, ks, vs, H, D, Lq, Lk, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// Launchers of the kernels above.
+
+// f(std::integral_constant<int, w>) for w = lo, lo + step, ... up to hi that
+// equals `w`; cudaErrorInvalidValue for any other.
+template <int LO, int STEP, int HI, typename F>
+cudaError_t by_width(int w, F&& f) {
+  if constexpr (LO > HI) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (w == LO) return f(std::integral_constant<int, LO>{});
+    return by_width<LO + STEP, STEP, HI>(w, f);
+  }
+}
+
+// The three maps (boxes of 64, 32 and 16 columns) of each of q, k, v, whose
+// boxes are rq, rk and rk rows; a width the kernel does not load keeps a
+// copy of the 64-column map.
+bool any_maps(EncodeTiledFn encode, Maps* maps, const Operands& x, int D, int H, int Lq, int Lk,
+              int batch, int rq, int rk, bool t32, bool t16) {
+  const void* ptrs[3] = {x.q, x.k, x.v};
+  const Strides* strides[3] = {&x.qs, &x.ks, &x.vs};
+  const int lens[3] = {Lq, Lk, Lk};
+  for (int i = 0; i < 3; ++i) {
+    const int rows = i == 0 ? rq : rk;
+    CUtensorMap* m = &maps->m[3 * i];
+    if (!tensor_map(encode, &m[0], ptrs[i], *strides[i], D, H, lens[i], batch, MAIN_COLS, rows,
+                    CU_TENSOR_MAP_SWIZZLE_128B)) {
+      return false;
+    }
+    m[1] = m[0];
+    m[2] = m[0];
+    if (t32 && !tensor_map(encode, &m[1], ptrs[i], *strides[i], D, H, lens[i], batch, 32, rows,
+                           CU_TENSOR_MAP_SWIZZLE_64B)) {
+      return false;
+    }
+    if (t16 && !tensor_map(encode, &m[2], ptrs[i], *strides[i], D, H, lens[i], batch, 16, rows,
+                           CU_TENSOR_MAP_SWIZZLE_32B)) {
+      return false;
+    }
+  }
+  return true;
+}
+
+template <int DP>
+constexpr int any_smem_of() {
+  if constexpr (DP <= PC_MAX) {
+    return PcLayout<DP>::SMEM;
+  } else {
+    return SplitLayout<DP / 2>::SMEM;
+  }
+}
+
+template <int DP>
+cudaError_t launch_any_dp(const Operands& x, int batch, int H, int D, int Lq, int Lk,
+                          int static_max, int exp_bf16, float qscale, cudaStream_t st) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  constexpr bool PC = DP <= PC_MAX;
+  using C = Cols<PC ? DP : DP / 2>;  // the columns of one warpgroup's boxes
+  Maps maps;
+  const int rq = PC ? WG_BQ : X_BQ;
+  const int rk = PC ? PcLayout<(PC ? DP : 16)>::BK : X_BK;
+  if (!any_maps(encode, &maps, x, D, H, Lq, Lk, batch, rq, rk, C::T32, C::T16)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem = any_smem_of<DP>();
+  const unsigned grid = grid_x((Lq + rq - 1) / rq, (long long)batch * H);
   if (grid == 0) return cudaErrorInvalidValue;
   return by_softmax(static_max, exp_bf16, [&](auto sm, auto eb) {
-    const auto kernel = flash_fwd_any<T, DPL, decltype(sm)::value, decltype(eb)::value>;
+    const auto kernel = flash_fwd_any<DP, decltype(sm)::value, decltype(eb)::value>;
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, ANY_THREADS, smem, st>>>(static_cast<const T*>(x.q), static_cast<const T*>(x.k),
-                                            static_cast<const T*>(x.v), static_cast<T*>(x.o),
-                                            x.qs, x.ks, x.vs, H, D, Lq, Lk, qscale);
+    kernel<<<grid, DP <= 128 ? WG_THREADS : X_THREADS, smem, st>>>(
+        maps, static_cast<__nv_bfloat16*>(x.o), H, D, Lq, Lk, qscale);
     return cudaGetLastError();
   });
 }
 
-// DPL, the columns of O a lane holds: ceil(d / 32) rounded up to a power of two.
-template <typename T>
-cudaError_t launch_any(const Operands& x, int bh, int H, int D, int Lq, int Lk, int static_max,
-                       int exp_bf16, float qscale, cudaStream_t st) {
-  const auto go = [&](auto dpl) {
-    return launch_any_dpl<T, decltype(dpl)::value>(x, bh, H, D, Lq, Lk, static_max, exp_bf16,
-                                                   qscale, st);
-  };
-  if (D <= 32) return go(std::integral_constant<int, 1>{});
-  if (D <= 64) return go(std::integral_constant<int, 2>{});
-  if (D <= 128) return go(std::integral_constant<int, 4>{});
-  if (D <= 256) return go(std::integral_constant<int, 8>{});
-  return go(std::integral_constant<int, 16>{});
+// f(std::integral_constant<int, DP>) for the DP of flash_fwd_any at head dim
+// D <= 512: D rounded up to 16 at D <= 256, else to 32.
+template <typename F>
+cudaError_t by_any_dp(int D, F&& f) {
+  if (D <= PC_MAX) return by_width<16, 16, PC_MAX>(round16(D), f);
+  return by_width<PC_MAX + 32, 32, 512>(2 * round16((D + 1) / 2), f);
 }
 
-template <typename T>
-cudaError_t launch_wide(const Operands& x, int bh, int H, int D, int Lq, int Lk, int static_max,
-                        int exp_bf16, float qscale, cudaStream_t st) {
-  const long long nslab = (D + W_SLAB - 1) / W_SLAB;
-  const unsigned grid = grid_x((Lq + ANY_BQ - 1) / ANY_BQ * nslab, bh);
+cudaError_t launch_any_bf16(const Operands& x, int batch, int H, int D, int Lq, int Lk,
+                            int static_max, int exp_bf16, float qscale, cudaStream_t st) {
+  return by_any_dp(D, [&](auto dp) {
+    return launch_any_dp<decltype(dp)::value>(x, batch, H, D, Lq, Lk, static_max, exp_bf16,
+                                              qscale, st);
+  });
+}
+
+// The width class of flash_fwd_any_f32 for head dim D.
+constexpr int f32_class(int D) {
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 512;
+}
+
+template <int DW>
+cudaError_t launch_any_f32_dw(const Operands& x, int bh, int H, int D, int Lq, int Lk,
+                              int static_max, int exp_bf16, float qscale, cudaStream_t st) {
+  const unsigned grid = grid_x((Lq + GLayout<DW, false>::BQ - 1) / GLayout<DW, false>::BQ, bh);
   if (grid == 0) return cudaErrorInvalidValue;
+  constexpr int smem = GLayout<DW, false>::SMEM;
   return by_softmax(static_max, exp_bf16, [&](auto sm, auto eb) {
-    const auto kernel = flash_fwd_wide<T, decltype(sm)::value, decltype(eb)::value>;
+    const auto kernel = flash_fwd_any_f32<DW, decltype(sm)::value, decltype(eb)::value>;
     const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, ANY_THREADS, W_SMEM, st>>>(
-        static_cast<const T*>(x.q), static_cast<const T*>(x.k), static_cast<const T*>(x.v),
-        static_cast<T*>(x.o), x.qs, x.ks, x.vs, H, D, Lq, Lk, qscale);
+    kernel<<<grid, G_THREADS, smem, st>>>(
+        static_cast<const float*>(x.q), static_cast<const float*>(x.k),
+        static_cast<const float*>(x.v), static_cast<float*>(x.o), x.qs, x.ks, x.vs, H, D, Lq, Lk,
+        qscale);
+    return cudaGetLastError();
+  });
+}
+
+cudaError_t launch_any_f32(const Operands& x, int bh, int H, int D, int Lq, int Lk,
+                           int static_max, int exp_bf16, float qscale, cudaStream_t st) {
+  switch (f32_class(D)) {
+    case 16:
+      return launch_any_f32_dw<16>(x, bh, H, D, Lq, Lk, static_max, exp_bf16, qscale, st);
+    case 32:
+      return launch_any_f32_dw<32>(x, bh, H, D, Lq, Lk, static_max, exp_bf16, qscale, st);
+    case 64:
+      return launch_any_f32_dw<64>(x, bh, H, D, Lq, Lk, static_max, exp_bf16, qscale, st);
+    case 128:
+      return launch_any_f32_dw<128>(x, bh, H, D, Lq, Lk, static_max, exp_bf16, qscale, st);
+    case 256:
+      return launch_any_f32_dw<256>(x, bh, H, D, Lq, Lk, static_max, exp_bf16, qscale, st);
+    default:
+      return launch_any_f32_dw<512>(x, bh, H, D, Lq, Lk, static_max, exp_bf16, qscale, st);
+  }
+}
+
+// Elements of a row of q' above d = 512: d rounded up to 16 bytes.
+inline int scratch_pitch(int D, int is_bf16) { return is_bf16 ? (D + 7) & ~7 : (D + 3) & ~3; }
+
+// q' into `scratch` ((B, Lq, H) rows of scratch_pitch elements), then the
+// kernel above d = 512 reading it.
+cudaError_t launch_wide(const Operands& x, void* scratch, int is_bf16, int batch, int H, int D,
+                        int Lq, int Lk, int static_max, int exp_bf16, float qscale,
+                        cudaStream_t st) {
+  const int pitch = scratch_pitch(D, is_bf16);
+  const long long n = (long long)batch * Lq * H * pitch;
+  const unsigned blocks = (unsigned)(n / 256 + 1 < 132 * 16 ? n / 256 + 1 : 132 * 16);
+  if (is_bf16) {
+    flash_scale_q<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x.q), x.qs, static_cast<__nv_bfloat16*>(scratch), H,
+        Lq, D, pitch, qscale, n);
+  } else {
+    flash_scale_q<float><<<blocks, 256, 0, st>>>(static_cast<const float*>(x.q), x.qs,
+                                                 static_cast<float*>(scratch), H, Lq, D, pitch,
+                                                 qscale, n);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const Strides ps = {(long long)Lq * H * pitch, 0, (long long)H * pitch, pitch};
+  const long long nslab = (D + WD_SLAB - 1) / WD_SLAB;
+  static_assert(X_BQ == GLayout<WD_SLAB, true>::BQ, "one query tile for both dtypes");
+  const unsigned grid = grid_x((Lq + X_BQ - 1) / X_BQ * nslab, (long long)batch * H);
+  if (grid == 0) return cudaErrorInvalidValue;
+  if (is_bf16) {
+    const EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorSymbolNotFound;
+    CUtensorMap maps[3];
+    const void* ptrs[3] = {scratch, x.k, x.v};
+    const Strides* strides[3] = {&ps, &x.ks, &x.vs};
+    const int lens[3] = {Lq, Lk, Lk};
+    for (int i = 0; i < 3; ++i) {
+      if (!tensor_map(encode, &maps[i], ptrs[i], *strides[i], D, H, lens[i], batch, MAIN_COLS,
+                      64, CU_TENSOR_MAP_SWIZZLE_128B)) {
+        return cudaErrorInvalidValue;
+      }
+    }
+    return by_softmax(static_max, exp_bf16, [&](auto sm, auto eb) {
+      const auto kernel = flash_fwd_wide<decltype(sm)::value, decltype(eb)::value>;
+      const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WD_SMEM);
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, X_THREADS, WD_SMEM, st>>>(maps[0], maps[1], maps[2],
+                                                static_cast<__nv_bfloat16*>(x.o), H, D, Lq, Lk);
+      return cudaGetLastError();
+    });
+  }
+  constexpr int smem = GLayout<WD_SLAB, true>::SMEM;
+  return by_softmax(static_max, exp_bf16, [&](auto sm, auto eb) {
+    const auto kernel = flash_fwd_wide_f32<decltype(sm)::value, decltype(eb)::value>;
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, G_THREADS, smem, st>>>(static_cast<const float*>(scratch),
+                                          static_cast<const float*>(x.k),
+                                          static_cast<const float*>(x.v), static_cast<float*>(x.o),
+                                          ps, x.ks, x.vs, H, D, Lq, Lk);
     return cudaGetLastError();
   });
 }
@@ -1989,15 +3106,18 @@ cudaError_t launch_wide(const Operands& x, int bh, int H, int D, int Lq, int Lk,
 // q: (batch, lq, heads, head_dim); k, v: (batch, lk, heads, head_dim), each
 // with head_dim dense and the element strides strides[3i .. 3i + 2] = (batch,
 // token, head) of q, k, v (i = 0, 1, 2): multiples of 16 bytes, and 16-byte
-// aligned pointers, wherever a kernel loads 16-byte vectors or TMA boxes (the
-// wrapper passes nothing else). o: (batch, lq, heads, head_dim), contiguous.
-// All bf16 (is_bf16 = 1) or all fp32; any head_dim from 1 up. static_max
+// aligned pointers (the wrapper passes nothing else; a head dim that is not a
+// whole number of 16-byte words comes in rows padded with zeros to one).
+// o: (batch, lq, heads, head_dim), contiguous. All bf16 (is_bf16 = 1) or all
+// fp32; any head_dim from 1 up. scratch: vdpp_flash_attention_scratch()
+// bytes (q' above d = 512; unused, and may be null, below). static_max
 // selects static max; otherwise exp_bf16 rounds s - m to bf16 before exp2
 // (VDPP_FLASH_EXP=bf16). qscale = log2(e) / sqrt(head_dim).
 extern "C" int vdpp_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                        const long long* strides, int is_bf16, int batch,
-                                        int heads, int lq, int lk, int head_dim, int static_max,
-                                        int exp_bf16, float qscale, void* stream) {
+                                        void* scratch, const long long* strides, int is_bf16,
+                                        int batch, int heads, int lq, int lk, int head_dim,
+                                        int static_max, int exp_bf16, float qscale,
+                                        void* stream) {
   if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0 || head_dim <= 0 ||
       (long long)batch * heads > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
@@ -2007,11 +3127,10 @@ extern "C" int vdpp_flash_attention_fwd(const void* q, const void* k, const void
                       {strides[3], 0, strides[4], strides[5]},
                       {strides[6], 0, strides[7], strides[8]}};
   const int bh = batch * heads;
-  if (head_dim > ANY_MAX_D) {
-    return (int)(is_bf16 ? launch_wide<__nv_bfloat16>(x, bh, heads, head_dim, lq, lk, static_max,
-                                                      exp_bf16, qscale, st)
-                         : launch_wide<float>(x, bh, heads, head_dim, lq, lk, static_max,
-                                              exp_bf16, qscale, st));
+  if (head_dim > X_D) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)launch_wide(x, scratch, is_bf16, batch, heads, head_dim, lq, lk, static_max,
+                            exp_bf16, qscale, st);
   }
   if (head_dim == X_D) {
     if (is_bf16) {
@@ -2030,21 +3149,47 @@ extern "C" int vdpp_flash_attention_fwd(const void* q, const void* k, const void
   }
   if (static_max && head_dim == 64) return (int)launch_f32<64>(x, bh, heads, lq, lk, qscale, st);
   if (static_max && head_dim == 72) return (int)launch_f32<72>(x, bh, heads, lq, lk, qscale, st);
-  return (int)(is_bf16 ? launch_any<__nv_bfloat16>(x, bh, heads, head_dim, lq, lk, static_max,
-                                                   exp_bf16, qscale, st)
-                       : launch_any<float>(x, bh, heads, head_dim, lq, lk, static_max, exp_bf16,
-                                           qscale, st));
+  if (is_bf16) {
+    return (int)launch_any_bf16(x, batch, heads, head_dim, lq, lk, static_max, exp_bf16, qscale,
+                                st);
+  }
+  return (int)launch_any_f32(x, bh, heads, head_dim, lq, lk, static_max, exp_bf16, qscale, st);
+}
+
+// Bytes of the scratch vdpp_flash_attention_fwd needs: q' above d = 512, in
+// rows of head_dim rounded up to 16 bytes; 0 at d <= 512.
+extern "C" long long vdpp_flash_attention_scratch(int head_dim, int is_bf16, int batch, int heads,
+                                                   int lq) {
+  if (head_dim <= X_D) return 0;
+  return (long long)batch * lq * heads * scratch_pitch(head_dim, is_bf16) * (is_bf16 ? 2 : 4);
 }
 
 // Dynamic shared memory of one CTA of the kernel that takes head_dim in bf16
 // (is_bf16 = 1) or fp32, for reports: 0 for the fp32 kernel at d = 64/72
-// (static max), which has only static shared memory.
+// (static max), which has only static shared memory (running max there
+// takes flash_fwd_any_f32<64> or <128>).
 extern "C" int vdpp_flash_attention_smem(int head_dim, int is_bf16) {
-  if (head_dim > ANY_MAX_D) return W_SMEM;
+  if (head_dim <= 0) return 0;
+  if (head_dim > X_D) return is_bf16 ? WD_SMEM : GLayout<WD_SLAB, true>::SMEM;
   if (head_dim == X_D) return is_bf16 ? X_SMEM : (int)F_SMEM;
   if (head_dim == 64 || head_dim == 72) {
     if (!is_bf16) return 0;
     return head_dim == 64 ? WgLayout<64>::SMEM : WgLayout<72>::SMEM;
   }
-  return head_dim > 0 ? any_smem(head_dim) : 0;
+  if (is_bf16) {
+    int smem = 0;
+    by_any_dp(head_dim, [&](auto dp) {
+      smem = any_smem_of<decltype(dp)::value>();
+      return cudaSuccess;
+    });
+    return smem;
+  }
+  switch (f32_class(head_dim)) {
+    case 16: return GLayout<16, false>::SMEM;
+    case 32: return GLayout<32, false>::SMEM;
+    case 64: return GLayout<64, false>::SMEM;
+    case 128: return GLayout<128, false>::SMEM;
+    case 256: return GLayout<256, false>::SMEM;
+    default: return GLayout<512, false>::SMEM;
+  }
 }

@@ -13,17 +13,21 @@ bf16 after it.
 
 Two implementations of that arithmetic live here:
 
-* the CUDA kernels of ``vdpp_tpu_torch/csrc/flash_attention.cu`` (head dims
-  64, the SVD UNet's, and 72, DiT-XL's: bf16 on the tensor cores through
-  wgmma with TMA loads, fp32 static max on the SIMT cores; head dim 512,
-  the VAE decoder's mid-block: bf16 on wgmma with the head dim split over
-  two warpgroups, fp32 on a register-tiled SIMT kernel; every other head dim
-  up to 512, such as the tiny configs' 16, and fp32 running max at 64 and
-  72, on a simple SIMT kernel; head dims above 512 on a SIMT kernel that
-  cuts O into slabs of 512 columns), which :func:`flash_attention` launches
-  for a CUDA tensor. They read q, k and v in place wherever
-  ``utils.kernels.operand_strides`` admits them (the fused QKV projection's
-  chunks among them) and copy the rest, counted in :data:`copies`;
+* the CUDA kernels of ``vdpp_tpu_torch/csrc/flash_attention.cu``, which
+  :func:`flash_attention` launches for a CUDA tensor. bf16 runs on the
+  tensor cores (wgmma, TMA loads) at every head dim: 64 (the SVD UNet's) and
+  72 (DiT-XL's) and 512 (the VAE decoder's mid-block) on kernels of their
+  own, every other one up to 512 (such as the tiny configs' 16) on
+  ``flash_fwd_any``, templated on d rounded up to 16, and above 512 on
+  ``flash_fwd_wide``, which cuts O into slabs of 512 columns. fp32 runs
+  exact on the SIMT cores: static max at 64 and 72 on a kernel of its own,
+  512 and every other head dim (and running max at 64 and 72) on
+  register-tiled kernels in the SGEMM layout. They read q, k and v in place
+  wherever ``utils.kernels.operand_strides`` admits them (the fused QKV
+  projection's chunks among them) and copy the rest, counted in
+  :data:`copies`; a head dim that is no whole number of 16-byte words (bf16
+  d % 8, fp32 d % 4) is copied into rows padded with zeros to one, as TMA
+  and the 16-byte copies need (``utils.kernels.padded_operands``);
 * :func:`flash_attention_plain`, plain PyTorch that processes the queries in
   chunks, which :func:`flash_attention` runs for a CPU tensor and which the
   tests and ``chip_smoke.py`` hold the kernel against.
@@ -74,9 +78,11 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = kernels.load("flash_attention")
         fn = lib.vdpp_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
                        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.vdpp_flash_attention_scratch.argtypes = [ctypes.c_int] * 5
+        lib.vdpp_flash_attention_scratch.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -120,7 +126,7 @@ def flash_attention(
     form saturates and only finiteness is guaranteed.
 
     On the card every head dim and every B * H is taken (the kernels' one
-    grid axis holds 2^31 - 1 CTAs of at least 16 query rows: more rows than
+    grid axis holds 2^31 - 1 CTAs of at least 48 query rows: more rows than
     80 GB hold in q and the output at any d); the output is contiguous.
     """
     _check(q, k, v)
@@ -135,16 +141,24 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
     b, lq, h, d = q.shape
     global copies
-    (q, k, v), strides, copied = kernels.kernel_operands(q, k, v)
+    if d * q.element_size() % 16:
+        (q, k, v), strides, copied = kernels.padded_operands(q, k, v)
+    else:
+        (q, k, v), strides, copied = kernels.kernel_operands(q, k, v)
     copies += copied
     lib = _kernel_lib()
+    bf16 = int(q.dtype == torch.bfloat16)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
+        scratch = None  # q' for the kernels above d = 512
+        if d > 512:
+            scratch = torch.empty(lib.vdpp_flash_attention_scratch(d, bf16, b, h, lq),
+                                  dtype=torch.uint8, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.vdpp_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            int(q.dtype == torch.bfloat16), b, h, lq, k.shape[1], d, int(static_max),
-            int(exp_bf16), LOG2E / math.sqrt(d), stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), strides, bf16, b, h, lq,
+            k.shape[1], d, int(static_max), int(exp_bf16), LOG2E / math.sqrt(d), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")

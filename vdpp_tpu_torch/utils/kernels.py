@@ -24,9 +24,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vdpp_tpu_torch"
+# --split-compile=8: the device code's kernels are optimised and assembled on
+# up to 8 threads (the flash source's ~110 kernels: 102 s alone, 52 s split,
+# on an H100 machine's 8-core host; chip_smoke.py prints the build's seconds).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=8",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -162,6 +165,29 @@ def kernel_operands(*tensors) -> tuple[list, ctypes.Array, int]:
         out.append(t)
         strides += st[:-1]
     return out, _c_strides(strides), copies
+
+
+def padded_operands(*tensors) -> tuple[list, ctypes.Array, int]:
+    """:func:`kernel_operands` for tensors whose innermost axis is no whole
+    number of 16-byte words (bf16 d % 8, fp32 d % 4), which neither TMA nor
+    the 16-byte copies can step along: each is copied into a zeroed buffer
+    whose rows are that axis rounded up to 16 bytes, and the view of its
+    first ``d`` columns is passed (the same values, head dim dense, every
+    other stride a multiple of 16 bytes, axes of size 1 included). Every
+    tensor counts as a copy."""
+    import torch
+
+    out, strides = [], ()
+    for t in tensors:
+        d = t.shape[-1]
+        align = 16 // t.element_size()
+        buf = torch.zeros((*t.shape[:-1], -(-d // align) * align), dtype=t.dtype,
+                          device=t.device)
+        view = buf[..., :d]
+        view.copy_(t)
+        out.append(view)
+        strides += view.stride()[:-1]
+    return out, _c_strides(strides), len(tensors)
 
 
 @functools.lru_cache(maxsize=1024)
